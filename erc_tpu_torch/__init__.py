@@ -2,10 +2,10 @@
 
 Mirrors the layout of ``erc_tpu``: ``core`` (config), ``data`` (synthetic
 dialogues, batching), ``ops`` (graphs, attention, norm, dense and banded
-graph layers), ``ops/kernels`` (wrappers of the hand-written CUDA kernels
-in ``csrc/``), ``models`` and ``serve``.  The package imports torch, numpy
-and the standard library only; the JAX package is its reference in the
-tests, never a dependency.
+graph layers, GRU cells), ``ops/kernels`` (wrappers of the hand-written
+CUDA kernels in ``csrc/``), ``models`` (COGMEN, DAG-ERC) and ``serve``.
+The package imports torch, numpy and the standard library only; the JAX
+package is its reference in the tests, never a dependency.
 
 Importing the package builds nothing: the CUDA kernels are compiled with
 ``nvcc`` on their first launch (``ops/kernels/build.py``).

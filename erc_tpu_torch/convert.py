@@ -9,9 +9,10 @@ Layouts: a flax ``Dense.kernel`` is [in, out] and a torch ``Linear.weight``
 [out, in]; the attention's packed projections and the RGCN ``weight`` /
 ``root`` keep the JAX layout.
 
-    python -m erc_tpu_torch.convert variables.npz state_dict.pt
+    python -m erc_tpu_torch.convert [--module=cogmen|dagerc] variables.npz state_dict.pt
 
-writes a COGMEN state dict that ``serve.InferenceEngine`` loads.
+writes the module's state dict (COGMEN by default) that
+``serve.InferenceEngine`` loads.
 """
 
 from __future__ import annotations
@@ -64,9 +65,14 @@ def encoder_state(p: Tree) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def as_is_state(p: Tree) -> Dict[str, torch.Tensor]:
+    """Leaves with the same names and layout on both sides."""
+    return {k: _t(v) for k, v in p.items()}
+
+
 def rgcn_state(p: Tree) -> Dict[str, torch.Tensor]:
     """DenseRGCN / BandedRGCN: the same names and layout on both sides."""
-    return {k: _t(v) for k, v in p.items()}
+    return as_is_state(p)
 
 
 def transformer_conv_state(p: Tree) -> Dict[str, torch.Tensor]:
@@ -97,6 +103,30 @@ def cogmen_state(params: Tree, batch_stats: Tree) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def dagerc_state(params: Tree) -> Dict[str, torch.Tensor]:
+    """The state dict of ``models.dagerc.DAGERCModule`` from its flax tree,
+    fused (``stack/layer_{l}_*``) or per layer (``layer_{l}/*``).  The DAG
+    parameters have the same names and torch's layout on both sides."""
+    sd = _prefixed("fc1", linear_state(params["fc1"]))
+    for i in range(3):
+        sd.update(_prefixed(f"out_{i}", linear_state(params[f"out_{i}"])))
+    if "stack" in params:
+        sd.update(_prefixed("stack", as_is_state(params["stack"])))
+    n_layers = sum(1 for k in params if k.startswith("layer_"))
+    for l in range(n_layers):
+        sd.update(_prefixed(f"layers.{l}", as_is_state(params[f"layer_{l}"])))
+    if "nodal_att" in params:
+        sd.update(_prefixed("nodal_att.transform", linear_state(params["nodal_att"]["transform"])))
+    return sd
+
+
+STATES = {
+    "cogmen": lambda trees: cogmen_state(trees["params"], trees["batch_stats"]),
+    "dagerc": lambda trees: dagerc_state(trees["params"]),
+}
+USAGE = "usage: python -m erc_tpu_torch.convert [--module=cogmen|dagerc] variables.npz state_dict.pt"
+
+
 def read_npz(path: str) -> Dict[str, dict]:
     """{'params': tree, 'batch_stats': tree} from a flat npz of '/'-joined paths."""
     trees: Dict[str, dict] = {}
@@ -112,10 +142,16 @@ def read_npz(path: str) -> Dict[str, dict]:
 
 def main(argv: Optional[list] = None) -> None:
     args = sys.argv[1:] if argv is None else argv
-    if len(args) != 2:
-        raise SystemExit("usage: python -m erc_tpu_torch.convert variables.npz state_dict.pt")
-    trees = read_npz(args[0])
-    torch.save(cogmen_state(trees["params"], trees["batch_stats"]), args[1])
+    module = "cogmen"
+    paths = []
+    for a in args:
+        if a.startswith("--module="):
+            module = a.split("=", 1)[1]
+        else:
+            paths.append(a)
+    if len(paths) != 2 or module not in STATES:
+        raise SystemExit(USAGE)
+    torch.save(STATES[module](read_npz(paths[0])), paths[1])
 
 
 if __name__ == "__main__":

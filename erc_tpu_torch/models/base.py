@@ -27,6 +27,8 @@ class MMBaseParams(BaseParams):
         self.hidden_audio = 100
         self.hidden_visual = 100
         self.hidden_all = 300
+        # the reference's published hyperparameters per dataset (models' iparams)
+        self.reimplement = False
 
         self.epoch = 10
         self.train.batch_size = 32

@@ -1,7 +1,7 @@
 """Dialogue-graph construction over padded [B, L] tensors.
 
 Port of ``erc_tpu.ops.graphs`` (length_mask, window_adjacency,
-relation_ids).  Conventions:
+relation_ids, same_speaker_mask, dag_adjacency).  Conventions:
     adjacency A[b, u, v] = 1  ⟺  edge u → v  (v aggregates from u)
     masks are float32 {0, 1}.
 """
@@ -41,3 +41,26 @@ def relation_ids(speakers: torch.Tensor, n_speakers: int) -> torch.Tensor:
     idx = torch.arange(L, device=speakers.device)
     direction = (idx[:, None] >= idx[None, :]).to(torch.int32)  # u >= v → 1
     return 2 * (su * n_speakers + sv) + direction[None]
+
+
+def same_speaker_mask(speakers: torch.Tensor) -> torch.Tensor:
+    """s_mask[b, i, j] = 1 iff spk_i == spk_j."""
+    return (speakers[:, :, None] == speakers[:, None, :]).to(torch.float32)
+
+
+def dag_adjacency(speakers: torch.Tensor, lengths: torch.Tensor, max_len: int,
+                  windowp: int = 1) -> torch.Tensor:
+    """DAG-ERC predecessor mask: a[b, i, j] = 1 iff j < i, both inside the
+    dialogue, and fewer than ``windowp`` turns of i's speaker lie strictly
+    between j and i (every predecessor down to and including the
+    windowp-th earlier turn of the same speaker)."""
+    same = (speakers[:, :, None] == speakers[:, None, :]).to(torch.int32)  # [B, i, k]
+    S = same.cumsum(-1)  # S[b, i, j] = #{k <= j : spk_k == spk_i}
+    idx = torch.arange(max_len, device=speakers.device)
+    # S[b, i, i-1]: the same-speaker count before i (0 at i == 0)
+    before = S.gather(-1, (idx - 1).clamp_min(0)[None, :, None].expand(S.shape[0], max_len, 1))
+    before = torch.where(idx[None, :, None] > 0, before, torch.zeros_like(before))
+    between = before - S  # same-speaker turns in (j, i-1]
+    adj = (idx[None, None, :] < idx[None, :, None]) & (between < windowp)
+    valid = length_mask(lengths, max_len)
+    return adj.to(torch.float32) * (valid[:, :, None] * valid[:, None, :])

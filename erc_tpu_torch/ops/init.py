@@ -34,6 +34,11 @@ def xavier_uniform_(t: torch.Tensor, generator=None) -> torch.Tensor:
     return _fill(t, lambda c: torch.nn.init.uniform_(c, -bound, bound, generator=generator))
 
 
+def uniform_(t: torch.Tensor, scale: float, generator=None) -> torch.Tensor:
+    """U(-scale, scale): the JAX package's ``ops.rnn._uniform_init(scale)``."""
+    return _fill(t, lambda c: torch.nn.init.uniform_(c, -scale, scale, generator=generator))
+
+
 def lecun_normal_(t: torch.Tensor, fan_in: int, generator=None) -> torch.Tensor:
     std = 1.0 / math.sqrt(fan_in) / _TRUNC_STD
     return _fill(

@@ -5,6 +5,7 @@ dict, and serve dialogue → per-utterance emotion predictions, either
 programmatically (``InferenceEngine.predict``) or over HTTP::
 
     python -m erc_tpu_torch.serve --module=cogmen --graph_impl=banded
+    python -m erc_tpu_torch.serve --module=dagerc --batch_size=32
 
 Requests are micro-batched: every chunk of up to ``batch_size`` dialogues
 is padded to ``batch_size`` dialogues and a bucketed length.  The engine
@@ -53,8 +54,9 @@ class InferenceEngine:
         cls, module: str, checkpoint_path: Optional[str] = None,
         dataset: Optional[str] = None, batch_size: int = 8, **param_overrides,
     ) -> "InferenceEngine":
-        """Engine for ``erc_tpu_torch.models.<module>``.  Overrides set params
-        (e.g. ``graph_impl='banded'``, ``device='cpu'``); weights come from
+        """Engine for ``erc_tpu_torch.models.<module>`` (``cogmen``, ``dagerc``).
+        Overrides set params (e.g. ``graph_impl='banded'``, ``dag_impl='eager'``,
+        ``device='cpu'``); weights come from
         ``checkpoint_path`` or else from a generator seeded with ``seed``."""
         mod = importlib.import_module(f"erc_tpu_torch.models.{module}")
         p = mod.ParamsType()
