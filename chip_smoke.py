@@ -6,18 +6,24 @@
 Phases (any failure raises, so the exit code is non-zero):
   1. probe the toolchain and the card, build the CUDA kernels from csrc/;
   2. hold each kernel against its plain PyTorch version on the card at the
-     shapes the serving paths give it (K1/K2 banded, K3 dag_block), and time
-     kernel, plain version and, where one exists, a library yardstick;
+     shapes the model paths give it (K1/K2 banded, K3 dag_block, K4
+     dag_block_bwd), and time kernel, plain version and, where one exists,
+     a library yardstick;
   3. drive COGMEN serving at full width (712 → 100, 2-layer encoder,
      banded graph) through InferenceEngine: predict, banded ≡ dense, a
      single-dialogue request, an HTTP round trip, latency and throughput;
   4. drive DAG-ERC serving at full width (712 → 300, 4 DAG layers, chunk
      16) through InferenceEngine: predict through K3, kernel ≡ eager form,
      card ≡ CPU, a single-dialogue request, latency, throughput, profile;
-  5. print one JSON line of kernel records, the card's name and power
-     limit, and a last JSON line {"ok": true, "device": {...}}.
-Each serving path is driven with every launch count set to 0 just before
-it and read just after.
+  5. drive DAG-ERC training at full width with the IEMOCAP reimplement
+     settings (batch 16, AdamW 5e-4, dropout 0.2, clip 5.0, dag_remat)
+     through DAGERCTrainer with dag_impl=kernel (K3 forward, K4 backward):
+     gradients and 3 steps' losses ≡ the eager form, card ≡ CPU, one epoch
+     and test(), launch counts, dialogues/s, profile of one step;
+  6. print the run's wall time, one JSON line of kernel records, the card's
+     name and power limit, and a last JSON line {"ok": true, "device": {...}}.
+Each model path is driven with every launch count set to 0 just before it
+and read just after.
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ import time
 import urllib.request
 from pathlib import Path
 
+T_START = time.perf_counter()
 ROOT = Path(__file__).resolve().parent
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth and float32 outside the tensor cores
@@ -39,7 +46,15 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
 KERNEL_TOL = 1e-5  # float32; kernel and plain version differ only in summation order
 DAG_TOL = 1e-4  # K3: the recurrence compounds the summation order over C = 16 positions
+# K4, relative to max(1, max |plain|) of each gradient: the reverse sweep
+# compounds the order over C positions, and the weight gradients sum B·C terms
+DAG_BWD_TOL = 1e-4
 PATH_TOL = 1e-4  # logits of banded vs dense / kernel vs eager on the card, and vs the CPU run
+# training, relative: each parameter's gradient difference (L2) over its
+# gradient's norm, or over 1e-4 of the global norm where the exact gradient is
+# 0 and only rounding is left (the attention bias shifts a softmax's logits
+# alike); and each step's loss
+TRAIN_TOL = 1e-4
 TIMING_REPS = 60  # timed samples per median
 GRAPH_LAUNCHES = 20  # launches per CUDA-graph replay
 
@@ -320,6 +335,115 @@ def check_dag_block():
     return rec
 
 
+def _dag_bwd_work(B, C, D):
+    """K4's least bytes (each input read once, each output written once) and
+    operations: per (row, position) 9 D x D mat-vecs, the attention replayed
+    over all C columns with its dot products and dV updates, the gates; the
+    weight gradients' 8 D x D x B·C products and their sums."""
+    f32 = 4
+    rows = B * C * (1 + 6 * D + 2 * D + 2 + 2 * C)  # K3's per-row inputs
+    rows += B * C * (3 * D + 1 + 6 * D)  # K3's outputs h1, V0, V1, Kw and residuals hpc, xpp
+    rows += B * C * (3 * D + 1)  # cotangents
+    rows += B * C * (1 + 6 * D + 2 * D + 2)  # per-row gradients
+    weights = 2 * (8 * D * D + 6 * D + D)  # the weights read, their gradients written
+    flops = B * C * (16 * D * D + 12 * C * D + 60 * D) + 16 * D * D * B * C + 8 * D * B * C
+    return f32 * (rows + weights), flops
+
+
+def check_dag_block_bwd():
+    """K4 against its plain version on the card in K3's four cases, and K3's
+    residuals against the plain version's; times at the training shape."""
+    import torch
+    from erc_tpu_torch.ops.kernels import dag_block as kd
+
+    g = torch.Generator(device="cuda").manual_seed(2)
+    B, C, D = 32, 16, 300
+    cases = [
+        ("full-prefix", _dag_inputs(g, B, C, D, prefix=True)),
+        ("full-first-block", _dag_inputs(g, B, C, D, prefix=False)),
+        ("full-padded-rows", _dag_inputs(g, B, C, D, prefix=True, pad_rows=5)),
+        ("ragged-B3-C5-D13", _dag_inputs(g, 3, 5, 13, prefix=True, pad_rows=2)),
+    ]
+    errs = []
+    for label, args in cases:
+        outs = kd._forward(args[0], args[1:], residuals=True)
+        cts = [torch.randn(o.shape, device="cuda", generator=g) for o in outs[:4]]
+        got = kd.dag_block_backward(args[0], *args[1:], *outs, *cts)
+        torch.cuda.synchronize()
+        want_fwd = kd.dag_block_reference(args[0], *args[1:], residuals=True)
+        res_err = max((a - b).abs().max().item() for a, b in zip(outs[4:], want_fwd[4:]))
+        require(math.isfinite(res_err) and res_err <= DAG_TOL,
+                f"dag_block residuals[{label}] max abs err {res_err} > {DAG_TOL}")
+        want = kd.dag_block_backward_reference(args[0], *args[1:], *outs, *cts)
+        worst = 0.0
+        for i, (a, b) in enumerate(zip(got, want)):
+            err = (a - b).abs().max().item() / max(1.0, b.abs().max().item())
+            require(bool(torch.isfinite(a).all()) and err <= DAG_BWD_TOL,
+                    f"dag_block_bwd[{label}] gradient {i}: error {err} > {DAG_BWD_TOL} of max(1, max|plain|)")
+            worst = max(worst, err)
+        again = kd.dag_block_backward(args[0], *args[1:], *outs, *cts)
+        torch.cuda.synchronize()
+        require(all(torch.equal(a, b) for a, b in zip(got, again)), f"dag_block_bwd[{label}] not deterministic")
+        errs.append(worst)
+        log(f"dag_block_bwd[{label}] B={args[1].shape[0]} C={args[1].shape[1]} D={args[4].shape[-1]}: "
+            f"max error {worst:.3e} of max(1, max|plain|) (tolerance {DAG_BWD_TOL}), residuals "
+            f"{res_err:.3e}, bitwise repeatable")
+    # times at DAG-ERC's training shape: batch 16
+    Bt = 16
+    args = _dag_inputs(g, Bt, C, D, prefix=True)
+    outs = kd._forward(args[0], args[1:], residuals=True)
+    cts = [torch.randn(o.shape, device="cuda", generator=g) for o in outs[:4]]
+    bwd = lambda: kd.dag_block_backward(args[0], *args[1:], *outs, *cts)  # noqa: E731
+    plain = lambda: kd.dag_block_backward_reference(args[0], *args[1:], *outs, *cts)  # noqa: E731
+    bytes_moved, flops = _dag_bwd_work(Bt, C, D)
+    bound_ms, bound_by = _bound(bytes_moved, flops)
+    # the weight-gradient launch alone, and torch.einsum of the same contractions
+    lib = kd._library("dag_block_bwd")
+    st = [torch.randn(s, device="cuda", generator=g) for s in
+          ((Bt, C, D), (Bt, C, 3, D), (Bt, C, 3, D), (Bt, C, D), (Bt, C, D), (Bt, C))]
+    h1 = outs[0].contiguous()
+    wgrads = tuple(torch.empty(s, device="cuda") for s in ((3, D, D), (3, D), (3, D, D), (3, D), (D, D), (D, D), (D, 1)))
+    # the stream is read at each call: a CUDA graph captures on a side stream
+    wgrad = lambda: kd._weight_grads_kernel(lib, h1, *st, wgrads, torch.cuda.current_stream().cuda_stream)  # noqa: E731
+    wgrad()
+    want = kd.weight_grads_reference(h1, *st)
+    torch.cuda.synchronize()
+    werr = max((a - b).abs().max().item() / max(1.0, b.abs().max().item()) for a, b in zip(wgrads, want))
+    require(werr <= DAG_BWD_TOL, f"dag_block_bwd weight gradients: error {werr} > {DAG_BWD_TOL}")
+    N = Bt * C
+    w_bytes, w_flops = 4 * (N * D * 10 + N + 8 * D * D + 7 * D), 16 * D * D * N + 8 * D * N
+    rec = {
+        "name": "dag_block_bwd",
+        "route": "cuda",
+        "source": "erc_tpu_torch/csrc/dag_block_bwd.cu",
+        "replaces": "erc_tpu/ops/pallas/dag_block.py:369",
+        "tpu_source": "erc_tpu/ops/pallas/dag_block.py:_dag_block_bwd",
+        "shape": f"B={Bt} C={C} D={D}",
+        "max_abs_err": max(errs),
+        "err_is_relative_to": "max(1, max|plain|) per gradient",
+        "ms": _median_graph_ms(bwd),
+        "eager_ms": _median_event_ms(bwd),
+        "plain_ms": _median_graph_ms(plain),
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,  # no single PyTorch call computes the reverse sweep
+        "wgrad_ms": _median_graph_ms(wgrad),
+        "wgrad_bound_ms": _bound(w_bytes, w_flops)[0],
+        "wgrad_library_ms": _median_graph_ms(lambda: kd.weight_grads_reference(h1, *st)),
+        "wgrad_max_err": werr,
+    }
+    log(f"dag_block_bwd timing at {rec['shape']}: kernel {rec['ms']:.5f} ms (eager call "
+        f"{rec['eager_ms']:.5f}), plain {rec['plain_ms']:.5f}, bound {bound_ms:.5f} ({bound_by}: "
+        f"{bytes_moved / 1e6:.3f} MB, {flops / 1e9:.4f} GFLOP); weight-gradient launch alone "
+        f"{rec['wgrad_ms']:.5f} ms (bound {rec['wgrad_bound_ms']:.5f}), torch.einsum of the same "
+        f"{rec['wgrad_library_ms']:.5f} ms, error {werr:.3e}")
+    k3 = lambda: kd.dag_block(*args)  # noqa: E731
+    k3_res = lambda: kd._forward(args[0], args[1:], residuals=True)  # noqa: E731
+    log(f"dag_block at the training shape B={Bt}: {_median_graph_ms(k3):.5f} ms, with residuals "
+        f"{_median_graph_ms(k3_res):.5f} ms")
+    return rec
+
+
 # ------------------------------------------------------------------ phase 3
 def _reset_launches():
     from erc_tpu_torch.ops.kernels import banded as kb, dag_block as kd
@@ -498,24 +622,172 @@ def drive_dagerc(card: str):
 
 
 def profile_predict(engine, dialogues, wall_s: float, n_batches: int):
-    """Device time by kernel over one predict of `dialogues` (torch.profiler),
-    against the unprofiled wall time of the same call."""
+    """Device time by kernel over one predict of `dialogues`."""
+    _profile(lambda: engine.predict(dialogues),
+             f"predict of {len(dialogues)} dialogues ({n_batches} batches)", wall_s)
+
+
+def _profile(fn, what: str, wall_s: float):
+    """Device time by kernel over one call of `fn` (torch.profiler), against
+    the unprofiled wall time of the same call."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        engine.predict(dialogues)
+        fn()
+        torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     if busy_ms <= 0:
         log("profile: the profiler recorded no device time (not measured)")
         return
     n_kernels = sum(e.count for e in kernels)
-    log(f"profile: predict of {len(dialogues)} dialogues ({n_batches} batches): "
-        f"{n_kernels} kernel launches, device busy {busy_ms:.3f} ms of {wall_s * 1e3:.3f} ms "
-        f"unprofiled wall ({100 * busy_ms / (wall_s * 1e3):.1f}% busy)")
+    log(f"profile: {what}: {n_kernels} kernel launches, device busy {busy_ms:.3f} ms of "
+        f"{wall_s * 1e3:.3f} ms unprofiled wall ({100 * busy_ms / (wall_s * 1e3):.1f}% busy)")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
         log(f"  {e.self_device_time_total / 1e3:9.4f} ms  x{e.count:<5d} {e.key[:100]}")
+
+
+# ------------------------------------------------------------------ phase 5
+TRAIN_ARGS = ["--dataset=synthetic-iemocap-6", "--reimplement", "--dag_impl=kernel"]
+
+
+def _trainer(*extra, device="cuda", dropout=None):
+    """A DAGERCTrainer at the IEMOCAP reimplement settings (one epoch; weights
+    from seed 1, the same on every device)."""
+    from erc_tpu_torch.models import dagerc
+
+    p = dagerc.DAGERCParams()
+    p.finalize([*TRAIN_ARGS, f"--device={device}", *extra])
+    p.epoch = 1  # --reimplement sets the published 55
+    if dropout is not None:
+        p.dropout = dropout
+    trainer = dagerc.DAGERCTrainer(p)
+    trainer.log = lambda msg: log(f"  [trainer] {msg}")
+    trainer.initialize()
+    return trainer
+
+
+def _blocks(batch, chunk: int) -> int:
+    L = batch["input_tensor"].shape[1]
+    return -(-L // min(chunk, L))
+
+
+def _worst_grad_diff(model, other):
+    """Worst over parameters of ||g - g_other|| / max(||g_other||, 1e-4 · global
+    norm), and that parameter's name."""
+    import torch
+
+    pairs = [(n, a.grad, b.grad.to(a.device)) for (n, a), b in zip(model.named_parameters(), other.parameters())]
+    total = torch.sqrt(sum((b.double() ** 2).sum() for _, _, b in pairs)).item()
+    worst, name = 0.0, ""
+    for n, a, b in pairs:
+        d = (a.double() - b.double()).norm().item() / max(b.double().norm().item(), 1e-4 * total)
+        if not math.isfinite(d) or d > worst:
+            worst, name = d, n
+    return worst, name
+
+
+def drive_training(card: str):
+    import torch
+    from erc_tpu_torch.data.loader import to_device
+
+    kern = _trainer()
+    p = kern.params
+    n_params = sum(t.numel() for t in kern.model.parameters())
+    require(n_params == 6_026_710, f"DAG-ERC has {n_params} parameters, want 6026710")
+    log(f"trainer: DAG-ERC {p.hidden_all} -> {p.hidden_dim}, {p.gnn_layers} layers, chunk {p.dag_chunk}, "
+        f"dag_remat {p.dag_remat}, batch {p.train.batch_size}, {p.optim.name} lr {p.optim.lr}, dropout "
+        f"{p.dropout}, clip 5.0, {n_params} params, dag_impl kernel, on {torch.cuda.get_device_name(0)}")
+    eager = _trainer("--dag_impl=eager")
+    require(all(torch.equal(a, b) for a, b in zip(kern.model.state_dict().values(),
+                                                   eager.model.state_dict().values())),
+            "kernel and eager trainers start from different weights")
+    layers, chunk = int(p.gnn_layers), int(p.dag_chunk)
+    host = list(kern.make_loader("train"))  # epoch 0: the batches train() will take
+    batches = [to_device(b, kern.device) for b in host[:3]]
+
+    # one forward and backward: launches by the formula, gradients ≡ the eager form
+    _reset_launches()
+    kern.compute_grads(batches[0])
+    launches = _read_launches()
+    nb = _blocks(host[0], chunk)
+    log(f"train step of one batch (L {host[0]['input_tensor'].shape[1]}, {nb} blocks): launches {launches}")
+    require(launches["dag_block"] == 2 * layers * nb,
+            f"dag_block launched {launches['dag_block']} times, want {2 * layers * nb} (remat: twice per block)")
+    require(launches["dag_block_bwd"] == layers * nb,
+            f"dag_block_bwd launched {launches['dag_block_bwd']} times, want {layers * nb}")
+    eager.compute_grads(batches[0])
+    worst, name = _worst_grad_diff(kern.model, eager.model)
+    log(f"first-batch gradients, kernel vs eager form on the card: worst {worst:.3e} ({name}), "
+        f"tolerance {TRAIN_TOL}")
+    require(worst <= TRAIN_TOL, f"kernel vs eager gradients {worst} ({name}) > {TRAIN_TOL}")
+
+    # three steps of each form on the same batches and dropout masks
+    secs, losses = {}, {}
+    for label, t in (("kernel", kern), ("eager", eager)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = [t.train_step(b)["Lall"] for b in batches]
+        losses[label] = [x.item() for x in out]
+        secs[label] = time.perf_counter() - t0
+    n3 = sum(int((b["text_length"] > 0).sum()) for b in host[:3])
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses["kernel"], losses["eager"]))
+    log(f"3 train steps, losses kernel {losses['kernel']} vs eager {losses['eager']}: worst relative "
+        f"diff {rel:.3e} (tolerance {TRAIN_TOL})")
+    require(rel <= TRAIN_TOL, f"kernel vs eager losses differ by {rel} > {TRAIN_TOL}")
+    log(f"3 train steps of {n3} dialogues: kernel form {secs['kernel'] * 1e3:.3f} ms "
+        f"({n3 / secs['kernel']:.1f} dialogues/s), eager form {secs['eager'] * 1e3:.3f} ms "
+        f"({n3 / secs['eager']:.1f} dialogues/s) on {card}")
+    del eager
+
+    # the card against a CPU run of the same weights, without dropout
+    card0, cpu0 = _trainer(dropout=0.0), _trainer(device="cpu", dropout=0.0)
+    loss_card = card0.compute_grads(batches[0])["Lall"].item()
+    t0 = time.perf_counter()
+    loss_cpu = cpu0.compute_grads(to_device(host[0], torch.device("cpu")))["Lall"].item()
+    t_cpu = time.perf_counter() - t0
+    rel = abs(loss_card - loss_cpu) / abs(loss_cpu)
+    worst, name = _worst_grad_diff(card0.model, cpu0.model)
+    log(f"card vs CPU, first batch: loss {loss_card:.7f} vs {loss_cpu:.7f} (relative {rel:.3e}), "
+        f"gradients worst {worst:.3e} ({name}); tolerance {TRAIN_TOL}; CPU step {t_cpu:.2f} s")
+    require(rel <= TRAIN_TOL and worst <= TRAIN_TOL, f"card vs CPU: loss {rel}, gradients {worst} ({name})")
+    del card0, cpu0
+
+    # the main path: one epoch (120 dialogues) and test() through DAGERCTrainer.train
+    run = _trainer()
+    train_blocks = sum(_blocks(b, chunk) for b in host)
+    test_blocks = sum(_blocks(b, chunk) for b in run.make_loader("test"))
+    _reset_launches()
+    t0 = time.perf_counter()
+    history = run.train()
+    wall = time.perf_counter() - t0
+    launches = _read_launches()
+    want = {"dag_block": 2 * layers * train_blocks + layers * test_blocks, "dag_block_bwd": layers * train_blocks}
+    rec = history[0]
+    log(f"DAG-ERC training path: {rec['steps']} steps over {rec['dialogues']} dialogues "
+        f"({train_blocks} blocks), then test() ({test_blocks} blocks) in {wall:.3f} s; launches {launches}")
+    for name, n in want.items():
+        require(launches[name] == n, f"{name} launched {launches[name]} times on the training path, want {n}")
+    res = rec["test"]
+    require(all(math.isfinite(x) for x in (rec["Lall"], rec["gnorm"], res["Lall"], res["f1"])),
+            f"non-finite training results {rec}")
+    log(f"epoch 0: loss {rec['Lall']:.5f}, gnorm {rec['gnorm']:.5f}; test loss {res['Lall']:.5f}, "
+        f"weighted F1 {res['f1']:.5f}, acc {res['acc']:.5f}")
+    log(f"DAG-ERC training throughput, kernel form: {rec['dialogues'] / rec['seconds']:.1f} dialogues/s "
+        f"({rec['steps']} steps, batch {p.train.batch_size}, {rec['seconds'] * 1e3:.3f} ms) on {card}")
+
+    longest = max(host, key=lambda b: b["input_tensor"].shape[1])
+    batch = to_device(longest, run.device)
+    run.train_step(batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run.train_step(batch)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    _profile(lambda: run.train_step(batch), f"one train step of the longest batch (batch 16, L "
+             f"{longest['input_tensor'].shape[1]}, {_blocks(longest, chunk)} blocks)", step_s)
+    return launches
 
 
 def main() -> int:
@@ -524,11 +796,17 @@ def main() -> int:
     card = probe()
     records = check_kernels()
     records["dag_block"] = check_dag_block()
+    records["dag_block_bwd"] = check_dag_block_bwd()
     launches = drive_cogmen(card)
     launches["dag_block"] = drive_dagerc(card)["dag_block"]
+    train = drive_training(card)
+    launches["dag_block_bwd"] = train["dag_block_bwd"]
+    records["dag_block"]["train_launches"] = train["dag_block"]
     for name, rec in records.items():
         rec["launches"] = launches[name]
+        require(rec["launches"] > 0, f"{name} was not launched on its path")
         rec["max_err"], rec["kernel_ms"] = rec["max_abs_err"], rec["ms"]
+    log(f"chip_smoke wall time: {time.perf_counter() - T_START:.1f} s (kernel build included)")
     print(json.dumps({"kernels": list(records.values())}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

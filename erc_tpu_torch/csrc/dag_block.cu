@@ -10,6 +10,10 @@
 //           (0 at global position 0: flag && c == 0)
 //   h1    = GRU(x = xc_c, h = M) + GRU(x = M, h = h_c), per-gate weights
 //   V0_c  = h1 Wr0T,  V1_c = h1 Wr1T,  K_c = h1 . wk
+// and, for training, the gate projections hpc = M Whc + bhc and
+// xpp = M Wip + bip (the residuals _fwd_kernel stores, dag_block.py:171-175)
+// when their pointers are given; the backward (K4, dag_block_bwd.cu) reads
+// them instead of redoing those products.
 // Masks are additive finite numbers (-1e30, float32 min): no -inf, so a row
 // with no predecessor falls back to a finite uniform softmax, as in JAX.
 //
@@ -30,9 +34,10 @@
 //
 // Inputs are f32.  The [B, C, ...] tensors (enum Tensor) have contiguous
 // [b, c] slices and free batch and position strides, so the block's rows of
-// [B, L, D] buffers are read and written in place.  The entry point
-// launches on the caller's stream, does not synchronise, and returns
-// cudaGetLastError().
+// [B, L, D] buffers are read and written in place.  The residuals hpc and
+// xpp [B, C, 3, D] are optional: a null pointer skips them (serving).  The
+// entry point launches on the caller's stream, does not synchronise, and
+// returns cudaGetLastError().
 
 #include <cfloat>
 #include <cuda_runtime.h>
@@ -42,14 +47,15 @@ namespace {
 constexpr int kMaxThreads = 512;
 constexpr int kMaxWarps = kMaxThreads / 32;
 
-enum Tensor { kQ, kXC, kHP, kH, kNum, kDen, kMP, kAM, kSM, kH1, kV0, kV1, kKW, kTensors };
+enum Tensor { kQ, kXC, kHP, kH, kNum, kDen, kMP, kAM, kSM, kH1, kV0, kV1, kKW, kHPC, kXPP, kTensors };
 
 }  // namespace
 
 // Mirrored by _DagArgs in erc_tpu_torch/ops/kernels/dag_block.py.
 struct DagArgs {
   float* ptr[kTensors];      // q [B,C], xc/hp [B,C,3,D], h/num [B,C,D], den/mp [B,C],
-                             // am/sm [B,C,C]; outputs h1/v0/v1 [B,C,D], kw [B,C]
+                             // am/sm [B,C,C]; outputs h1/v0/v1 [B,C,D], kw [B,C];
+                             // residuals hpc/xpp [B,C,3,D] or null
   long long sb[kTensors];    // batch strides (elements)
   long long sc[kTensors];    // position strides (elements)
   const float* whc;          // [3, D, D]: node GRU hidden weights, [k, d] rows
@@ -186,6 +192,16 @@ __global__ void __launch_bounds__(kMaxThreads) dag_block_kernel(const DagArgs a)
                     hn = acc[2][r] + a.bhc[2 * D + d];
         const float xr = acc[3][r] + a.bip[d], xz = acc[4][r] + a.bip[D + d],
                     xn = acc[5][r] + a.bip[2 * D + d];
+        if (a.ptr[kHPC] != nullptr && live(r)) {
+          float* hpc = at(kHPC, r, c);
+          float* xpp = at(kXPP, r, c);
+          hpc[d] = hr;
+          hpc[D + d] = hz;
+          hpc[2 * D + d] = hn;
+          xpp[d] = xr;
+          xpp[D + d] = xz;
+          xpp[2 * D + d] = xn;
+        }
         const float r1 = sigmoid(xc[d] + hr), z1 = sigmoid(xc[D + d] + hz);
         const float n1 = tanhf(xc[2 * D + d] + r1 * hn);
         const float node = (1.f - z1) * n1 + z1 * mv[r * D + d];

@@ -8,30 +8,40 @@ plus proxy GRU) recurrence over the utterances.
 - ``DAGLayer`` runs the recurrence one position at a time: the oracle.
 - ``DAGStack`` runs every layer in blockwise-prefix form: per block of
   ``chunk`` positions, the attention against earlier blocks is two batched
-  products, and the block's sequential tail runs either in the K3 kernel
-  (``ops.kernels.dag_block``) or as its plain version, a loop of torch ops
-  (the eager form).  ``dag_impl`` picks the tail: ``auto`` takes the kernel
-  for the eval forward (``model.eval()``) and the eager form for training;
-  ``eager`` takes the eager form for both.  K3 has no backward yet, so no
-  choice runs it in training.
+  products, and the block's sequential tail runs either in the kernels
+  (``ops.kernels.dag_block``: K3 forward, K4 backward) or as K3's plain
+  version, a loop of torch ops that autograd differentiates (the eager
+  form).  ``dag_impl`` picks the tail: ``auto`` takes the kernel for the
+  eval forward (``model.eval()``) and the eager form for training, as the
+  JAX package's ``resolve_dag_impl`` does; ``kernel`` takes the kernels for
+  both; ``eager`` the eager form for both.  ``dag_remat`` recomputes each
+  block in the backward instead of keeping its activations.
+
+``DAGERCTrainer`` and ``main`` train the model (``python -m
+erc_tpu_torch.train --module=dagerc``): AdamW, grad clip 5.0 and
+ReduceLROnPlateau(min), as ``erc_tpu.models.dagerc``.
 """
 
 from __future__ import annotations
 
 import math
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from erc_tpu_torch.core.params import Params
 from erc_tpu_torch.models.base import MMBaseParams
 from erc_tpu_torch.ops import graphs
 from erc_tpu_torch.ops.attention import Linear
+from erc_tpu_torch.ops.dropout import Dropout
 from erc_tpu_torch.ops.init import uniform_
 from erc_tpu_torch.ops.kernels.dag_block import dag_block, dag_block_reference
 from erc_tpu_torch.ops.rnn import gru_cell
+from erc_tpu_torch.train import optim as optim_factory
+from erc_tpu_torch.train.trainer import Trainer
 
 
 class DAGERCParams(MMBaseParams):
@@ -47,9 +57,11 @@ class DAGERCParams(MMBaseParams):
         self.speaker_onehot = True
         self.windowp = 1
         self.hidden_dim = 300
-        # positions per block of the blockwise-prefix form, and its tail
+        # positions per block of the blockwise-prefix form; recompute each
+        # block in the backward (the JAX default); the block's tail
         self.dag_chunk = 16
-        self.dag_impl = self.choice("auto", "eager")
+        self.dag_remat = True
+        self.dag_impl = self.choice("auto", "kernel", "eager")
         # final nodal attention over the stacked features ("" = identity)
         self.nodal_att_type = self.choice("", "global", "past")
 
@@ -84,12 +96,14 @@ ParamsType = DAGERCParams
 
 
 def resolve_dag_impl(dag_impl: str) -> Tuple[str, str]:
-    """--dag_impl → (training form, eval form) on one device."""
+    """--dag_impl → (training form, eval form) on one device.  ``auto`` is
+    the JAX package's choice on one chip: the eager form in training, the
+    kernel in eval; ``kernel`` (JAX's ``pallas``) and ``eager`` force one."""
     if dag_impl == "auto":
         return "eager", "kernel"
-    if dag_impl != "eager":
+    if dag_impl not in ("kernel", "eager"):
         raise ValueError(f"unknown dag_impl {dag_impl!r}")
-    return "eager", "eager"
+    return dag_impl, dag_impl
 
 
 def _layer_params(module: nn.Module, prefix: str, D: int, generator, device) -> None:
@@ -162,17 +176,22 @@ class DAGStack(nn.Module):
     dialogue batch carry float32 min so they drop out even then.
 
     ``impl`` is the training form, ``impl_eval`` (empty: as ``impl``) the
-    eval form; 'kernel' runs the tail in K3, 'eager' as its plain version.
+    eval form; 'kernel' runs the tail in K3 (with grad: K3 forward, K4
+    backward), 'eager' as K3's plain version.  Without grad the kernel form
+    writes K3's outputs in place into the layer's buffers; with grad it
+    updates them out of place, since autograd keeps the buffers that the
+    earlier blocks' prefix products read.  ``remat`` (with grad) recomputes
+    each block in the backward: K3 then runs twice per block and step.
     """
 
     def __init__(self, hidden_dim: int, n_layers: int, chunk: int = 16, impl: str = "eager",
-                 impl_eval: str = "", *, generator=None, device=None):
+                 impl_eval: str = "", remat: bool = False, *, generator=None, device=None):
         super().__init__()
         for name in (impl, impl_eval or impl):
             if name not in ("kernel", "eager"):
                 raise ValueError(f"unknown DAGStack impl {name!r}")
         self.hidden_dim, self.n_layers, self.chunk = hidden_dim, n_layers, chunk
-        self.impl, self.impl_eval = impl, impl_eval
+        self.impl, self.impl_eval, self.remat = impl, impl_eval, remat
         for l in range(n_layers):
             _layer_params(self, f"layer_{l}_", hidden_dim, generator, device)
 
@@ -206,20 +225,20 @@ class DAGStack(nn.Module):
         xc = h_in @ p("gru_c_w_ih").T + p("gru_c_b_ih")  # node GRU input projection
         hpp = h_in @ p("gru_p_w_hh").T + p("gru_p_b_hh")  # proxy GRU hidden projection (h = h_in)
         NEG = torch.finfo(h_in.dtype).min / 2
-        V0 = h_in.new_zeros(B, Lp, D)
-        V1 = h_in.new_zeros(B, Lp, D)
-        K = h_in.new_zeros(B, Lp)
         cols = torch.arange(Lp, device=h_in.device)
-        # the block tail's weights as [k, d] rows, built once per layer
+        # the block tail's weights as [k, d] rows, built once per layer; K4
+        # reads the registered (torch-layout) ones
         Whc = p("gru_c_w_hh").reshape(3, D, D).transpose(1, 2).contiguous()
         Wip = p("gru_p_w_ih").reshape(3, D, D).transpose(1, 2).contiguous()
         bhc, bip = p("gru_c_b_hh").reshape(3, D), p("gru_p_b_ih").reshape(3, D)
         Wr0T, Wr1T = p("Wr0").T.contiguous(), p("Wr1").T.contiguous()
+        native = tuple(p(n).detach() for n in ("gru_c_w_hh", "gru_p_w_ih", "Wr0", "Wr1"))
         qb_all = q + bias
         xc4, hpp4 = xc.reshape(B, Lp, 3, D), hpp.reshape(B, Lp, 3, D)
-        out = h_in.new_empty(B, Lp, D) if use_kernel else None
-        blocks = []
-        for t in range(Lp // C):
+        inplace = use_kernel and not torch.is_grad_enabled()
+        out = h_in.new_empty(B, Lp, D) if inplace else None
+
+        def block(t: int, V0, V1, K) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
             s, e = t * C, t * C + C
             # prefix: the block's queries against every column outside it
             pre = ((cols < s) | (cols >= e)).to(h_in.dtype)
@@ -233,16 +252,30 @@ class DAGStack(nn.Module):
             args = (t == 0, qb_all[:, s:e], xc4[:, s:e], hpp4[:, s:e], h_in[:, s:e], num01, den_p,
                     mp, addmask[:, s:e, s:e], s_mask[:, s:e, s:e], Whc, bhc, Wip, bip, Wr0T, Wr1T,
                     wk[:, None])
-            if use_kernel:
+            if inplace:
                 dag_block(*args, out=(out[:, s:e], V0[:, s:e], V1[:, s:e], K[:, s:e]))
-                continue
-            # out of place, so the eager form stays differentiable
-            h1b, V0w, V1w, Kw = dag_block_reference(*args)
-            V0 = V0.slice_scatter(V0w, 1, s, e)
-            V1 = V1.slice_scatter(V1w, 1, s, e)
-            K = K.slice_scatter(Kw, 1, s, e)
+                return V0, V1, K, None
+            if use_kernel:
+                h1b, V0w, V1w, Kw = dag_block(*args, native=native)
+            else:
+                h1b, V0w, V1w, Kw = dag_block_reference(*args)
+            # out of place: autograd keeps the buffers the earlier prefixes read
+            return (V0.slice_scatter(V0w, 1, s, e), V1.slice_scatter(V1w, 1, s, e),
+                    K.slice_scatter(Kw, 1, s, e), h1b)
+
+        V0 = h_in.new_zeros(B, Lp, D)
+        V1 = h_in.new_zeros(B, Lp, D)
+        K = h_in.new_zeros(B, Lp)
+        remat = self.remat and torch.is_grad_enabled()
+        blocks = []
+        for t in range(Lp // C):
+            if remat:  # no dropout inside a block, so no RNG state to replay
+                V0, V1, K, h1b = checkpoint(block, t, V0, V1, K, use_reentrant=False,
+                                            preserve_rng_state=False)
+            else:
+                V0, V1, K, h1b = block(t, V0, V1, K)
             blocks.append(h1b)
-        return out if use_kernel else torch.cat(blocks, 1)
+        return out if inplace else torch.cat(blocks, 1)
 
 
 class AttentiveNodeFeatures(nn.Module):
@@ -272,8 +305,8 @@ class DAGERCModule(nn.Module):
 
     def __init__(self, emb_dim: int, n_classes: int, gnn_layers: int = 4, hidden_dim: int = 300,
                  windowp: int = 1, drop_rate: float = 0.2, fused: bool = True, chunk: int = 16,
-                 impl: str = "eager", impl_eval: str = "", nodal_att_type: str = "", *,
-                 generator=None, device=None):
+                 impl: str = "eager", impl_eval: str = "", nodal_att_type: str = "",
+                 remat: bool = False, *, generator=None, device=None):
         super().__init__()
         if nodal_att_type not in ("", "global", "past"):
             raise ValueError(f"unknown nodal_att_type {nodal_att_type!r}")
@@ -281,7 +314,7 @@ class DAGERCModule(nn.Module):
         self.windowp, self.fused, self.nodal_att_type = windowp, fused, nodal_att_type
         self.fc1 = Linear(emb_dim, hidden_dim, **kw)
         if fused:
-            self.stack = DAGStack(hidden_dim, gnn_layers, chunk, impl, impl_eval, **kw)
+            self.stack = DAGStack(hidden_dim, gnn_layers, chunk, impl, impl_eval, remat, **kw)
         else:
             self.layers = nn.ModuleList(DAGLayer(hidden_dim, **kw) for _ in range(gnn_layers))
         feat = hidden_dim * (gnn_layers + 1) + emb_dim
@@ -290,7 +323,7 @@ class DAGERCModule(nn.Module):
         self.out_0 = Linear(feat, hidden_dim, **kw)
         self.out_1 = Linear(hidden_dim, hidden_dim, **kw)
         self.out_2 = Linear(hidden_dim, n_classes, **kw)
-        self.dropout = nn.Dropout(drop_rate)
+        self.dropout = Dropout(drop_rate)
 
     def forward(self, batch) -> torch.Tensor:
         x = batch["input_tensor"]
@@ -320,5 +353,27 @@ def build(p: DAGERCParams, *, generator=None, device=None) -> DAGERCModule:
         emb_dim=p.hidden_all, n_classes=p.n_classes, gnn_layers=int(p.gnn_layers),
         hidden_dim=int(p.hidden_dim), windowp=int(p.windowp), drop_rate=float(p.dropout),
         chunk=int(p.get("dag_chunk", 16)), impl=impl, impl_eval=impl_eval,
-        nodal_att_type=str(p.get("nodal_att_type", "") or ""), generator=generator, device=device,
+        nodal_att_type=str(p.get("nodal_att_type", "") or ""), remat=bool(p.get("dag_remat", True)),
+        generator=generator, device=device,
     )
+
+
+class DAGERCTrainer(Trainer):
+    """AdamW with grad clip 5.0 and ReduceLROnPlateau(min), as the JAX
+    ``DAGERCTrainer`` (dagerc.py:512-533)."""
+
+    def imodels(self, params: DAGERCParams):
+        generator = torch.Generator().manual_seed(int(params.seed))
+        self.model = build(params, generator=generator, device=self.device)
+        self.optimizer = optim_factory.build_optim(params.optim, self.model.parameters())
+        self.grad_clip_norm = 5.0
+        self.lr_sche = torch.optim.lr_scheduler.ReduceLROnPlateau(self.optimizer, "min")
+
+
+def main(argv: Optional[list] = None) -> DAGERCTrainer:
+    """``python -m erc_tpu_torch.train --module=dagerc [--dataset=...] ...``"""
+    params = DAGERCParams()
+    params.finalize(argv)
+    trainer = DAGERCTrainer(params)
+    trainer.train()
+    return trainer

@@ -1,5 +1,7 @@
-"""DAG-ERC's within-block recurrence (K3): wrapper of the CUDA kernel in
-``csrc/dag_block.cu`` and its plain PyTorch version.
+"""DAG-ERC's within-block recurrence: K3 (forward) and K4 (backward), the
+wrappers of the CUDA kernels in ``csrc/dag_block.cu`` and
+``csrc/dag_block_bwd.cu``, their plain PyTorch versions, and the autograd
+Function that joins them.
 
 K3 replaces ``erc_tpu/ops/pallas/dag_block.py::dag_block`` (forward).  For
 one block of C positions of one DAG layer, position c in order:
@@ -9,21 +11,23 @@ one block of C positions of one DAG layer, position c in order:
   2. runs the dual GRU: node GRU (x projection ``xcb``, hidden M) plus proxy
      GRU (input M, hidden projection ``hppb``, hidden ``hb``): h1 = C + P;
   3. writes V0 = h1·Wr0ᵀ, V1 = h1·Wr1ᵀ and K = h1·w_k into the block's rows.
+For training it also returns the gate projections hpc and xpp, which K4,
+the port of ``_dag_block_bwd``, reads to sweep the positions in reverse.
 
 The arguments keep the JAX kernel's layout, so the tests compare like with
 like: weights as [k, d] rows (``Whc[g] = w_hh[gD:(g+1)D]ᵀ``), which is also
-the layout the CUDA kernel reads coalesced, with threads over the output
-column d.  A wrapper given CPU tensors returns the plain version; given CUDA
-tensors it launches the kernel or raises.  There is no backward yet, so
-inputs that require grad are refused while grad mode is on.  The plain
-version is differentiable: it is also DAGStack's eager (training) form.
-``launches`` counts kernel launches.
+the layout K3 reads coalesced, with threads over the output column d.  A
+wrapper given CPU tensors returns the plain version; given CUDA tensors it
+launches the kernel or raises.  ``dag_block`` takes the autograd Function
+when grad mode is on and an input requires grad.  The plain forward is
+differentiable by autograd too: it is DAGStack's eager form.  ``launches``
+counts kernel launches.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple, Union
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 
@@ -32,14 +36,16 @@ from erc_tpu_torch.ops.rnn import gru_cell_proj
 ROWS_PER_BLOCK = 2  # batch rows one thread block carries; 1 where 2 do not fit in shared memory
 _MAX_SMEM = 232448  # shared memory one block may use on Hopper (227 KB)
 
-launches = {"dag_block": 0}
+launches = {"dag_block": 0, "dag_block_bwd": 0}
 
 Flag = Union[int, bool, torch.Tensor]
 Outputs = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
+Grads = Tuple[torch.Tensor, ...]
 
 
 def reset_launches() -> None:
-    launches["dag_block"] = 0
+    for name in launches:
+        launches[name] = 0
 
 
 def _flag(flag: Flag) -> int:
@@ -47,7 +53,8 @@ def _flag(flag: Flag) -> int:
 
 
 def _attend(qc, Kw, amw_c, smw_c, V0w, V1w, num01_c, den_p_c, mp_c):
-    """Position c's attention over the block, merged with the prefix."""
+    """Position c's attention over the block, merged with the prefix: M and
+    what the backward reuses."""
     lw = qc + Kw + amw_c  # [B, C]
     mw = lw.amax(-1, keepdim=True)
     ew = torch.exp(lw - mw)
@@ -58,15 +65,17 @@ def _attend(qc, Kw, amw_c, smw_c, V0w, V1w, num01_c, den_p_c, mp_c):
     m = torch.maximum(mp_c, mw)
     sp = torch.exp(mp_c - m)
     sw = torch.exp(mw - m)
-    return (num01_c * sp + nw * sw) / (den_p_c * sp + dnw * sw)
+    den = den_p_c * sp + dnw * sw
+    return (num01_c * sp + nw * sw) / den, (lw, mw, ew, e0w, e1w, nw, dnw, sp, sw, den)
 
 
 def dag_block_reference(flag: Flag, qb, xcb, hppb, hb, num01, den_p, mp, amw, smw,
-                        Whc, bhc, Wip, bip, Wr0T, Wr1T, wkc) -> Outputs:
+                        Whc, bhc, Wip, bip, Wr0T, Wr1T, wkc, *, residuals: bool = False):
     """Plain version: the positions in order, as the JAX ``_fwd_body``
     (``_step_fwd`` per position).  The six gate products of M are one product
     and the three output products another, on the per-gate stacks laid side
-    by side."""
+    by side.  ``residuals=True`` also returns the gate projections hpc =
+    M·Whc + bhc and xpp = M·Wip + bip [B, C, 3, D] that K4 reads."""
     B, C = qb.shape
     D = hb.shape[-1]
     flag = _flag(flag)
@@ -78,10 +87,10 @@ def dag_block_reference(flag: Flag, qb, xcb, hppb, hb, num01, den_p, mp, amw, sm
     V0w = qb.new_zeros(B, C, D)
     V1w = qb.new_zeros(B, C, D)
     Kw = qb.new_zeros(B, C)
-    h1s = []
+    h1s, mms = [], []
     for c in range(C):
         M = _attend(qb[:, c : c + 1], Kw, amw[:, c], smw[:, c], V0w, V1w,
-                    num01[:, c], den_p[:, c : c + 1], mp[:, c : c + 1])
+                    num01[:, c], den_p[:, c : c + 1], mp[:, c : c + 1])[0]
         if c == 0 and flag:
             M = torch.zeros_like(M)
         mm = M @ Wm + bm
@@ -91,11 +100,113 @@ def dag_block_reference(flag: Flag, qb, xcb, hppb, hb, num01, den_p, mp, amw, sm
         V1w = V1w.select_scatter(o[:, D : 2 * D], 1, c)
         Kw = Kw.select_scatter(o[:, 2 * D], 1, c)
         h1s.append(h1)
-    return torch.stack(h1s, 1), V0w, V1w, Kw
+        mms.append(mm)
+    outs = (torch.stack(h1s, 1), V0w, V1w, Kw)
+    if not residuals:
+        return outs
+    mm = torch.stack(mms, 1).reshape(B, C, 2, 3, D)
+    return outs + (mm[:, :, 0], mm[:, :, 1])
+
+
+def _gru_bwd(g, hn_proj, h, r, z, n):
+    """VJP of a GRU step from its gates: (dxr, dxz, dxn), (dhr, dhz, dhn), dh."""
+    dz = g * (h - n)
+    dn = g * (1.0 - z)
+    dn_pre = dn * (1.0 - n * n)
+    dr_pre = dn_pre * hn_proj * r * (1.0 - r)
+    dz_pre = dz * z * (1.0 - z)
+    return (dr_pre, dz_pre, dn_pre), (dr_pre, dz_pre, dn_pre * r), g * z
+
+
+def dag_block_backward_reference(flag: Flag, qb, xcb, hppb, hb, num01, den_p, mp, amw, smw,
+                                 Whc, bhc, Wip, bip, Wr0T, Wr1T, wkc, h1, V0w, V1w, Kw, hpc, xpp,
+                                 dh1, dV0, dV1, dKw) -> Grads:
+    """Plain version of K4: the reverse sweep of the JAX ``_bwd_kernel``, in
+    torch ops and without autograd.  Takes K3's arguments, its outputs and
+    residuals (h1, V0w, V1w, Kw, hpc, xpp) and the outputs' cotangents;
+    returns the gradients of (qb, xcb, hppb, hb, num01, den_p, mp, Whc, bhc,
+    Wip, bip, Wr0T, Wr1T, wkc).  The masks get none.  Position c's attention
+    is replayed from the FINAL V0w/V1w/Kw, which is exact under the gradient
+    contract (see ``dag_block``)."""
+    B, C = qb.shape
+    D = hb.shape[-1]
+    flag = _flag(flag)
+    # the nine mat-vecs per position as two products on weights laid side by side
+    Wout = torch.cat([Wr0T, Wr1T, wkc], 1)  # g += (dV0 | dV1 | dK) @ Woutᵀ
+    Wm = torch.cat([Whc.permute(1, 0, 2).reshape(D, 3 * D), Wip.permute(1, 0, 2).reshape(D, 3 * D)], 1)
+    dV0, dV1, dKw = dV0.clone(), dV1.clone(), dKw.clone()
+    dqb, dden_p, dmp = qb.new_zeros(B, C), qb.new_zeros(B, C), qb.new_zeros(B, C)
+    dxcb, dhppb, dhpc, dxpp = (qb.new_zeros(B, C, 3, D) for _ in range(4))
+    dhb, dnum01, Ms = (qb.new_zeros(B, C, D) for _ in range(3))
+    for c in range(C - 1, -1, -1):
+        M, (lw, mw, ew, e0w, e1w, nw, dnw, sp, sw, den) = _attend(
+            qb[:, c : c + 1], Kw, amw[:, c], smw[:, c], V0w, V1w,
+            num01[:, c], den_p[:, c : c + 1], mp[:, c : c + 1])
+        if c == 0 and flag:
+            M = torch.zeros_like(M)
+        r1 = torch.sigmoid(xcb[:, c, 0] + hpc[:, c, 0])
+        z1 = torch.sigmoid(xcb[:, c, 1] + hpc[:, c, 1])
+        n1 = torch.tanh(xcb[:, c, 2] + r1 * hpc[:, c, 2])
+        r2 = torch.sigmoid(xpp[:, c, 0] + hppb[:, c, 0])
+        z2 = torch.sigmoid(xpp[:, c, 1] + hppb[:, c, 1])
+        n2 = torch.tanh(xpp[:, c, 2] + r2 * hppb[:, c, 2])
+        # the output transforms, then the dual GRU (h1 = node + proxy, both get g)
+        g = dh1[:, c] + torch.cat([dV0[:, c], dV1[:, c], dKw[:, c : c + 1]], 1) @ Wout.T
+        dxc3, dhpc3, dM = _gru_bwd(g, hpc[:, c, 2], M, r1, z1, n1)
+        dxpp3, dhpp3, dhb[:, c] = _gru_bwd(g, hppb[:, c, 2], hb[:, c], r2, z2, n2)
+        dxcb[:, c], dhppb[:, c] = torch.stack(dxc3, 1), torch.stack(dhpp3, 1)
+        dhpc[:, c], dxpp[:, c] = torch.stack(dhpc3, 1), torch.stack(dxpp3, 1)
+        dM = dM + torch.cat([*dhpc3, *dxpp3], 1) @ Wm.T
+        Ms[:, c] = M
+        if c == 0 and flag:
+            dM = torch.zeros_like(dM)
+        # the merge M = (num01·sp + nw·sw) / den
+        dnum_v = dM / den
+        dden_s = -(dM * M).sum(-1, keepdim=True) / den
+        dnum01[:, c] = dnum_v * sp
+        dnw_v = dnum_v * sw
+        dsp = (dnum_v * num01[:, c]).sum(-1, keepdim=True) + dden_s * den_p[:, c : c + 1]
+        dsw = (dnum_v * nw).sum(-1, keepdim=True) + dden_s * dnw
+        dden_p[:, c] = (dden_s * sp)[:, 0]
+        ddnw = dden_s * sw
+        # sp = exp(mp − m), sw = exp(mw − m), m = max(mp, mw): honest partials
+        mp_ge = (mp[:, c : c + 1] >= mw).to(qb.dtype)
+        dmp[:, c] = (mp_ge * (-dsw * sw) + (1.0 - mp_ge) * (dsp * sp))[:, 0]
+        dmw = mp_ge * (dsw * sw) + (1.0 - mp_ge) * (-dsp * sp)
+        # nw = Σ e0w·V0w + Σ e1w·V1w; dnw = Σ ew
+        dV0 = dV0 + e0w[:, :, None] * dnw_v[:, None, :]
+        dV1 = dV1 + e1w[:, :, None] * dnw_v[:, None, :]
+        dew = (torch.einsum("bd,bjd->bj", dnw_v, V0w) * smw[:, c]
+               + torch.einsum("bd,bjd->bj", dnw_v, V1w) * (1.0 - smw[:, c]) + ddnw)
+        dlw = dew * ew
+        # mw = max_j lw (ties split evenly), and the exp shift's −Σ dlw
+        dmw_tot = dmw - dlw.sum(-1, keepdim=True)
+        is_max = (lw == mw).to(qb.dtype)
+        dlw = dlw + is_max * (dmw_tot / is_max.sum(-1, keepdim=True).clamp_min(1.0))
+        dqb[:, c] = dlw.sum(-1)
+        dKw = dKw + dlw
+    return (dqb, dxcb, dhppb, dhb, dnum01, dden_p, dmp,
+            *weight_grads_reference(h1, Ms, dhpc, dxpp, dV0, dV1, dKw))
+
+
+def weight_grads_reference(h1, Ms, dhpc, dxpp, dV0, dV1, dKw) -> Grads:
+    """The weight gradients (dWhc, dbhc, dWip, dbip, dWr0T, dWr1T, dwkc) as
+    contractions over every (row, position) pair, from h1, M, the final dV0,
+    dV1 [B, C, D], the gates' cotangents dhpc, dxpp [B, C, 3, D] and the final
+    dKw [B, C]: the end of the JAX ``_bwd_kernel`` (dag_block.py:285-304)."""
+    B, C, D = h1.shape
+    m2, h2 = Ms.reshape(B * C, D), h1.reshape(B * C, D)
+    dhpc2, dxpp2 = dhpc.reshape(B * C, 3, D), dxpp.reshape(B * C, 3, D)
+    return (torch.einsum("nk,ngd->gkd", m2, dhpc2), dhpc2.sum(0),
+            torch.einsum("nk,ngd->gkd", m2, dxpp2), dxpp2.sum(0),
+            h2.T @ dV0.reshape(B * C, D), h2.T @ dV1.reshape(B * C, D),
+            (h2 * dKw.reshape(B * C, 1)).sum(0)[:, None])
 
 
 # ------------------------------------------------------------------ launch
-_N_ROWS = 13  # [B, C, ...] tensors the kernel reads or writes (enum Tensor in dag_block.cu)
+_N_ROWS = 15  # [B, C, ...] tensors K3 reads or writes (enum Tensor in dag_block.cu)
+_N_ROWS_BWD = 31  # the same for K4's sweep (enum Tensor in dag_block_bwd.cu)
+_N_PRODUCTS = 8  # K4's weight-gradient products (kProducts in dag_block_bwd.cu)
 
 
 class _DagArgs(ctypes.Structure):
@@ -110,23 +221,57 @@ class _DagArgs(ctypes.Structure):
     ]
 
 
-_lib = None
+class _DagBwdArgs(ctypes.Structure):
+    """struct DagBwdArgs in dag_block_bwd.cu."""
+
+    _fields_ = [
+        ("ptr", ctypes.c_void_p * _N_ROWS_BWD),
+        ("sb", ctypes.c_longlong * _N_ROWS_BWD),
+        ("sc", ctypes.c_longlong * _N_ROWS_BWD),
+        *((name, ctypes.c_void_p) for name in ("whh", "wih", "wr0", "wr1", "wk")),
+        *((name, ctypes.c_int) for name in ("B", "C", "D", "flag")),
+    ]
 
 
-def _library():
-    global _lib
-    if _lib is None:
+class _WgradArgs(ctypes.Structure):
+    """struct WgradArgs in dag_block_bwd.cu."""
+
+    _fields_ = [
+        *((name, ctypes.c_void_p * _N_PRODUCTS) for name in ("a", "b", "out")),
+        *((name, ctypes.c_longlong * _N_PRODUCTS) for name in ("lda", "ldb")),
+        *((name, ctypes.c_void_p * _N_PRODUCTS) for name in ("x", "w", "vout")),
+        ("ldx", ctypes.c_longlong * _N_PRODUCTS),
+        *((name, ctypes.c_int) for name in ("N", "D")),
+    ]
+
+
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def _library(name: str = "dag_block") -> ctypes.CDLL:
+    """The loaded library of csrc/<name>.cu (K3's or K4's), built at first use."""
+    lib = _libs.get(name)
+    if lib is None:
         from erc_tpu_torch.ops.kernels.build import load
 
-        lib = load("dag_block")
-        lib.erc_dag_block.argtypes = [ctypes.POINTER(_DagArgs), ctypes.c_int, ctypes.c_void_p]
-        lib.erc_dag_block.restype = ctypes.c_int
-        lib.erc_dag_block_smem.argtypes = [ctypes.c_int] * 3
-        lib.erc_dag_block_smem.restype = ctypes.c_longlong
+        lib = load(name)
+        if name == "dag_block":
+            lib.erc_dag_block.argtypes = [ctypes.POINTER(_DagArgs), ctypes.c_int, ctypes.c_void_p]
+            lib.erc_dag_block.restype = ctypes.c_int
+            lib.erc_dag_block_smem.argtypes = [ctypes.c_int] * 3
+            lib.erc_dag_block_smem.restype = ctypes.c_longlong
+        else:
+            lib.erc_dag_block_bwd_sweep.argtypes = [ctypes.POINTER(_DagBwdArgs), ctypes.c_int,
+                                                    ctypes.c_void_p]
+            lib.erc_dag_block_bwd_sweep.restype = ctypes.c_int
+            lib.erc_dag_block_bwd_wgrad.argtypes = [ctypes.POINTER(_WgradArgs), ctypes.c_void_p]
+            lib.erc_dag_block_bwd_wgrad.restype = ctypes.c_int
+            lib.erc_dag_block_bwd_smem.argtypes = [ctypes.c_int] * 3
+            lib.erc_dag_block_bwd_smem.restype = ctypes.c_longlong
         lib.erc_cuda_error_string.argtypes = [ctypes.c_int]
         lib.erc_cuda_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
+        _libs[name] = lib
+    return lib
 
 
 def _check_shapes(qb, xcb, hppb, hb, num01, den_p, mp, amw, smw,
@@ -147,23 +292,109 @@ def _check_shapes(qb, xcb, hppb, hb, num01, den_p, mp, amw, smw,
             raise ValueError(f"dag_block: {name} has shape {tuple(t.shape)}, want {shape}")
 
 
+def _device(tensors, name: str) -> torch.device:
+    """The one device of `tensors`: the CPU, or a card where every tensor is float32."""
+    devices = {t.device for t in tensors}
+    if devices == {torch.device("cpu")}:
+        return torch.device("cpu")
+    if len(devices) != 1 or next(iter(devices)).type != "cuda":
+        raise ValueError(f"{name} runs on cuda or cpu tensors, not on {sorted(map(str, devices))}")
+    for t in tensors:
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: the CUDA kernel takes float32 only, got {t.dtype}")
+    return next(iter(devices))
+
+
 def _rows_inner_contiguous(t: torch.Tensor) -> bool:
     """Every [b, c] slice of t is contiguous (batch and position strides are free)."""
     return t[:1, :1].is_contiguous()
 
 
-def _pick_rows(lib, C: int, D: int) -> int:
-    """ROWS_PER_BLOCK, or 1 where that many rows' buffers do not fit in shared memory."""
-    rows = ROWS_PER_BLOCK if lib.erc_dag_block_smem(ROWS_PER_BLOCK, C, D) <= _MAX_SMEM else 1
-    if lib.erc_dag_block_smem(rows, C, D) > _MAX_SMEM:
-        raise ValueError(f"dag_block: a block of C = {C} positions at D = {D} needs "
-                         f"{lib.erc_dag_block_smem(1, C, D)} B of shared memory, over the "
+def _per_row(t: torch.Tensor) -> torch.Tensor:
+    return t if _rows_inner_contiguous(t) else t.contiguous()
+
+
+def _pick_rows(smem_bytes, C: int, D: int, name: str = "dag_block") -> int:
+    """ROWS_PER_BLOCK, or 1 where that many rows' buffers do not fit in shared
+    memory; `smem_bytes(rows, C, D)` is the kernel's need."""
+    rows = ROWS_PER_BLOCK if smem_bytes(ROWS_PER_BLOCK, C, D) <= _MAX_SMEM else 1
+    if smem_bytes(rows, C, D) > _MAX_SMEM:
+        raise ValueError(f"{name}: a block of C = {C} positions at D = {D} needs "
+                         f"{smem_bytes(1, C, D)} B of shared memory, over the "
                          f"{_MAX_SMEM} B a thread block may use")
     return rows
 
 
+def _check_launch(lib, err: int, name: str) -> None:
+    if err != 0:
+        msg = lib.erc_cuda_error_string(err).decode()
+        raise RuntimeError(f"{name} kernel launch failed: {msg} (cudaError {err})")
+
+
+def _forward(flag: int, args, out: Optional[Outputs] = None, residuals: bool = False):
+    """K3 on CUDA tensors, its plain version on CPU tensors; with `residuals`
+    also hpc and xpp [B, C, 3, D]."""
+    qb, hb = args[0], args[3]
+    B, C = qb.shape
+    D = hb.shape[-1]
+    device = _device(tuple(args) + tuple(out or ()), "dag_block")
+    if device.type == "cpu":
+        res = dag_block_reference(flag, *args, residuals=residuals)
+        if out is None:
+            return res
+        for o, r in zip(out, res):
+            o.copy_(r)
+        return tuple(out) + tuple(res[4:])
+    if out is None:
+        out = (qb.new_empty(B, C, D), qb.new_empty(B, C, D), qb.new_empty(B, C, D), qb.new_empty(B, C))
+    elif not all(_rows_inner_contiguous(o) for o in out):
+        raise ValueError("dag_block: each [b, c] slice of an output must be contiguous")
+    res = (qb.new_empty(B, C, 3, D), qb.new_empty(B, C, 3, D)) if residuals else ()
+    if B * C * D == 0:
+        return tuple(out) + res
+    lib = _library()
+    rows = _pick_rows(lib.erc_dag_block_smem, C, D)
+    per_row = [_per_row(t) for t in args[:9]] + list(out) + list(res)
+    a = _DagArgs()
+    for i, t in enumerate(per_row):  # absent residuals stay null
+        a.ptr[i], a.sb[i], a.sc[i] = t.data_ptr(), t.stride(0), t.stride(1)
+    weights = [w.contiguous() for w in args[9:]]
+    a.whc, a.bhc, a.wip, a.bip, a.wr0, a.wr1, a.wk = (w.data_ptr() for w in weights)
+    a.B, a.C, a.D, a.flag = B, C, D, flag
+    with torch.cuda.device(device):
+        err = lib.erc_dag_block(ctypes.byref(a), rows, torch.cuda.current_stream(device).cuda_stream)
+    _check_launch(lib, err, "dag_block")
+    launches["dag_block"] += 1
+    return tuple(out) + res
+
+
+class _DagBlockFunction(torch.autograd.Function):
+    """K3 with its residuals forward, K4 backward; on CPU tensors their plain
+    versions.  Cotangents that no later op produced (the last block's V0w,
+    V1w and Kw are read by no later block) arrive as zeros: autograd
+    materialises them.  ``native`` is (w_hh, w_ih, Wr0, Wr1) in torch's layout
+    for K4, or None to transpose the [k, d] weights per call; it takes no
+    gradient (the [k, d] weights carry it)."""
+
+    @staticmethod
+    def forward(ctx, flag, native, *args):
+        outs = _forward(flag, args, residuals=True)
+        ctx.flag, ctx.native = flag, native
+        ctx.save_for_backward(*args, *outs)
+        return outs[:4]
+
+    @staticmethod
+    def backward(ctx, dh1, dV0, dV1, dKw):
+        (dqb, dxcb, dhppb, dhb, dnum01, dden_p, dmp,
+         dWhc, dbhc, dWip, dbip, dWr0T, dWr1T, dwkc) = dag_block_backward(
+            ctx.flag, *ctx.saved_tensors, dh1, dV0, dV1, dKw, native=ctx.native)
+        return (None, None, dqb, dxcb, dhppb, dhb, dnum01, dden_p, dmp, None, None,
+                dWhc, dbhc, dWip, dbip, dWr0T, dWr1T, dwkc)
+
+
 def dag_block(flag: Flag, qb, xcb, hppb, hb, num01, den_p, mp, amw, smw,
-              Whc, bhc, Wip, bip, Wr0T, Wr1T, wkc, *, out: Optional[Outputs] = None) -> Outputs:
+              Whc, bhc, Wip, bip, Wr0T, Wr1T, wkc, *, out: Optional[Outputs] = None,
+              native: Optional[Tuple[torch.Tensor, ...]] = None) -> Outputs:
     """Fused within-block DAG recurrence.
 
     flag: 1 when global position 0 is in this block (its M is zeroed); qb
@@ -174,50 +405,102 @@ def dag_block(flag: Flag, qb, xcb, hppb, hb, num01, den_p, mp, amw, smw,
     [D, D], wkc [D, 1].  Returns (h1 [B, C, D], V0w, V1w [B, C, D],
     Kw [B, C]), written into ``out`` when it is given: views whose [b, c]
     slices are contiguous, such as column slices of [B, L, D] buffers.
+
+    With grad mode on and an input that requires grad, the call goes through
+    an autograd Function: K3 with residuals forward, K4 backward (``out`` is
+    then refused; ``native`` may carry the weights in torch's layout for K4).
+    GRADIENT CONTRACT (erc_tpu/ops/pallas/dag_block.py:27-33): the backward
+    replays each position's attention from the block's FINAL V0w/V1w/Kw, so
+    the gradient is exact except through positions whose predecessor set is
+    empty, which must be flag-gated (global position 0) or carry zero
+    cotangents.  DAG-ERC keeps it: every valid position i >= 1 has i - 1 as
+    a predecessor, and padding positions are loss-masked.
     """
     args = (qb, xcb, hppb, hb, num01, den_p, mp, amw, smw, Whc, bhc, Wip, bip, Wr0T, Wr1T, wkc)
     _check_shapes(*args)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
-        raise RuntimeError("dag_block has no backward yet: call it under torch.no_grad() "
-                           "or use the eager form for training")
     B, C = qb.shape
     D = hb.shape[-1]
-    flag = _flag(flag)
     if out is not None and tuple(o.shape for o in out) != ((B, C, D),) * 3 + ((B, C),):
         raise ValueError(f"dag_block: out shapes {[tuple(o.shape) for o in out]} do not match")
-    devices = {t.device for t in args} | ({o.device for o in out} if out is not None else set())
-    if devices == {torch.device("cpu")}:
-        res = dag_block_reference(flag, *args)
-        if out is None:
-            return res
-        for o, r in zip(out, res):
-            o.copy_(r)
-        return out
-    if len(devices) != 1 or next(iter(devices)).type != "cuda":
-        raise ValueError(f"dag_block runs on cuda or cpu tensors, not on {sorted(map(str, devices))}")
-    for t in args + (out or ()):
-        if t.dtype != torch.float32:
-            raise TypeError(f"dag_block: the CUDA kernel takes float32 only, got {t.dtype}")
-    if out is None:
-        out = (qb.new_empty(B, C, D), qb.new_empty(B, C, D), qb.new_empty(B, C, D), qb.new_empty(B, C))
-    elif not all(_rows_inner_contiguous(o) for o in out):
-        raise ValueError("dag_block: each [b, c] slice of an output must be contiguous")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        if out is not None:
+            raise ValueError("dag_block: out= is for the forward without grad; "
+                             "with grad the outputs are new tensors")
+        return _DagBlockFunction.apply(_flag(flag), native, *args)
+    return _forward(_flag(flag), args, out)
+
+
+def dag_block_backward(flag: Flag, qb, xcb, hppb, hb, num01, den_p, mp, amw, smw,
+                       Whc, bhc, Wip, bip, Wr0T, Wr1T, wkc, h1, V0w, V1w, Kw, hpc, xpp,
+                       dh1, dV0, dV1, dKw, *, native: Optional[Tuple[torch.Tensor, ...]] = None
+                       ) -> Grads:
+    """K4: the gradients of ``dag_block`` (see ``dag_block_backward_reference``
+    for the arguments and results).  On CPU tensors the plain version; on
+    CUDA tensors two launches, the sweep and the weight gradients, counted as
+    one in ``launches["dag_block_bwd"]``."""
+    args = (qb, xcb, hppb, hb, num01, den_p, mp, amw, smw, Whc, bhc, Wip, bip, Wr0T, Wr1T, wkc)
+    _check_shapes(*args)
+    B, C = qb.shape
+    D = hb.shape[-1]
+    rest = (h1, V0w, V1w, Kw, hpc, xpp, dh1, dV0, dV1, dKw)
+    for name, t, shape in zip(("h1", "V0w", "V1w", "Kw", "hpc", "xpp", "dh1", "dV0", "dV1", "dKw"),
+                              rest, ((B, C, D),) * 3 + ((B, C),) + ((B, C, 3, D),) * 2
+                              + ((B, C, D),) * 3 + ((B, C),)):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"dag_block_backward: {name} has shape {tuple(t.shape)}, want {shape}")
+    flag = _flag(flag)
+    device = _device(args + rest, "dag_block_backward")
+    if device.type == "cpu":
+        return dag_block_backward_reference(flag, *args, *rest)
+    if native is None:
+        native = (Whc.transpose(1, 2).reshape(3 * D, D), Wip.transpose(1, 2).reshape(3 * D, D),
+                  Wr0T.T, Wr1T.T)
+    whh, wih, wr0, wr1 = (w.contiguous() for w in native)
+    if (tuple(whh.shape), tuple(wih.shape), tuple(wr0.shape), tuple(wr1.shape)) != (
+            (3 * D, D), (3 * D, D), (D, D), (D, D)):
+        raise ValueError("dag_block_backward: native weights must be w_hh, w_ih [3D, D], Wr0, Wr1 [D, D]")
+    new = qb.new_empty
+    grads = (new(B, C), new(B, C, 3, D), new(B, C, 3, D), new(B, C, D), new(B, C, D), new(B, C),
+             new(B, C))
+    stash = (new(B, C, D), new(B, C, 3, D), new(B, C, 3, D), new(B, C, D), new(B, C, D), new(B, C))
+    wgrads = (new(3, D, D), new(3, D), new(3, D, D), new(3, D), new(D, D), new(D, D), new(D, 1))
     if B * C * D == 0:
-        return out
-    lib = _library()
-    rows = _pick_rows(lib, C, D)
-    per_row = [t if _rows_inner_contiguous(t) else t.contiguous() for t in args[:9]] + list(out)
-    a = _DagArgs()
-    for i, t in enumerate(per_row):
+        return tuple(g.zero_() for g in grads + wgrads)
+    lib = _library("dag_block_bwd")
+    rows = _pick_rows(lib.erc_dag_block_bwd_smem, C, D, "dag_block_backward")
+    per_row = [_per_row(t) for t in args[:9] + (V0w, V1w, Kw, hpc, xpp, dh1, dV0, dV1, dKw)]
+    a = _DagBwdArgs()
+    for i, t in enumerate(per_row + list(grads) + list(stash)):
         a.ptr[i], a.sb[i], a.sc[i] = t.data_ptr(), t.stride(0), t.stride(1)
-    weights = [w.contiguous() for w in args[9:]]
-    a.whc, a.bhc, a.wip, a.bip, a.wr0, a.wr1, a.wk = (w.data_ptr() for w in weights)
+    wk = wkc.contiguous()
+    a.whh, a.wih, a.wr0, a.wr1, a.wk = (w.data_ptr() for w in (whh, wih, wr0, wr1, wk))
     a.B, a.C, a.D, a.flag = B, C, D, flag
-    dev = qb.device
-    with torch.cuda.device(dev):
-        err = lib.erc_dag_block(ctypes.byref(a), rows, torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        msg = lib.erc_cuda_error_string(err).decode()
-        raise RuntimeError(f"dag_block kernel launch failed: {msg} (cudaError {err})")
-    launches["dag_block"] += 1
-    return out
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        _check_launch(lib, lib.erc_dag_block_bwd_sweep(ctypes.byref(a), rows, stream),
+                      "dag_block_backward (sweep)")
+        _weight_grads_kernel(lib, h1.contiguous(), *stash, wgrads, stream)
+    launches["dag_block_bwd"] += 1
+    return grads + wgrads
+
+
+def _weight_grads_kernel(lib, h1, Ms, dhpc, dxpp, dV0, dV1, dKw, wgrads, stream) -> None:
+    """Launch K4's weight-gradient kernel: ``wgrads`` = (dWhc, dbhc, dWip,
+    dbip, dWr0T, dWr1T, dwkc) from contiguous h1, M, dV0, dV1 [B, C, D],
+    dhpc, dxpp [B, C, 3, D] and dKw [B, C]."""
+    B, C, D = h1.shape
+    dWhc, dbhc, dWip, dbip, dWr0T, dWr1T, dwkc = wgrads
+    f32 = 4
+    w = _WgradArgs()
+    w.N, w.D = B * C, D
+    for g in range(3):
+        for z, stacked, wout, bout in ((g, dhpc, dWhc, dbhc), (3 + g, dxpp, dWip, dbip)):
+            col = stacked.data_ptr() + g * D * f32  # gate g of [N, 3, D]
+            w.a[z], w.lda[z], w.b[z], w.ldb[z], w.out[z] = Ms.data_ptr(), D, col, 3 * D, wout[g].data_ptr()
+            w.x[z], w.ldx[z], w.vout[z] = col, 3 * D, bout[g].data_ptr()
+    for z, dV in ((6, dV0), (7, dV1)):
+        w.a[z], w.lda[z], w.b[z], w.ldb[z] = h1.data_ptr(), D, dV.data_ptr(), D
+    w.out[6], w.out[7] = dWr0T.data_ptr(), dWr1T.data_ptr()
+    w.x[6], w.ldx[6], w.w[6], w.vout[6] = h1.data_ptr(), D, dKw.data_ptr(), dwkc.data_ptr()
+    _check_launch(lib, lib.erc_dag_block_bwd_wgrad(ctypes.byref(w), stream),
+                  "dag_block_backward (weight gradients)")

@@ -1,0 +1,40 @@
+"""Train entry point, command-line compatible with the JAX package's
+``train_mm.py``::
+
+    python -m erc_tpu_torch.train --module=dagerc --dataset=synthetic-iemocap-6 \
+        --reimplement --dag_impl=kernel [--epoch=N] [--batch_count=N] [--device=cpu]
+
+Every module under ``erc_tpu_torch/models`` that exports ``main`` trains
+(DAG-ERC so far).  It runs on the card unless ``--device=cpu`` is given;
+without CUDA and without ``--device=cpu`` it raises.
+"""
+
+from __future__ import annotations
+
+import importlib
+import sys
+from typing import List, Optional
+
+
+def _module_arg(argv: List[str]) -> Optional[str]:
+    for i, tok in enumerate(argv):
+        if tok.startswith("--module="):
+            return tok.split("=", 1)[1]
+        if tok == "--module" and i + 1 < len(argv):
+            return argv[i + 1]
+    return None
+
+
+def main(argv: Optional[List[str]] = None):
+    argv = sys.argv[1:] if argv is None else list(argv)
+    module = _module_arg(argv)
+    if module is None:
+        raise SystemExit("usage: python -m erc_tpu_torch.train --module=<name> [--dataset=... ...]")
+    mod = importlib.import_module(f"erc_tpu_torch.models.{module}")
+    if not hasattr(mod, "main"):
+        raise SystemExit(f"training {module!r} is not ported yet")
+    return mod.main(argv)
+
+
+if __name__ == "__main__":
+    main()

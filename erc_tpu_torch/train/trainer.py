@@ -1,0 +1,253 @@
+"""The train loop.
+
+Port of the core of ``erc_tpu.train.trainer.Trainer``: build the model and
+optimizer (``imodels``), the train step (loss, gradients, their global norm
+before the clip, optax's clip, the optimizer step), the epoch loop with
+``batch_count`` and ``log_every``, the test stage (masked NLL and the
+classification summary on the host) and the plateau controller, with
+logging to stdout.  A subclass sets ``model``, ``optimizer`` and, where it
+wants them, ``grad_clip_norm`` and ``lr_sche``.
+
+The trainer runs in float32 on ``params.device`` (the card unless it is
+``"cpu"``).  Dropout draws from a generator on that device seeded from
+``params.seed``.  Left out, for later slices: callbacks, experiment
+directories, the metric database and board, the val stage, checkpoints,
+several processes or devices, ``steps_per_call``, ``compute_dtype``,
+``transfer_dtype`` and ``profile_steps``.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from erc_tpu_torch.core.device import resolve_device
+from erc_tpu_torch.core.seed import RngPool
+from erc_tpu_torch.data.collate import ERCBatcher
+from erc_tpu_torch.data.loader import DialogueLoader, to_device
+from erc_tpu_torch.data.registry import pick_datas
+from erc_tpu_torch.ops.dropout import Dropout
+from erc_tpu_torch.train.metrics import classification_summary
+from erc_tpu_torch.train.optim import clip_by_global_norm_, global_norm
+
+
+def masked_cross_entropy(logits, labels, mask, class_weights=None) -> torch.Tensor:
+    """Mean cross-entropy over the valid positions, reduced in float32.  With
+    class weights, divided by the summed weight of the targets (as
+    ``F.cross_entropy(weight=...)``)."""
+    logits = logits.float()
+    mask = mask.float()
+    safe = labels.clamp_min(0).long()
+    nll = -torch.log_softmax(logits, -1).gather(-1, safe[..., None])[..., 0]
+    if class_weights is not None:
+        w = class_weights[safe] * mask
+        return (nll * w).sum() / w.sum().clamp_min(1e-8)
+    return (nll * mask).sum() / mask.sum().clamp_min(1.0)
+
+
+def masked_accuracy(logits, labels, mask) -> torch.Tensor:
+    hit = (logits.argmax(-1) == labels).float() * mask.float()
+    return hit.sum() / mask.float().sum().clamp_min(1.0)
+
+
+class Trainer:
+    """Generic ERC trainer; one subclass per model family."""
+
+    def __init__(self, params):
+        self.params = params
+        self.device = resolve_device(params.get("device", 0))
+        self.rng = RngPool(params.seed)
+        self.model: Optional[torch.nn.Module] = None
+        self.optimizer: Optional[torch.optim.Optimizer] = None
+        self.grad_clip_norm: Optional[float] = None
+        self.lr_sche = None
+        self.class_weights: Optional[torch.Tensor] = None
+        self.eidx = 0
+        self.global_steps = 0
+        self._test_loader = None
+
+    # ------------------------------------------------------------------ setup
+    def imodels(self, params) -> None:
+        raise NotImplementedError
+
+    def log(self, msg: str) -> None:
+        print(msg, flush=True)
+
+    def batcher(self, batch_size: Optional[int] = None) -> ERCBatcher:
+        p = self.params
+        return ERCBatcher(
+            modality=p.modality,
+            n_classes=p.n_classes,
+            n_speakers=p.n_speakers,
+            speaker_onehot=bool(p.get("speaker_onehot", False)),
+            bucket=p.get("length_bucket", 0),
+            max_len=p.get("max_seq_len", 128),
+            pad_batch_to=batch_size,
+        )
+
+    def initialize(self) -> None:
+        if self.model is not None:
+            return
+        self.imodels(self.params)
+        generator = self.rng.torch_generator("dropout", self.device)
+        for m in self.model.modules():
+            if isinstance(m, Dropout):
+                m.generator = generator
+        n_params = sum(t.numel() for t in self.model.parameters())
+        name = torch.cuda.get_device_name(self.device) if self.device.type == "cuda" else "cpu"
+        self.log(f"model {type(self.model).__name__}: {n_params / 1e6:.3f}M params, on {self.device} ({name})")
+
+    def make_loader(self, split: str) -> DialogueLoader:
+        p = self.params
+        samples = pick_datas(p.get("data_root"), p.dataset, split=split)
+        bs = int(p.train.batch_size if split == "train" else p.test.batch_size)
+        bc = p.get("batch_count")
+        return DialogueLoader(
+            samples,
+            self.batcher(bs),
+            batch_size=bs,
+            shuffle=(split == "train"),
+            seed=p.seed,
+            sort_by_length=bool(p.get("sort_by_length", True)),
+            sort_chunk=int(p.get("sort_chunk", 8)),
+            batch_count=(int(bc) if bc and split == "train" else None),
+        )
+
+    # ------------------------------------------------------------------- step
+    def loss_and_metrics(self, batch: Dict[str, torch.Tensor]):
+        """Default: masked cross-entropy and accuracy."""
+        logits = self.model(batch)
+        mask = batch["attention_mask"]
+        loss = masked_cross_entropy(logits, batch["label"], mask, self.class_weights)
+        return loss, {"Lall": loss.detach(), "Acc": masked_accuracy(logits.detach(), batch["label"], mask)}
+
+    def compute_grads(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """Forward and backward of one batch in training mode: leaves every
+        parameter's gradient in ``.grad`` (zeros where none reaches it, as
+        optax updates every leaf) and returns the metrics, on the device."""
+        self.model.train()
+        params = list(self.model.parameters())
+        for t in params:
+            t.grad = None
+        with torch.enable_grad():
+            loss, mets = self.loss_and_metrics(batch)
+            loss.backward()
+        for t in params:
+            if t.grad is None:
+                t.grad = torch.zeros_like(t)
+        return mets
+
+    def train_step(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """One optimizer step; the metrics include ``gnorm``, the global norm of
+        the gradients before the clip.  Nothing waits for the device."""
+        mets = self.compute_grads(batch)
+        grads = [t.grad for t in self.model.parameters()]
+        if self.grad_clip_norm:
+            mets["gnorm"] = clip_by_global_norm_(grads, float(self.grad_clip_norm))
+        else:
+            mets["gnorm"] = global_norm(grads)
+        self.optimizer.step()
+        self.global_steps += 1
+        return mets
+
+    # ------------------------------------------------------------------- loop
+    def train(self) -> List[Dict[str, Any]]:
+        """Every epoch: the train steps, then the test stage.  Returns one
+        record per epoch: the metrics' means, steps, dialogues (padding rows
+        not counted), the train steps' wall seconds and the test results."""
+        p = self.params
+        self.initialize()
+        loader = self.make_loader("train")
+        log_every = max(int(p.get("log_every", 10)), 1)
+        eval_every = int(p.get("eval_per_epoch", 1) or 0)
+        history = []
+        for eidx in range(self.eidx, int(p.epoch)):
+            self.eidx = eidx
+            loader.set_epoch(eidx)
+            sums: Dict[str, torch.Tensor] = {}
+            n_steps = n_dialogues = 0
+            t0 = time.perf_counter()
+            for bidx, host_batch in enumerate(loader):
+                mets = self.train_step(to_device(host_batch, self.device))
+                for k, v in mets.items():
+                    sums[k] = sums[k] + v if k in sums else v
+                n_steps += 1
+                n_dialogues += int((host_batch["text_length"] > 0).sum())
+                if bidx % log_every == 0:  # reads the metrics back: keep it sparse
+                    self.log(f"e{eidx} b{bidx} " + _fmt({k: v.item() for k, v in mets.items()}))
+            means = {k: v.item() / max(n_steps, 1) for k, v in sums.items()}  # waits for the device
+            dt = time.perf_counter() - t0
+            self.log(f"epoch {eidx}: {_fmt(means)} | {n_steps} steps, {n_dialogues / max(dt, 1e-9):.1f} dia/s")
+            record = {"epoch": eidx, **means, "steps": n_steps, "dialogues": n_dialogues, "seconds": dt}
+            if eval_every and (eidx + 1) % eval_every == 0:
+                record["test"] = self.test()
+            history.append(record)
+        return history
+
+    # ------------------------------------------------------------------- eval
+    def _collect_nll(self, logits: np.ndarray, labels: np.ndarray, sel: np.ndarray) -> None:
+        """Accumulate the masked NLL on the host (stable log-softmax)."""
+        lg = np.asarray(logits, np.float32)[sel]
+        if lg.size == 0:
+            return
+        lab = np.asarray(labels)[sel]
+        m = lg.max(-1, keepdims=True)
+        lse = m[:, 0] + np.log(np.exp(lg - m).sum(-1))
+        self._nll_sum += float((lse - lg[np.arange(len(lab)), lab]).sum())
+        self._nll_n += int(len(lab))
+
+    def test_step_collect(self, batch: Dict[str, np.ndarray], logits: np.ndarray) -> None:
+        """Gather the masked predictions and NLL of one batch on the host."""
+        mask = np.asarray(batch["attention_mask"]) > 0
+        labels = np.asarray(batch["label"])
+        sel = mask & (labels >= 0)
+        self._true.extend(labels[sel].tolist())
+        self._pred.extend(logits.argmax(-1)[sel].tolist())
+        self._collect_nll(logits, labels, sel)
+
+    def _eval_loop(self, loader) -> None:
+        self.model.eval()
+        with torch.inference_mode():
+            for host_batch in loader:
+                logits = self.model(to_device(host_batch, self.device)).float().cpu().numpy()
+                self.test_step_collect(host_batch, logits)
+
+    def _plateau_step(self, loss: Optional[float]) -> None:
+        """Step the plateau controller (where the subclass set one) on a loss."""
+        if self.lr_sche is None or loss is None or not self.params.get("lr_plateau", True):
+            return
+        cur = self.optimizer.param_groups[0]["lr"]
+        self.lr_sche.step(float(loss))
+        new = self.optimizer.param_groups[0]["lr"]
+        if new != cur:
+            self.log(f"ReduceLROnPlateau: lr {cur} -> {new}")
+
+    def test(self) -> Dict[str, Any]:
+        """The test split: loss ``Lall`` and the classification summary."""
+        p = self.params
+        self.initialize()
+        if self._test_loader is None:
+            self._test_loader = self.make_loader("test")
+        self._true: List[int] = []
+        self._pred: List[int] = []
+        self._nll_sum, self._nll_n = 0.0, 0
+        self._eval_loop(self._test_loader)
+        test_loss = self._nll_sum / max(self._nll_n, 1)
+        res: Dict[str, Any] = {}
+        if self._true:
+            res = classification_summary(self._true, self._pred, p.n_classes)
+            cm = res.pop("cm")
+            if p.get("confusion_matrix", True):
+                self.log(str(cm))
+            self.log("test: " + _fmt({k: res[k] for k in ("acc", "wa", "pre", "rec", "f1", "mif1", "maf1")}))
+        res["Lall"] = test_loss
+        self.log(f"test: Lall={test_loss:.5f} over {self._nll_n} utterances")
+        self._plateau_step(test_loss if self._nll_n else None)
+        return res
+
+
+def _fmt(values: Dict[str, float]) -> str:
+    return ", ".join(f"{k}={v:.5f}" for k, v in values.items())

@@ -4,7 +4,8 @@ and DAG graphs ≡ the JAX package's.
 K3: ``dag_block_reference`` and the wrapper's CPU route against the JAX
 ``_fwd_body`` and the Pallas kernel in interpret mode, on the three input
 cases of tests/test_pallas_dag_block.py (prefix, first block, masked tail);
-tolerance 1e-5 (float32, summation order only).  Graphs match exactly.
+tolerance 1e-5 (float32, summation order only).  Graphs match exactly.  K4
+and the gradients are in tests/test_torch_dag_block_bwd.py.
 """
 
 import numpy as np
@@ -102,11 +103,18 @@ def test_cpu_route_writes_strided_out_views():
 
 
 def test_wrapper_refuses_grad_and_bad_shapes():
+    """With grad the wrapper takes the autograd Function (K3 forward, K4
+    backward; here their plain versions) and refuses ``out=``."""
     args = _torch(_inputs(2))
     args[4].requires_grad_(True)  # hb
-    with torch.enable_grad(), pytest.raises(RuntimeError, match="no backward"):
-        tdb.dag_block(*args)
-    tdb.dag_block(*args)  # grad mode off: nothing to differentiate
+    with torch.enable_grad():
+        got = tdb.dag_block(*args)
+        assert got[0].grad_fn is not None
+        with pytest.raises(ValueError, match="out="):
+            tdb.dag_block(*args, out=tuple(torch.empty_like(g) for g in got))
+        got[0].sum().backward()
+    assert args[4].grad is not None and torch.isfinite(args[4].grad).all()
+    _close(got, tdb.dag_block(*args))  # grad mode off: the same forward, no graph
     args[4].requires_grad_(False)
     with pytest.raises(ValueError, match="wkc"):
         tdb.dag_block(*args[:-1], torch.zeros(D, 2))

@@ -113,14 +113,29 @@ def test_dag_stack_equals_chained_layers_in_port(stack_case):
 
 
 def test_dag_stack_training_form_is_eager_and_differentiable(stack_case):
+    """Both training forms differentiate: the eager form through autograd, the
+    kernel form through K3/K4 (their plain versions on CPU tensors), with the
+    same gradients; remat changes none.  The loss reads only the dialogues'
+    positions (lengths 10, 7, 0), as DAG-ERC's masked loss does: K4's
+    gradient contract leaves padding rows, which have no predecessor, out."""
     (H0, adj, sm), variables = stack_case
-    stack = tdagerc.DAGStack(8, 2, chunk=4, impl="eager", impl_eval="kernel").train()
-    stack.load_state_dict(_state(variables["params"]))
-    with torch.enable_grad():
-        sum(o.sum() for o in stack(_t(H0), _t(adj), _t(sm))).backward()
-    assert all(p.grad is not None and torch.isfinite(p.grad).all() for p in stack.parameters())
-    with torch.enable_grad(), pytest.raises(RuntimeError, match="no backward"):
-        tdagerc.DAGStack(8, 2, chunk=4, impl="kernel").train()(_t(H0), _t(adj), _t(sm))
+    valid = _t((np.arange(10)[None] < np.asarray([10, 7, 0])[:, None]).astype(np.float32))
+    weight = _t(np.random.default_rng(7).normal(size=(3, 10, 8)).astype(np.float32)) * valid[..., None]
+
+    def grads(impl, remat):
+        stack = tdagerc.DAGStack(8, 2, chunk=4, impl=impl, impl_eval="kernel", remat=remat).train()
+        stack.load_state_dict(_state(variables["params"]))
+        with torch.enable_grad():
+            sum((o * weight).sum() for o in stack(_t(H0), _t(adj), _t(sm))).backward()
+        return {n: p.grad for n, p in stack.named_parameters()}
+
+    want = grads("eager", False)
+    assert all(g is not None and torch.isfinite(g).all() for g in want.values())
+    for impl, remat in (("kernel", False), ("kernel", True), ("eager", True)):
+        got = grads(impl, remat)
+        for name, g in want.items():
+            np.testing.assert_allclose(got[name].numpy(), g.numpy(), rtol=0,
+                                       atol=ATOL * max(1.0, g.abs().max().item()), err_msg=name)
 
 
 @pytest.mark.parametrize("kind", ["global", "past"])
@@ -231,11 +246,16 @@ def test_params_and_dag_impl_match_jax():
     assert tdagerc.resolve_dag_impl("auto") == ("eager", "kernel")
     assert jdagerc.resolve_dag_impl("auto", "tpu", 1) == ("xla", "pallas")
     assert tdagerc.resolve_dag_impl("eager") == ("eager", "eager")
-    for other in ("pallas", "kernel"):  # K3 has no backward, so no choice forces it in training
-        with pytest.raises(ValueError):
-            tdagerc.DAGERCParams().from_args([f"--dag_impl={other}"])
-        with pytest.raises(ValueError):
-            tdagerc.resolve_dag_impl(other)
+    # `kernel` is the port's name for JAX's `pallas`: K3/K4 in training and eval
+    assert tdagerc.resolve_dag_impl("kernel") == ("kernel", "kernel")
+    assert jdagerc.resolve_dag_impl("pallas", "tpu", 1) == ("pallas", "pallas")
+    p = tdagerc.DAGERCParams()
+    p.from_args(["--dag_impl=kernel"])
+    assert p.dag_impl == "kernel" and p.dag_remat is True and jdagerc.DAGERCParams().dag_remat is True
+    with pytest.raises(ValueError):
+        tdagerc.DAGERCParams().from_args(["--dag_impl=pallas"])
+    with pytest.raises(ValueError):
+        tdagerc.resolve_dag_impl("pallas")
 
 
 def test_npz_conversion_serves_jax_engine_weights(tmp_path):

@@ -1,0 +1,370 @@
+"""The port's DAG-ERC training (erc_tpu_torch.train, models.dagerc) ≡ the
+JAX package's.
+
+Small widths (hidden 16 or 8, chunk 4, 2 layers; B 3 with an all-padding
+dialogue; L 14 or 10, not a multiple of the chunk), on the CPU, where K3 and
+K4 run as their plain versions through the autograd Function:
+
+- ``DAGStack(impl='kernel')`` gradients against ``jax.grad`` of JAX's
+  ``DAGStack(impl='pallas')`` (interpret mode), with and without remat,
+  for the parameters and the input; tolerance 1e-5 × max(1, max |want|)
+  (float32, summation order only; weight gradients sum over B·L);
+- ``masked_cross_entropy``/``masked_accuracy``, the optimizers with the
+  clip (optax's ``build_optim(..., grad_clip_norm=5.0)``), the plateau
+  controller, ``classification_summary`` (sklearn's numbers) and
+  ``DialogueLoader``'s batches against the JAX package's: 1e-6, or exact
+  where no float arithmetic differs;
+- a 3-step DAG-ERC trajectory against the JAX pieces that
+  ``Trainer._make_raw_train_step`` composes, at matmul precision highest
+  and dropout 0: per-step loss within 1e-5 relative, first-step gradients
+  within 1e-5 × max(1, max |want|), parameters after 3 steps within 1e-4
+  (Adam divides by the root of the second moment, which magnifies the
+  gradients' last-digit differences);
+- ``python -m erc_tpu_torch.train --device=cpu`` for 2 steps, in a fresh
+  interpreter, which also shows that the port's training imports no JAX.
+"""
+
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import optax
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from erc_tpu.data import loader as jloader
+from erc_tpu.data import registry as jregistry
+from erc_tpu.data.collate import ERCBatcher as JERCBatcher
+from erc_tpu.data.synthetic import synthetic_erc as j_synthetic_erc
+from erc_tpu.models import dagerc as jdagerc
+from erc_tpu.ops import graphs as jgraphs
+from erc_tpu.train import metrics as jmetrics
+from erc_tpu.train import optim as joptim
+from erc_tpu.train import trainer as jtrainer
+from erc_tpu_torch import convert
+from erc_tpu_torch.core.params import Params
+from erc_tpu_torch.data import loader as tloader
+from erc_tpu_torch.data import registry as tregistry
+from erc_tpu_torch.data.collate import ERCBatcher
+from erc_tpu_torch.models import dagerc as tdagerc
+from erc_tpu_torch.ops.kernels import dag_block as tdb
+from erc_tpu_torch.train import metrics as tmetrics
+from erc_tpu_torch.train import optim as toptim
+from erc_tpu_torch.train import trainer as ttrainer
+
+ROOT = Path(__file__).resolve().parents[1]
+RTOL = 1e-5
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a, np.float32 if np.asarray(a).dtype.kind == "f" else None, copy=True))
+
+
+def _close(got, want, name, rtol=RTOL):
+    want = np.asarray(want)
+    np.testing.assert_allclose(np.asarray(got), want, rtol=0,
+                               atol=rtol * max(1.0, float(np.abs(want).max(initial=0.0))), err_msg=name)
+
+
+# ------------------------------------------------------------------ DAGStack
+def _stack_inputs():
+    r = np.random.default_rng(0)
+    B, L, D = 3, 10, 8
+    lengths = np.asarray([10, 7, 0], np.int32)
+    H0 = r.normal(size=(B, L, D)).astype(np.float32)
+    spk = r.integers(0, 2, (B, L)).astype(np.int32)
+    adj = np.asarray(jgraphs.dag_adjacency(jnp.asarray(spk), jnp.asarray(lengths), L, 1))
+    sm = np.asarray(jgraphs.same_speaker_mask(jnp.asarray(spk)))
+    # the loss reads the dialogues' positions only, as DAG-ERC's masked loss does
+    valid = (np.arange(L)[None] < lengths[:, None]).astype(np.float32)
+    weight = (r.normal(size=(2, B, L, D)) * valid[None, ..., None]).astype(np.float32)
+    return H0, adj, sm, weight
+
+
+@pytest.fixture(scope="module")
+def stack_grads_jax():
+    """jax.grad of the weighted outputs of JAX's DAGStack(impl='pallas'), w.r.t.
+    its parameters and the input (without remat, which changes no value and
+    doubles the interpret-mode compile)."""
+    H0, adj, sm, weight = _stack_inputs()
+    jm = jdagerc.DAGStack(8, 2, chunk=4, remat=False, impl="pallas")
+    variables = jdagerc.DAGStack(8, 2, chunk=4, impl="xla").init(jax.random.PRNGKey(1), H0, adj, sm)
+
+    def loss(params, h):
+        outs = jm.apply({"params": params}, h, adj, sm, deterministic=False)
+        return sum(jnp.vdot(o, w) for o, w in zip(outs, weight))
+
+    with jax.default_matmul_precision("highest"):
+        g_params, g_h = jax.jit(jax.grad(loss, argnums=(0, 1)))(variables["params"], H0)
+    return variables["params"], g_params, g_h
+
+
+@pytest.mark.parametrize("remat", [True, False], ids=["remat", "no-remat"])
+def test_dag_stack_kernel_grads_match_jax_pallas(stack_grads_jax, remat):
+    params, g_params, g_h = stack_grads_jax
+    H0, adj, sm, weight = _stack_inputs()
+    stack = tdagerc.DAGStack(8, 2, chunk=4, impl="kernel", remat=remat).train()
+    stack.load_state_dict({k: _t(v) for k, v in params.items()})
+    h = _t(H0).requires_grad_(True)
+    tdb.reset_launches()
+    with torch.enable_grad():
+        outs = stack(h, _t(adj), _t(sm))
+        sum((o * _t(w)).sum() for o, w in zip(outs, weight)).backward()
+    assert tdb.launches == {"dag_block": 0, "dag_block_bwd": 0}  # CPU tensors: plain versions
+    _close(h.grad.numpy(), g_h, "H0")
+    for name, p in stack.named_parameters():
+        _close(p.grad.numpy(), g_params[name], name)
+
+
+# ------------------------------------------------------------------ loss, metrics
+@pytest.mark.parametrize("weighted", [False, True], ids=["plain", "class-weights"])
+def test_masked_cross_entropy_and_accuracy_match_jax(weighted):
+    r = np.random.default_rng(1)
+    logits = r.normal(size=(3, 7, 6)).astype(np.float32)
+    labels = r.integers(0, 6, (3, 7)).astype(np.int32)
+    mask = (np.arange(7)[None] < np.asarray([7, 4, 0])[:, None]).astype(np.float32)
+    labels[mask == 0] = -1
+    logits[0, 0] = logits[0, 0, 2]  # a tie: both take the first maximum
+    cw = r.random(6).astype(np.float32) + 0.5 if weighted else None
+    want_ce = jtrainer.masked_cross_entropy(jnp.asarray(logits), jnp.asarray(labels), jnp.asarray(mask),
+                                            None if cw is None else jnp.asarray(cw))
+    got_ce = ttrainer.masked_cross_entropy(_t(logits), _t(labels), _t(mask), None if cw is None else _t(cw))
+    np.testing.assert_allclose(got_ce.item(), float(want_ce), rtol=1e-6)
+    want_acc = jtrainer.masked_accuracy(jnp.asarray(logits), jnp.asarray(labels), jnp.asarray(mask))
+    assert ttrainer.masked_accuracy(_t(logits), _t(labels), _t(mask)).item() == pytest.approx(float(want_acc))
+
+
+def test_classification_summary_matches_sklearn_with_absent_class():
+    r = np.random.default_rng(2)
+    true = r.integers(0, 4, 60)  # classes 4 and 5 never the target
+    pred = np.where(r.random(60) < 0.6, true, r.integers(0, 6, 60))
+    pred[pred == 4] = 5  # class 4 nowhere, class 5 only predicted
+    want = jmetrics.classification_summary(true.tolist(), pred.tolist(), 6)
+    got = tmetrics.classification_summary(true.tolist(), pred.tolist(), 6)
+    assert got.keys() == want.keys()
+    np.testing.assert_array_equal(got["cm"], want["cm"])
+    for k in got:
+        if k != "cm":
+            np.testing.assert_allclose(got[k], want[k], rtol=1e-12, atol=1e-15, err_msg=k)
+
+
+# ------------------------------------------------------------------ optimizers
+OPTIMS = [("adamw", 0.0, 0.0), ("adamw", 1e-2, 0.0), ("adam", 1e-2, 0.0), ("sgd", 0.0, 0.9)]
+
+
+@pytest.mark.parametrize("name,wd,momentum", OPTIMS, ids=[f"{n}-wd{w}-m{m}" for n, w, m in OPTIMS])
+@pytest.mark.parametrize("grad_scale", [0.1, 10.0], ids=["clip-idle", "clip-active"])
+def test_optimizer_step_and_clip_match_optax(name, wd, momentum, grad_scale):
+    r = np.random.default_rng(3)
+    shapes = {"w": (5, 4), "b": (4,), "v": (3, 2, 2)}
+    init = {k: r.normal(size=s).astype(np.float32) for k, s in shapes.items()}
+    grads = [{k: (r.normal(size=s) * grad_scale).astype(np.float32) for k, s in shapes.items()}
+             for _ in range(3)]
+    cfg = dict(name=name, lr=0.01, weight_decay=wd, momentum=momentum, nesterov=momentum > 0)
+    jcfg = joptim.create_optim(**cfg)
+    tx = joptim.build_optim(jcfg, grad_clip_norm=5.0)
+    jp = {k: jnp.asarray(v) for k, v in init.items()}
+    state = tx.init(jp)
+    tp = {k: torch.nn.Parameter(_t(v)) for k, v in init.items()}
+    opt = toptim.build_optim(Params(**cfg), tp.values())
+    for g in grads:
+        updates, state = tx.update({k: jnp.asarray(v) for k, v in g.items()}, state, jp)
+        jp = optax.apply_updates(jp, updates)
+        for k, p in tp.items():
+            p.grad = _t(g[k])
+        norm = toptim.clip_by_global_norm_([p.grad for p in tp.values()], 5.0)
+        np.testing.assert_allclose(norm.item(), float(optax.global_norm(g)), rtol=1e-6)
+        opt.step()
+    for k in shapes:
+        np.testing.assert_allclose(tp[k].detach().numpy(), np.asarray(jp[k]), rtol=0, atol=1e-6, err_msg=k)
+
+
+def test_adamw_passes_the_configs_weight_decay():
+    opt = toptim.build_optim(Params(name="AdamW", lr=1e-3, weight_decay=0.0), [torch.nn.Parameter(torch.ones(2))])
+    assert opt.param_groups[0]["weight_decay"] == 0.0  # torch's own default is 0.01
+
+
+def test_plateau_controller_matches_jax():
+    losses = [1.0, 0.9, 0.8] + [0.8] * 12 + [0.79995] * 3 + [0.5] + [0.6] * 25
+    jsche = joptim.ReduceLROnPlateau(mode="min")
+    trainer = ttrainer.Trainer.__new__(ttrainer.Trainer)
+    trainer.params = Params(lr_plateau=True)
+    trainer.optimizer = torch.optim.SGD([torch.nn.Parameter(torch.ones(1))], lr=1e-3)
+    trainer.lr_sche = torch.optim.lr_scheduler.ReduceLROnPlateau(trainer.optimizer, "min")
+    trainer.log = lambda msg: None
+    lr, seen = 1e-3, set()
+    for loss in losses:
+        lr = jsche.step(loss, lr)
+        trainer._plateau_step(loss)
+        assert trainer.optimizer.param_groups[0]["lr"] == pytest.approx(lr, rel=1e-12)
+        seen.add(lr)
+    assert len(seen) == 4  # three reductions happened
+
+
+# ------------------------------------------------------------------ data
+def test_dialogue_loader_batches_match_jax_over_two_epochs():
+    samples = j_synthetic_erc("iemocap-cogmen", 6, "train", n_train=37, min_len=4, max_len=30)
+    kw = dict(batch_size=5, shuffle=True, seed=7, sort_by_length=True, sort_chunk=2)
+    jl = jloader.DialogueLoader(samples, JERCBatcher("atv", 6, 2, bucket=8, max_len=32, pad_batch_to=5),
+                                process_index=0, process_count=1, **kw)
+    tl = tloader.DialogueLoader(samples, ERCBatcher("atv", 6, 2, bucket=8, max_len=32, pad_batch_to=5), **kw)
+    assert len(tl) == len(jl) == 8
+    for epoch in range(2):
+        jl.set_epoch(epoch)
+        tl.set_epoch(epoch)
+        pairs = list(zip(tl, jl))
+        assert len(pairs) == 8
+        for got, want in pairs:
+            assert got.keys() == want.keys()
+            for k in got:
+                if want[k] is None:
+                    assert got[k] is None, k
+                else:
+                    np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    cut = tloader.DialogueLoader(samples, tl.batcher, batch_size=5, seed=7, batch_count=11)
+    assert len(list(cut)) == 11  # an epoch cycled past its 8 batches
+
+
+def test_registry_matches_jax_for_synthetic_names():
+    for name in ("synthetic-iemocap-6", "synthetic-cogmen-4", "synthetic-mosei-6", "mosei-x-7", "iemocap-4"):
+        assert tregistry.n_classes_of(name) == jregistry.n_classes_of(name)
+        assert tregistry.dataset_has_val(name) == jregistry.dataset_has_val(name), name
+    for split in ("train", "test"):
+        got = tregistry.pick_datas(None, "synthetic-iemocap-6", split)
+        want = jregistry.pick_datas(None, "synthetic-iemocap-6", split)
+        assert len(got) == len(want) == {"train": 120, "test": 31}[split]
+        np.testing.assert_array_equal(got[3]["visual"], want[3]["visual"])
+    with pytest.raises(NotImplementedError):
+        tregistry.pick_datas(None, "iemocap-cogmen-6")
+
+
+# ------------------------------------------------------------------ trajectory
+SMALL = ["--dataset=synthetic-iemocap-6", "--hidden_dim=16", "--gnn_layers=2", "--dag_chunk=4",
+         "--device=cpu", "--dag_impl=kernel"]
+
+
+def _flax_params(state):
+    """The flax params of a fused DAGERCModule from the port's state dict."""
+    tree = {}
+    for key, v in state.items():
+        *path, leaf = key.split(".")
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        a = v.detach().numpy().copy()
+        if path[0] == "stack":
+            node[leaf] = a
+        else:  # Linear {weight [out, in], bias} → Dense {kernel [in, out], bias}
+            node["kernel" if leaf == "weight" else "bias"] = a.T if leaf == "weight" else a
+    return tree
+
+
+def _port_trainer(*extra):
+    p = tdagerc.DAGERCParams()
+    p.finalize(SMALL + list(extra))
+    p.dropout = 0.0
+    trainer = tdagerc.DAGERCTrainer(p)
+    trainer.log = lambda msg: None
+    trainer.initialize()
+    return trainer
+
+
+def _batches(n=3):
+    batcher = JERCBatcher("atv", 6, 2, speaker_onehot=True, bucket=0, max_len=14, pad_batch_to=3)
+    return [batcher(j_synthetic_erc("iemocap-cogmen", 6, "train", n_train=2, min_len=6, max_len=20, seed=s))
+            for s in range(n)]
+
+
+def _torch_batch(batch):
+    return {k: torch.from_numpy(v) for k, v in batch.items() if v is not None}
+
+
+def test_dag_remat_gives_the_same_gradients():
+    batch = _torch_batch(_batches(1)[0])
+    on, off = _port_trainer("--dag_remat=true"), _port_trainer("--dag_remat=false")
+    assert on.model.stack.remat and not off.model.stack.remat
+    on.compute_grads(batch)
+    off.compute_grads(batch)
+    for (name, a), b in zip(on.model.named_parameters(), off.model.parameters()):
+        np.testing.assert_allclose(a.grad.numpy(), b.grad.numpy(), rtol=0, atol=1e-7, err_msg=name)
+
+
+def test_three_step_trajectory_matches_jax():
+    trainer = _port_trainer()
+    assert trainer.model.stack.impl == "kernel" and trainer.model.stack.remat
+    params0 = _flax_params(trainer.model.state_dict())
+    jp = tdagerc.DAGERCParams()  # the JAX module and optimizer from the same settings
+    jm = jdagerc.DAGERCModule(emb_dim=712, n_classes=6, gnn_layers=2, hidden_dim=16, chunk=4, remat=True,
+                              impl="xla", drop_rate=0.0)
+    tx = joptim.build_optim(joptim.create_optim(jp.optim.name, lr=jp.optim.lr, weight_decay=0.0),
+                            grad_clip_norm=5.0)
+
+    def loss_fn(params, batch):
+        logits = jm.apply({"params": params}, batch, deterministic=False)
+        return jtrainer.masked_cross_entropy(logits, batch["label"], batch["attention_mask"])
+
+    @jax.jit
+    def step(params, opt_state, batch):  # Trainer._make_raw_train_step's composition
+        loss, grads = jax.value_and_grad(loss_fn)(params, batch)
+        updates, opt_state = tx.update(grads, opt_state, params)
+        return optax.apply_updates(params, updates), opt_state, loss, grads, optax.global_norm(grads)
+
+    params, opt_state = params0, tx.init(params0)
+    for i, batch in enumerate(_batches()):
+        with jax.default_matmul_precision("highest"):
+            params, opt_state, loss, grads, gnorm = step(params, opt_state, batch)
+        mets = trainer.train_step(_torch_batch(batch))
+        np.testing.assert_allclose(mets["Lall"].item(), float(loss), rtol=RTOL, err_msg=f"loss {i}")
+        np.testing.assert_allclose(mets["gnorm"].item(), float(gnorm), rtol=RTOL, err_msg=f"gnorm {i}")
+        if i == 0:
+            want = convert.dagerc_state(jax.tree_util.tree_map(np.asarray, grads))
+            for name, p in trainer.model.named_parameters():
+                # the step scaled the gradients in place when the clip was active
+                _close(p.grad.numpy() * max(1.0, float(gnorm) / 5.0), want[name].numpy(), f"grad {name}")
+    want = convert.dagerc_state(jax.tree_util.tree_map(np.asarray, params))
+    for name, p in trainer.model.named_parameters():
+        np.testing.assert_allclose(p.detach().numpy(), want[name].numpy(), rtol=0, atol=1e-4, err_msg=name)
+
+
+def test_dropout_draws_from_the_seeded_generator():
+    a, b = _port_trainer("--seed=3"), _port_trainer("--seed=3")
+    for t in (a, b):
+        t.model.dropout.p = 0.5
+    batch = _torch_batch(_batches(1)[0])
+    a.model.train()
+    b.model.train()
+    torch.manual_seed(0)
+    la = a.model(batch)
+    torch.manual_seed(1)  # the global RNG plays no part
+    np.testing.assert_array_equal(la.detach().numpy(), b.model(batch).detach().numpy())
+    assert not torch.equal(la, a.model(batch))  # the stream moves on
+
+
+# ------------------------------------------------------------------ entry point
+def test_train_entry_point_runs_two_steps_on_cpu():
+    cmd = [sys.executable, "-m", "erc_tpu_torch.train", "--module=dagerc", *SMALL, "--epoch=1",
+           "--batch_count=2", "--max_seq_len=16", "--train.batch_size=4", "--test.batch_size=16",
+           "--confusion_matrix=false"]
+    code = ("import runpy, sys\n"
+            "import erc_tpu_torch.train, erc_tpu_torch.models.dagerc, erc_tpu_torch.ops.kernels.dag_block\n"
+            f"sys.argv = {['erc_tpu_torch.train'] + cmd[3:]!r}\n"
+            "runpy.run_module('erc_tpu_torch.train', run_name='__main__')\n"
+            "bad = [n for n in sys.modules if n.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'erc_tpu')]\n"
+            "print('JAX modules:', bad)\n"
+            "sys.exit(1 if bad else 0)\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+    out = res.stdout
+    assert "e0 b0 Lall=" in out and "epoch 0: " in out and "2 steps" in out, out
+    assert "test: acc=" in out and "Lall=" in out.split("test: acc=")[1], out
+    assert "JAX modules: []" in out
+
+
+def test_train_main_without_cuda_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tdagerc.main([a for a in SMALL if a != "--device=cpu"])
