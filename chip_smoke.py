@@ -6,12 +6,14 @@
 Phases (any failure raises, so the exit code is non-zero):
   1. probe the toolchain and the card, build the CUDA kernels from csrc/;
   2. hold each kernel against its plain PyTorch version on the card at the
-     shapes the model paths give it (K1/K2 banded, K3 dag_block, K4
-     dag_block_bwd), and time kernel, plain version and, where one exists,
-     a library yardstick;
+     shapes the model paths give it (K1/K2 banded in both instantiations,
+     16-byte and 4-byte, K3 dag_block, K4 dag_block_bwd), and time kernel
+     (graph and eager call), plain version and, where one exists, a library
+     yardstick (graph and eager call); K1/K2 also at batch 256;
   3. drive COGMEN serving at full width (712 → 100, 2-layer encoder,
-     banded graph) through InferenceEngine: predict, banded ≡ dense, a
-     single-dialogue request, an HTTP round trip, latency and throughput;
+     banded graph) through InferenceEngine: predict (every K1/K2 launch
+     16-byte), banded ≡ dense, a single-dialogue request, an HTTP round
+     trip, latency, throughput and profile;
   4. drive DAG-ERC serving at full width (712 → 300, 4 DAG layers, chunk
      16) through InferenceEngine: predict through K3, kernel ≡ eager form,
      card ≡ CPU, a single-dialogue request, latency, throughput, profile;
@@ -172,8 +174,55 @@ def _band_matrix(coef, L, offsets):
     return A
 
 
+def _variant_of(kb, name: str, before: dict) -> str:
+    """The instantiation ("vec4" or "scalar") of the one launch of `name`
+    since the counts were `before`."""
+    taken = [k.split("/")[1] for k, n in kb.variant_launches.items()
+             if k.startswith(name + "/") and n - before[k] == 1]
+    require(len(taken) == 1, f"{name}: no single variant launch in {kb.variant_launches} after {before}")
+    return taken[0]
+
+
+def _band_timings(name, fn, ref, x, y, offs):
+    """Kernel (graph-timed and eager call), plain version, bound and the
+    dense torch.bmm yardstick (graph-timed and eager call) on (x, y, offs)."""
+    import torch
+
+    Bm, Lm, Dm = y.shape
+    K = len(offs)
+    taps = Bm * _valid_taps(Lm, offs)
+    # each input read once, each output written once
+    if name == "banded_gather_sum":
+        bytes_moved = 4 * (Bm * Lm * K + 2 * Bm * Lm * Dm)
+        A = _band_matrix(x, Lm, offs)
+        library = lambda: torch.bmm(A, y)  # noqa: E731
+    else:
+        bytes_moved = 4 * (2 * Bm * Lm * Dm + Bm * Lm * K)
+        yt = y.transpose(1, 2)
+        library = lambda: torch.bmm(x, yt)  # noqa: E731
+    bound_ms, bound_by = _bound(bytes_moved, 2 * taps * Dm)
+    rec = {
+        "shape": f"B={Bm} L={Lm} D={Dm} K={K}",
+        "ms": _median_graph_ms(lambda: fn(x, y, offs)),
+        "eager_ms": _median_event_ms(lambda: fn(x, y, offs)),
+        "plain_ms": _median_graph_ms(lambda: ref(x, y, offs)),
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": _median_graph_ms(library),
+        "library_eager_ms": _median_event_ms(library),
+    }
+    log(f"{name} timing at {rec['shape']}: kernel {rec['ms']:.6f} ms (eager call "
+        f"{rec['eager_ms']:.6f}), plain {rec['plain_ms']:.6f}, bound {bound_ms:.6f} ({bound_by}: "
+        f"{bytes_moved / 1e6:.3f} MB), torch.bmm {rec['library_ms']:.6f} (eager call "
+        f"{rec['library_eager_ms']:.6f}); kernel/bound {rec['ms'] / bound_ms:.2f}, "
+        f"kernel/bmm {rec['ms'] / rec['library_ms']:.3f}")
+    return rec
+
+
 def check_kernels():
-    """K1/K2 against their plain versions on the card; returns per-kernel records."""
+    """K1/K2 against their plain versions on the card in both instantiations
+    (16-byte "vec4" and 4-byte "scalar"); times at COGMEN's serving batch 32
+    and at its max-throughput batch 256; returns per-kernel records."""
     import torch
     from erc_tpu_torch.ops.kernels import banded as kb
 
@@ -183,18 +232,40 @@ def check_kernels():
         return torch.randn(*shape, device="cuda", generator=g)
 
     full, neg, pos = tuple(range(-5, 6)), tuple(range(-5, 0)), tuple(range(0, 6))
-    wide = tuple(range(-10, 11))
-    B, L, D, S = 32, 112, 100, 2
-    cases_k1, cases_k2 = [], []
-    # TransformerConv's aggregation: [B, L, 11] weights over a contiguous [B, L, D]
-    cases_k1.append(("full", randn(B, L, 11), randn(B, L, D), full))
-    # the RGCN's sub-ranges read Ysel[:, :, s, t, :], a strided view of [B, L, S, 2, D]
+    wide, k64 = tuple(range(-10, 11)), tuple(range(-32, 32))
+    B, L, D, S, BT = 32, 112, 100, 2, 256
+    x, y = randn(B, L, D), randn(B, L, D)
+    # D = 99 one float past an aligned base; D = 100 one float past it, rows 104 apart
+    x99, y99 = randn(B, L, D)[:, :, 1:], randn(B, L, D)[:, :, 1:]
+    x_off, y_off = randn(B, L, D + 4)[:, :, 1 : D + 1], randn(B, L, D + 4)[:, :, 1 : D + 1]
+    xt, yt = randn(BT, L, D), randn(BT, L, D)
+    # (label, x, y, offsets, the instantiation the layout admits)
+    cases_k1 = [
+        # TransformerConv's aggregation: [B, L, 11] weights over a contiguous [B, L, D]
+        ("full", randn(B, L, 11), x, full, "vec4"),
+        ("edge-L7-D13-K21", randn(2, 7, 21), randn(2, 7, 13), wide, "scalar"),
+        ("misaligned-D99", randn(B, L, 11), x99, full, "scalar"),
+        ("offset-one-float-D100", randn(B, L, 11), x_off, full, "scalar"),
+        ("L3-below-one-tile", randn(2, 3, 11), randn(2, 3, D), full, "vec4"),
+        ("K64", randn(B, L, 64), x, k64, "vec4"),
+        ("K21-full-width", randn(B, L, 21), x, wide, "vec4"),
+        ("B256", randn(BT, L, 11), xt, full, "vec4"),
+    ]
+    # the RGCN's sub-ranges read Ysel[:, :, s, t, :], strided views of [B, L, S, 2, D]
     ysel = randn(B, L, S, 2, D)
-    cases_k1.append(("neg-strided", randn(B, L, 5), ysel[:, :, 1, 0, :], neg))
-    cases_k1.append(("pos-strided", randn(B, L, 6), ysel[:, :, 0, 1, :], pos))
-    cases_k1.append(("edge-L7-D13-K21", randn(2, 7, 21), randn(2, 7, 13), wide))
-    cases_k2.append(("full", randn(B, L, D), randn(B, L, D), full))
-    cases_k2.append(("edge-L7-D13-K21", randn(2, 7, 13), randn(2, 7, 13), wide))
+    for s in range(S):
+        cases_k1.append((f"neg-strided-s{s}", randn(B, L, 5), ysel[:, :, s, 0, :], neg, "vec4"))
+        cases_k1.append((f"pos-strided-s{s}", randn(B, L, 6), ysel[:, :, s, 1, :], pos, "vec4"))
+    cases_k2 = [
+        ("full", x, y, full, "vec4"),
+        ("edge-L7-D13-K21", randn(2, 7, 13), randn(2, 7, 13), wide, "scalar"),
+        ("misaligned-D99", x99, y99, full, "scalar"),
+        ("offset-one-float-D100", x_off, y_off, full, "scalar"),
+        ("L3-below-one-tile", randn(2, 3, D), randn(2, 3, D), full, "vec4"),
+        ("K64", x, y, k64, "vec4"),
+        ("K21-full-width", x, y, wide, "vec4"),
+        ("B256", xt, yt, full, "vec4"),
+    ]
 
     records = {}
     for name, fn, ref, cases in (
@@ -202,47 +273,34 @@ def check_kernels():
         ("banded_dot", kb.banded_dot, kb.banded_dot_reference, cases_k2),
     ):
         errs = []
-        for label, x, y, offs in cases:
-            got = fn(x, y, offs)
+        for label, a, b, offs, variant in cases:
+            before = dict(kb.variant_launches)
+            got = fn(a, b, offs)
             torch.cuda.synchronize()
-            want = ref(x, y, offs)
+            taken = _variant_of(kb, name, before)
+            require(taken == variant, f"{name}[{label}] took the {taken} instantiation, want {variant}")
+            want = ref(a, b, offs)
             err = (got - want).abs().max().item()
             require(math.isfinite(err) and err <= KERNEL_TOL,
                     f"{name}[{label}] max abs err {err} > {KERNEL_TOL}")
             errs.append(err)
-            log(f"{name}[{label}] shape {tuple(y.shape)} K={len(offs)}: max abs err {err:.3e}")
-        label, x, y, offs = cases[0]
-        Bm, Lm, Dm = y.shape
-        K = len(offs)
-        taps = Bm * _valid_taps(Lm, offs)
-        if name == "banded_gather_sum":
-            bytes_moved = 4 * (Bm * Lm * K + 2 * Bm * Lm * Dm)
-            A = _band_matrix(x, Lm, offs)
-            library = lambda: torch.bmm(A, y)  # noqa: E731
-        else:
-            bytes_moved = 4 * (2 * Bm * Lm * Dm + Bm * Lm * K)
-            yt = y.transpose(1, 2)
-            library = lambda: torch.bmm(x, yt)  # noqa: E731
-        bound_ms, bound_by = _bound(bytes_moved, 2 * taps * Dm)
-        records[name] = {
+            log(f"{name}[{label}] shape {tuple(b.shape)} strides {b.stride()} K={len(offs)} "
+                f"({taken}): max abs err {err:.3e}")
+        _, a, b, offs, variant = cases[0]
+        rec = {
             "name": name,
             "route": "cuda",
             "source": "erc_tpu_torch/csrc/banded.cu",
             "replaces": ("erc_tpu/ops/pallas/banded.py:117" if name == "banded_gather_sum"
                          else "erc_tpu/ops/pallas/banded.py:222"),
             "tpu_source": f"erc_tpu/ops/pallas/banded.py:{name}",
-            "shape": f"B={Bm} L={Lm} D={Dm} K={K}",
+            "variant": variant,
             "max_abs_err": max(errs),
-            "ms": _median_graph_ms(lambda: fn(x, y, offs)),
-            "eager_ms": _median_event_ms(lambda: fn(x, y, offs)),
-            "plain_ms": _median_graph_ms(lambda: ref(x, y, offs)),
-            "bound_ms": bound_ms,
-            "bound_by": bound_by,
-            "library_ms": _median_graph_ms(library),
+            **_band_timings(name, fn, ref, a, b, offs),
         }
-        log(f"{name} timing at {records[name]['shape']}: kernel {records[name]['ms']:.5f} ms "
-            f"(eager call {records[name]['eager_ms']:.5f}), plain {records[name]['plain_ms']:.5f}, "
-            f"bound {bound_ms:.5f} ({bound_by}), bmm {records[name]['library_ms']:.5f}")
+        _, a, b, offs, variant = next(c for c in cases if c[0] == "B256")
+        rec["b256"] = {"variant": variant, **_band_timings(name, fn, ref, a, b, offs)}
+        records[name] = rec
     return records
 
 
@@ -520,14 +578,20 @@ def drive_cogmen(card: str):
     dialogues, desc = _dialogues()
     n_batches = -(-len(dialogues) // engine.batch_size)
 
+    from erc_tpu_torch.ops.kernels import banded as kb
+
     _reset_launches()
     results = engine.predict(dialogues)
     launches = _read_launches()
-    log(f"COGMEN path: {desc} in {n_batches} batches; launches {launches}")
+    variants = dict(kb.variant_launches)
+    log(f"COGMEN path: {desc} in {n_batches} batches; launches {launches}; by variant {variants}")
     require(launches["banded_gather_sum"] == 5 * n_batches,
             f"banded_gather_sum launched {launches['banded_gather_sum']} times, want {5 * n_batches}")
     require(launches["banded_dot"] == n_batches,
             f"banded_dot launched {launches['banded_dot']} times, want {n_batches}")
+    for name in ("banded_gather_sum", "banded_dot"):
+        require(variants[f"{name}/vec4"] == launches[name] and variants[f"{name}/scalar"] == 0,
+                f"{name}: not every launch on the COGMEN path took the 16-byte variant: {variants}")
     _check_results(dialogues, results)
 
     # banded ≡ dense on the card, and ≡ the CPU run of the same weights
@@ -566,8 +630,8 @@ def drive_cogmen(card: str):
     log("http: 2 requests answered")
 
     wall = _latency_throughput(engine, dialogues, card, "COGMEN")
-    profile_predict(engine, dialogues, wall, n_batches)
-    return launches
+    profile_predict(engine, dialogues, wall, n_batches, show=("banded_",))
+    return launches, variants
 
 
 # ------------------------------------------------------------------ phase 4
@@ -621,15 +685,16 @@ def drive_dagerc(card: str):
     return launches
 
 
-def profile_predict(engine, dialogues, wall_s: float, n_batches: int):
+def profile_predict(engine, dialogues, wall_s: float, n_batches: int, show=()):
     """Device time by kernel over one predict of `dialogues`."""
     _profile(lambda: engine.predict(dialogues),
-             f"predict of {len(dialogues)} dialogues ({n_batches} batches)", wall_s)
+             f"predict of {len(dialogues)} dialogues ({n_batches} batches)", wall_s, show)
 
 
-def _profile(fn, what: str, wall_s: float):
+def _profile(fn, what: str, wall_s: float, show=()):
     """Device time by kernel over one call of `fn` (torch.profiler), against
-    the unprofiled wall time of the same call."""
+    the unprofiled wall time of the same call: the 12 largest, and any other
+    kernel whose name holds a string in `show`."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -644,8 +709,10 @@ def _profile(fn, what: str, wall_s: float):
     n_kernels = sum(e.count for e in kernels)
     log(f"profile: {what}: {n_kernels} kernel launches, device busy {busy_ms:.3f} ms of "
         f"{wall_s * 1e3:.3f} ms unprofiled wall ({100 * busy_ms / (wall_s * 1e3):.1f}% busy)")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
-        log(f"  {e.self_device_time_total / 1e3:9.4f} ms  x{e.count:<5d} {e.key[:100]}")
+    ranked = sorted(kernels, key=lambda e: -e.self_device_time_total)
+    for i, e in enumerate(ranked):
+        if i < 12 or any(t in e.key for t in show):
+            log(f"  {e.self_device_time_total / 1e3:9.4f} ms  x{e.count:<5d} {e.key[:100]}")
 
 
 # ------------------------------------------------------------------ phase 5
@@ -797,7 +864,9 @@ def main() -> int:
     records = check_kernels()
     records["dag_block"] = check_dag_block()
     records["dag_block_bwd"] = check_dag_block_bwd()
-    launches = drive_cogmen(card)
+    launches, variants = drive_cogmen(card)
+    for name in ("banded_gather_sum", "banded_dot"):
+        records[name]["variant_launches"] = {k: n for k, n in variants.items() if k.startswith(name + "/")}
     launches["dag_block"] = drive_dagerc(card)["dag_block"]
     train = drive_training(card)
     launches["dag_block_bwd"] = train["dag_block_bwd"]

@@ -30,6 +30,9 @@ CASES = [
     (3, 13, 200, (-3, -1, 0, 2)),  # two column tiles in K1
     (1, 1, 1, (0,)),
     (2, 5, 257, (-7, 0, 9)),  # taps past both ends; a 1-wide last column tile
+    (256, 112, 100, tuple(range(-5, 6))),  # COGMEN's max-throughput batch at full width
+    (2, 40, 100, tuple(range(-32, 32))),  # K = 64, the kernel's limit
+    (3, 1, 100, (-1, 0, 1)),  # L = 1 at a 16-byte width
 ]
 
 
@@ -44,21 +47,38 @@ def _randn(g, *shape):
     return torch.randn(*shape, generator=g, device="cuda")
 
 
+def _variant_taken(name, before):
+    (taken,) = [k.split("/")[1] for k, n in kb.variant_launches.items()
+                if k.startswith(name + "/") and n == before[k] + 1]
+    return taken
+
+
 @pytest.mark.parametrize("B,L,D,offsets", CASES)
 def test_kernels_match_plain_versions(cuda, B, L, D, offsets):
+    """Both instantiations: 16-byte where D % 4 == 0 and the layout is
+    aligned, 4-byte on a view one float past an aligned base."""
     g = torch.Generator(device=cuda).manual_seed(0)
     K = len(offsets)
     coef, a, b = _randn(g, B, L, K), _randn(g, B, L, D), _randn(g, B, L, D)
     ysel = _randn(g, B, L, 2, 2, D)
     coef_view = _randn(g, B, L, K + 3)[:, :, 2 : 2 + K]  # strided rows, unit last stride
-    for c, src in ((coef, a), (coef, ysel[:, :, 1, 0, :]), (coef_view, a)):
+    a_off, b_off = _randn(g, B, L, D + 1)[:, :, 1:], _randn(g, B, L, D + 1)[:, :, 1:]
+    aligned = "vec4" if D % 4 == 0 else "scalar"
+    for c, src, variant in ((coef, a, aligned), (coef, ysel[:, :, 1, 0, :], aligned),
+                            (coef_view, a, aligned), (coef, a_off, "scalar")):
+        before = dict(kb.variant_launches)
         got = kb.banded_gather_sum(c, src, offsets)
         torch.cuda.synchronize()
+        assert _variant_taken("banded_gather_sum", before) == variant
         torch.testing.assert_close(got, kb.banded_gather_sum_reference(c, src, offsets),
                                    rtol=0, atol=1e-5)
-    got = kb.banded_dot(a, b, offsets)
-    torch.cuda.synchronize()
-    torch.testing.assert_close(got, kb.banded_dot_reference(a, b, offsets), rtol=0, atol=1e-5)
+    for x, y, variant in ((a, b, aligned), (ysel[:, :, 0, 0, :], ysel[:, :, 1, 1, :], aligned),
+                          (a_off, b_off, "scalar"), (a, b_off, "scalar")):
+        before = dict(kb.variant_launches)
+        got = kb.banded_dot(x, y, offsets)
+        torch.cuda.synchronize()
+        assert _variant_taken("banded_dot", before) == variant
+        torch.testing.assert_close(got, kb.banded_dot_reference(x, y, offsets), rtol=0, atol=1e-5)
 
 
 def test_kernels_reject_other_dtypes(cuda):
@@ -79,6 +99,9 @@ def test_engine_banded_equals_dense_and_counts_launches(cuda):
     kb.reset_launches()
     got = banded.logits(batch)
     assert kb.launches == {"banded_gather_sum": 5, "banded_dot": 1}
+    # every launch of the full-width (D = 100) path reads 16 bytes at a time
+    assert kb.variant_launches == {"banded_gather_sum/vec4": 5, "banded_gather_sum/scalar": 0,
+                                   "banded_dot/vec4": 1, "banded_dot/scalar": 0}
     np.testing.assert_allclose(got, dense.logits(batch), rtol=0, atol=1e-4)
 
 
