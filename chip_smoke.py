@@ -7,21 +7,26 @@ Phases (any failure raises, so the exit code is non-zero):
   1. probe the toolchain and the card, build the CUDA kernels from csrc/;
   2. hold each kernel against its plain PyTorch version on the card at the
      shapes the model paths give it (K1/K2 banded in both instantiations,
-     16-byte and 4-byte, K3 dag_block, K4 dag_block_bwd), and time kernel
-     (graph and eager call), plain version and, where one exists, a library
-     yardstick (graph and eager call); K1/K2 also at batch 256;
+     16-byte and 4-byte, K3 dag_block in both variants, cluster and stream,
+     bit for bit across repeats, K4 dag_block_bwd), and time kernel (graph
+     and eager call), plain version and, where one exists, a library
+     yardstick (graph and eager call); K1/K2 also at batch 256, K3 also at
+     batch 16 and in its other cluster plans (rows a cluster, columns a
+     block), with the card's cluster occupancy;
   3. drive COGMEN serving at full width (712 → 100, 2-layer encoder,
      banded graph) through InferenceEngine: predict (every K1/K2 launch
      16-byte), banded ≡ dense, a single-dialogue request, an HTTP round
      trip, latency, throughput and profile;
   4. drive DAG-ERC serving at full width (712 → 300, 4 DAG layers, chunk
-     16) through InferenceEngine: predict through K3, kernel ≡ eager form,
-     card ≡ CPU, a single-dialogue request, latency, throughput, profile;
+     16) through InferenceEngine: predict through K3 (every launch in the
+     cluster variant), kernel ≡ eager form, card ≡ CPU, a single-dialogue
+     request, latency, throughput, profile;
   5. drive DAG-ERC training at full width with the IEMOCAP reimplement
      settings (batch 16, AdamW 5e-4, dropout 0.2, clip 5.0, dag_remat)
-     through DAGERCTrainer with dag_impl=kernel (K3 forward, K4 backward):
-     gradients and 3 steps' losses ≡ the eager form, card ≡ CPU, one epoch
-     and test(), launch counts, dialogues/s, profile of one step;
+     through DAGERCTrainer with dag_impl=kernel (K3 forward, every launch
+     in the cluster variant, K4 backward): gradients and 3 steps' losses ≡
+     the eager form, card ≡ CPU, one epoch and test(), launch counts,
+     dialogues/s, profile of one step;
   6. print the run's wall time, one JSON line of kernel records, the card's
      name and power limit, and a last JSON line {"ok": true, "device": {...}}.
 Each model path is driven with every launch count set to 0 just before it
@@ -337,60 +342,139 @@ def _dag_inputs(g, B, C, D, prefix=True, pad_rows=0):
             num01, den_p, mp, amw, smw, *weights)
 
 
+def _dag_work(B, C, D):
+    """K3's least bytes (each input read once, each output written once) and
+    operations: the eight D x D products per (row, position), the gates, and
+    the attention over the c columns written before position c."""
+    f32 = 4
+    bytes_moved = f32 * (B * C * (1 + 6 * D + 2 * D + 2 + 2 * C)  # q, xcb, hppb, hb, num01, den_p, mp, masks
+                         + 8 * D * D + 6 * D + D  # weights and biases
+                         + B * C * (3 * D + 1))  # h1, V0w, V1w, Kw
+    flops = B * C * (16 * D * D + 2 * D + 30 * D) + B * (C * (C - 1) // 2) * 4 * D
+    return bytes_moved, flops
+
+
+def _k3_variant(kd, before: dict) -> str:
+    """The variant ("cluster" or "stream") of the one K3 launch since the counts were `before`."""
+    taken = [k.split("/")[1] for k, n in kd.variant_launches.items() if n - before[k] == 1]
+    require(len(taken) == 1, f"dag_block: no single variant launch in {kd.variant_launches} after {before}")
+    return taken[0]
+
+
+def _phase_cycles(kd) -> str:
+    """The phase stamps of K3's latest cluster launch (g_phase_cycles in
+    dag_block.cu) as cycles per phase: the weight load, the first cluster
+    barrier and the whole loop, then each phase of position C / 2."""
+    import ctypes
+
+    st = (ctypes.c_longlong * 13)()
+    err = kd._library().erc_dag_block_phase_cycles(st)
+    require(err == 0, f"dag_block phase stamps: cudaError {err}")
+    names = ("load", "first barrier", "loop", "(1) logits", "(2) M", "M barrier", "(3) gate products",
+             "(3) GRUs and h1", "h1 barrier", "(4) key and output products", "(4) V0/V1")
+    spans = {n: st[i + 1] - st[i] for i, n in enumerate(names)}
+    spans["loop"] = st[12] - st[2]
+    return ", ".join(f"{n} {v}" for n, v in spans.items())
+
+
 def check_dag_block():
-    """K3 against its plain version on the card; returns its record."""
+    """K3 against its plain version on the card in both variants, bit for bit
+    across repeats; its plan, the card's cluster occupancy, and its times at
+    DAG-ERC's serving (B = 32) and training (B = 16) shapes, in the committed
+    plan and in the other plans of the cluster variant; returns its record."""
     import torch
     from erc_tpu_torch.ops.kernels import dag_block as kd
 
     g = torch.Generator(device="cuda").manual_seed(1)
     B, C, D = 32, 16, 300  # DAG-ERC serving: batch 32, dag_chunk 16, hidden 300
     cases = [
-        ("full-prefix", _dag_inputs(g, B, C, D, prefix=True)),
-        ("full-first-block", _dag_inputs(g, B, C, D, prefix=False)),
-        ("full-padded-rows", _dag_inputs(g, B, C, D, prefix=True, pad_rows=5)),
-        ("ragged-B3-C5-D13", _dag_inputs(g, 3, 5, 13, prefix=True, pad_rows=2)),
+        ("full-prefix", _dag_inputs(g, B, C, D, prefix=True), "cluster"),
+        ("full-first-block", _dag_inputs(g, B, C, D, prefix=False), "cluster"),
+        ("full-padded-rows", _dag_inputs(g, B, C, D, prefix=True, pad_rows=5), "cluster"),
+        ("ragged-B3-C5-D13", _dag_inputs(g, 3, 5, 13, prefix=True, pad_rows=2), "cluster"),
+        ("stream-B4-C16-D512", _dag_inputs(g, 4, C, 512, prefix=True, pad_rows=3), "stream"),
     ]
     errs = []
-    for label, args in cases:
+    for label, args, variant in cases:
+        before = dict(kd.variant_launches)
         got = kd.dag_block(*args)
         torch.cuda.synchronize()
+        taken = _k3_variant(kd, before)
+        require(taken == variant, f"dag_block[{label}] took the {taken} variant, want {variant}")
         want = kd.dag_block_reference(*args)
         err = max((a - b).abs().max().item() for a, b in zip(got, want))
         finite = all(bool(torch.isfinite(a).all()) for a in got)
         require(finite and math.isfinite(err) and err <= DAG_TOL,
                 f"dag_block[{label}] max abs err {err} > {DAG_TOL} (finite outputs: {finite})")
+        again = kd.dag_block(*args)
+        torch.cuda.synchronize()
+        require(all(torch.equal(a, b) for a, b in zip(got, again)), f"dag_block[{label}] not deterministic")
         errs.append(err)
-        log(f"dag_block[{label}] B={args[1].shape[0]} C={args[1].shape[1]} D={args[4].shape[-1]}: "
-            f"max abs err {err:.3e} (tolerance {DAG_TOL})")
+        Bc, Cc, Dc = args[1].shape[0], args[1].shape[1], args[4].shape[-1]
+        log(f"dag_block[{label}] B={Bc} C={Cc} D={Dc} ({taken}, {kd.launch_plan(torch.device('cuda'), Bc, Cc, Dc)}): "
+            f"max abs err {err:.3e} (tolerance {DAG_TOL}), bitwise repeatable")
+    device = torch.device("cuda")
+    n_max = kd.max_clusters(device, C, D)
+    log(f"dag_block cluster occupancy: cudaOccupancyMaxActiveClusters = {n_max} clusters of "
+        f"{kd.CLUSTER_BLOCKS} blocks at C={C} D={D} ({kd.cluster_smem(1, C, D, kd.cluster_cols(D))} B "
+        f"of shared memory a block at one row)")
     args = cases[0][1]
-    # bytes: each input read once, each output written once; operations: the eight
-    # D x D products per (row, position), the gates, and the attention over the
-    # c columns written before position c
-    f32 = 4
-    bytes_moved = f32 * (B * C * (1 + 6 * D + 2 * D + 2 + 2 * C)  # q, xcb, hppb, hb, num01, den_p, mp, masks
-                         + 8 * D * D + 6 * D + D  # weights and biases
-                         + B * C * (3 * D + 1))  # h1, V0w, V1w, Kw
-    flops = B * C * (16 * D * D + 2 * D + 30 * D) + B * (C * (C - 1) // 2) * 4 * D
-    bound_ms, bound_by = _bound(bytes_moved, flops)
-    rec = {
+    train_args = _dag_inputs(g, 16, C, D, prefix=True)
+    timed = {}
+    for Bt, a in ((B, args), (16, train_args)):
+        p = kd.launch_plan(device, Bt, C, D)
+        bytes_moved, flops = _dag_work(Bt, C, D)
+        bound_ms, bound_by = _bound(bytes_moved, flops)
+        t = {
+            "plan": p,
+            "ms": _median_graph_ms(lambda: kd.dag_block(*a)),
+            "eager_ms": _median_event_ms(lambda: kd.dag_block(*a)),
+            "plain_ms": _median_graph_ms(lambda: kd.dag_block_reference(*a)),
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+        }
+        timed[Bt] = t
+        log(f"dag_block timing at B={Bt} C={C} D={D}, plan {p.variant} R={p.rows} n={p.n} w={p.cols}: "
+            f"kernel {t['ms']:.6f} ms (eager call {t['eager_ms']:.6f}), plain {t['plain_ms']:.6f}, bound "
+            f"{bound_ms:.6f} ({bound_by}: {bytes_moved / 1e6:.3f} MB, {flops / 1e9:.4f} GFLOP); "
+            f"kernel/bound {t['ms'] / bound_ms:.1f}")
+        log(f"dag_block phases at B={Bt} (cycles of thread 0 of the first block): {_phase_cycles(kd)}")
+        # the other plans of the cluster variant: rows a cluster and columns a block
+        designs = []
+        for rows in (2, 3, 4, 5):
+            for cols in (kd.cluster_cols(D), -(-D // kd.CLUSTER_BLOCKS)):
+                if not kd._cluster_fits(rows, C, D, cols) or (rows, cols) == (p.rows, p.cols):
+                    continue
+                q = kd.Plan("cluster", rows, -(-Bt // rows), cols)
+                fn = lambda q=q, a=a: kd._forward(a[0], a[1:], plan_=q)  # noqa: E731
+                err = max((x - y).abs().max().item() for x, y in zip(fn(), kd.dag_block_reference(*a)))
+                require(err <= DAG_TOL, f"dag_block plan {q}: max abs err {err} > {DAG_TOL}")
+                designs.append(f"R={rows} n={q.n} w={cols}: {_median_graph_ms(fn):.6f} ms (err {err:.1e})")
+        log(f"dag_block other cluster plans at B={Bt}: " + "; ".join(designs))
+    t = timed[B]
+    res_ms = _median_graph_ms(lambda: kd._forward(train_args[0], train_args[1:], residuals=True))
+    log(f"dag_block at the training shape B=16 with residuals: {res_ms:.6f} ms")
+    return {
         "name": "dag_block",
         "route": "cuda",
         "source": "erc_tpu_torch/csrc/dag_block.cu",
         "replaces": "erc_tpu/ops/pallas/dag_block.py:320",
         "tpu_source": "erc_tpu/ops/pallas/dag_block.py:dag_block",
         "shape": f"B={B} C={C} D={D}",
+        "variant": t["plan"].variant,
+        "rows": t["plan"].rows,
+        "clusters": t["plan"].n,
+        "cols": t["plan"].cols,
+        "max_active_clusters": n_max,
         "max_abs_err": max(errs),
-        "ms": _median_graph_ms(lambda: kd.dag_block(*args)),
-        "eager_ms": _median_event_ms(lambda: kd.dag_block(*args)),
-        "plain_ms": _median_graph_ms(lambda: kd.dag_block_reference(*args)),
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
+        "ms": t["ms"],
+        "eager_ms": t["eager_ms"],
+        "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"],
         "library_ms": None,  # no single PyTorch call computes this recurrence
+        "b16": {k: (v._asdict() if k == "plan" else v) for k, v in timed[16].items()} | {"residuals_ms": res_ms},
     }
-    log(f"dag_block timing at {rec['shape']}: kernel {rec['ms']:.5f} ms (eager call "
-        f"{rec['eager_ms']:.5f}), plain {rec['plain_ms']:.5f}, bound {bound_ms:.5f} ({bound_by}: "
-        f"{bytes_moved / 1e6:.3f} MB, {flops / 1e9:.4f} GFLOP)")
-    return rec
 
 
 def _dag_bwd_work(B, C, D):
@@ -495,10 +579,6 @@ def check_dag_block_bwd():
         f"{bytes_moved / 1e6:.3f} MB, {flops / 1e9:.4f} GFLOP); weight-gradient launch alone "
         f"{rec['wgrad_ms']:.5f} ms (bound {rec['wgrad_bound_ms']:.5f}), torch.einsum of the same "
         f"{rec['wgrad_library_ms']:.5f} ms, error {werr:.3e}")
-    k3 = lambda: kd.dag_block(*args)  # noqa: E731
-    k3_res = lambda: kd._forward(args[0], args[1:], residuals=True)  # noqa: E731
-    log(f"dag_block at the training shape B={Bt}: {_median_graph_ms(k3):.5f} ms, with residuals "
-        f"{_median_graph_ms(k3_res):.5f} ms")
     return rec
 
 
@@ -655,12 +735,17 @@ def drive_dagerc(card: str):
         blocks += -(-L // C)
     want = p.gnn_layers * blocks
 
+    from erc_tpu_torch.ops.kernels import dag_block as kd
+
     _reset_launches()
     results = engine.predict(dialogues)
     launches = _read_launches()
+    variants = dict(kd.variant_launches)
     log(f"DAG-ERC path: {desc} in {len(chunks)} batches, {blocks} blocks of {p.dag_chunk}; "
-        f"launches {launches}")
+        f"launches {launches}; by variant {variants}")
     require(launches["dag_block"] == want, f"dag_block launched {launches['dag_block']} times, want {want}")
+    require(variants == {"dag_block/cluster": want, "dag_block/stream": 0},
+            f"dag_block: not every launch on the DAG-ERC serving path took the cluster variant: {variants}")
     _check_results(dialogues, results)
 
     # kernel ≡ the eager form on the card, and ≡ the CPU run of the same weights
@@ -682,7 +767,7 @@ def drive_dagerc(card: str):
     log(f"DAG-ERC predict of {len(dialogues)} dialogues: {wall * 1e3:.3f} ms through K3, "
         f"{t_eager * 1e3:.3f} ms in the eager form")
     profile_predict(engine, dialogues, wall, len(chunks))
-    return launches
+    return launches, variants
 
 
 def profile_predict(engine, dialogues, wall_s: float, n_batches: int, show=()):
@@ -825,15 +910,21 @@ def drive_training(card: str):
     run = _trainer()
     train_blocks = sum(_blocks(b, chunk) for b in host)
     test_blocks = sum(_blocks(b, chunk) for b in run.make_loader("test"))
+    from erc_tpu_torch.ops.kernels import dag_block as kd
+
     _reset_launches()
     t0 = time.perf_counter()
     history = run.train()
     wall = time.perf_counter() - t0
     launches = _read_launches()
+    variants = dict(kd.variant_launches)
+    require(variants == {"dag_block/cluster": launches["dag_block"], "dag_block/stream": 0},
+            f"dag_block: not every launch on the training path took the cluster variant: {variants}")
     want = {"dag_block": 2 * layers * train_blocks + layers * test_blocks, "dag_block_bwd": layers * train_blocks}
     rec = history[0]
     log(f"DAG-ERC training path: {rec['steps']} steps over {rec['dialogues']} dialogues "
-        f"({train_blocks} blocks), then test() ({test_blocks} blocks) in {wall:.3f} s; launches {launches}")
+        f"({train_blocks} blocks), then test() ({test_blocks} blocks) in {wall:.3f} s; launches {launches}; "
+        f"K3 by variant {variants}")
     for name, n in want.items():
         require(launches[name] == n, f"{name} launched {launches[name]} times on the training path, want {n}")
     res = rec["test"]
@@ -867,7 +958,9 @@ def main() -> int:
     launches, variants = drive_cogmen(card)
     for name in ("banded_gather_sum", "banded_dot"):
         records[name]["variant_launches"] = {k: n for k, n in variants.items() if k.startswith(name + "/")}
-    launches["dag_block"] = drive_dagerc(card)["dag_block"]
+    serve, serve_variants = drive_dagerc(card)
+    launches["dag_block"] = serve["dag_block"]
+    records["dag_block"]["variant_launches"] = serve_variants
     train = drive_training(card)
     launches["dag_block_bwd"] = train["dag_block_bwd"]
     records["dag_block"]["train_launches"] = train["dag_block"]

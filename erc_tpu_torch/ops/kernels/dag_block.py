@@ -14,29 +14,46 @@ one block of C positions of one DAG layer, position c in order:
 For training it also returns the gate projections hpc and xpp, which K4,
 the port of ``_dag_block_bwd``, reads to sweep the positions in reverse.
 
+K3 has two variants, chosen by shape alone (``plan``): "cluster" spreads
+the weights over a cluster of 16 thread blocks, each holding a slice of
+columns in shared memory for the whole launch, and exchanges M and h1
+through distributed shared memory at every position (D up to 320);
+"stream" gives each thread block 1 or 2 batch rows and streams the
+weights from L2 at every position (any D whose rows' buffers fit).  See the
+note in ``csrc/dag_block.cu``.
+
 The arguments keep the JAX kernel's layout, so the tests compare like with
 like: weights as [k, d] rows (``Whc[g] = w_hh[gD:(g+1)D]ᵀ``), which is also
-the layout K3 reads coalesced, with threads over the output column d.  A
-wrapper given CPU tensors returns the plain version; given CUDA tensors it
-launches the kernel or raises.  ``dag_block`` takes the autograd Function
-when grad mode is on and an input requires grad.  The plain forward is
-differentiable by autograd too: it is DAGStack's eager form.  ``launches``
-counts kernel launches.
+the layout both variants read coalesced.  A wrapper given CPU tensors
+returns the plain version; given CUDA tensors it launches the kernel or
+raises.  ``dag_block`` takes the autograd Function when grad mode is on and
+an input requires grad.  The plain forward is differentiable by autograd
+too: it is DAGStack's eager form.  ``launches`` counts kernel launches,
+``variant_launches`` K3's by variant.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional, Tuple, Union
+import functools
+from typing import Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
 
 from erc_tpu_torch.ops.rnn import gru_cell_proj
 
-ROWS_PER_BLOCK = 2  # batch rows one thread block carries; 1 where 2 do not fit in shared memory
+# batch rows one thread block of K3's stream variant, and of K4, carries; 1
+# where 2 rows' buffers do not fit in shared memory
+ROWS_PER_BLOCK = 2
 _MAX_SMEM = 232448  # shared memory one block may use on Hopper (227 KB)
+# K3's cluster variant (kClusterBlocks, kMaxClusterRows, kClusterThreads, kRedPerRow in dag_block.cu)
+CLUSTER_BLOCKS = 16
+MAX_CLUSTER_ROWS = 8
+_CLUSTER_THREADS = 256
+_RED_PER_ROW = _CLUSTER_THREADS
 
 launches = {"dag_block": 0, "dag_block_bwd": 0}
+variant_launches = {"dag_block/cluster": 0, "dag_block/stream": 0}
 
 Flag = Union[int, bool, torch.Tensor]
 Outputs = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
@@ -44,8 +61,9 @@ Grads = Tuple[torch.Tensor, ...]
 
 
 def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
+    for counts in (launches, variant_launches):
+        for k in counts:
+            counts[k] = 0
 
 
 def _flag(flag: Flag) -> int:
@@ -256,10 +274,14 @@ def _library(name: str = "dag_block") -> ctypes.CDLL:
 
         lib = load(name)
         if name == "dag_block":
-            lib.erc_dag_block.argtypes = [ctypes.POINTER(_DagArgs), ctypes.c_int, ctypes.c_void_p]
+            lib.erc_dag_block.argtypes = [ctypes.POINTER(_DagArgs)] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
             lib.erc_dag_block.restype = ctypes.c_int
-            lib.erc_dag_block_smem.argtypes = [ctypes.c_int] * 3
+            lib.erc_dag_block_smem.argtypes = [ctypes.c_int] * 5
             lib.erc_dag_block_smem.restype = ctypes.c_longlong
+            lib.erc_dag_block_max_clusters.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
+            lib.erc_dag_block_max_clusters.restype = ctypes.c_int
+            lib.erc_dag_block_phase_cycles.argtypes = [ctypes.POINTER(ctypes.c_longlong)]
+            lib.erc_dag_block_phase_cycles.restype = ctypes.c_int
         else:
             lib.erc_dag_block_bwd_sweep.argtypes = [ctypes.POINTER(_DagBwdArgs), ctypes.c_int,
                                                     ctypes.c_void_p]
@@ -325,15 +347,116 @@ def _pick_rows(smem_bytes, C: int, D: int, name: str = "dag_block") -> int:
     return rows
 
 
+# ------------------------------------------------------------------ K3's plan
+class Plan(NamedTuple):
+    """How one K3 launch covers the batch."""
+
+    variant: str  # "cluster" or "stream"
+    rows: int  # batch rows a cluster (cluster) or a thread block (stream) carries
+    n: int  # clusters of CLUSTER_BLOCKS blocks (cluster) or thread blocks (stream)
+    cols: int  # output columns each block of a cluster owns (0 for stream)
+
+
+def cluster_cols(D: int) -> int:
+    """Columns each of the 16 blocks of a cluster owns: ⌈D / 16⌉ rounded up to
+    a multiple of 4, so that each row of a block's weight slice starts on 16
+    bytes (20 at D = 300: rank 15 owns none)."""
+    return _round4(-(-D // CLUSTER_BLOCKS))
+
+
+def _round4(x: int) -> int:
+    return (x + 3) // 4 * 4
+
+
+def cluster_smem(rows: int, C: int, D: int, cols: int) -> int:
+    """Shared memory (bytes) of one block of the cluster variant: its weight
+    and bias slices and the whole wk; per row the warps' partial products,
+    the full M and h1, V0/V1 of its columns, keys and logits
+    (``ClusterLayout`` in dag_block.cu)."""
+    weights = D * (_round4(6 * cols) + _round4(2 * cols)) + 6 * cols + D
+    per_row = _RED_PER_ROW + 2 * D + 2 * C * cols + 3 * C + 4
+    return 4 * (weights + rows * per_row)
+
+
+def stream_smem(rows: int, C: int, D: int) -> int:
+    """Shared memory (bytes) of one block of the stream variant
+    (``stream_smem_floats`` in dag_block.cu)."""
+    return 4 * (2 * rows * C * D + 2 * rows * D + 3 * rows * C + 4 * rows + rows * 16)
+
+
+def _cluster_fits(rows: int, C: int, D: int, cols: int) -> bool:
+    """``cluster_ok`` in dag_block.cu."""
+    return (1 <= rows <= MAX_CLUSTER_ROWS and 1 <= cols and cols * CLUSTER_BLOCKS >= D
+            and _round4(6 * cols) <= _CLUSTER_THREADS and rows * cols <= _CLUSTER_THREADS
+            and cluster_smem(rows, C, D, cols) <= _MAX_SMEM)
+
+
+def plan(B: int, C: int, D: int, n_max: int) -> Plan:
+    """K3's launch for a [B, C, D] block: the cluster variant where one row's
+    weight slices and buffers fit in shared memory, with n = min(B, n_max)
+    clusters of R = ⌈B / n⌉ rows (fewer rows, and then more clusters, where R
+    rows do not fit); else the stream variant with ROWS_PER_BLOCK rows a
+    block, or 1.  n_max is the number of clusters the card holds at once
+    (``max_clusters``).  Raises ValueError where neither variant fits."""
+    if B < 1 or C < 1 or D < 1:
+        raise ValueError(f"dag_block: no plan for B = {B}, C = {C}, D = {D}")
+    cols = cluster_cols(D)
+    if _cluster_fits(1, C, D, cols):
+        if n_max < 1:
+            raise ValueError(f"dag_block: the card holds no cluster of {CLUSTER_BLOCKS} blocks "
+                             f"with {cluster_smem(1, C, D, cols)} B of shared memory each")
+        fit = max(r for r in range(1, MAX_CLUSTER_ROWS + 1) if _cluster_fits(r, C, D, cols))
+        rows = min(-(-B // min(B, n_max)), fit)
+        return Plan("cluster", rows, -(-B // rows), cols)
+    if stream_smem(1, C, D) > _MAX_SMEM:
+        raise ValueError(f"dag_block: a block of C = {C} positions at D = {D} fits neither variant: "
+                         f"one row needs {cluster_smem(1, C, D, cols)} B of shared memory a block "
+                         f"in a cluster, {stream_smem(1, C, D)} B streaming, over the {_MAX_SMEM} B "
+                         f"a thread block may use")
+    rows = _pick_rows(stream_smem, C, D)
+    return Plan("stream", rows, -(-B // rows), 0)
+
+
+_VARIANTS = {"stream": 0, "cluster": 1}  # enum Variant in dag_block.cu
+_n_max: Dict[Tuple[int, int, int], int] = {}
+
+
+def max_clusters(device: torch.device, C: int, D: int) -> int:
+    """cudaOccupancyMaxActiveClusters of the cluster variant for one row at
+    (C, D) on `device`, cached per device and shared-memory size.  Every plan
+    at D = 300 takes more than half an SM's shared memory, so one block an SM
+    and the same number whatever the rows."""
+    cols = cluster_cols(D)
+    key = (device.index, cluster_smem(1, C, D, cols), cols)
+    n = _n_max.get(key)
+    if n is None:
+        lib = _library()
+        out = ctypes.c_int(0)
+        with torch.cuda.device(device):
+            _check_launch(lib, lib.erc_dag_block_max_clusters(1, C, D, cols, ctypes.byref(out)),
+                          "dag_block (cluster occupancy query)")
+        n = _n_max[key] = out.value
+    return n
+
+
+@functools.lru_cache(maxsize=None)
+def launch_plan(device: torch.device, B: int, C: int, D: int) -> Plan:
+    """The plan K3 takes for a [B, C, D] block on `device` (cached)."""
+    n_max = max_clusters(device, C, D) if _cluster_fits(1, C, D, cluster_cols(D)) else 0
+    return plan(B, C, D, n_max)
+
+
 def _check_launch(lib, err: int, name: str) -> None:
     if err != 0:
         msg = lib.erc_cuda_error_string(err).decode()
         raise RuntimeError(f"{name} kernel launch failed: {msg} (cudaError {err})")
 
 
-def _forward(flag: int, args, out: Optional[Outputs] = None, residuals: bool = False):
+def _forward(flag: int, args, out: Optional[Outputs] = None, residuals: bool = False,
+             plan_: Optional[Plan] = None):
     """K3 on CUDA tensors, its plain version on CPU tensors; with `residuals`
-    also hpc and xpp [B, C, 3, D]."""
+    also hpc and xpp [B, C, 3, D].  `plan_` replaces ``launch_plan``'s (to
+    time other designs)."""
     qb, hb = args[0], args[3]
     B, C = qb.shape
     D = hb.shape[-1]
@@ -353,7 +476,7 @@ def _forward(flag: int, args, out: Optional[Outputs] = None, residuals: bool = F
     if B * C * D == 0:
         return tuple(out) + res
     lib = _library()
-    rows = _pick_rows(lib.erc_dag_block_smem, C, D)
+    p = plan_ or launch_plan(device, B, C, D)
     per_row = [_per_row(t) for t in args[:9]] + list(out) + list(res)
     a = _DagArgs()
     for i, t in enumerate(per_row):  # absent residuals stay null
@@ -362,9 +485,11 @@ def _forward(flag: int, args, out: Optional[Outputs] = None, residuals: bool = F
     a.whc, a.bhc, a.wip, a.bip, a.wr0, a.wr1, a.wk = (w.data_ptr() for w in weights)
     a.B, a.C, a.D, a.flag = B, C, D, flag
     with torch.cuda.device(device):
-        err = lib.erc_dag_block(ctypes.byref(a), rows, torch.cuda.current_stream(device).cuda_stream)
-    _check_launch(lib, err, "dag_block")
+        err = lib.erc_dag_block(ctypes.byref(a), _VARIANTS[p.variant], p.rows, p.n, p.cols,
+                                torch.cuda.current_stream(device).cuda_stream)
+    _check_launch(lib, err, f"dag_block ({p.variant})")
     launches["dag_block"] += 1
+    variant_launches[f"dag_block/{p.variant}"] += 1
     return tuple(out) + res
 
 

@@ -7,7 +7,8 @@ machine (no JAX needed there, hence ``--noconftest``)::
 
 K1/K2 tolerance 1e-5 absolute (float32, only the summation order differs
 from the plain version); K3 1e-4, since its recurrence compounds the
-summation order over up to C positions; K4 1e-4 of max(1, max |plain|) per
+summation order over up to C positions, and bit for bit across repeats in
+both variants; K4 1e-4 of max(1, max |plain|) per
 gradient, since its weight gradients also sum B·C terms; banded vs dense
 and kernel vs eager logits 1e-4; training, kernel vs eager form, 1e-4
 relative (gradients: each parameter's difference over its gradient's norm,
@@ -140,15 +141,26 @@ K3_CASES = [  # (B, C, D, prefix, pad_rows)
     (32, 16, 300, True, 0),  # DAG-ERC's serving shape, a later block
     (32, 16, 300, False, 0),  # the first block: flag, no prefix
     (32, 16, 300, True, 5),  # a last block whose tail is padding
-    (3, 5, 13, True, 2),  # ragged: C, D not multiples of 32 or 4
+    (16, 16, 300, True, 0),  # DAG-ERC's training shape
+    (3, 5, 13, True, 2),  # ragged: C, D not multiples of 32 or 4; D < 16: ranks 4-15 own no columns
     (2, 1, 7, False, 0),  # C = 1
-    (5, 40, 33, True, 3),  # C > 32: more columns than lanes
-    (3, 64, 300, True, 0),  # two rows' buffers do not fit in shared memory: one row per block
+    (5, 40, 33, True, 3),  # C > 32: more columns than lanes; 4 columns a block, ranks 9-15 none
+    (5, 8, 10, True, 1),  # D < 16, not a multiple of 4: 4-byte weight copies, ranks 3-15 own none
+    (2, 6, 36, True, 0),  # 16-byte weight copies of 4 columns a block, ranks 9-15 own none
+    (13, 16, 300, True, 0),  # B not a multiple of the rows a cluster carries
+    (3, 64, 300, True, 0),  # two rows' buffers do not fit in the stream variant; a cluster takes it
+    (1, 128, 300, True, 4),  # C = 128: one row per cluster
+    (2, 16, 512, True, 0),  # the stream variant: a slice of 32 columns does not fit
 ]
+
+
+def _variant(D):
+    return "stream" if D > 320 else "cluster"
 
 
 @pytest.mark.parametrize("B,C,D,prefix,pad_rows", K3_CASES)
 def test_dag_block_matches_plain_version(cuda, B, C, D, prefix, pad_rows):
+    """Each case in the variant its shape selects, and bit for bit across repeats."""
     from erc_tpu_torch.ops.kernels import dag_block as kd
 
     g = torch.Generator(device=cuda).manual_seed(B * 100 + C)
@@ -157,19 +169,57 @@ def test_dag_block_matches_plain_version(cuda, B, C, D, prefix, pad_rows):
     got = kd.dag_block(*args)
     torch.cuda.synchronize()
     assert kd.launches["dag_block"] == 1
+    assert kd.variant_launches[f"dag_block/{_variant(D)}"] == 1
     for name, a, b in zip(("h1", "V0w", "V1w", "Kw"), got, kd.dag_block_reference(*args)):
         assert torch.isfinite(a).all(), name
         torch.testing.assert_close(a, b, rtol=0, atol=1e-4, msg=name)
+    again = kd.dag_block(*args)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))  # no atomics: bit for bit
 
 
 def test_dag_block_takes_one_row_per_block_where_two_do_not_fit(cuda):
+    """The stream variant carries 2 rows a block, or 1 where 2 do not fit; the
+    cluster variant takes DAG-ERC's shapes on as many clusters as the card
+    holds at once (cudaOccupancyMaxActiveClusters)."""
     from erc_tpu_torch.ops.kernels import dag_block as kd
 
-    smem = kd._library().erc_dag_block_smem
-    assert kd._pick_rows(smem, 16, 300) == kd.ROWS_PER_BLOCK == 2  # DAG-ERC's serving shape
-    assert kd._pick_rows(smem, 64, 300) == 1
+    assert kd._pick_rows(kd.stream_smem, 16, 512) == kd.ROWS_PER_BLOCK == 2
+    assert kd._pick_rows(kd.stream_smem, 64, 400) == 1
+    n_max = kd.max_clusters(cuda, 16, 300)
+    assert 1 <= n_max <= 132 // kd.CLUSTER_BLOCKS
+    for B in (32, 16):
+        p = kd.launch_plan(cuda, B, 16, 300)
+        assert p == kd.plan(B, 16, 300, n_max)
+        assert p.variant == "cluster" and p.n <= n_max and p.rows == -(-B // min(B, n_max))
+    assert kd.launch_plan(cuda, 1, 128, 300).variant == "cluster"
+    assert kd.launch_plan(cuda, 2, 16, 512) == kd.Plan("stream", 2, 1, 0)
     with pytest.raises(ValueError, match="shared memory"):
-        kd._pick_rows(smem, 128, 300)
+        kd.launch_plan(cuda, 1, 256, 300)
+
+
+SMEM_CASES = [  # (variant, rows, C, D, cols)
+    *((1, r, 16, 300, 19) for r in range(1, 9)),
+    (1, 1, 128, 300, 19), (1, 4, 16, 300, 20), (1, 2, 5, 13, 1), (1, 3, 40, 33, 3), (1, 1, 16, 512, 32),
+    (0, 1, 16, 300, 0), (0, 2, 16, 300, 0), (0, 2, 64, 400, 0), (0, 1, 3, 7, 0),
+]
+
+
+def test_dag_block_smem_formulas_agree_with_the_kernel(cuda):
+    """cluster_smem and stream_smem ≡ the C entry point's need; a plan that
+    does not fit, or does not cover the batch, is refused by the kernel's
+    entry point and raises."""
+    from erc_tpu_torch.ops.kernels import dag_block as kd
+
+    lib = kd._library()
+    for v, r, C, D, cols in SMEM_CASES:
+        want = kd.cluster_smem(r, C, D, cols) if v else kd.stream_smem(r, C, D)
+        assert lib.erc_dag_block_smem(v, r, C, D, cols) == want, (v, r, C, D, cols)
+    args = _dag_inputs(torch.Generator(device=cuda).manual_seed(4), 2, 16, 300)
+    for bad in (kd.Plan("cluster", 8, 1, 19),  # 8 rows do not fit
+                kd.Plan("cluster", 1, 1, 19),  # 1 row a cluster, 1 cluster, B = 2
+                kd.Plan("cluster", 1, 2, 18)):  # 16 x 18 columns do not cover D = 300
+        with pytest.raises(RuntimeError, match="cudaError"):
+            kd._forward(args[0], args[1:], plan_=bad)
 
 
 def test_dag_block_writes_strided_buffer_views(cuda):
@@ -207,8 +257,8 @@ def test_dag_block_refuses_grad_and_other_dtypes(cuda):
     args[4] = args[4].detach().double()
     with pytest.raises(TypeError):
         kd.dag_block(*args)
-    too_long = _dag_inputs(torch.Generator(device=cuda).manual_seed(2), 1, 128, 300)
-    with pytest.raises(ValueError, match="shared memory"):
+    too_long = _dag_inputs(torch.Generator(device=cuda).manual_seed(2), 1, 256, 300)
+    with pytest.raises(ValueError, match="shared memory"):  # fits neither variant
         kd.dag_block(*too_long)
 
 
@@ -226,6 +276,7 @@ def test_dagerc_engine_kernel_equals_eager_and_counts_launches(cuda):
     kd.reset_launches()
     got = kernel.logits(batch)
     assert kd.launches["dag_block"] == 4 * -(-Lp // 16)
+    assert kd.variant_launches == {"dag_block/cluster": 4 * -(-Lp // 16), "dag_block/stream": 0}
     np.testing.assert_allclose(got, eager.logits(batch), rtol=0, atol=1e-4)
     assert kd.launches["dag_block"] == 4 * -(-Lp // 16)  # the eager form launches nothing
 
@@ -273,7 +324,7 @@ def test_dag_block_bwd_rows_per_block_and_refusal(cuda):
     assert kd._pick_rows(smem, 40, 300) == 1
     g = torch.Generator(device=cuda).manual_seed(3)
     args = _dag_inputs(g, 1, 64, 300)
-    outs = kd._forward(args[0], args[1:], residuals=True)  # K3 takes C = 64 with one row per block
+    outs = kd._forward(args[0], args[1:], residuals=True)  # K3 takes C = 64 in a cluster
     with pytest.raises(ValueError, match="shared memory"):
         kd.dag_block_backward(args[0], *args[1:], *outs, *[torch.zeros_like(o) for o in outs[:4]])
 
@@ -313,6 +364,7 @@ def test_function_grads_equal_eager_autograd_at_full_width(cuda):
     torch.cuda.synchronize()
     blocks = -(-batch["input_tensor"].shape[1] // 16)
     assert kd.launches == {"dag_block": 2 * 4 * blocks, "dag_block_bwd": 4 * blocks}  # remat: K3 twice
+    assert kd.variant_launches == {"dag_block/cluster": 2 * 4 * blocks, "dag_block/stream": 0}
     worst = max(_grad_rel(kern.model, eager.model).items(), key=lambda kv: kv[1])
     assert worst[1] <= 1e-4, worst
 

@@ -5,7 +5,8 @@ K3: ``dag_block_reference`` and the wrapper's CPU route against the JAX
 ``_fwd_body`` and the Pallas kernel in interpret mode, on the three input
 cases of tests/test_pallas_dag_block.py (prefix, first block, masked tail);
 tolerance 1e-5 (float32, summation order only).  Graphs match exactly.  K4
-and the gradients are in tests/test_torch_dag_block_bwd.py.
+and the gradients are in tests/test_torch_dag_block_bwd.py.  K3's launch
+plan (``plan``: variant, rows, clusters) is pure Python and tested here.
 """
 
 import numpy as np
@@ -130,6 +131,41 @@ def test_flag_gates_position_zero_only():
     with jax.default_matmul_precision("highest"):
         want = dbk._fwd_body(jnp.asarray([1], jnp.int32), *[jnp.asarray(a.numpy()) for a in args[1:]])
     _close(on, want)
+
+
+# ------------------------------------------------------------------ K3's plan
+PLANS = [  # (B, C, D, n_max) -> (variant, rows, n)
+    ((32, 16, 300, 8), ("cluster", 4, 8)),  # DAG-ERC serving on 8 clusters of 16 blocks
+    ((16, 16, 300, 8), ("cluster", 2, 8)),  # DAG-ERC training
+    ((32, 16, 300, 7), ("cluster", 5, 7)),  # a card that holds 7 clusters
+    ((1, 128, 300, 8), ("cluster", 1, 1)),  # the longest block: one row's slices still fit
+    ((13, 16, 300, 8), ("cluster", 2, 7)),  # B not a multiple of R
+    ((3, 5, 13, 8), ("cluster", 1, 3)),  # D < 16: 4 columns a block, ranks 4-15 own none
+    ((64, 16, 300, 4), ("cluster", 6, 11)),  # 16 rows do not fit: 6 rows, more clusters than the card holds
+    ((2, 16, 512, 8), ("stream", 2, 1)),  # a slice of 32 columns does not fit
+    ((3, 64, 400, 8), ("stream", 1, 3)),  # streaming, one row a block
+]
+
+
+@pytest.mark.parametrize("shape,want", PLANS, ids=[str(s) for s, _ in PLANS])
+def test_plan(shape, want):
+    B, C, D, n_max = shape
+    p = tdb.plan(B, C, D, n_max)
+    assert (p.variant, p.rows, p.n) == want
+    assert p.rows * p.n >= B
+    if p.variant == "cluster":
+        assert p.cols == tdb.cluster_cols(D) and tdb.cluster_smem(p.rows, C, D, p.cols) <= tdb._MAX_SMEM
+        assert p.cols * tdb.CLUSTER_BLOCKS >= D
+    else:
+        assert tdb.stream_smem(p.rows, C, D) <= tdb._MAX_SMEM
+
+
+@pytest.mark.parametrize("B,C,D,n_max", [(1, 256, 300, 8), (1, 128, 512, 8), (2, 16, 300, 0)])
+def test_plan_refuses_what_fits_neither_variant(B, C, D, n_max):
+    """C = 256 at D = 300 and C = 128 at D = 512 fit neither variant's shared
+    memory; a card that holds no cluster has no plan at D = 300."""
+    with pytest.raises(ValueError, match="shared memory"):
+        tdb.plan(B, C, D, n_max)
 
 
 # ------------------------------------------------------------------ GRU cells
