@@ -7,12 +7,14 @@ Phases (any failure raises, so the exit code is non-zero):
   1. probe the toolchain and the card, build the CUDA kernels from csrc/;
   2. hold each kernel against its plain PyTorch version on the card at the
      shapes the model paths give it (K1/K2 banded in both instantiations,
-     16-byte and 4-byte, K3 dag_block in both variants, cluster and stream,
-     bit for bit across repeats, K4 dag_block_bwd), and time kernel (graph
-     and eager call), plain version and, where one exists, a library
-     yardstick (graph and eager call); K1/K2 also at batch 256, K3 also at
-     batch 16 and in its other cluster plans (rows a cluster, columns a
-     block), with the card's cluster occupancy;
+     16-byte and 4-byte, K3 dag_block and K4 dag_block_bwd each in both
+     variants, cluster and stream, bit for bit across repeats, C = 64 at
+     D = 300 in K4), and time kernel (graph and eager call), plain version
+     and, where one exists, a library yardstick (graph and eager call);
+     K1/K2 also at batch 256, K3 also at batch 16 and in its other cluster
+     plans (rows a cluster, columns a block), K4 also in its stream variant,
+     with the cards' cluster occupancy and each cluster kernel's phase
+     cycles;
   3. drive COGMEN serving at full width (712 → 100, 2-layer encoder,
      banded graph) through InferenceEngine: predict (every K1/K2 launch
      16-byte), banded ≡ dense, a single-dialogue request, an HTTP round
@@ -23,9 +25,10 @@ Phases (any failure raises, so the exit code is non-zero):
      request, latency, throughput, profile;
   5. drive DAG-ERC training at full width with the IEMOCAP reimplement
      settings (batch 16, AdamW 5e-4, dropout 0.2, clip 5.0, dag_remat)
-     through DAGERCTrainer with dag_impl=kernel (K3 forward, every launch
-     in the cluster variant, K4 backward): gradients and 3 steps' losses ≡
-     the eager form, card ≡ CPU, one epoch and test(), launch counts,
+     through DAGERCTrainer with dag_impl=kernel (K3 forward and K4
+     backward, every launch of either in the cluster variant): gradients
+     and 3 steps' losses ≡ the eager form, gradients at dag_chunk 64 ≡ the
+     eager form, card ≡ CPU, one epoch and test(), launch counts,
      dialogues/s, profile of one step;
   6. print the run's wall time, one JSON line of kernel records, the card's
      name and power limit, and a last JSON line {"ok": true, "device": {...}}.
@@ -354,27 +357,41 @@ def _dag_work(B, C, D):
     return bytes_moved, flops
 
 
-def _k3_variant(kd, before: dict) -> str:
-    """The variant ("cluster" or "stream") of the one K3 launch since the counts were `before`."""
-    taken = [k.split("/")[1] for k, n in kd.variant_launches.items() if n - before[k] == 1]
-    require(len(taken) == 1, f"dag_block: no single variant launch in {kd.variant_launches} after {before}")
-    return taken[0]
+# the phases of one position of each cluster kernel, between its cycle stamps
+# 2 .. 2 + len(phases); stamp 0 starts the launch, 1 ends the weight load, the
+# last ends the loop (g_phase_cycles in dag_block.cu, g_bwd_phase_cycles in
+# dag_block_bwd.cu)
+PHASES = {
+    "dag_block": ("(1) logits", "(2) M", "M barrier", "(3) gate products", "(3) GRUs and h1", "h1 barrier",
+                  "(4) key and output products", "(4) V0/V1"),
+    "dag_block_bwd": ("(5) of c+1 and (2) M", "(3) GRUs", "(3) dM product", "B barrier",
+                      "(4) merge terms and (1) of c-1", "(4) sums and dV updates", "g product of c-1",
+                      "X barrier"),
+}
 
 
-def _phase_cycles(kd) -> str:
-    """The phase stamps of K3's latest cluster launch (g_phase_cycles in
-    dag_block.cu) as cycles per phase: the weight load, the first cluster
-    barrier and the whole loop, then each phase of position C / 2."""
+def _phase_cycles(kd, kernel: str = "dag_block") -> dict:
+    """The cycle stamps of `kernel`'s latest cluster launch as cycles per
+    phase: the weight load, the first cluster barrier and the whole loop,
+    then each phase of position C / 2."""
     import ctypes
 
-    st = (ctypes.c_longlong * 13)()
-    err = kd._library().erc_dag_block_phase_cycles(st)
-    require(err == 0, f"dag_block phase stamps: cudaError {err}")
-    names = ("load", "first barrier", "loop", "(1) logits", "(2) M", "M barrier", "(3) gate products",
-             "(3) GRUs and h1", "h1 barrier", "(4) key and output products", "(4) V0/V1")
-    spans = {n: st[i + 1] - st[i] for i, n in enumerate(names)}
-    spans["loop"] = st[12] - st[2]
-    return ", ".join(f"{n} {v}" for n, v in spans.items())
+    names = PHASES[kernel]
+    n = len(names) + 5
+    st = (ctypes.c_longlong * n)()
+    err = getattr(kd._library(kernel), f"erc_{kernel}_phase_cycles")(st)
+    require(err == 0, f"{kernel} phase stamps: cudaError {err}")
+    spans = {"load": st[1] - st[0], "first barrier": st[2] - st[1], "loop": st[n - 1] - st[2]}
+    spans.update({name: st[i + 4] - st[i + 3] for i, name in enumerate(names)})
+    return spans
+
+
+def _dag_variant(kd, before: dict, kernel: str = "dag_block") -> str:
+    """The variant ("cluster" or "stream") of the one launch of `kernel` since the counts were `before`."""
+    taken = [k.split("/")[1] for k, n in kd.variant_launches.items()
+             if k.startswith(kernel + "/") and n - before[k] == 1]
+    require(len(taken) == 1, f"{kernel}: no single variant launch in {kd.variant_launches} after {before}")
+    return taken[0]
 
 
 def check_dag_block():
@@ -399,7 +416,7 @@ def check_dag_block():
         before = dict(kd.variant_launches)
         got = kd.dag_block(*args)
         torch.cuda.synchronize()
-        taken = _k3_variant(kd, before)
+        taken = _dag_variant(kd, before)
         require(taken == variant, f"dag_block[{label}] took the {taken} variant, want {variant}")
         want = kd.dag_block_reference(*args)
         err = max((a - b).abs().max().item() for a, b in zip(got, want))
@@ -493,25 +510,38 @@ def _dag_bwd_work(B, C, D):
 
 
 def check_dag_block_bwd():
-    """K4 against its plain version on the card in K3's four cases, and K3's
-    residuals against the plain version's; times at the training shape."""
+    """K4 against its plain version on the card in both variants of its sweep
+    (the stream variant at D = 512, and forced at the training shape), C = 64
+    at D = 300, bit for bit across repeats, and K3's residuals against the
+    plain version's; its plan, the card's occupancy of its clusters, times at
+    the training shape in both variants, and the cluster sweep's phases."""
     import torch
     from erc_tpu_torch.ops.kernels import dag_block as kd
 
     g = torch.Generator(device="cuda").manual_seed(2)
     B, C, D = 32, 16, 300
+    device = torch.device("cuda")
+    forced = kd.Plan("stream", kd.ROWS_PER_BLOCK, 16 // kd.ROWS_PER_BLOCK, 0)
+    # (label, inputs, the variant the plan takes, a plan that replaces it)
     cases = [
-        ("full-prefix", _dag_inputs(g, B, C, D, prefix=True)),
-        ("full-first-block", _dag_inputs(g, B, C, D, prefix=False)),
-        ("full-padded-rows", _dag_inputs(g, B, C, D, prefix=True, pad_rows=5)),
-        ("ragged-B3-C5-D13", _dag_inputs(g, 3, 5, 13, prefix=True, pad_rows=2)),
+        ("full-prefix", _dag_inputs(g, B, C, D, prefix=True), "cluster", None),
+        ("full-first-block", _dag_inputs(g, B, C, D, prefix=False), "cluster", None),
+        ("full-padded-rows", _dag_inputs(g, B, C, D, prefix=True, pad_rows=5), "cluster", None),
+        ("training-B16", _dag_inputs(g, 16, C, D, prefix=True, pad_rows=3), "cluster", None),
+        ("ragged-B3-C5-D13", _dag_inputs(g, 3, 5, 13, prefix=True, pad_rows=2), "cluster", None),
+        ("chunk64-B2-C64-D300", _dag_inputs(g, 2, 64, D, prefix=True, pad_rows=4), "cluster", None),
+        ("stream-B4-C16-D512", _dag_inputs(g, 4, C, 512, prefix=True, pad_rows=3), "stream", None),
+        ("stream-forced-B16", _dag_inputs(g, 16, C, D, prefix=True), "stream", forced),
     ]
     errs = []
-    for label, args in cases:
+    for label, args, variant, plan_ in cases:
         outs = kd._forward(args[0], args[1:], residuals=True)
         cts = [torch.randn(o.shape, device="cuda", generator=g) for o in outs[:4]]
-        got = kd.dag_block_backward(args[0], *args[1:], *outs, *cts)
+        before = dict(kd.variant_launches)
+        got = kd.dag_block_backward(args[0], *args[1:], *outs, *cts, plan_=plan_)
         torch.cuda.synchronize()
+        taken = _dag_variant(kd, before, "dag_block_bwd")
+        require(taken == variant, f"dag_block_bwd[{label}] took the {taken} variant, want {variant}")
         want_fwd = kd.dag_block_reference(args[0], *args[1:], residuals=True)
         res_err = max((a - b).abs().max().item() for a, b in zip(outs[4:], want_fwd[4:]))
         require(math.isfinite(res_err) and res_err <= DAG_TOL,
@@ -523,20 +553,27 @@ def check_dag_block_bwd():
             require(bool(torch.isfinite(a).all()) and err <= DAG_BWD_TOL,
                     f"dag_block_bwd[{label}] gradient {i}: error {err} > {DAG_BWD_TOL} of max(1, max|plain|)")
             worst = max(worst, err)
-        again = kd.dag_block_backward(args[0], *args[1:], *outs, *cts)
+        again = kd.dag_block_backward(args[0], *args[1:], *outs, *cts, plan_=plan_)
         torch.cuda.synchronize()
         require(all(torch.equal(a, b) for a, b in zip(got, again)), f"dag_block_bwd[{label}] not deterministic")
         errs.append(worst)
-        log(f"dag_block_bwd[{label}] B={args[1].shape[0]} C={args[1].shape[1]} D={args[4].shape[-1]}: "
-            f"max error {worst:.3e} of max(1, max|plain|) (tolerance {DAG_BWD_TOL}), residuals "
-            f"{res_err:.3e}, bitwise repeatable")
+        Bc, Cc, Dc = args[1].shape[0], args[1].shape[1], args[4].shape[-1]
+        p = plan_ or kd.bwd_launch_plan(device, Bc, Cc, Dc)
+        log(f"dag_block_bwd[{label}] B={Bc} C={Cc} D={Dc} ({taken}, {p}): max error {worst:.3e} of "
+            f"max(1, max|plain|) (tolerance {DAG_BWD_TOL}), residuals {res_err:.3e}, bitwise repeatable")
+    n_max = kd.bwd_max_clusters(device, C, D)
+    log(f"dag_block_bwd cluster occupancy: cudaOccupancyMaxActiveClusters = {n_max} clusters of "
+        f"{kd.CLUSTER_BLOCKS} blocks at C={C} D={D} ({kd.bwd_cluster_smem(1, C, D, kd.cluster_cols(D))} B "
+        f"of shared memory a block at one row)")
     # times at DAG-ERC's training shape: batch 16
     Bt = 16
     args = _dag_inputs(g, Bt, C, D, prefix=True)
     outs = kd._forward(args[0], args[1:], residuals=True)
     cts = [torch.randn(o.shape, device="cuda", generator=g) for o in outs[:4]]
-    bwd = lambda: kd.dag_block_backward(args[0], *args[1:], *outs, *cts)  # noqa: E731
+    bwd = lambda q=None: kd.dag_block_backward(args[0], *args[1:], *outs, *cts, plan_=q)  # noqa: E731
     plain = lambda: kd.dag_block_backward_reference(args[0], *args[1:], *outs, *cts)  # noqa: E731
+    p = kd.bwd_launch_plan(device, Bt, C, D)
+    require(p.variant == "cluster", f"dag_block_bwd at the training shape takes {p}")
     bytes_moved, flops = _dag_bwd_work(Bt, C, D)
     bound_ms, bound_by = _bound(bytes_moved, flops)
     # the weight-gradient launch alone, and torch.einsum of the same contractions
@@ -554,6 +591,11 @@ def check_dag_block_bwd():
     require(werr <= DAG_BWD_TOL, f"dag_block_bwd weight gradients: error {werr} > {DAG_BWD_TOL}")
     N = Bt * C
     w_bytes, w_flops = 4 * (N * D * 10 + N + 8 * D * D + 7 * D), 16 * D * D * N + 8 * D * N
+    ms = _median_graph_ms(bwd)
+    stream_ms = _median_graph_ms(lambda: bwd(forced))
+    bwd()
+    torch.cuda.synchronize()
+    phases = _phase_cycles(kd, "dag_block_bwd")
     rec = {
         "name": "dag_block_bwd",
         "route": "cuda",
@@ -561,24 +603,33 @@ def check_dag_block_bwd():
         "replaces": "erc_tpu/ops/pallas/dag_block.py:369",
         "tpu_source": "erc_tpu/ops/pallas/dag_block.py:_dag_block_bwd",
         "shape": f"B={Bt} C={C} D={D}",
+        "variant": p.variant,
+        "rows": p.rows,
+        "clusters": p.n,
+        "cols": p.cols,
+        "max_active_clusters": n_max,
         "max_abs_err": max(errs),
         "err_is_relative_to": "max(1, max|plain|) per gradient",
-        "ms": _median_graph_ms(bwd),
+        "ms": ms,
         "eager_ms": _median_event_ms(bwd),
         "plain_ms": _median_graph_ms(plain),
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,  # no single PyTorch call computes the reverse sweep
+        "stream_ms": stream_ms,
+        "phase_cycles": phases,
         "wgrad_ms": _median_graph_ms(wgrad),
         "wgrad_bound_ms": _bound(w_bytes, w_flops)[0],
         "wgrad_library_ms": _median_graph_ms(lambda: kd.weight_grads_reference(h1, *st)),
         "wgrad_max_err": werr,
     }
-    log(f"dag_block_bwd timing at {rec['shape']}: kernel {rec['ms']:.5f} ms (eager call "
-        f"{rec['eager_ms']:.5f}), plain {rec['plain_ms']:.5f}, bound {bound_ms:.5f} ({bound_by}: "
-        f"{bytes_moved / 1e6:.3f} MB, {flops / 1e9:.4f} GFLOP); weight-gradient launch alone "
-        f"{rec['wgrad_ms']:.5f} ms (bound {rec['wgrad_bound_ms']:.5f}), torch.einsum of the same "
-        f"{rec['wgrad_library_ms']:.5f} ms, error {werr:.3e}")
+    log(f"dag_block_bwd timing at {rec['shape']}, plan {p.variant} R={p.rows} n={p.n} w={p.cols}: kernel "
+        f"{ms:.6f} ms (eager call {rec['eager_ms']:.6f}), stream variant {stream_ms:.6f} ms, plain "
+        f"{rec['plain_ms']:.6f}, bound {bound_ms:.6f} ({bound_by}: {bytes_moved / 1e6:.3f} MB, "
+        f"{flops / 1e9:.4f} GFLOP); kernel/bound {ms / bound_ms:.1f}; weight-gradient launch alone "
+        f"{rec['wgrad_ms']:.6f} ms (bound {rec['wgrad_bound_ms']:.6f}), torch.einsum of the same "
+        f"{rec['wgrad_library_ms']:.6f} ms, error {werr:.3e}")
+    log(f"dag_block_bwd phases at B={Bt} (cycles of thread 0 of the first block): {phases}")
     return rec
 
 
@@ -744,7 +795,8 @@ def drive_dagerc(card: str):
     log(f"DAG-ERC path: {desc} in {len(chunks)} batches, {blocks} blocks of {p.dag_chunk}; "
         f"launches {launches}; by variant {variants}")
     require(launches["dag_block"] == want, f"dag_block launched {launches['dag_block']} times, want {want}")
-    require(variants == {"dag_block/cluster": want, "dag_block/stream": 0},
+    require(variants == {"dag_block/cluster": want, "dag_block/stream": 0, "dag_block_bwd/cluster": 0,
+                         "dag_block_bwd/stream": 0},
             f"dag_block: not every launch on the DAG-ERC serving path took the cluster variant: {variants}")
     _check_results(dialogues, results)
 
@@ -875,6 +927,29 @@ def drive_training(card: str):
         f"tolerance {TRAIN_TOL}")
     require(worst <= TRAIN_TOL, f"kernel vs eager gradients {worst} ({name}) > {TRAIN_TOL}")
 
+    # blocks of 64 positions of the longest batch: K4 takes them in its cluster
+    # variant, one row a cluster
+    from erc_tpu_torch.ops.kernels import dag_block as kd
+
+    longest = max(host, key=lambda b: b["input_tensor"].shape[1])
+    batch = to_device(longest, kern.device)
+    k64, e64 = _trainer("--dag_chunk=64"), _trainer("--dag_chunk=64", "--dag_impl=eager")
+    _reset_launches()
+    k64.compute_grads(batch)
+    launches64, variants64 = _read_launches(), dict(kd.variant_launches)
+    nb64 = _blocks(longest, 64)
+    require(launches64["dag_block_bwd"] == layers * nb64 and variants64["dag_block_bwd/cluster"] == layers * nb64,
+            f"dag_chunk 64: K4 launches {launches64}, by variant {variants64}, want {layers * nb64} cluster")
+    e64.compute_grads(batch)
+    worst, name = _worst_grad_diff(k64.model, e64.model)
+    Bb, L = longest["input_tensor"].shape[:2]
+    plan64 = kd.bwd_launch_plan(kern.device, int(Bb), min(64, int(L)), int(p.hidden_dim))
+    log(f"dag_chunk 64 ({nb64} blocks of batch 16 x L {int(L)}, K4's plan for the first {plan64}): "
+        f"launches {launches64}, by variant {variants64}; gradients kernel vs eager form worst "
+        f"{worst:.3e} ({name}), tolerance {TRAIN_TOL}")
+    require(worst <= TRAIN_TOL, f"dag_chunk 64: kernel vs eager gradients {worst} ({name}) > {TRAIN_TOL}")
+    del k64, e64
+
     # three steps of each form on the same batches and dropout masks
     secs, losses = {}, {}
     for label, t in (("kernel", kern), ("eager", eager)):
@@ -910,21 +985,20 @@ def drive_training(card: str):
     run = _trainer()
     train_blocks = sum(_blocks(b, chunk) for b in host)
     test_blocks = sum(_blocks(b, chunk) for b in run.make_loader("test"))
-    from erc_tpu_torch.ops.kernels import dag_block as kd
-
     _reset_launches()
     t0 = time.perf_counter()
     history = run.train()
     wall = time.perf_counter() - t0
     launches = _read_launches()
     variants = dict(kd.variant_launches)
-    require(variants == {"dag_block/cluster": launches["dag_block"], "dag_block/stream": 0},
-            f"dag_block: not every launch on the training path took the cluster variant: {variants}")
+    require(variants == {"dag_block/cluster": launches["dag_block"], "dag_block/stream": 0,
+                         "dag_block_bwd/cluster": launches["dag_block_bwd"], "dag_block_bwd/stream": 0},
+            f"dag_block/dag_block_bwd: not every launch on the training path took the cluster variant: {variants}")
     want = {"dag_block": 2 * layers * train_blocks + layers * test_blocks, "dag_block_bwd": layers * train_blocks}
     rec = history[0]
     log(f"DAG-ERC training path: {rec['steps']} steps over {rec['dialogues']} dialogues "
         f"({train_blocks} blocks), then test() ({test_blocks} blocks) in {wall:.3f} s; launches {launches}; "
-        f"K3 by variant {variants}")
+        f"K3 and K4 by variant {variants}")
     for name, n in want.items():
         require(launches[name] == n, f"{name} launched {launches[name]} times on the training path, want {n}")
     res = rec["test"]
@@ -935,8 +1009,6 @@ def drive_training(card: str):
     log(f"DAG-ERC training throughput, kernel form: {rec['dialogues'] / rec['seconds']:.1f} dialogues/s "
         f"({rec['steps']} steps, batch {p.train.batch_size}, {rec['seconds'] * 1e3:.3f} ms) on {card}")
 
-    longest = max(host, key=lambda b: b["input_tensor"].shape[1])
-    batch = to_device(longest, run.device)
     run.train_step(batch)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -945,7 +1017,7 @@ def drive_training(card: str):
     step_s = time.perf_counter() - t0
     _profile(lambda: run.train_step(batch), f"one train step of the longest batch (batch 16, L "
              f"{longest['input_tensor'].shape[1]}, {_blocks(longest, chunk)} blocks)", step_s)
-    return launches
+    return launches, variants
 
 
 def main() -> int:
@@ -960,10 +1032,12 @@ def main() -> int:
         records[name]["variant_launches"] = {k: n for k, n in variants.items() if k.startswith(name + "/")}
     serve, serve_variants = drive_dagerc(card)
     launches["dag_block"] = serve["dag_block"]
-    records["dag_block"]["variant_launches"] = serve_variants
-    train = drive_training(card)
+    records["dag_block"]["variant_launches"] = {k: n for k, n in serve_variants.items() if k.startswith("dag_block/")}
+    train, train_variants = drive_training(card)
     launches["dag_block_bwd"] = train["dag_block_bwd"]
     records["dag_block"]["train_launches"] = train["dag_block"]
+    records["dag_block_bwd"]["variant_launches"] = {k: n for k, n in train_variants.items()
+                                                    if k.startswith("dag_block_bwd/")}
     for name, rec in records.items():
         rec["launches"] = launches[name]
         require(rec["launches"] > 0, f"{name} was not launched on its path")

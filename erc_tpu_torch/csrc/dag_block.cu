@@ -72,16 +72,16 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "dag_common.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kMaxThreads = 512;
 constexpr int kMaxWarps = kMaxThreads / 32;
-constexpr long long kMaxSmem = 232448;  // shared memory one block may use on Hopper (227 KB)
 
 // the cluster variant
-constexpr int kClusterBlocks = 16;
 constexpr int kClusterThreads = 256;
 constexpr int kClusterWarps = kClusterThreads / 32;
 constexpr int kMaxClusterRows = 8;
@@ -91,7 +91,6 @@ constexpr int kRedPerRow = 32 * kClusterWarps;
 constexpr int kPhaseStamps = 13;
 
 enum Tensor { kQ, kXC, kHP, kH, kNum, kDen, kMP, kAM, kSM, kH1, kV0, kV1, kKW, kHPC, kXPP, kTensors };
-enum Variant { kStream = 0, kCluster = 1 };
 
 }  // namespace
 
@@ -113,18 +112,6 @@ struct DagArgs {
 };
 
 namespace {
-
-__device__ __forceinline__ float sigmoid(float x) { return 1.f / (1.f + expf(-x)); }
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
 
 // ------------------------------------------------------------------ stream variant
 template <int R>
@@ -303,8 +290,6 @@ __global__ void __launch_bounds__(kMaxThreads) dag_block_stream_kernel(const Dag
 }
 
 // ------------------------------------------------------------------ cluster variant
-__host__ __device__ constexpr int round4(int x) { return (x + 3) & ~3; }
-
 // Shared-memory layout of one block of the cluster variant, offsets in floats.
 struct ClusterLayout {
   long long P6, P2;  // row lengths of the gate and output slices (6w, 2w rounded up to 4)
@@ -328,16 +313,6 @@ struct ClusterLayout {
     total = wk + D;
   }
 };
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
-}
 
 // dst[k][j] (row length P) = gate g's column col0 + c of row k, j = g w + c,
 // for c < nc; 0 elsewhere.  Each thread keeps one j (4 where w, D and the
@@ -483,7 +458,7 @@ __global__ void __launch_bounds__(kClusterThreads, 1) dag_block_cluster_kernel(c
       else bias[j] = 0.f;
     }
     for (int d = tid; d < D; d += kClusterThreads) cp_async4(wk + d, a.wk + d);
-    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    cp_async_wait_all();
   }
   for (int i = tid; i < R * C; i += kClusterThreads) kw[i] = 0.f;
   stamp(1);
@@ -651,17 +626,6 @@ bool cluster_ok(int rows, int C, int D, int cols) {
          ClusterLayout(rows, C, D, cols).total * (long long)sizeof(float) <= kMaxSmem;
 }
 
-// raise a kernel's shared-memory limit once per size, so that launches
-// captured into a CUDA graph after a first call make no attribute call
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t smem, size_t& allowed) {
-  if (smem <= allowed) return cudaSuccess;
-  const cudaError_t err =
-      cudaFuncSetAttribute((const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err == cudaSuccess) allowed = smem;
-  return err;
-}
-
 template <int R>
 cudaError_t launch_stream(const DagArgs& a, size_t smem, cudaStream_t stream) {
   static size_t allowed = 48 * 1024;
@@ -673,21 +637,6 @@ cudaError_t launch_stream(const DagArgs& a, size_t smem, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-cudaLaunchConfig_t cluster_config(int clusters, size_t smem, cudaStream_t stream, cudaLaunchAttribute* attr) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(clusters * kClusterBlocks);
-  cfg.blockDim = dim3(kClusterThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  attr->id = cudaLaunchAttributeClusterDimension;
-  attr->val.clusterDim.x = kClusterBlocks;
-  attr->val.clusterDim.y = 1;
-  attr->val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cfg;
-}
-
 // The cluster kernel of R rows, its attributes set for `smem` bytes (16
 // blocks a cluster is a non-portable size); with `max_clusters`, the number
 // of its clusters the card holds at once, else a launch of `clusters`.
@@ -697,16 +646,11 @@ cudaError_t cluster_call(const DagArgs* a, int cols, int clusters, size_t smem, 
   static size_t allowed = 48 * 1024;
   static bool nonportable = false;
   auto kernel = dag_block_cluster_kernel<R>;
-  if (!nonportable) {
-    const cudaError_t err =
-        cudaFuncSetAttribute((const void*)kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (err != cudaSuccess) return err;
-    nonportable = true;
-  }
-  cudaError_t err = allow_smem(kernel, smem, allowed);
+  cudaError_t err = allow_cluster(kernel, nonportable);
+  if (err == cudaSuccess) err = allow_smem(kernel, smem, allowed);
   if (err != cudaSuccess) return err;
   cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = cluster_config(max_clusters ? 1 : clusters, smem, stream, &attr);
+  const cudaLaunchConfig_t cfg = cluster_config(max_clusters ? 1 : clusters, kClusterThreads, smem, stream, &attr);
   if (max_clusters) return cudaOccupancyMaxActiveClusters(max_clusters, (const void*)kernel, &cfg);
   err = cudaLaunchKernelEx(&cfg, kernel, *a, cols);
   return err != cudaSuccess ? err : cudaGetLastError();

@@ -20,7 +20,10 @@ columns in shared memory for the whole launch, and exchanges M and h1
 through distributed shared memory at every position (D up to 320);
 "stream" gives each thread block 1 or 2 batch rows and streams the
 weights from L2 at every position (any D whose rows' buffers fit).  See the
-note in ``csrc/dag_block.cu``.
+note in ``csrc/dag_block.cu``.  K4's sweep has the same two variants
+(``bwd_plan``): its cluster blocks each hold rows of the weights in torch's
+layout and reduce the transposed products across the cluster, adding the
+16 blocks' partials in rank order; see ``csrc/dag_block_bwd.cu``.
 
 The arguments keep the JAX kernel's layout, so the tests compare like with
 like: weights as [k, d] rows (``Whc[g] = w_hh[gD:(g+1)D]ᵀ``), which is also
@@ -29,7 +32,7 @@ returns the plain version; given CUDA tensors it launches the kernel or
 raises.  ``dag_block`` takes the autograd Function when grad mode is on and
 an input requires grad.  The plain forward is differentiable by autograd
 too: it is DAGStack's eager form.  ``launches`` counts kernel launches,
-``variant_launches`` K3's by variant.
+``variant_launches`` K3's and K4's by variant.
 """
 
 from __future__ import annotations
@@ -42,7 +45,7 @@ import torch
 
 from erc_tpu_torch.ops.rnn import gru_cell_proj
 
-# batch rows one thread block of K3's stream variant, and of K4, carries; 1
+# batch rows one thread block of K3's and K4's stream variants carries; 1
 # where 2 rows' buffers do not fit in shared memory
 ROWS_PER_BLOCK = 2
 _MAX_SMEM = 232448  # shared memory one block may use on Hopper (227 KB)
@@ -51,9 +54,14 @@ CLUSTER_BLOCKS = 16
 MAX_CLUSTER_ROWS = 8
 _CLUSTER_THREADS = 256
 _RED_PER_ROW = _CLUSTER_THREADS
+# K4's cluster variant (kClusterThreads, kStats in dag_block_bwd.cu): a warp per 32
+# outputs of a transposed product
+_BWD_CLUSTER_THREADS = 320
+_BWD_STATS = 8
 
 launches = {"dag_block": 0, "dag_block_bwd": 0}
-variant_launches = {"dag_block/cluster": 0, "dag_block/stream": 0}
+variant_launches = {"dag_block/cluster": 0, "dag_block/stream": 0,
+                    "dag_block_bwd/cluster": 0, "dag_block_bwd/stream": 0}
 
 Flag = Union[int, bool, torch.Tensor]
 Outputs = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
@@ -283,13 +291,17 @@ def _library(name: str = "dag_block") -> ctypes.CDLL:
             lib.erc_dag_block_phase_cycles.argtypes = [ctypes.POINTER(ctypes.c_longlong)]
             lib.erc_dag_block_phase_cycles.restype = ctypes.c_int
         else:
-            lib.erc_dag_block_bwd_sweep.argtypes = [ctypes.POINTER(_DagBwdArgs), ctypes.c_int,
-                                                    ctypes.c_void_p]
+            lib.erc_dag_block_bwd_sweep.argtypes = [ctypes.POINTER(_DagBwdArgs)] + [ctypes.c_int] * 4 + [
+                ctypes.c_void_p]
             lib.erc_dag_block_bwd_sweep.restype = ctypes.c_int
             lib.erc_dag_block_bwd_wgrad.argtypes = [ctypes.POINTER(_WgradArgs), ctypes.c_void_p]
             lib.erc_dag_block_bwd_wgrad.restype = ctypes.c_int
-            lib.erc_dag_block_bwd_smem.argtypes = [ctypes.c_int] * 3
+            lib.erc_dag_block_bwd_smem.argtypes = [ctypes.c_int] * 5
             lib.erc_dag_block_bwd_smem.restype = ctypes.c_longlong
+            lib.erc_dag_block_bwd_max_clusters.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
+            lib.erc_dag_block_bwd_max_clusters.restype = ctypes.c_int
+            lib.erc_dag_block_bwd_phase_cycles.argtypes = [ctypes.POINTER(ctypes.c_longlong)]
+            lib.erc_dag_block_bwd_phase_cycles.restype = ctypes.c_int
         lib.erc_cuda_error_string.argtypes = [ctypes.c_int]
         lib.erc_cuda_error_string.restype = ctypes.c_char_p
         _libs[name] = lib
@@ -349,7 +361,7 @@ def _pick_rows(smem_bytes, C: int, D: int, name: str = "dag_block") -> int:
 
 # ------------------------------------------------------------------ K3's plan
 class Plan(NamedTuple):
-    """How one K3 launch covers the batch."""
+    """How one K3 launch, or K4's sweep, covers the batch."""
 
     variant: str  # "cluster" or "stream"
     rows: int  # batch rows a cluster (cluster) or a thread block (stream) carries
@@ -417,26 +429,32 @@ def plan(B: int, C: int, D: int, n_max: int) -> Plan:
     return Plan("stream", rows, -(-B // rows), 0)
 
 
-_VARIANTS = {"stream": 0, "cluster": 1}  # enum Variant in dag_block.cu
-_n_max: Dict[Tuple[int, int, int], int] = {}
+_VARIANTS = {"stream": 0, "cluster": 1}  # enum Variant in dag_common.cuh
+_n_max: Dict[Tuple[str, Optional[int], int, int], int] = {}
+
+
+def _occupancy(kernel: str, device: torch.device, C: int, D: int, smem: int) -> int:
+    """cudaOccupancyMaxActiveClusters of `kernel`'s cluster variant ("dag_block"
+    or "dag_block_bwd") for one row at (C, D) on `device`, cached per device and
+    shared-memory size."""
+    cols = cluster_cols(D)
+    key = (kernel, device.index, smem, cols)
+    n = _n_max.get(key)
+    if n is None:
+        lib = _library(kernel)
+        query = getattr(lib, f"erc_{kernel}_max_clusters")
+        out = ctypes.c_int(0)
+        with torch.cuda.device(device):
+            _check_launch(lib, query(1, C, D, cols, ctypes.byref(out)), f"{kernel} (cluster occupancy query)")
+        n = _n_max[key] = out.value
+    return n
 
 
 def max_clusters(device: torch.device, C: int, D: int) -> int:
-    """cudaOccupancyMaxActiveClusters of the cluster variant for one row at
-    (C, D) on `device`, cached per device and shared-memory size.  Every plan
-    at D = 300 takes more than half an SM's shared memory, so one block an SM
-    and the same number whatever the rows."""
-    cols = cluster_cols(D)
-    key = (device.index, cluster_smem(1, C, D, cols), cols)
-    n = _n_max.get(key)
-    if n is None:
-        lib = _library()
-        out = ctypes.c_int(0)
-        with torch.cuda.device(device):
-            _check_launch(lib, lib.erc_dag_block_max_clusters(1, C, D, cols, ctypes.byref(out)),
-                          "dag_block (cluster occupancy query)")
-        n = _n_max[key] = out.value
-    return n
+    """The clusters of K3's cluster variant the card holds at once, for one
+    row at (C, D).  Every plan at D = 300 takes more than half an SM's shared
+    memory, so one block an SM and the same number whatever the rows."""
+    return _occupancy("dag_block", device, C, D, cluster_smem(1, C, D, cluster_cols(D)))
 
 
 @functools.lru_cache(maxsize=None)
@@ -450,6 +468,72 @@ def _check_launch(lib, err: int, name: str) -> None:
     if err != 0:
         msg = lib.erc_cuda_error_string(err).decode()
         raise RuntimeError(f"{name} kernel launch failed: {msg} (cudaError {err})")
+
+
+# ------------------------------------------------------------------ K4's plan
+def bwd_cluster_smem(rows: int, C: int, D: int, cols: int) -> int:
+    """Shared memory (bytes) of one block of K4's cluster variant: its rows
+    of the eight weight panels (D rounded up to 4) and of wk; per row the
+    final V0/V1 and running dV0/dV1 of its columns, the gate cotangents, the
+    receive buffers of the g and dM partials and of the gathered sums
+    (3 + 2C from each of 16 blocks), the keys, dK and d logits, and the
+    per-position arrays twice, by the parity of the position (``BwdLayout``
+    in dag_block_bwd.cu)."""
+    weights = 8 * cols * _round4(D) + cols
+    per_row = 4 * C * cols + 42 * cols + CLUSTER_BLOCKS * (3 + 2 * C) + 11 * C + 2 * _BWD_STATS
+    return 4 * (weights + rows * per_row)
+
+
+def bwd_stream_smem(rows: int, C: int, D: int) -> int:
+    """Shared memory (bytes) of one block of K4's stream variant
+    (``stream_smem_floats`` in dag_block_bwd.cu)."""
+    return 4 * rows * (4 * C * D + 10 * D + 8 * C + _BWD_STATS + 3 * 16)
+
+
+def _bwd_cluster_fits(rows: int, C: int, D: int, cols: int) -> bool:
+    """``cluster_ok`` in dag_block_bwd.cu."""
+    return (1 <= rows <= MAX_CLUSTER_ROWS and cols >= 4 and cols % 4 == 0 and cols * CLUSTER_BLOCKS >= D
+            and -(-_round4(D) // 32) <= _BWD_CLUSTER_THREADS // 32 and rows * cols <= _BWD_CLUSTER_THREADS
+            and bwd_cluster_smem(rows, C, D, cols) <= _MAX_SMEM)
+
+
+def bwd_plan(B: int, C: int, D: int, n_max: int) -> Plan:
+    """K4's sweep for a [B, C, D] block: the cluster variant where one row's
+    weight rows and buffers fit in shared memory, with n = min(B, n_max)
+    clusters of R = ⌈B / n⌉ rows (fewer rows, and then more clusters, where R
+    rows do not fit); else the stream variant with ROWS_PER_BLOCK rows a
+    block, or 1.  n_max is the number of K4 clusters the card holds at once
+    (``bwd_max_clusters``).  Raises ValueError where neither variant fits."""
+    if B < 1 or C < 1 or D < 1:
+        raise ValueError(f"dag_block_backward: no plan for B = {B}, C = {C}, D = {D}")
+    cols = cluster_cols(D)
+    if _bwd_cluster_fits(1, C, D, cols):
+        if n_max < 1:
+            raise ValueError(f"dag_block_backward: the card holds no cluster of {CLUSTER_BLOCKS} blocks "
+                             f"with {bwd_cluster_smem(1, C, D, cols)} B of shared memory each")
+        fit = max(r for r in range(1, MAX_CLUSTER_ROWS + 1) if _bwd_cluster_fits(r, C, D, cols))
+        rows = min(-(-B // min(B, n_max)), fit)
+        return Plan("cluster", rows, -(-B // rows), cols)
+    if bwd_stream_smem(1, C, D) > _MAX_SMEM:
+        raise ValueError(f"dag_block_backward: a block of C = {C} positions at D = {D} fits neither variant: "
+                         f"one row needs {bwd_cluster_smem(1, C, D, cols)} B of shared memory a block in a "
+                         f"cluster, {bwd_stream_smem(1, C, D)} B streaming, over the {_MAX_SMEM} B a thread "
+                         f"block may use")
+    rows = _pick_rows(bwd_stream_smem, C, D, "dag_block_backward")
+    return Plan("stream", rows, -(-B // rows), 0)
+
+
+def bwd_max_clusters(device: torch.device, C: int, D: int) -> int:
+    """The clusters of K4's cluster variant the card holds at once, for one
+    row at (C, D) (one block an SM at D = 300, whatever the rows)."""
+    return _occupancy("dag_block_bwd", device, C, D, bwd_cluster_smem(1, C, D, cluster_cols(D)))
+
+
+@functools.lru_cache(maxsize=None)
+def bwd_launch_plan(device: torch.device, B: int, C: int, D: int) -> Plan:
+    """The plan K4's sweep takes for a [B, C, D] block on `device` (cached)."""
+    n_max = bwd_max_clusters(device, C, D) if _bwd_cluster_fits(1, C, D, cluster_cols(D)) else 0
+    return bwd_plan(B, C, D, n_max)
 
 
 def _forward(flag: int, args, out: Optional[Outputs] = None, residuals: bool = False,
@@ -557,12 +641,14 @@ def dag_block(flag: Flag, qb, xcb, hppb, hb, num01, den_p, mp, amw, smw,
 
 def dag_block_backward(flag: Flag, qb, xcb, hppb, hb, num01, den_p, mp, amw, smw,
                        Whc, bhc, Wip, bip, Wr0T, Wr1T, wkc, h1, V0w, V1w, Kw, hpc, xpp,
-                       dh1, dV0, dV1, dKw, *, native: Optional[Tuple[torch.Tensor, ...]] = None
-                       ) -> Grads:
+                       dh1, dV0, dV1, dKw, *, native: Optional[Tuple[torch.Tensor, ...]] = None,
+                       plan_: Optional[Plan] = None) -> Grads:
     """K4: the gradients of ``dag_block`` (see ``dag_block_backward_reference``
     for the arguments and results).  On CPU tensors the plain version; on
-    CUDA tensors two launches, the sweep and the weight gradients, counted as
-    one in ``launches["dag_block_bwd"]``."""
+    CUDA tensors two launches, the sweep by ``bwd_launch_plan`` (or by
+    `plan_`, to time other designs) and the weight gradients, counted as one
+    in ``launches["dag_block_bwd"]`` and by the sweep's variant in
+    ``variant_launches``."""
     args = (qb, xcb, hppb, hb, num01, den_p, mp, amw, smw, Whc, bhc, Wip, bip, Wr0T, Wr1T, wkc)
     _check_shapes(*args)
     B, C = qb.shape
@@ -592,7 +678,7 @@ def dag_block_backward(flag: Flag, qb, xcb, hppb, hb, num01, den_p, mp, amw, smw
     if B * C * D == 0:
         return tuple(g.zero_() for g in grads + wgrads)
     lib = _library("dag_block_bwd")
-    rows = _pick_rows(lib.erc_dag_block_bwd_smem, C, D, "dag_block_backward")
+    p = plan_ or bwd_launch_plan(device, B, C, D)
     per_row = [_per_row(t) for t in args[:9] + (V0w, V1w, Kw, hpc, xpp, dh1, dV0, dV1, dKw)]
     a = _DagBwdArgs()
     for i, t in enumerate(per_row + list(grads) + list(stash)):
@@ -602,10 +688,11 @@ def dag_block_backward(flag: Flag, qb, xcb, hppb, hb, num01, den_p, mp, amw, smw
     a.B, a.C, a.D, a.flag = B, C, D, flag
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        _check_launch(lib, lib.erc_dag_block_bwd_sweep(ctypes.byref(a), rows, stream),
-                      "dag_block_backward (sweep)")
+        err = lib.erc_dag_block_bwd_sweep(ctypes.byref(a), _VARIANTS[p.variant], p.rows, p.n, p.cols, stream)
+        _check_launch(lib, err, f"dag_block_backward (sweep, {p.variant})")
         _weight_grads_kernel(lib, h1.contiguous(), *stash, wgrads, stream)
     launches["dag_block_bwd"] += 1
+    variant_launches[f"dag_block_bwd/{p.variant}"] += 1
     return grads + wgrads
 
 

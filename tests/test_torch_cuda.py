@@ -9,7 +9,8 @@ K1/K2 tolerance 1e-5 absolute (float32, only the summation order differs
 from the plain version); K3 1e-4, since its recurrence compounds the
 summation order over up to C positions, and bit for bit across repeats in
 both variants; K4 1e-4 of max(1, max |plain|) per
-gradient, since its weight gradients also sum B·C terms; banded vs dense
+gradient, since its weight gradients also sum B·C terms, and bit for bit
+across repeats in both variants of its sweep; banded vs dense
 and kernel vs eager logits 1e-4; training, kernel vs eager form, 1e-4
 relative (gradients: each parameter's difference over its gradient's norm,
 floored at 1e-4 of the global norm where the exact gradient is 0).
@@ -276,26 +277,32 @@ def test_dagerc_engine_kernel_equals_eager_and_counts_launches(cuda):
     kd.reset_launches()
     got = kernel.logits(batch)
     assert kd.launches["dag_block"] == 4 * -(-Lp // 16)
-    assert kd.variant_launches == {"dag_block/cluster": 4 * -(-Lp // 16), "dag_block/stream": 0}
+    assert kd.variant_launches == {"dag_block/cluster": 4 * -(-Lp // 16), "dag_block/stream": 0,
+                                   "dag_block_bwd/cluster": 0, "dag_block_bwd/stream": 0}
     np.testing.assert_allclose(got, eager.logits(batch), rtol=0, atol=1e-4)
     assert kd.launches["dag_block"] == 4 * -(-Lp // 16)  # the eager form launches nothing
 
 
 # ------------------------------------------------------------------ K4 dag_block_bwd
-K4_CASES = [  # (B, C, D, prefix, pad_rows)
-    (16, 16, 300, True, 0),  # DAG-ERC's training shape
-    (32, 16, 300, True, 0),
-    (32, 16, 300, False, 0),  # the first block: flag, no prefix
-    (32, 16, 300, True, 5),  # a last block whose tail is padding
-    (3, 5, 13, True, 2),  # ragged
-    (2, 1, 7, False, 0),  # C = 1
-    (5, 40, 33, True, 3),  # C > 32
-    (3, 40, 300, True, 0),  # two rows' buffers do not fit in shared memory: one row per block
+K4_CASES = [  # (B, C, D, prefix, pad_rows, a forced plan or None)
+    (16, 16, 300, True, 0, None),  # DAG-ERC's training shape
+    (32, 16, 300, True, 0, None),
+    (32, 16, 300, False, 0, None),  # the first block: flag, no prefix
+    (32, 16, 300, True, 5, None),  # a last block whose tail is padding
+    (3, 5, 13, True, 2, None),  # ragged: D < 16, ranks 4-15 own no rows
+    (2, 1, 7, False, 0, None),  # C = 1
+    (5, 40, 33, True, 3, None),  # C > 32
+    (3, 40, 300, True, 0, None),  # two rows' buffers do not fit the stream variant; the cluster takes it
+    (2, 64, 300, True, 4, None),  # --dag_chunk=64: one row a cluster
+    (5, 6, 36, True, 0, None),  # 16-byte weight copies of 4 rows a block
+    (2, 16, 512, True, 3, None),  # the stream variant: rows of 32 columns do not fit a cluster
+    (16, 16, 300, True, 2, "stream"),  # the stream variant forced at the training shape
 ]
 
 
-@pytest.mark.parametrize("B,C,D,prefix,pad_rows", K4_CASES)
-def test_dag_block_bwd_matches_plain_version(cuda, B, C, D, prefix, pad_rows):
+@pytest.mark.parametrize("B,C,D,prefix,pad_rows,force", K4_CASES)
+def test_dag_block_bwd_matches_plain_version(cuda, B, C, D, prefix, pad_rows, force):
+    """Each case in the variant its shape selects (or `force`), and bit for bit across repeats."""
     from erc_tpu_torch.ops.kernels import dag_block as kd
 
     g = torch.Generator(device=cuda).manual_seed(B * 100 + C + 1)
@@ -304,29 +311,71 @@ def test_dag_block_bwd_matches_plain_version(cuda, B, C, D, prefix, pad_rows):
     for a, b in zip(outs, kd.dag_block_reference(args[0], *args[1:], residuals=True)):
         torch.testing.assert_close(a, b, rtol=0, atol=1e-4)
     cts = [_randn(g, *o.shape) for o in outs[:4]]
+    plan_ = kd.Plan("stream", kd.ROWS_PER_BLOCK, -(-B // kd.ROWS_PER_BLOCK), 0) if force else None
+    variant = force or ("stream" if D > 320 else "cluster")
     kd.reset_launches()
-    got = kd.dag_block_backward(args[0], *args[1:], *outs, *cts)
+    got = kd.dag_block_backward(args[0], *args[1:], *outs, *cts, plan_=plan_)
     torch.cuda.synchronize()
     assert kd.launches["dag_block_bwd"] == 1
+    assert kd.variant_launches[f"dag_block_bwd/{variant}"] == 1
     want = kd.dag_block_backward_reference(args[0], *args[1:], *outs, *cts)
     for i, (a, b) in enumerate(zip(got, want)):
         assert torch.isfinite(a).all(), i
         torch.testing.assert_close(a, b, rtol=0, atol=1e-4 * max(1.0, b.abs().max().item()), msg=str(i))
-    again = kd.dag_block_backward(args[0], *args[1:], *outs, *cts)
+    again = kd.dag_block_backward(args[0], *args[1:], *outs, *cts, plan_=plan_)
     assert all(torch.equal(a, b) for a, b in zip(got, again))  # no atomics: bit for bit
 
 
 def test_dag_block_bwd_rows_per_block_and_refusal(cuda):
+    """C = 64 at D = 300 runs in the cluster variant, one row a cluster, on as
+    many clusters as the card holds at once; C = 128 fits neither variant and
+    is refused before any launch."""
     from erc_tpu_torch.ops.kernels import dag_block as kd
 
-    smem = kd._library("dag_block_bwd").erc_dag_block_bwd_smem
-    assert kd._pick_rows(smem, 16, 300) == 2  # DAG-ERC's shape
-    assert kd._pick_rows(smem, 40, 300) == 1
+    n_max = kd.bwd_max_clusters(cuda, 16, 300)
+    assert 1 <= n_max <= 132 // kd.CLUSTER_BLOCKS
+    assert kd.bwd_launch_plan(cuda, 16, 16, 300) == kd.bwd_plan(16, 16, 300, n_max)
+    assert kd.bwd_launch_plan(cuda, 3, 64, 300) == kd.Plan("cluster", 1, 3, 20)
     g = torch.Generator(device=cuda).manual_seed(3)
     args = _dag_inputs(g, 1, 64, 300)
     outs = kd._forward(args[0], args[1:], residuals=True)  # K3 takes C = 64 in a cluster
+    kd.reset_launches()
+    got = kd.dag_block_backward(args[0], *args[1:], *outs, *[torch.ones_like(o) for o in outs[:4]])
+    torch.cuda.synchronize()
+    assert kd.variant_launches["dag_block_bwd/cluster"] == 1
+    assert all(torch.isfinite(t).all() for t in got)
+    args = _dag_inputs(g, 1, 128, 300)
+    outs = kd._forward(args[0], args[1:], residuals=True)
     with pytest.raises(ValueError, match="shared memory"):
         kd.dag_block_backward(args[0], *args[1:], *outs, *[torch.zeros_like(o) for o in outs[:4]])
+
+
+BWD_SMEM_CASES = [  # (variant, rows, C, D, cols)
+    *((1, r, 16, 300, 20) for r in range(1, 5)),
+    (1, 1, 64, 300, 20), (1, 1, 128, 300, 20), (1, 2, 5, 13, 4), (1, 3, 40, 33, 4), (1, 1, 16, 512, 32),
+    (0, 1, 16, 300, 0), (0, 2, 16, 300, 0), (0, 1, 16, 512, 0), (0, 2, 4, 400, 0),
+]
+
+
+def test_dag_block_bwd_smem_formulas_agree_with_the_kernel(cuda):
+    """bwd_cluster_smem and bwd_stream_smem ≡ the C entry point's need; a plan
+    that does not fit, or does not cover the batch, is refused by the
+    kernel's entry point and raises."""
+    from erc_tpu_torch.ops.kernels import dag_block as kd
+
+    lib = kd._library("dag_block_bwd")
+    for v, r, C, D, cols in BWD_SMEM_CASES:
+        want = kd.bwd_cluster_smem(r, C, D, cols) if v else kd.bwd_stream_smem(r, C, D)
+        assert lib.erc_dag_block_bwd_smem(v, r, C, D, cols) == want, (v, r, C, D, cols)
+    args = _dag_inputs(torch.Generator(device=cuda).manual_seed(4), 2, 16, 300)
+    outs = kd._forward(args[0], args[1:], residuals=True)
+    cts = [torch.zeros_like(o) for o in outs[:4]]
+    for bad in (kd.Plan("cluster", 4, 1, 20),  # 4 rows do not fit
+                kd.Plan("cluster", 1, 1, 20),  # 1 row a cluster, 1 cluster, B = 2
+                kd.Plan("cluster", 2, 1, 19),  # 19 columns a block: not a multiple of 4
+                kd.Plan("cluster", 2, 1, 16)):  # 16 x 16 rows do not cover D = 300
+        with pytest.raises(RuntimeError, match="cudaError"):
+            kd.dag_block_backward(args[0], *args[1:], *outs, *cts, plan_=bad)
 
 
 def _grad_rel(model, other):
@@ -335,7 +384,7 @@ def _grad_rel(model, other):
     return {n: ((a - b).norm() / max(b.norm().item(), 1e-4 * total)).item() for n, a, b in pairs}
 
 
-def _trainers(B=4, steps_batches=2):
+def _trainers(B=4, steps_batches=2, chunk=16):
     from erc_tpu_torch.data.loader import to_device
     from erc_tpu_torch.data.synthetic import synthetic_erc
     from erc_tpu_torch.models import dagerc
@@ -343,14 +392,16 @@ def _trainers(B=4, steps_batches=2):
     out = []
     for impl in ("kernel", "eager"):
         p = dagerc.DAGERCParams()
-        p.finalize(["--dataset=synthetic-iemocap-6", "--reimplement", f"--dag_impl={impl}", "--device=cuda"])
+        p.finalize(["--dataset=synthetic-iemocap-6", "--reimplement", f"--dag_impl={impl}", "--device=cuda",
+                    f"--dag_chunk={chunk}"])
         t = dagerc.DAGERCTrainer(p)
         t.log = lambda msg: None
         t.initialize()
         out.append(t)
     batcher = out[0].batcher(B)
-    batches = [to_device(batcher(synthetic_erc("iemocap-cogmen", 6, n_train=B - 1, max_len=40, seed=s)),
-                         out[0].device) for s in range(steps_batches)]  # each with an all-padding dialogue
+    # each batch with an all-padding dialogue; dialogues as long as a chunk of 64
+    batches = [to_device(batcher(synthetic_erc("iemocap-cogmen", 6, n_train=B - 1, max_len=max(40, chunk), seed=s)),
+                         out[0].device) for s in range(steps_batches)]
     return out, batches
 
 
@@ -364,15 +415,24 @@ def test_function_grads_equal_eager_autograd_at_full_width(cuda):
     torch.cuda.synchronize()
     blocks = -(-batch["input_tensor"].shape[1] // 16)
     assert kd.launches == {"dag_block": 2 * 4 * blocks, "dag_block_bwd": 4 * blocks}  # remat: K3 twice
-    assert kd.variant_launches == {"dag_block/cluster": 2 * 4 * blocks, "dag_block/stream": 0}
+    assert kd.variant_launches == {"dag_block/cluster": 2 * 4 * blocks, "dag_block/stream": 0,
+                                   "dag_block_bwd/cluster": 4 * blocks, "dag_block_bwd/stream": 0}
     worst = max(_grad_rel(kern.model, eager.model).items(), key=lambda kv: kv[1])
     assert worst[1] <= 1e-4, worst
 
 
-def test_trainer_two_steps_kernel_equals_eager(cuda):
-    (kern, eager), batches = _trainers()
+@pytest.mark.parametrize("chunk", [16, 64])
+def test_trainer_two_steps_kernel_equals_eager(cuda, chunk):
+    """At dag_chunk 64 K4 takes blocks of up to 64 positions (one row a
+    cluster), which its stream variant could not hold at D = 300."""
+    from erc_tpu_torch.ops.kernels import dag_block as kd
+
+    (kern, eager), batches = _trainers(chunk=chunk)
+    kd.reset_launches()
     for b in batches:
         lk, le = kern.train_step(b)["Lall"].item(), eager.train_step(b)["Lall"].item()
         assert abs(lk - le) <= 1e-4 * abs(le), (lk, le)
+    assert kd.variant_launches["dag_block_bwd/cluster"] == kd.launches["dag_block_bwd"] > 0
+    assert kd.variant_launches["dag_block_bwd/stream"] == 0
     for (name, a), b in zip(kern.model.named_parameters(), eager.model.parameters()):
         torch.testing.assert_close(a, b, rtol=0, atol=1e-4, msg=name)  # Adam magnifies rounding

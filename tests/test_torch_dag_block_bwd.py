@@ -15,7 +15,8 @@ float32 and differ only in summation order; the weight gradients sum B·C
 terms, hence the scale.  Against autograd of the eager form (the plain
 forward differentiated by torch) the same tolerance holds, but only under
 the gradient contract: rows with no predecessor carry zero cotangents or
-are flag-gated.
+are flag-gated.  Also K4's launch plan (``bwd_plan``, pure Python: which
+variant of the sweep, rows and clusters) and its refusals.
 """
 
 import numpy as np
@@ -190,3 +191,39 @@ def test_grad_refuses_out_views_and_bad_cotangents():
         cts = [torch.zeros_like(o) for o in outs[:4]]
         with pytest.raises(ValueError, match="dKw"):
             tdb.dag_block_backward(0, *args, *outs, *cts[:3], torch.zeros(B, C + 1))
+
+
+# ------------------------------------------------------------------ K4's plan
+BWD_PLANS = [  # (B, C, D, n_max) -> (variant, rows, n)
+    ((16, 16, 300, 7), ("cluster", 3, 6)),  # DAG-ERC training: one wave of 6 clusters on a card that holds 7
+    ((32, 16, 300, 7), ("cluster", 3, 11)),  # 5 rows do not fit: 3 rows a cluster, more clusters than the card holds
+    ((16, 64, 300, 7), ("cluster", 1, 16)),  # --dag_chunk=64: one row's buffers still fit
+    ((3, 5, 13, 8), ("cluster", 1, 3)),  # ragged: 4 columns a block, ranks 4-15 own none
+    ((2, 16, 512, 7), ("stream", 1, 2)),  # rows of 32 columns do not fit a cluster, 2 rows not a block
+    ((5, 4, 400, 7), ("stream", 2, 3)),  # streaming, two rows a block
+]
+
+
+@pytest.mark.parametrize("shape,want", BWD_PLANS, ids=[str(s) for s, _ in BWD_PLANS])
+def test_bwd_plan(shape, want):
+    B, C, D, n_max = shape
+    p = tdb.bwd_plan(B, C, D, n_max)
+    assert (p.variant, p.rows, p.n) == want
+    assert p.rows * p.n >= B
+    if p.variant == "cluster":
+        assert p.cols == tdb.cluster_cols(D) and p.cols % 4 == 0 and p.cols * tdb.CLUSTER_BLOCKS >= D
+        assert tdb.bwd_cluster_smem(p.rows, C, D, p.cols) <= tdb._MAX_SMEM
+    else:
+        assert tdb.bwd_cluster_smem(1, C, D, tdb.cluster_cols(D)) > tdb._MAX_SMEM
+        assert tdb.bwd_stream_smem(p.rows, C, D) <= tdb._MAX_SMEM
+
+
+@pytest.mark.parametrize("B,C,D,n_max", [(1, 128, 300, 7), (16, 16, 300, 0)])
+def test_bwd_plan_refuses_what_fits_neither_variant(B, C, D, n_max):
+    """C = 128 at D = 300 fits neither variant's shared memory (the error
+    names both needs); a card that holds no cluster has no plan at D = 300."""
+    with pytest.raises(ValueError, match="shared memory") as err:
+        tdb.bwd_plan(B, C, D, n_max)
+    if n_max:
+        assert str(tdb.bwd_cluster_smem(1, C, D, tdb.cluster_cols(D))) in str(err.value)
+        assert str(tdb.bwd_stream_smem(1, C, D)) in str(err.value)
