@@ -6,15 +6,18 @@
 Phases (any failure raises, so the exit code is non-zero):
   1. probe the toolchain and the card, build the CUDA kernels from csrc/;
   2. hold each kernel against its plain PyTorch version on the card at the
-     shapes the model paths give it (K1/K2 banded in both instantiations,
-     16-byte and 4-byte, K3 dag_block and K4 dag_block_bwd each in both
-     variants, cluster and stream, bit for bit across repeats, C = 64 at
-     D = 300 in K4), and time kernel (graph and eager call), plain version
-     and, where one exists, a library yardstick (graph and eager call);
-     K1/K2 also at batch 256, K3 also at batch 16 and in its other cluster
-     plans (rows a cluster, columns a block), K4 also in its stream variant,
-     with the cards' cluster occupancy and each cluster kernel's phase
-     cycles;
+     shapes the model paths give it (K1/K2 banded and K1ᵀ, the band's
+     transposed index mode that their backward uses, in both
+     instantiations, 16-byte and 4-byte; K1/K2's autograd Functions against
+     autograd through the plain versions; K3 dag_block in both variants,
+     cluster and stream, and K4 dag_block_bwd in all three, cluster, stream
+     and global, bit for bit across repeats, C = 64 and C = 128 at D = 300
+     in K4), and time kernel (graph and eager call), plain version and,
+     where one exists, a library yardstick (graph and eager call); K1/K2/K1ᵀ
+     also at batch 256, K3 also at batch 16 and in its other cluster plans
+     (rows a cluster, columns a block), K4 also in its stream variant and
+     at C = 128 in its global one, with the cards' cluster occupancy and
+     each cluster kernel's phase cycles;
   3. drive COGMEN serving at full width (712 → 100, 2-layer encoder,
      banded graph) through InferenceEngine: predict (every K1/K2 launch
      16-byte), banded ≡ dense, a single-dialogue request, an HTTP round
@@ -27,10 +30,17 @@ Phases (any failure raises, so the exit code is non-zero):
      settings (batch 16, AdamW 5e-4, dropout 0.2, clip 5.0, dag_remat)
      through DAGERCTrainer with dag_impl=kernel (K3 forward and K4
      backward, every launch of either in the cluster variant): gradients
-     and 3 steps' losses ≡ the eager form, gradients at dag_chunk 64 ≡ the
-     eager form, card ≡ CPU, one epoch and test(), launch counts,
-     dialogues/s, profile of one step;
-  6. print the run's wall time, one JSON line of kernel records, the card's
+     and 3 steps' losses ≡ the eager form, gradients at dag_chunk 64 and
+     128 (K4's global variant) ≡ the eager form, card ≡ CPU, one epoch and
+     test(), launch counts, dialogues/s, profile of one step;
+  6. drive COGMEN training at full width with bench.py's parity config
+     (batch 32, max_seq_len 96, Adam 1e-4, dropout 0.5) through
+     COGMENTrainer with the banded graph (K1/K2 forward, K1ᵀ, K1 and K2
+     backward, every launch 16-byte): launches of one step, gradients and 3
+     steps' losses ≡ the dense graph's, card ≡ CPU, one epoch and test()
+     with launch counts, dialogues/s banded vs dense, profile of one step,
+     and main() → saved model → InferenceEngine with the trainer's logits;
+  7. print the run's wall time, one JSON line of kernel records, the card's
      name and power limit, and a last JSON line {"ok": true, "device": {...}}.
 Each model path is driven with every launch count set to 0 just before it
 and read just after.
@@ -204,6 +214,11 @@ def _band_timings(name, fn, ref, x, y, offs):
         bytes_moved = 4 * (Bm * Lm * K + 2 * Bm * Lm * Dm)
         A = _band_matrix(x, Lm, offs)
         library = lambda: torch.bmm(A, y)  # noqa: E731
+    elif name == "banded_gather_sum_t":
+        # K1ᵀ with offsets o is the transposed product of K1's band matrix at offsets -o
+        bytes_moved = 4 * (Bm * Lm * K + 2 * Bm * Lm * Dm)
+        At = _band_matrix(x, Lm, tuple(-o for o in offs)).transpose(1, 2)
+        library = lambda: torch.bmm(At, y)  # noqa: E731
     else:
         bytes_moved = 4 * (2 * Bm * Lm * Dm + Bm * Lm * K)
         yt = y.transpose(1, 2)
@@ -264,6 +279,22 @@ def check_kernels():
     for s in range(S):
         cases_k1.append((f"neg-strided-s{s}", randn(B, L, 5), ysel[:, :, s, 0, :], neg, "vec4"))
         cases_k1.append((f"pos-strided-s{s}", randn(B, L, 6), ysel[:, :, s, 1, :], pos, "vec4"))
+    # K1ᵀ as the backward calls it: negated offsets, the cotangent or q as src
+    nfull, nneg, npos = (tuple(-o for o in t) for t in (full, neg, pos))
+    g96 = randn(1, 1, D).expand(B, 96, D)
+    cases_k1t = [
+        ("full-L112", randn(B, L, 11), x, nfull, "vec4"),
+        ("full-L96", randn(B, 96, 11), randn(B, 96, D), nfull, "vec4"),
+        ("rgcn-neg-half-L96", randn(B, 96, 5), randn(B, 96, D), nneg, "vec4"),
+        ("rgcn-pos-half-L96", randn(B, 96, 6), randn(B, 96, D), npos, "vec4"),
+        ("rgcn-neg-half-L112", randn(B, L, 5), y, nneg, "vec4"),
+        ("rgcn-pos-half-L112", randn(B, L, 6), y, npos, "vec4"),
+        ("expanded-cotangent-L96", randn(B, 96, 11), g96, nfull, "vec4"),
+        ("misaligned-D99", randn(B, L, 11), x99, nfull, "scalar"),
+        ("L3-below-one-tile", randn(2, 3, 11), randn(2, 3, D), nfull, "vec4"),
+        ("B256-L3-D99", randn(BT, 3, 11), randn(BT, 3, D)[:, :, 1:], nfull, "scalar"),
+        ("B256", randn(BT, L, 11), xt, nfull, "vec4"),
+    ]
     cases_k2 = [
         ("full", x, y, full, "vec4"),
         ("edge-L7-D13-K21", randn(2, 7, 13), randn(2, 7, 13), wide, "scalar"),
@@ -279,8 +310,9 @@ def check_kernels():
     for name, fn, ref, cases in (
         ("banded_gather_sum", kb.banded_gather_sum, kb.banded_gather_sum_reference, cases_k1),
         ("banded_dot", kb.banded_dot, kb.banded_dot_reference, cases_k2),
+        ("banded_gather_sum_t", kb.banded_gather_sum_t, kb.banded_gather_sum_t_reference, cases_k1t),
     ):
-        errs = []
+        errs, bitwise = [], []
         for label, a, b, offs, variant in cases:
             before = dict(kb.variant_launches)
             got = fn(a, b, offs)
@@ -292,24 +324,83 @@ def check_kernels():
             require(math.isfinite(err) and err <= KERNEL_TOL,
                     f"{name}[{label}] max abs err {err} > {KERNEL_TOL}")
             errs.append(err)
+            bitwise.append(bool(torch.equal(got, want)))
             log(f"{name}[{label}] shape {tuple(b.shape)} strides {b.stride()} K={len(offs)} "
-                f"({taken}): max abs err {err:.3e}")
+                f"({taken}): max abs err {err:.3e}, bit for bit {bitwise[-1]}")
         _, a, b, offs, variant = cases[0]
         rec = {
             "name": name,
             "route": "cuda",
             "source": "erc_tpu_torch/csrc/banded.cu",
-            "replaces": ("erc_tpu/ops/pallas/banded.py:117" if name == "banded_gather_sum"
-                         else "erc_tpu/ops/pallas/banded.py:222"),
-            "tpu_source": f"erc_tpu/ops/pallas/banded.py:{name}",
+            # K1ᵀ replaces no pallas_call: the JAX VJPs _bgs_bwd and _bd_bwd are plain jnp
+            "replaces": {"banded_gather_sum": "erc_tpu/ops/pallas/banded.py:117",
+                         "banded_dot": "erc_tpu/ops/pallas/banded.py:222",
+                         "banded_gather_sum_t": "erc_tpu/ops/pallas/banded.py:145"}[name],
+            "tpu_source": f"erc_tpu/ops/pallas/banded.py:{name}" if name != "banded_gather_sum_t"
+            else "erc_tpu/ops/pallas/banded.py:_bgs_bwd and _bd_bwd (jnp)",
             "variant": variant,
             "max_abs_err": max(errs),
+            "bitwise_cases": f"{sum(bitwise)} of {len(bitwise)}",
             **_band_timings(name, fn, ref, a, b, offs),
         }
         _, a, b, offs, variant = next(c for c in cases if c[0] == "B256")
         rec["b256"] = {"variant": variant, **_band_timings(name, fn, ref, a, b, offs)}
         records[name] = rec
     return records
+
+
+def check_band_functions():
+    """K1's and K2's autograd Functions against autograd through their plain
+    versions on the card, at COGMEN's training shape (B = 32, L = 96,
+    D = 100): the RGCN's strided Ysel views with an expanded cotangent, the
+    graph transformer's contiguous inputs, and inputs that need no gradient
+    (their kernels not launched).  Returns the worst gradient error."""
+    import torch
+    from erc_tpu_torch.ops.kernels import banded as kb
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    randn = lambda *s: torch.randn(*s, device="cuda", generator=g)  # noqa: E731
+    B, L, D = 32, 96, 100
+    full, neg = tuple(range(-5, 6)), tuple(range(-5, 0))
+    ysel = randn(B, L, 2, 2, D)
+    gd = randn(1, 1, D).expand(B, L, D)
+    cases = [  # (label, function, plain version, inputs, which need grad, cotangent)
+        ("K1-ysel-view-expanded-g-src-only", lambda c, y: kb.banded_gather_sum(c, y[:, :, 1, 0, :], neg),
+         lambda c, y: kb.banded_gather_sum_reference(c, y[:, :, 1, 0, :], neg), (randn(B, L, 5), ysel),
+         (False, True), gd),
+        ("K1-aggregation-both", lambda c, v: kb.banded_gather_sum(c, v, full),
+         lambda c, v: kb.banded_gather_sum_reference(c, v, full), (randn(B, L, 11), randn(B, L, D)),
+         (True, True), randn(B, L, D)),
+        ("K2-scores-both", lambda a, b: kb.banded_dot(a, b, full), lambda a, b: kb.banded_dot_reference(a, b, full),
+         (randn(B, L, D), randn(B, L, D)), (True, True), randn(B, L, 11)),
+        ("K2-ysel-views-b-only", lambda a, b: kb.banded_dot(a[:, :, 0, 1, :], b[:, :, 1, 1, :], full),
+         lambda a, b: kb.banded_dot_reference(a[:, :, 0, 1, :], b[:, :, 1, 1, :], full), (ysel, randn(B, L, 2, 2, D)),
+         (False, True), randn(1, 1, 11).expand(B, L, 11)),
+    ]
+    worst = 0.0
+    for label, fn, ref, inputs, needs, cot in cases:
+        grads = []
+        for f in (fn, ref):
+            kb.reset_launches()
+            leaves = [t.detach().clone().requires_grad_(n) for t, n in zip(inputs, needs)]
+            with torch.enable_grad():
+                f(*leaves).backward(cot)
+            torch.cuda.synchronize()
+            grads.append([t.grad for t in leaves])
+            if f is fn:
+                launches = dict(kb.launches)
+        errs = []
+        for a, b, n in zip(*grads, needs):
+            require((a is None) == (not n), f"band Function[{label}]: a gradient nobody asked for, or a missing one")
+            if n:
+                errs.append((a - b).abs().max().item())
+        err = max(errs)
+        require(math.isfinite(err) and err <= KERNEL_TOL,
+                f"band Function[{label}]: gradient error {err} > {KERNEL_TOL}")
+        worst = max(worst, err)
+        log(f"band Function[{label}]: gradients vs autograd through the plain version max abs err {err:.3e}; "
+            f"launches forward and backward {launches}")
+    return worst
 
 
 def _dag_inputs(g, B, C, D, prefix=True, pad_rows=0):
@@ -510,11 +601,13 @@ def _dag_bwd_work(B, C, D):
 
 
 def check_dag_block_bwd():
-    """K4 against its plain version on the card in both variants of its sweep
-    (the stream variant at D = 512, and forced at the training shape), C = 64
-    at D = 300, bit for bit across repeats, and K3's residuals against the
-    plain version's; its plan, the card's occupancy of its clusters, times at
-    the training shape in both variants, and the cluster sweep's phases."""
+    """K4 against its plain version on the card in every variant of its sweep
+    (the stream variant at D = 512, and forced at the training shape; the
+    global variant at C = 128, D = 300, and forced), C = 64 at D = 300, bit
+    for bit across repeats, and K3's residuals against the plain version's;
+    its plan, the card's occupancy of its clusters, times at the training
+    shape in the cluster and stream variants and at C = 128 in the global
+    one, and the cluster sweep's phases."""
     import torch
     from erc_tpu_torch.ops.kernels import dag_block as kd
 
@@ -532,6 +625,8 @@ def check_dag_block_bwd():
         ("chunk64-B2-C64-D300", _dag_inputs(g, 2, 64, D, prefix=True, pad_rows=4), "cluster", None),
         ("stream-B4-C16-D512", _dag_inputs(g, 4, C, 512, prefix=True, pad_rows=3), "stream", None),
         ("stream-forced-B16", _dag_inputs(g, 16, C, D, prefix=True), "stream", forced),
+        ("chunk128-B16-C128-D300", _dag_inputs(g, 16, 128, D, prefix=True, pad_rows=5), "global", None),
+        ("global-forced-B4", _dag_inputs(g, 4, C, D, prefix=True, pad_rows=2), "global", kd.Plan("global", 1, 4, 0)),
     ]
     errs = []
     for label, args, variant, plan_ in cases:
@@ -593,6 +688,14 @@ def check_dag_block_bwd():
     w_bytes, w_flops = 4 * (N * D * 10 + N + 8 * D * D + 7 * D), 16 * D * D * N + 8 * D * N
     ms = _median_graph_ms(bwd)
     stream_ms = _median_graph_ms(lambda: bwd(forced))
+    # the global variant at --dag_chunk=128's shape (B = 16, C = 128): eager calls, few
+    args128 = _dag_inputs(g, Bt, 128, D, prefix=True)
+    outs128 = kd._forward(args128[0], args128[1:], residuals=True)
+    cts128 = [torch.randn(o.shape, device="cuda", generator=g) for o in outs128[:4]]
+    global_ms = _median_event_ms(lambda: kd.dag_block_backward(args128[0], *args128[1:], *outs128, *cts128), reps=5)
+    global_bound = _bound(*_dag_bwd_work(Bt, 128, D))[0]
+    log(f"dag_block_bwd global variant at B={Bt} C=128 D={D}: {global_ms:.6f} ms a call (bound "
+        f"{global_bound:.6f} ms)")
     bwd()
     torch.cuda.synchronize()
     phases = _phase_cycles(kd, "dag_block_bwd")
@@ -617,6 +720,8 @@ def check_dag_block_bwd():
         "bound_by": bound_by,
         "library_ms": None,  # no single PyTorch call computes the reverse sweep
         "stream_ms": stream_ms,
+        "global_c128_ms": global_ms,
+        "global_c128_bound_ms": global_bound,
         "phase_cycles": phases,
         "wgrad_ms": _median_graph_ms(wgrad),
         "wgrad_bound_ms": _bound(w_bytes, w_flops)[0],
@@ -796,7 +901,7 @@ def drive_dagerc(card: str):
         f"launches {launches}; by variant {variants}")
     require(launches["dag_block"] == want, f"dag_block launched {launches['dag_block']} times, want {want}")
     require(variants == {"dag_block/cluster": want, "dag_block/stream": 0, "dag_block_bwd/cluster": 0,
-                         "dag_block_bwd/stream": 0},
+                         "dag_block_bwd/stream": 0, "dag_block_bwd/global": 0},
             f"dag_block: not every launch on the DAG-ERC serving path took the cluster variant: {variants}")
     _check_results(dialogues, results)
 
@@ -950,6 +1055,22 @@ def drive_training(card: str):
     require(worst <= TRAIN_TOL, f"dag_chunk 64: kernel vs eager gradients {worst} ({name}) > {TRAIN_TOL}")
     del k64, e64
 
+    # blocks of 128 positions: K4 takes them in its global variant
+    k128, e128 = _trainer("--dag_chunk=128"), _trainer("--dag_chunk=128", "--dag_impl=eager")
+    _reset_launches()
+    k128.compute_grads(batch)
+    launches128, variants128 = _read_launches(), dict(kd.variant_launches)
+    nb128 = _blocks(longest, 128)
+    require(launches128["dag_block_bwd"] == layers * nb128
+            and variants128["dag_block_bwd/global"] == layers * nb128,
+            f"dag_chunk 128: K4 launches {launches128}, by variant {variants128}, want {layers * nb128} global")
+    e128.compute_grads(batch)
+    worst, name = _worst_grad_diff(k128.model, e128.model)
+    log(f"dag_chunk 128 ({nb128} blocks of batch 16 x L {int(L)}): launches {launches128}, by variant "
+        f"{variants128}; gradients kernel vs eager form worst {worst:.3e} ({name}), tolerance {TRAIN_TOL}")
+    require(worst <= TRAIN_TOL, f"dag_chunk 128: kernel vs eager gradients {worst} ({name}) > {TRAIN_TOL}")
+    del k128, e128
+
     # three steps of each form on the same batches and dropout masks
     secs, losses = {}, {}
     for label, t in (("kernel", kern), ("eager", eager)):
@@ -992,7 +1113,8 @@ def drive_training(card: str):
     launches = _read_launches()
     variants = dict(kd.variant_launches)
     require(variants == {"dag_block/cluster": launches["dag_block"], "dag_block/stream": 0,
-                         "dag_block_bwd/cluster": launches["dag_block_bwd"], "dag_block_bwd/stream": 0},
+                         "dag_block_bwd/cluster": launches["dag_block_bwd"], "dag_block_bwd/stream": 0,
+                         "dag_block_bwd/global": 0},
             f"dag_block/dag_block_bwd: not every launch on the training path took the cluster variant: {variants}")
     want = {"dag_block": 2 * layers * train_blocks + layers * test_blocks, "dag_block_bwd": layers * train_blocks}
     rec = history[0]
@@ -1020,11 +1142,177 @@ def drive_training(card: str):
     return launches, variants
 
 
+# ------------------------------------------------------------------ phase 6
+COGMEN_TRAIN_ARGS = ["--dataset=synthetic-cogmen-6", "--encoder_mode=chained", "--max_seq_len=96",
+                     "--confusion_matrix=false"]
+
+
+def _cogmen_trainer(graph_impl="banded", *extra, device="cuda", dropout=None):
+    """A COGMENTrainer at bench.py's parity config (712 → 100, 2-layer encoder
+    of 8 heads and ff 2048, wp = wf = 5, batch 32, Adam 1e-4, L2 1e-8,
+    dropout 0.5; weights from seed 1, the same on every device)."""
+    from erc_tpu_torch.models import cogmen
+
+    p = cogmen.COGMENParams()
+    p.finalize([*COGMEN_TRAIN_ARGS, f"--graph_impl={graph_impl}", f"--device={device}", "--epoch=1", *extra])
+    if dropout is not None:
+        p.drop_rate = dropout
+    trainer = cogmen.COGMENTrainer(p)
+    trainer.log = lambda msg: log(f"  [trainer] {msg}")
+    trainer.initialize()
+    return trainer
+
+
+# launches of one banded COGMEN train step (models/cogmen.py, ops/gnn_banded.py): forward K1 5 (the RGCN's
+# 2 speakers x 2 directions, the graph transformer's aggregation) and K2 1 (its scores); backward K1ᵀ 6 (the
+# RGCN's 4 d src, d v, d k), K1 1 (d q) and K2 1 (d alpha); the RGCN's coefficients need no gradient
+TRAIN_STEP_LAUNCHES = {"banded_gather_sum": 5 + 1, "banded_dot": 1 + 1, "banded_gather_sum_t": 6}
+EVAL_LAUNCHES = {"banded_gather_sum": 5, "banded_dot": 1, "banded_gather_sum_t": 0}
+
+
+def drive_cogmen_training(card: str):
+    """COGMEN training at full width through COGMENTrainer with the banded
+    graph (K1/K2 forward, K1ᵀ/K1/K2 backward): launches of one step,
+    gradients and 3 steps' losses ≡ the dense graph's, the card ≡ the CPU
+    at dropout 0, an epoch and test() as the main path, dialogues/s banded
+    vs dense, a profile of one step, and train → save → serve."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from erc_tpu_torch.data.loader import to_device
+    from erc_tpu_torch.ops.kernels import banded as kb
+
+    band = _cogmen_trainer()
+    p = band.params
+    n_params = sum(t.numel() for t in band.model.parameters())
+    require(n_params == 10_117_874, f"COGMEN has {n_params} parameters, want 10117874")
+    log(f"trainer: COGMEN {p.hidden_all} -> {p.hidden_size}, chained encoder, wp {p.wp} wf {p.wf}, batch "
+        f"{p.train.batch_size}, {p.optim.name} lr {p.optim.lr} weight decay {p.optim.weight_decay}, dropout "
+        f"{p.drop_rate}, no clip, {n_params} params, graph_impl banded, on {torch.cuda.get_device_name(0)}")
+    dense = _cogmen_trainer("dense")
+    require(all(torch.equal(a, b) for a, b in zip(band.model.state_dict().values(), dense.model.state_dict().values())),
+            "banded and dense trainers start from different weights")
+    host = list(band.make_loader("train"))  # epoch 0: the batches train() will take
+    batches = [to_device(b, band.device) for b in host[:3]]
+
+    # one forward and backward: launches by the formula, gradients ≡ the dense graph's
+    _reset_launches()
+    band.compute_grads(batches[0])
+    launches, variants = _read_launches(), dict(kb.variant_launches)
+    log(f"COGMEN train step of one batch (L {host[0]['input_tensor'].shape[1]}): launches {launches}; "
+        f"by variant {variants}")
+    for name, n in TRAIN_STEP_LAUNCHES.items():
+        require(launches[name] == n, f"{name} launched {launches[name]} times in one train step, want {n}")
+        require(variants[f"{name}/vec4"] == n and variants[f"{name}/scalar"] == 0,
+                f"{name}: not every launch of the train step took the 16-byte variant: {variants}")
+    dense.compute_grads(batches[0])
+    worst, name = _worst_grad_diff(band.model, dense.model)
+    log(f"first-batch gradients, banded vs dense on the card: worst {worst:.3e} ({name}), tolerance {TRAIN_TOL}")
+    require(worst <= TRAIN_TOL, f"banded vs dense gradients {worst} ({name}) > {TRAIN_TOL}")
+
+    # three steps of each on the same batches and dropout masks (the graph draws none)
+    secs, losses = {}, {}
+    for label, t in (("banded", band), ("dense", dense)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = [t.train_step(b)["Lall"] for b in batches]
+        losses[label] = [x.item() for x in out]
+        secs[label] = time.perf_counter() - t0
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses["banded"], losses["dense"]))
+    log(f"3 COGMEN train steps, losses banded {losses['banded']} vs dense {losses['dense']}: worst relative "
+        f"diff {rel:.3e} (tolerance {TRAIN_TOL})")
+    require(rel <= TRAIN_TOL, f"banded vs dense losses differ by {rel} > {TRAIN_TOL}")
+    del band, dense
+
+    # the card against a CPU run of the same weights, without dropout
+    card0, cpu0 = _cogmen_trainer(dropout=0.0), _cogmen_trainer(device="cpu", dropout=0.0)
+    loss_card = card0.compute_grads(batches[0])["Lall"].item()
+    t0 = time.perf_counter()
+    loss_cpu = cpu0.compute_grads(to_device(host[0], torch.device("cpu")))["Lall"].item()
+    t_cpu = time.perf_counter() - t0
+    rel = abs(loss_card - loss_cpu) / abs(loss_cpu)
+    worst, name = _worst_grad_diff(card0.model, cpu0.model)
+    log(f"COGMEN card vs CPU, first batch: loss {loss_card:.7f} vs {loss_cpu:.7f} (relative {rel:.3e}), "
+        f"gradients worst {worst:.3e} ({name}); tolerance {TRAIN_TOL}; CPU step {t_cpu:.2f} s")
+    require(rel <= TRAIN_TOL and worst <= TRAIN_TOL, f"COGMEN card vs CPU: loss {rel}, gradients {worst} ({name})")
+    del card0, cpu0
+
+    # the main path: one epoch (120 dialogues) and test() through COGMENTrainer.train, banded
+    run, other = _cogmen_trainer(), _cogmen_trainer("dense")
+    n_test = len(list(run.make_loader("test")))
+    _reset_launches()
+    t0 = time.perf_counter()
+    history = run.train()
+    wall = time.perf_counter() - t0
+    launches, variants = _read_launches(), dict(kb.variant_launches)
+    rec = history[0]
+    want = {k: rec["steps"] * n + n_test * EVAL_LAUNCHES[k] for k, n in TRAIN_STEP_LAUNCHES.items()}
+    log(f"COGMEN training path: {rec['steps']} steps over {rec['dialogues']} dialogues, then test() ({n_test} "
+        f"batches) in {wall:.3f} s; launches {launches}; by variant {variants}")
+    require({k: launches[k] for k in want} == want, f"COGMEN training path launches {launches}, want {want}")
+    require(all(variants[f"{k}/scalar"] == 0 for k in want), f"a scalar launch on the COGMEN training path: {variants}")
+    res = rec["test"]
+    require(all(math.isfinite(x) for x in (rec["Lall"], rec["gnorm"], res["Lall"], res["f1"])),
+            f"non-finite training results {rec}")
+    log(f"COGMEN epoch 0: loss {rec['Lall']:.5f}, gnorm {rec['gnorm']:.5f}; test loss {res['Lall']:.5f}, "
+        f"weighted F1 {res['f1']:.5f}, acc {res['acc']:.5f}")
+
+    # train dialogues/s, banded vs dense, epochs in turns (dense, banded, dense, banded)
+    rates = {"banded": [rec["dialogues"] / rec["seconds"]], "dense": []}
+    for label, t in (("dense", other), ("banded", run), ("dense", other), ("banded", run)):
+        if rates[label]:  # train() ends on the epoch it ran: move on by one
+            t.eidx += 1
+        t.params.epoch = t.eidx + 1
+        r = t.train()[-1]
+        rates[label].append(r["dialogues"] / r["seconds"])
+    log(f"COGMEN training throughput (train steps of an epoch, {rec['dialogues']} dialogues, batch "
+        f"{p.train.batch_size}): banded "
+        f"{', '.join(f'{x:.1f}' for x in rates['banded'])} dialogues/s (first epoch first), dense "
+        f"{', '.join(f'{x:.1f}' for x in rates['dense'])} dialogues/s on {card}")
+
+    batch = batches[-1]
+    run.train_step(batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run.train_step(batch)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    _profile(lambda: run.train_step(batch), f"one COGMEN train step (batch 32, L "
+             f"{host[2]['input_tensor'].shape[1]}, banded)", step_s, show=("banded_",))
+
+    # train, save, serve: main() with two steps; the saved model serves the trainer's eval logits
+    from erc_tpu_torch.models import cogmen
+    from erc_tpu_torch.serve import InferenceEngine
+
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer = cogmen.main([*COGMEN_TRAIN_ARGS, "--graph_impl=banded", "--epoch=1", "--batch_count=2",
+                               f"--save_dir={tmp}"])
+        path = Path(tmp) / "model.last.ckpt"
+        require(path.exists(), f"main saved no {path}")
+        tp = trainer.params
+        engine = InferenceEngine.from_module("cogmen", str(path), dataset=tp.dataset,
+                                             batch_size=int(tp.test.batch_size),
+                                             encoder_mode=tp.encoder_mode, graph_impl=tp.graph_impl,
+                                             hidden_size=tp.hidden_size, max_seq_len=tp.max_seq_len)
+        test_batch = next(iter(trainer.make_loader("test")))
+        trainer.model.eval()
+        with torch.inference_mode():
+            want_logits = trainer.model(to_device(test_batch, trainer.device)).float().cpu().numpy()
+        got = engine.logits(test_batch)
+        diff = float(np.abs(got - want_logits).max())
+        log(f"train -> save -> serve: {trainer.global_steps} steps, saved {path.name}; InferenceEngine logits vs "
+            f"the trainer's eval logits max abs diff {diff:.3e}")
+        require(diff == 0.0, f"served logits differ from the trainer's eval logits by {diff}")
+    return launches, variants
+
+
 def main() -> int:
     import torch
 
     card = probe()
     records = check_kernels()
+    fn_err = check_band_functions()
     records["dag_block"] = check_dag_block()
     records["dag_block_bwd"] = check_dag_block_bwd()
     launches, variants = drive_cogmen(card)
@@ -1038,6 +1326,14 @@ def main() -> int:
     records["dag_block"]["train_launches"] = train["dag_block"]
     records["dag_block_bwd"]["variant_launches"] = {k: n for k, n in train_variants.items()
                                                     if k.startswith("dag_block_bwd/")}
+    cogmen_train, cogmen_train_variants = drive_cogmen_training(card)
+    launches["banded_gather_sum_t"] = cogmen_train["banded_gather_sum_t"]
+    for name in ("banded_gather_sum", "banded_dot", "banded_gather_sum_t"):
+        records[name]["train_launches"] = cogmen_train[name]
+        records[name]["train_variant_launches"] = {k: n for k, n in cogmen_train_variants.items()
+                                                   if k.startswith(name + "/")}
+    for name in ("banded_gather_sum", "banded_dot"):
+        records[name]["function_grad_max_abs_err"] = fn_err
     for name, rec in records.items():
         rec["launches"] = launches[name]
         require(rec["launches"] > 0, f"{name} was not launched on its path")

@@ -5,6 +5,11 @@
 //     out[b, v, :] = sum_k coef[b, v, k] * src[b, v + off_k, :]
 // K2 replaces erc_tpu/ops/pallas/banded.py::banded_dot (_dot_kernel):
 //     out[b, v, k] = a[b, v, :] . b[b, v + off_k, :]
+// K1's transposed index mode (K1t) reads the coefficient at the source row:
+//     out[b, u, :] = sum_k coef[b, u + off_k, k] * src[b, u + off_k, :]
+// With the offsets negated it is the part of both VJPs that sums over
+// u - off_k (the JAX package's _bgs_bwd and _bd_bwd are plain jnp, with no
+// kernel): K1's d src = K1t(coef, g, -off), K2's d b = K1t(g, a, -off).
 // Taps whose source row v + off_k lies outside [0, L) contribute 0.
 //
 // Bound on the H100: bytes.  At COGMEN's serving shape (B = 32, L = 112,
@@ -20,7 +25,10 @@
 //       source load or 4-byte coef load waits on another tap's; rows re-read
 //       by neighbouring targets hit L1.  Taps are summed in tap order with
 //       the product and the sum each rounded, as the plain version does, so
-//       the two agree bit for bit.
+//       the two agree bit for bit.  K1t is the same kernel with one index
+//       changed (template flag TR): the coef row is the source row u + off_k,
+//       under the same range test, so it moves the same bytes as K1 and
+//       needs no shifted copy of coef.
 //   K2: one warp per (b, v), lanes over 4-column slots; all K taps' loads are
 //       issued at once into K partial sums per lane, and the K sums are
 //       reduced together by halving exchanges (K padded to a power of two P:
@@ -87,7 +95,9 @@ template <> struct V<4> {
 // predicated off.
 __device__ __forceinline__ int tap_off(const Taps& t, int k) { return t.off[k < kMaxTaps ? k : 0]; }
 
-template <int VEC, int KT>  // KT: the tap count, or 0 for any count in batches of kChunk
+// KT: the tap count, or 0 for any count in batches of kChunk; TR: coef read at
+// the source row (K1t) instead of the target row
+template <int VEC, int KT, bool TR>
 __global__ void __launch_bounds__(kGatherThreads) banded_gather_sum_kernel(
     const float* __restrict__ coef, long long c_sb, long long c_sl,
     const float* __restrict__ src, long long s_sb, long long s_sl,
@@ -99,7 +109,7 @@ __global__ void __launch_bounds__(kGatherThreads) banded_gather_sum_kernel(
   if (i >= (unsigned)(B * L * DV)) return;
   const int row = (int)(i / DV), c = (int)i - row * DV;
   const int b = row / L, v = row - b * L;
-  const float* cp = coef + b * c_sb + v * c_sl;
+  const float* cp = coef + b * c_sb + (TR ? 0 : v * c_sl);
   const float* sp = src + b * s_sb + c * VEC;
   const int K = KT > 0 ? KT : taps.n;
   constexpr int CH = KT > 0 ? KT : kChunk;
@@ -112,8 +122,12 @@ __global__ void __launch_bounds__(kGatherThreads) banded_gather_sum_kernel(
       const int k = k0 + j;
       const bool tap = KT > 0 || k < K;
       const int u = v + tap_off(taps, k);
-      x[j] = (tap && u >= 0 && u < L) ? Vt::ldg(sp + u * s_sl) : Vt::zero();
-      w[j] = tap ? __ldg(cp + k) : 0.f;
+      const bool in = tap && u >= 0 && u < L;
+      x[j] = in ? Vt::ldg(sp + u * s_sl) : Vt::zero();
+      if constexpr (TR)
+        w[j] = in ? __ldg(cp + u * c_sl + k) : 0.f;
+      else
+        w[j] = tap ? __ldg(cp + k) : 0.f;
     }
 #pragma unroll
     for (int j = 0; j < CH; ++j)
@@ -199,14 +213,18 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <int VEC, int KT> struct Gather {
-  static void launch(const Args& g) {
-    const int threads = g.B * g.L * (g.D / VEC);
-    banded_gather_sum_kernel<VEC, KT><<<(threads - 1) / kGatherThreads + 1, kGatherThreads, 0,
-                                        g.stream>>>(g.x, g.x_sb, g.x_sl, g.y, g.y_sb, g.y_sl, g.out, g.B,
-                                                    g.L, g.D, g.taps);
-  }
+template <bool TR> struct GatherMode {
+  template <int VEC, int KT> struct Kernel {
+    static void launch(const Args& g) {
+      const int threads = g.B * g.L * (g.D / VEC);
+      banded_gather_sum_kernel<VEC, KT, TR><<<(threads - 1) / kGatherThreads + 1, kGatherThreads, 0,
+                                             g.stream>>>(g.x, g.x_sb, g.x_sl, g.y, g.y_sb, g.y_sl, g.out,
+                                                         g.B, g.L, g.D, g.taps);
+    }
+  };
 };
+template <int VEC, int KT> using Gather = GatherMode<false>::Kernel<VEC, KT>;
+template <int VEC, int KT> using GatherT = GatherMode<true>::Kernel<VEC, KT>;
 
 template <int VEC, int KT> struct Dot {
   static void launch(const Args& g) {
@@ -261,6 +279,21 @@ int erc_banded_gather_sum(const float* coef, long long c_sb, long long c_sl,
   if (D % 4 || !aligned16(src, s_sb, s_sl, B, L) || ((uintptr_t)out & 15))
     return (int)cudaErrorMisalignedAddress;
   return launch<4, Gather>(g);
+}
+
+// K1t: out[b, u] = sum_k coef[b, u + off_k, k] * src[b, u + off_k]; vec4 as
+// for erc_banded_gather_sum.
+int erc_banded_gather_sum_t(const float* coef, long long c_sb, long long c_sl,
+                            const float* src, long long s_sb, long long s_sl,
+                            float* out, int B, int L, int D,
+                            const int* offsets, int K, int vec4, void* stream) {
+  Args g;
+  const int err = prepare(&g, coef, c_sb, c_sl, src, s_sb, s_sl, out, B, L, D, offsets, K, stream);
+  if (err) return err;
+  if (!vec4) return launch<1, GatherT>(g);
+  if (D % 4 || !aligned16(src, s_sb, s_sl, B, L) || ((uintptr_t)out & 15))
+    return (int)cudaErrorMisalignedAddress;
+  return launch<4, GatherT>(g);
 }
 
 // vec4 as above, for a and b.

@@ -32,7 +32,7 @@
 // the model registers them): its products contract over the forward's output
 // index, the rows of those matrices.
 //
-// The sweep has two variants, chosen by shape alone (bwd_plan() in
+// The sweep has three variants, chosen by shape alone (bwd_plan() in
 // ops/kernels/dag_block.py):
 //
 // "cluster" (D up to 320 in f32).  A cluster of 16 thread blocks carries R
@@ -98,6 +98,15 @@
 // (5) the merge's scalars, the dot products of dnw with every V0_j/V1_j, and
 // the dV0/dV1 updates; (6) the softmax backward, dq and dK, a warp per row.
 //
+// "global" (blocks whose stream buffers do not fit in shared memory either:
+// C >= 75 at D = 300, where K3 still runs).  The stream kernel with one row a
+// block, its whole layout (the final V0/V1 and running dV0/dV1, 4·C·D floats
+// a row, and the rest) placed in a device-memory workspace that the wrapper
+// allocates, one slice a block, instead of in shared memory.  Same arithmetic
+// in the same order; __syncthreads() orders the block's device-memory
+// accesses as it does its shared ones.  It reads and updates the C·D buffers
+// from L1/L2 at every position, so it is far slower than the stream variant.
+//
 // Inputs are f32.  The [B, C, ...] tensors (enum Tensor) have contiguous
 // [b, c] slices and free batch and position strides.  The entry points
 // check the plan they are given against shared memory, launch on the
@@ -147,6 +156,7 @@ struct DagBwdArgs {
   const float* wr1;          // [D, D]
   const float* wk;           // [D]
   int B, C, D, flag;
+  float* ws;                 // the global variant's workspace: stream_smem_floats(1, C, D) a block
 };
 
 constexpr int kProducts = 8;
@@ -190,13 +200,20 @@ __device__ __forceinline__ GruBwd gru_bwd(float g, float hn_proj, float h, float
 constexpr int kStats = 8;  // per row: max, sum e, sp, sw, den, d sum e / mp, d max / den_p, (spare)
 
 // ------------------------------------------------------------------ stream variant
-template <int R>
+// The floats of the stream variant's layout for `rows` rows a block.
+__host__ __device__ inline long long stream_smem_floats(int rows, int C, int D) {
+  return 4LL * rows * C * D + 10LL * rows * D + 8LL * rows * C + (long long)rows * kStats +
+         3LL * rows * kMaxWarps;
+}
+
+// WS: the layout lies in the workspace a.ws (the global variant), else in shared memory.
+template <int R, bool WS>
 __global__ void __launch_bounds__(kMaxThreads) dag_block_bwd_stream_kernel(const DagBwdArgs a) {
   extern __shared__ float smem[];
   const int C = a.C, D = a.D;
   const int tid = threadIdx.x, nt = blockDim.x;
   const int warp = tid >> 5, lane = tid & 31, nwarps = nt >> 5;
-  float* v0 = smem;              // [R][C][D] the block's final V0 rows
+  float* v0 = WS ? a.ws + blockIdx.x * stream_smem_floats(R, C, D) : smem;  // [R][C][D] final V0 rows
   float* v1 = v0 + R * C * D;    // [R][C][D] final V1
   float* dv0 = v1 + R * C * D;   // [R][C][D] running dV0
   float* dv1 = dv0 + R * C * D;  // [R][C][D] running dV1
@@ -1017,10 +1034,6 @@ __global__ void __launch_bounds__(kClusterThreads, 1) dag_block_bwd_cluster_kern
 }
 
 // ------------------------------------------------------------------ launch
-long long stream_smem_floats(int rows, int C, int D) {
-  return 4LL * rows * C * D + 10LL * rows * D + 8LL * rows * C + (long long)rows * kStats +
-         3LL * rows * kMaxWarps;
-}
 
 // Whether the cluster variant takes (rows, C, D) with `cols` columns a block.
 bool cluster_ok(int rows, int C, int D, int cols) {
@@ -1029,14 +1042,14 @@ bool cluster_ok(int rows, int C, int D, int cols) {
          rows * cols <= kClusterThreads && BwdLayout(rows, C, D, cols).total * (long long)sizeof(float) <= kMaxSmem;
 }
 
-template <int R>
+template <int R, bool WS>
 cudaError_t launch_stream(const DagBwdArgs& a, size_t smem, cudaStream_t stream) {
   static size_t allowed = 48 * 1024;
-  const cudaError_t err = allow_smem(dag_block_bwd_stream_kernel<R>, smem, allowed);
+  const cudaError_t err = allow_smem(dag_block_bwd_stream_kernel<R, WS>, smem, allowed);
   if (err != cudaSuccess) return err;
   const int warps = (a.D + 31) / 32;
   const int threads = 32 * (warps < kMaxWarps ? warps : kMaxWarps);
-  dag_block_bwd_stream_kernel<R><<<(a.B + R - 1) / R, threads, smem, stream>>>(a);
+  dag_block_bwd_stream_kernel<R, WS><<<(a.B + R - 1) / R, threads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -1080,9 +1093,12 @@ extern "C" {
 
 // Dynamic shared memory (bytes) one block of the sweep needs: variant 0
 // (stream) with `rows` rows a block, variant 1 (cluster) with `rows` rows a
-// cluster and `cols` columns a block; mirrored by bwd_stream_smem and
-// bwd_cluster_smem in ops/kernels/dag_block.py.
+// cluster and `cols` columns a block, variant 2 (global) none (its layout
+// takes as many bytes of its workspace a block as the stream variant's of
+// shared memory); mirrored by bwd_stream_smem and bwd_cluster_smem in
+// ops/kernels/dag_block.py.
 long long erc_dag_block_bwd_smem(int variant, int rows, int C, int D, int cols) {
+  if (variant == kGlobal) return 0;
   const long long floats =
       variant == kStream ? stream_smem_floats(rows, C, D) : BwdLayout(rows, C, D, cols).total;
   return floats * (long long)sizeof(float);
@@ -1097,9 +1113,12 @@ int erc_dag_block_bwd_max_clusters(int rows, int C, int D, int cols, int* n) {
 }
 
 // The sweep by the wrapper's plan: variant 0 (stream, `rows` 1 or 2 rows a
-// block; `n` and `cols` unused) or 1 (cluster: `n` clusters of 16 blocks,
-// `rows` rows a cluster, `cols` columns a block).  A plan that does not
-// cover B or does not fit in shared memory is refused.
+// block; `n` and `cols` unused), 1 (cluster: `n` clusters of 16 blocks,
+// `rows` rows a cluster, `cols` columns a block) or 2 (global: one row a
+// block, `n` = B blocks, args->ws holding stream_smem_floats(1, C, D) floats
+// for each of them).  A plan that does not cover B, does not fit in shared
+// memory or names other than B global blocks (whose workspace the wrapper
+// sized by `n`) is refused.
 int erc_dag_block_bwd_sweep(const DagBwdArgs* args, int variant, int rows, int n, int cols, void* stream) {
   const DagBwdArgs& a = *args;
   if (a.B < 1 || a.C < 1 || a.D < 1) return (int)cudaErrorInvalidValue;
@@ -1109,10 +1128,14 @@ int erc_dag_block_bwd_sweep(const DagBwdArgs* args, int variant, int rows, int n
     if (!cluster_ok(rows, a.C, a.D, cols) || n < 1 || (long long)n * rows < a.B) return (int)cudaErrorInvalidValue;
     return (int)cluster_dispatch(&a, rows, cols, n, smem, s, nullptr);
   }
+  if (variant == kGlobal) {
+    if (rows != 1 || n != a.B || a.ws == nullptr) return (int)cudaErrorInvalidValue;
+    return (int)launch_stream<1, true>(a, 0, s);
+  }
   if (variant != kStream || (long long)smem > kMaxSmem) return (int)cudaErrorInvalidValue;
   switch (rows) {
-    case 1: return (int)launch_stream<1>(a, smem, s);
-    case 2: return (int)launch_stream<2>(a, smem, s);
+    case 1: return (int)launch_stream<1, false>(a, smem, s);
+    case 2: return (int)launch_stream<2, false>(a, smem, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

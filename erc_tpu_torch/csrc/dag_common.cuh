@@ -10,7 +10,8 @@ namespace {
 constexpr long long kMaxSmem = 232448;  // shared memory one block may use on Hopper (227 KB)
 constexpr int kClusterBlocks = 16;      // thread blocks a cluster of either kernel's cluster variant
 
-enum Variant { kStream = 0, kCluster = 1 };  // mirrored by _VARIANTS in ops/kernels/dag_block.py
+// mirrored by _VARIANTS in ops/kernels/dag_block.py; kGlobal is K4's alone
+enum Variant { kStream = 0, kCluster = 1, kGlobal = 2 };
 
 __host__ __device__ constexpr int round4(int x) { return (x + 3) & ~3; }
 

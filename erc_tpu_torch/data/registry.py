@@ -1,15 +1,91 @@
 """Dataset names → samples.
 
-Port of the synthetic half of ``erc_tpu.data.registry``: ``synthetic-*``
-names generate dialogues in memory with the geometry of the corpus they
-name (``synthetic-iemocap-6`` and ``synthetic-cogmen-6``: IEMOCAP-COGMEN,
-``synthetic-meld-7``: MELD-MMGCN).  The readers of the real feature dumps
-come in a later slice.
+Port of ``erc_tpu.data.registry``: ``synthetic-*`` names generate dialogues
+in memory with the geometry of the corpus they name (``synthetic-iemocap-6``
+and ``synthetic-cogmen-6``: IEMOCAP-COGMEN, ``synthetic-meld-7``:
+MELD-MMGCN); the ``iemocap-cogmen-*`` names read the COGMEN feature dump
+under the dataset's root (``get_root``: ``ERC_TPU_DATA_ROOT``, else
+``data_root`` in ``.erc_tpurc.json``, else ``~/erc_data``).  The other real
+names (MELD, MOSEI, the raw corpus) come with the slices that need them.
 """
 
 from __future__ import annotations
 
+import json
+import os
+import subprocess
+from functools import partial
+from typing import Callable, Dict, Optional
+
+from erc_tpu_torch.data import readers
 from erc_tpu_torch.data.synthetic import synthetic_erc
+
+
+def _read_json(path: Optional[str]) -> dict:
+    if path and os.path.exists(path):
+        try:
+            with open(path) as f:
+                return json.load(f)
+        except (OSError, ValueError):
+            pass
+    return {}
+
+
+def _git_root() -> Optional[str]:
+    try:
+        r = subprocess.run(["git", "rev-parse", "--show-toplevel"], capture_output=True, text=True, timeout=5)
+        return r.stdout.strip() or None
+    except (OSError, subprocess.SubprocessError):
+        return None
+
+
+def cfg_get(key: str, env: Optional[str] = None, default=None):
+    """The JAX package's ``core.machine.cfg_get``: the environment variable
+    `env`, else `key` in ``<git root>/.erc_tpurc.json``, else in
+    ``~/.erc_tpurc.json``, else `default`.  JSON nulls count as missing."""
+    if env and os.environ.get(env):
+        return os.environ[env]
+    root = _git_root()
+    cfg = _read_json(os.path.expanduser("~/.erc_tpurc.json"))
+    cfg.update(_read_json(os.path.join(root, ".erc_tpurc.json") if root else None))
+    v = cfg.get(key)
+    return default if v is None else v
+
+
+def default_roots() -> Dict[str, str]:
+    """Dataset roots under the data root (``ERC_TPU_DATA_ROOT`` or ``.erc_tpurc.json``)."""
+    base = cfg_get("data_root", env="ERC_TPU_DATA_ROOT", default=os.path.expanduser("~/erc_data"))
+    return {
+        "iemocap": os.path.join(base, "iemocap"),
+        "meld": os.path.join(base, "meld"),
+        "mosi": os.path.join(base, "mosi"),
+        "mosei": os.path.join(base, "mosei"),
+        "dailydialog": os.path.join(base, "dailydialog"),
+        "synthetic": base,
+    }
+
+
+def get_root(dataset_name: str) -> str:
+    return default_roots()[dataset_name.split("-")[0]]
+
+
+def _cogmen_names(n_class: int) -> Dict[str, Callable]:
+    """The ``iemocap-cogmen-*-{n_class}`` names of the JAX registry."""
+    fn = readers.iemocap_cogmen_6 if n_class == 6 else readers.iemocap_cogmen_4
+    swaps = [("", ""), ("sbert", ""), ("robert", ""), ("", "tsn"), ("", "tsn+"), ("sbert", "tsn"),
+             ("robert", "tsn"), ("sbert", "tsn+"), ("robert", "tsn+")]
+    if n_class == 4:
+        swaps += [("", "tsnss"), ("", "tsnss+"), ("sbert", "tsnss"), ("robert", "tsnss"), ("sbert", "tsnss+"),
+                  ("robert", "tsnss+")]
+    names = {}
+    for text, visual in swaps:
+        toks = ["iemocap", "cogmen", text, visual.replace("+", "-v+"), str(n_class)]
+        names["-".join(t for t in toks if t)] = partial(fn, **{k: v for k, v in
+                                                               (("text", text), ("visual", visual)) if v})
+    return names
+
+
+regist_data: Dict[str, Callable] = {**_cogmen_names(6), **_cogmen_names(4)}
 
 
 def n_classes_of(dataset_name: str) -> int:
@@ -53,7 +129,10 @@ def pick_datas(root, dataset_name: str, split: str = "train", **kw):
     """Resolve a dataset name to its list of sample dicts."""
     if dataset_name.startswith("synthetic-"):
         return _synthetic_loader(dataset_name)(root, split=split, **kw)
-    raise NotImplementedError(
-        f"dataset {dataset_name!r}: the readers of real feature dumps are not ported yet; "
-        "use a synthetic-* name"
-    )
+    fn = regist_data.get(dataset_name)
+    if fn is None:
+        raise NotImplementedError(
+            f"dataset {dataset_name!r}: its reader is not ported yet; the port reads "
+            "iemocap-cogmen-* dumps and synthetic-* names"
+        )
+    return fn(root, split=split, **kw)

@@ -9,9 +9,19 @@ speaker-relation graph → RGCN + graph-transformer conv → BN → MLP head.
 - ``graph_impl='banded'`` runs the band kernels (ops.gnn_banded), ``'dense'``
   the [B, L, L] masked layers, and ``'auto'`` picks banded only for
   L > 256, as the JAX module does.  All three share one set of weights.
+
+``COGMENTrainer`` trains it as the JAX ``COGMENTrainer`` does: Adam with the
+L2 term folded into the gradient, no clip, no plateau controller.  With
+``graph_impl='banded'`` the band kernels' autograd Functions carry the
+gradient (``ops/kernels/banded.py``)::
+
+    python -m erc_tpu_torch.train --module=cogmen --dataset=synthetic-cogmen-6 \
+        --encoder_mode=chained --graph_impl=banded [--epoch=N] [--device=cpu]
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -20,10 +30,13 @@ from torch import nn
 from erc_tpu_torch.models.base import MMBaseParams
 from erc_tpu_torch.ops import graphs
 from erc_tpu_torch.ops.attention import Linear, TransformerEncoder
+from erc_tpu_torch.ops.dropout import Dropout
 from erc_tpu_torch.ops.gnn import DenseRGCN, DenseTransformerConv
 from erc_tpu_torch.ops.gnn_banded import BandedRGCN, BandedTransformerConv
 from erc_tpu_torch.ops.norm import MaskedBatchNorm
 from erc_tpu_torch.core.params import Params
+from erc_tpu_torch.train import optim as optim_factory
+from erc_tpu_torch.train.trainer import Trainer
 
 
 class COGMENParams(MMBaseParams):
@@ -110,7 +123,7 @@ class COGMENModule(nn.Module):
         self.gcn = GNN(hidden_size, hidden_size, hidden_size, n_speakers, wp, wf, graph_impl, **kw)
         self.cls_0 = Linear(hidden_size, 100, **kw)
         self.cls_1 = Linear(100, n_classes, **kw)
-        self.dropout = nn.Dropout(drop_rate)
+        self.dropout = Dropout(drop_rate)
 
     def forward(self, batch) -> torch.Tensor:
         x = batch["input_tensor"]
@@ -135,3 +148,24 @@ def build(p: COGMENParams, *, generator=None, device=None) -> COGMENModule:
         drop_rate=p.drop_rate, graph_impl=p.graph_impl,
         encoder_mode=p.get("encoder_mode", "reference"), generator=generator, device=device,
     )
+
+
+class COGMENTrainer(Trainer):
+    """Adam from the config, no clip and no plateau controller, as the JAX
+    ``COGMENTrainer`` (cogmen.py:158-175)."""
+
+    def imodels(self, params: COGMENParams):
+        generator = torch.Generator().manual_seed(int(params.seed))
+        self.model = build(params, generator=generator, device=self.device)
+        self.optimizer = optim_factory.build_optim(params.optim, self.model.parameters())
+
+
+def main(argv: Optional[list] = None) -> COGMENTrainer:
+    """``python -m erc_tpu_torch.train --module=cogmen [--dataset=...] ...``:
+    train, then save the model (``model.last.ckpt`` under ``--save_dir``)."""
+    params = COGMENParams()
+    params.finalize(argv)
+    trainer = COGMENTrainer(params)
+    trainer.train()
+    trainer.save_model()
+    return trainer

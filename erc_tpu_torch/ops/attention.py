@@ -5,6 +5,7 @@ matmuls and a softmax, masking keys with ``where(mask, scores, NEG_INF)``:
 a dialogue that is all padding (the engine pads every request to its batch
 size) then gets a uniform softmax and finite outputs, as in the JAX module.
 ``nn.MultiheadAttention``'s key-padding path would return NaN there.
+Dropout draws from the generator the trainer sets (``ops.dropout``).
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from erc_tpu_torch.ops.dropout import Dropout
 from erc_tpu_torch.ops.init import lecun_normal_, xavier_uniform_
 
 NEG_INF = -1e30
@@ -49,7 +51,7 @@ class MultiheadAttention(nn.Module):
         with torch.no_grad():
             xavier_uniform_(self.in_proj_weight, generator=generator)
             xavier_uniform_(self.out_proj_weight, generator=generator)
-        self.dropout = nn.Dropout(dropout)
+        self.dropout = Dropout(dropout)
 
     def forward(self, q, k, v, key_padding_mask: Optional[torch.Tensor] = None):
         """q: [B, Lq, E]; k, v: [B, Lk, E]; key_padding_mask: [B, Lk], 1 = valid."""
@@ -87,7 +89,7 @@ class TransformerEncoderLayer(nn.Module):
         self.linear1 = Linear(d_model, dim_feedforward, **kw)
         self.linear2 = Linear(dim_feedforward, d_model, **kw)
         self.norm2 = nn.LayerNorm(d_model, eps=1e-5, device=device)
-        self.dropout = nn.Dropout(dropout)
+        self.dropout = Dropout(dropout)
 
     def forward(self, x, key_padding_mask=None):
         sa = self.self_attn(x, x, x, key_padding_mask)

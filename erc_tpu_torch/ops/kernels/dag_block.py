@@ -23,7 +23,10 @@ weights from L2 at every position (any D whose rows' buffers fit).  See the
 note in ``csrc/dag_block.cu``.  K4's sweep has the same two variants
 (``bwd_plan``): its cluster blocks each hold rows of the weights in torch's
 layout and reduce the transposed products across the cluster, adding the
-16 blocks' partials in rank order; see ``csrc/dag_block_bwd.cu``.
+16 blocks' partials in rank order; see ``csrc/dag_block_bwd.cu``.  A third,
+"global", places the stream kernel's buffers in a device-memory workspace,
+so K4 takes every block K3 takes (C >= 75 at D = 300 fits neither shared-
+memory variant).
 
 The arguments keep the JAX kernel's layout, so the tests compare like with
 like: weights as [k, d] rows (``Whc[g] = w_hh[gD:(g+1)D]ᵀ``), which is also
@@ -61,7 +64,7 @@ _BWD_STATS = 8
 
 launches = {"dag_block": 0, "dag_block_bwd": 0}
 variant_launches = {"dag_block/cluster": 0, "dag_block/stream": 0,
-                    "dag_block_bwd/cluster": 0, "dag_block_bwd/stream": 0}
+                    "dag_block_bwd/cluster": 0, "dag_block_bwd/stream": 0, "dag_block_bwd/global": 0}
 
 Flag = Union[int, bool, torch.Tensor]
 Outputs = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
@@ -256,6 +259,7 @@ class _DagBwdArgs(ctypes.Structure):
         ("sc", ctypes.c_longlong * _N_ROWS_BWD),
         *((name, ctypes.c_void_p) for name in ("whh", "wih", "wr0", "wr1", "wk")),
         *((name, ctypes.c_int) for name in ("B", "C", "D", "flag")),
+        ("ws", ctypes.c_void_p),
     ]
 
 
@@ -429,7 +433,7 @@ def plan(B: int, C: int, D: int, n_max: int) -> Plan:
     return Plan("stream", rows, -(-B // rows), 0)
 
 
-_VARIANTS = {"stream": 0, "cluster": 1}  # enum Variant in dag_common.cuh
+_VARIANTS = {"stream": 0, "cluster": 1, "global": 2}  # enum Variant in dag_common.cuh
 _n_max: Dict[Tuple[str, Optional[int], int, int], int] = {}
 
 
@@ -502,8 +506,11 @@ def bwd_plan(B: int, C: int, D: int, n_max: int) -> Plan:
     weight rows and buffers fit in shared memory, with n = min(B, n_max)
     clusters of R = ⌈B / n⌉ rows (fewer rows, and then more clusters, where R
     rows do not fit); else the stream variant with ROWS_PER_BLOCK rows a
-    block, or 1.  n_max is the number of K4 clusters the card holds at once
-    (``bwd_max_clusters``).  Raises ValueError where neither variant fits."""
+    block, or 1; else the global variant, the stream kernel with one row a
+    block and its buffers in a device-memory workspace (``bwd_workspace``),
+    which takes every shape.  n_max is the number of K4 clusters the card
+    holds at once (``bwd_max_clusters``).  Raises ValueError only where the
+    cluster variant fits and the card holds no such cluster."""
     if B < 1 or C < 1 or D < 1:
         raise ValueError(f"dag_block_backward: no plan for B = {B}, C = {C}, D = {D}")
     cols = cluster_cols(D)
@@ -515,12 +522,15 @@ def bwd_plan(B: int, C: int, D: int, n_max: int) -> Plan:
         rows = min(-(-B // min(B, n_max)), fit)
         return Plan("cluster", rows, -(-B // rows), cols)
     if bwd_stream_smem(1, C, D) > _MAX_SMEM:
-        raise ValueError(f"dag_block_backward: a block of C = {C} positions at D = {D} fits neither variant: "
-                         f"one row needs {bwd_cluster_smem(1, C, D, cols)} B of shared memory a block in a "
-                         f"cluster, {bwd_stream_smem(1, C, D)} B streaming, over the {_MAX_SMEM} B a thread "
-                         f"block may use")
+        return Plan("global", 1, B, 0)
     rows = _pick_rows(bwd_stream_smem, C, D, "dag_block_backward")
     return Plan("stream", rows, -(-B // rows), 0)
+
+
+def bwd_workspace(plan_: Plan, C: int, D: int) -> int:
+    """Floats of the device-memory workspace a K4 sweep by `plan_` needs: the
+    stream layout of each of the global variant's blocks, else none."""
+    return plan_.n * bwd_stream_smem(plan_.rows, C, D) // 4 if plan_.variant == "global" else 0
 
 
 def bwd_max_clusters(device: torch.device, C: int, D: int) -> int:
@@ -686,6 +696,8 @@ def dag_block_backward(flag: Flag, qb, xcb, hppb, hb, num01, den_p, mp, amw, smw
     wk = wkc.contiguous()
     a.whh, a.wih, a.wr0, a.wr1, a.wk = (w.data_ptr() for w in (whh, wih, wr0, wr1, wk))
     a.B, a.C, a.D, a.flag = B, C, D, flag
+    ws = new(bwd_workspace(p, C, D)) if p.variant == "global" else None
+    a.ws = ws.data_ptr() if ws is not None else None
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.erc_dag_block_bwd_sweep(ctypes.byref(a), _VARIANTS[p.variant], p.rows, p.n, p.cols, stream)

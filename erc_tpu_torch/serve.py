@@ -6,6 +6,11 @@ programmatically (``InferenceEngine.predict``) or over HTTP::
 
     python -m erc_tpu_torch.serve --module=cogmen --graph_impl=banded
     python -m erc_tpu_torch.serve --module=dagerc --batch_size=32
+    python -m erc_tpu_torch.serve --module=cogmen --checkpoint=model.last.ckpt
+
+``--checkpoint`` takes a file of either package's Saver (the port's
+``model.*.ckpt``, or the JAX package's flax-msgpack file, converted on
+load with no JAX installed) or a state dict from ``erc_tpu_torch.convert``.
 
 Requests are micro-batched: every chunk of up to ``batch_size`` dialogues
 is padded to ``batch_size`` dialogues and a bucketed length.  The engine
@@ -26,16 +31,18 @@ import torch
 from erc_tpu_torch.core.device import resolve_device
 from erc_tpu_torch.data.collate import ERCBatcher
 from erc_tpu_torch.data.synthetic import synthetic_erc
+from erc_tpu_torch.train.checkpoint import load_model_state
 
 
 class InferenceEngine:
     def __init__(self, model: torch.nn.Module, params, device: torch.device,
                  checkpoint_path: Optional[str] = None, batch_size: int = 8):
+        """``checkpoint_path``: see ``train.checkpoint.load_model_state``; a
+        flax file is converted for ``params.module``."""
         self.params = params
         self.device = device
         if checkpoint_path:
-            state = torch.load(checkpoint_path, map_location="cpu", weights_only=True)
-            model.load_state_dict(state)
+            model.load_state_dict(load_model_state(checkpoint_path, params.get("module")))
         self.model = model.to(device=device, dtype=torch.float32).eval()
         self.batch_size = batch_size
         self.batcher = ERCBatcher(
@@ -60,6 +67,7 @@ class InferenceEngine:
         ``checkpoint_path`` or else from a generator seeded with ``seed``."""
         mod = importlib.import_module(f"erc_tpu_torch.models.{module}")
         p = mod.ParamsType()
+        p.module = module
         if dataset:
             p.dataset = dataset
         for k, v in param_overrides.items():

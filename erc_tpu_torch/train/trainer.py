@@ -5,19 +5,27 @@ optimizer (``imodels``), the train step (loss, gradients, their global norm
 before the clip, optax's clip, the optimizer step), the epoch loop with
 ``batch_count`` and ``log_every``, the test stage (masked NLL and the
 classification summary on the host) and the plateau controller, with
-logging to stdout.  A subclass sets ``model``, ``optimizer`` and, where it
-wants them, ``grad_clip_norm`` and ``lr_sche``.
+logging to stdout, and checkpoints through the port's ``Saver``
+(``train/checkpoint.py``) into ``--save_dir`` (default
+``~/.erc_tpu_torch/saver/<module>/<dataset>``): ``save_model``, a rotating
+checkpoint every ``--checkpoint_per_epoch`` epochs (the best epoch's by test
+F1 also as ``best.checkpoint.ckpt``), a keypoint every
+``--keypoint_per_epoch`` epochs, and ``--resume`` from the newest readable
+rotating checkpoint, as the JAX package's callbacks of those names do.  A
+subclass sets ``model``, ``optimizer`` and, where it wants them,
+``grad_clip_norm`` and ``lr_sche``.
 
 The trainer runs in float32 on ``params.device`` (the card unless it is
 ``"cpu"``).  Dropout draws from a generator on that device seeded from
 ``params.seed``.  Left out, for later slices: callbacks, experiment
-directories, the metric database and board, the val stage, checkpoints,
-several processes or devices, ``steps_per_call``, ``compute_dtype``,
-``transfer_dtype`` and ``profile_steps``.
+directories, the metric database and board, the val stage, step-count
+checkpoints, several processes or devices, ``steps_per_call``,
+``compute_dtype``, ``transfer_dtype`` and ``profile_steps``.
 """
 
 from __future__ import annotations
 
+import os
 import time
 from typing import Any, Dict, List, Optional
 
@@ -28,8 +36,9 @@ from erc_tpu_torch.core.device import resolve_device
 from erc_tpu_torch.core.seed import RngPool
 from erc_tpu_torch.data.collate import ERCBatcher
 from erc_tpu_torch.data.loader import DialogueLoader, to_device
-from erc_tpu_torch.data.registry import pick_datas
+from erc_tpu_torch.data.registry import get_root, pick_datas
 from erc_tpu_torch.ops.dropout import Dropout
+from erc_tpu_torch.train.checkpoint import Saver
 from erc_tpu_torch.train.metrics import classification_summary
 from erc_tpu_torch.train.optim import clip_by_global_norm_, global_norm
 
@@ -67,7 +76,10 @@ class Trainer:
         self.class_weights: Optional[torch.Tensor] = None
         self.eidx = 0
         self.global_steps = 0
+        self.best_f1 = float("-inf")
+        self._dropout_rng: Optional[torch.Generator] = None
         self._test_loader = None
+        self._saver: Optional[Saver] = None
 
     # ------------------------------------------------------------------ setup
     def imodels(self, params) -> None:
@@ -92,17 +104,18 @@ class Trainer:
         if self.model is not None:
             return
         self.imodels(self.params)
-        generator = self.rng.torch_generator("dropout", self.device)
+        self._dropout_rng = self.rng.torch_generator("dropout", self.device)
         for m in self.model.modules():
             if isinstance(m, Dropout):
-                m.generator = generator
+                m.generator = self._dropout_rng
         n_params = sum(t.numel() for t in self.model.parameters())
         name = torch.cuda.get_device_name(self.device) if self.device.type == "cuda" else "cpu"
         self.log(f"model {type(self.model).__name__}: {n_params / 1e6:.3f}M params, on {self.device} ({name})")
 
     def make_loader(self, split: str) -> DialogueLoader:
         p = self.params
-        samples = pick_datas(p.get("data_root"), p.dataset, split=split)
+        root = p.get("data_root") or (None if p.dataset.startswith("synthetic-") else get_root(p.dataset))
+        samples = pick_datas(root, p.dataset, split=split)
         bs = int(p.train.batch_size if split == "train" else p.test.batch_size)
         bc = p.get("batch_count")
         return DialogueLoader(
@@ -160,6 +173,8 @@ class Trainer:
         not counted), the train steps' wall seconds and the test results."""
         p = self.params
         self.initialize()
+        if p.get("resume"):
+            self.resume()
         loader = self.make_loader("train")
         log_every = max(int(p.get("log_every", 10)), 1)
         eval_every = int(p.get("eval_per_epoch", 1) or 0)
@@ -184,8 +199,22 @@ class Trainer:
             record = {"epoch": eidx, **means, "steps": n_steps, "dialogues": n_dialogues, "seconds": dt}
             if eval_every and (eidx + 1) % eval_every == 0:
                 record["test"] = self.test()
+            self._epoch_checkpoints(record)
             history.append(record)
         return history
+
+    def _epoch_checkpoints(self, record: Dict[str, Any]) -> None:
+        p = self.params
+        f1 = record.get("test", {}).get("f1")
+        is_best = f1 is not None and f1 >= self.best_f1
+        if is_best:
+            self.best_f1 = f1
+        every = int(p.get("checkpoint_per_epoch") or 0)
+        if every and (self.eidx + 1) % every == 0:
+            self.save_checkpoint(is_best=is_best)
+        every = int(p.get("keypoint_per_epoch") or 0)
+        if every and (self.eidx + 1) % every == 0:
+            self.saver.save_keypoint(self.global_steps, self.state_tree(), meta=self._meta())
 
     # ------------------------------------------------------------------- eval
     def _collect_nll(self, logits: np.ndarray, labels: np.ndarray, sel: np.ndarray) -> None:
@@ -247,6 +276,61 @@ class Trainer:
         self.log(f"test: Lall={test_loss:.5f} over {self._nll_n} utterances")
         self._plateau_step(test_loss if self._nll_n else None)
         return res
+
+    # ------------------------------------------------------------ checkpoints
+    @property
+    def saver(self) -> Saver:
+        if self._saver is None:
+            p = self.params
+            save_dir = p.get("save_dir") or os.path.join(
+                os.path.expanduser("~"), ".erc_tpu_torch", "saver", str(p.get("module") or "model"), str(p.dataset))
+            self._saver = Saver(save_dir)
+        return self._saver
+
+    def state_tree(self) -> Dict[str, Any]:
+        """What a checkpoint holds: the state dicts of the model, the
+        optimizer and the plateau controller (where there is one), the
+        dropout generator's state, the step, the epoch and the best test F1."""
+        tree = {"model": self.model.state_dict(), "optimizer": self.optimizer.state_dict(),
+                "rng": self._dropout_rng.get_state(), "step": self.global_steps, "eidx": self.eidx,
+                "best_f1": self.best_f1}
+        if self.lr_sche is not None:
+            tree["lr_sche"] = self.lr_sche.state_dict()
+        return tree
+
+    def _meta(self) -> Dict[str, Any]:
+        return {"eidx": self.eidx, "global_steps": self.global_steps}
+
+    def save_model(self, tag: str = "last") -> str:
+        path = self.saver.save_model(tag, self.state_tree(), meta=self._meta())
+        self.log(f"saved {path}")
+        return path
+
+    def save_checkpoint(self, is_best: bool = False) -> str:
+        """The rotating checkpoint of the epoch just ended."""
+        return self.saver.save_checkpoint(self.global_steps, self.state_tree(),
+                                          meta={**self._meta(), "epoch_end": True}, is_best=is_best)
+
+    def resume(self) -> Optional[str]:
+        """Restore the newest readable rotating checkpoint (a torn file is
+        passed over for the next-oldest) and continue at the epoch after its
+        own; returns its path, or None where there is none."""
+        self.initialize()
+        for path in reversed(self.saver.list_checkpoints()):
+            try:
+                tree = self.saver.load(path)
+            except (OSError, RuntimeError) as e:
+                self.log(f"unreadable checkpoint {path}: {e!r}")
+                continue
+            self.model.load_state_dict(tree["model"])
+            self.optimizer.load_state_dict(tree["optimizer"])
+            if self.lr_sche is not None:
+                self.lr_sche.load_state_dict(tree["lr_sche"])
+            self._dropout_rng.set_state(tree["rng"])
+            self.global_steps, self.eidx, self.best_f1 = tree["step"], tree["eidx"] + 1, tree["best_f1"]
+            self.log(f"resumed from {path} (eidx={self.eidx}, global_steps={self.global_steps})")
+            return path
+        return None
 
 
 def _fmt(values: Dict[str, float]) -> str:

@@ -83,6 +83,73 @@ def test_kernels_match_plain_versions(cuda, B, L, D, offsets):
         torch.testing.assert_close(got, kb.banded_dot_reference(x, y, offsets), rtol=0, atol=1e-5)
 
 
+@pytest.mark.parametrize("B,L,D,offsets", CASES)
+def test_transposed_gather_sum_matches_plain_version(cuda, B, L, D, offsets):
+    """K1ᵀ in both instantiations, on the layouts its callers give it (a
+    cotangent, a strided view, an expanded cotangent), bit for bit: it sums
+    the taps in order with each product and sum rounded, as the plain
+    version does."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    K = len(offsets)
+    coef, a = _randn(g, B, L, K), _randn(g, B, L, D)
+    ysel = _randn(g, B, L, 2, 2, D)
+    expanded = _randn(g, 1, 1, D).expand(B, L, D)
+    a_off = _randn(g, B, L, D + 1)[:, :, 1:]
+    aligned = "vec4" if D % 4 == 0 else "scalar"
+    for c, src, variant in ((coef, a, aligned), (coef, ysel[:, :, 0, 1, :], aligned), (coef, expanded, aligned),
+                            (coef, a_off, "scalar")):
+        before = dict(kb.variant_launches)
+        got = kb.banded_gather_sum_t(c, src, offsets)
+        torch.cuda.synchronize()
+        assert _variant_taken("banded_gather_sum_t", before) == variant
+        assert torch.equal(got, kb.banded_gather_sum_t_reference(c, src, offsets))
+
+
+def _function_vs_plain(fn, ref, inputs, cotangent, needs):
+    """Gradients through the kernel's autograd Function and through autograd
+    of the plain version, for the inputs flagged in `needs`."""
+    out = []
+    for f in (fn, ref):
+        leaves = [t.detach().clone().requires_grad_(n) for t, n in zip(inputs, needs)]
+        with torch.enable_grad():
+            f(*leaves).backward(cotangent)
+        out.append([t.grad for t in leaves])
+    return out
+
+
+@pytest.mark.parametrize("needs", [(True, True), (False, True), (True, False)], ids=["both", "second", "first"])
+def test_band_functions_equal_plain_autograd(cuda, needs):
+    """K1's and K2's Functions on COGMEN's layouts: the RGCN's strided Ysel
+    views and an expanded cotangent; an input that needs no gradient gets
+    none, and its kernel is not launched."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    B, L, D = 32, 96, 100
+    ysel = _randn(g, B, L, 2, 2, D)
+    full, pos = tuple(range(-5, 6)), tuple(range(0, 6))
+    gd = _randn(g, 1, 1, D).expand(B, L, D)
+    gk = _randn(g, B, L, 11)
+    cases = [
+        (lambda c, y: kb.banded_gather_sum(c, y[:, :, 1, 1, :], pos),
+         lambda c, y: kb.banded_gather_sum_reference(c, y[:, :, 1, 1, :], pos), (_randn(g, B, L, 6), ysel), gd,
+         {"banded_gather_sum": 1, "banded_dot": int(needs[0]), "banded_gather_sum_t": int(needs[1])}),
+        (lambda a, b: kb.banded_dot(a, b, full), lambda a, b: kb.banded_dot_reference(a, b, full),
+         (_randn(g, B, L, D), _randn(g, B, L, D)), gk,
+         {"banded_gather_sum": int(needs[0]), "banded_dot": 1, "banded_gather_sum_t": int(needs[1])}),
+    ]
+    for fn, ref, inputs, cot, launches in cases:
+        kb.reset_launches()
+        got, want = _function_vs_plain(fn, ref, inputs, cot, needs)
+        torch.cuda.synchronize()
+        assert kb.launches == launches
+        for a, b, n in zip(got, want, needs):
+            assert (a is None) == (not n)
+            if n:
+                torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
+    x = _randn(g, 2, 5, 4).requires_grad_()
+    with torch.enable_grad(), pytest.raises(ValueError, match="no backward"):
+        kb.banded_gather_sum_t(_randn(g, 2, 5, 3), x, (0, 1, 2))
+
+
 def test_kernels_reject_other_dtypes(cuda):
     x = torch.zeros(1, 4, 3, device=cuda, dtype=torch.float16)
     with pytest.raises(TypeError):
@@ -100,10 +167,11 @@ def test_engine_banded_equals_dense_and_counts_launches(cuda):
     batch = banded.batcher(synthetic_erc("iemocap-cogmen", 6, n_train=4, max_len=40))
     kb.reset_launches()
     got = banded.logits(batch)
-    assert kb.launches == {"banded_gather_sum": 5, "banded_dot": 1}
+    assert kb.launches == {"banded_gather_sum": 5, "banded_dot": 1, "banded_gather_sum_t": 0}
     # every launch of the full-width (D = 100) path reads 16 bytes at a time
     assert kb.variant_launches == {"banded_gather_sum/vec4": 5, "banded_gather_sum/scalar": 0,
-                                   "banded_dot/vec4": 1, "banded_dot/scalar": 0}
+                                   "banded_dot/vec4": 1, "banded_dot/scalar": 0,
+                                   "banded_gather_sum_t/vec4": 0, "banded_gather_sum_t/scalar": 0}
     np.testing.assert_allclose(got, dense.logits(batch), rtol=0, atol=1e-4)
 
 
@@ -278,7 +346,8 @@ def test_dagerc_engine_kernel_equals_eager_and_counts_launches(cuda):
     got = kernel.logits(batch)
     assert kd.launches["dag_block"] == 4 * -(-Lp // 16)
     assert kd.variant_launches == {"dag_block/cluster": 4 * -(-Lp // 16), "dag_block/stream": 0,
-                                   "dag_block_bwd/cluster": 0, "dag_block_bwd/stream": 0}
+                                   "dag_block_bwd/cluster": 0, "dag_block_bwd/stream": 0,
+                                   "dag_block_bwd/global": 0}
     np.testing.assert_allclose(got, eager.logits(batch), rtol=0, atol=1e-4)
     assert kd.launches["dag_block"] == 4 * -(-Lp // 16)  # the eager form launches nothing
 
@@ -297,6 +366,8 @@ K4_CASES = [  # (B, C, D, prefix, pad_rows, a forced plan or None)
     (5, 6, 36, True, 0, None),  # 16-byte weight copies of 4 rows a block
     (2, 16, 512, True, 3, None),  # the stream variant: rows of 32 columns do not fit a cluster
     (16, 16, 300, True, 2, "stream"),  # the stream variant forced at the training shape
+    (16, 128, 300, True, 3, None),  # --dag_chunk=128: the stream buffers in device memory
+    (4, 16, 300, True, 2, "global"),  # the global variant forced at a small shape
 ]
 
 
@@ -311,8 +382,9 @@ def test_dag_block_bwd_matches_plain_version(cuda, B, C, D, prefix, pad_rows, fo
     for a, b in zip(outs, kd.dag_block_reference(args[0], *args[1:], residuals=True)):
         torch.testing.assert_close(a, b, rtol=0, atol=1e-4)
     cts = [_randn(g, *o.shape) for o in outs[:4]]
-    plan_ = kd.Plan("stream", kd.ROWS_PER_BLOCK, -(-B // kd.ROWS_PER_BLOCK), 0) if force else None
-    variant = force or ("stream" if D > 320 else "cluster")
+    plan_ = {None: None, "stream": kd.Plan("stream", kd.ROWS_PER_BLOCK, -(-B // kd.ROWS_PER_BLOCK), 0),
+             "global": kd.Plan("global", 1, B, 0)}[force]
+    variant = force or ("global" if C > 74 else "stream" if D > 320 else "cluster")
     kd.reset_launches()
     got = kd.dag_block_backward(args[0], *args[1:], *outs, *cts, plan_=plan_)
     torch.cuda.synchronize()
@@ -328,8 +400,10 @@ def test_dag_block_bwd_matches_plain_version(cuda, B, C, D, prefix, pad_rows, fo
 
 def test_dag_block_bwd_rows_per_block_and_refusal(cuda):
     """C = 64 at D = 300 runs in the cluster variant, one row a cluster, on as
-    many clusters as the card holds at once; C = 128 fits neither variant and
-    is refused before any launch."""
+    many clusters as the card holds at once; C = 128 fits neither shared-
+    memory variant and runs in the global one, one row a block; a global
+    plan of more rows a block, or of other than B blocks (its workspace is
+    sized by the plan's blocks), is refused before any launch."""
     from erc_tpu_torch.ops.kernels import dag_block as kd
 
     n_max = kd.bwd_max_clusters(cuda, 16, 300)
@@ -346,8 +420,21 @@ def test_dag_block_bwd_rows_per_block_and_refusal(cuda):
     assert all(torch.isfinite(t).all() for t in got)
     args = _dag_inputs(g, 1, 128, 300)
     outs = kd._forward(args[0], args[1:], residuals=True)
-    with pytest.raises(ValueError, match="shared memory"):
-        kd.dag_block_backward(args[0], *args[1:], *outs, *[torch.zeros_like(o) for o in outs[:4]])
+    assert kd.bwd_launch_plan(cuda, 1, 128, 300) == kd.Plan("global", 1, 1, 0)
+    got = kd.dag_block_backward(args[0], *args[1:], *outs, *[torch.ones_like(o) for o in outs[:4]])
+    torch.cuda.synchronize()
+    assert kd.variant_launches["dag_block_bwd/global"] == 1
+    assert all(torch.isfinite(t).all() for t in got)
+    with pytest.raises(RuntimeError, match="cudaError"):
+        kd.dag_block_backward(args[0], *args[1:], *outs, *[torch.zeros_like(o) for o in outs[:4]],
+                              plan_=kd.Plan("global", 2, 1, 0))
+    args = _dag_inputs(g, 3, 128, 300)
+    outs = kd._forward(args[0], args[1:], residuals=True)
+    cots = [torch.ones_like(o) for o in outs[:4]]
+    for n in (1, 2, 4):
+        with pytest.raises(RuntimeError, match="cudaError"):
+            kd.dag_block_backward(args[0], *args[1:], *outs, *cots, plan_=kd.Plan("global", 1, n, 0))
+    assert kd.variant_launches["dag_block_bwd/global"] == 1
 
 
 BWD_SMEM_CASES = [  # (variant, rows, C, D, cols)
@@ -379,7 +466,8 @@ def test_dag_block_bwd_smem_formulas_agree_with_the_kernel(cuda):
 
 
 def _grad_rel(model, other):
-    pairs = [(n, a.grad.double(), b.grad.double()) for (n, a), b in zip(model.named_parameters(), other.parameters())]
+    pairs = [(n, a.grad.double(), b.grad.double().to(a.device))
+             for (n, a), b in zip(model.named_parameters(), other.parameters())]
     total = torch.sqrt(sum((b ** 2).sum() for _, _, b in pairs)).item()
     return {n: ((a - b).norm() / max(b.norm().item(), 1e-4 * total)).item() for n, a, b in pairs}
 
@@ -416,7 +504,8 @@ def test_function_grads_equal_eager_autograd_at_full_width(cuda):
     blocks = -(-batch["input_tensor"].shape[1] // 16)
     assert kd.launches == {"dag_block": 2 * 4 * blocks, "dag_block_bwd": 4 * blocks}  # remat: K3 twice
     assert kd.variant_launches == {"dag_block/cluster": 2 * 4 * blocks, "dag_block/stream": 0,
-                                   "dag_block_bwd/cluster": 4 * blocks, "dag_block_bwd/stream": 0}
+                                   "dag_block_bwd/cluster": 4 * blocks, "dag_block_bwd/stream": 0,
+                                   "dag_block_bwd/global": 0}
     worst = max(_grad_rel(kern.model, eager.model).items(), key=lambda kv: kv[1])
     assert worst[1] <= 1e-4, worst
 
@@ -436,3 +525,61 @@ def test_trainer_two_steps_kernel_equals_eager(cuda, chunk):
     assert kd.variant_launches["dag_block_bwd/stream"] == 0
     for (name, a), b in zip(kern.model.named_parameters(), eager.model.parameters()):
         torch.testing.assert_close(a, b, rtol=0, atol=1e-4, msg=name)  # Adam magnifies rounding
+
+
+def test_trainer_chunk_128_kernel_equals_eager(cuda):
+    """At dag_chunk 128 K4 takes its global variant (blocks of C >= 75 at
+    D = 300 fit neither shared-memory variant): gradients ≡ the eager form."""
+    from erc_tpu_torch.ops.kernels import dag_block as kd
+
+    (kern, eager), (batch, _) = _trainers(chunk=128)
+    kd.reset_launches()
+    kern.compute_grads(batch)
+    eager.compute_grads(batch)
+    torch.cuda.synchronize()
+    L = batch["input_tensor"].shape[1]
+    assert kd.variant_launches["dag_block_bwd/global"] == kd.launches["dag_block_bwd"] == 4 * -(-L // 128)
+    worst = max(_grad_rel(kern.model, eager.model).items(), key=lambda kv: kv[1])
+    assert worst[1] <= 1e-4, worst
+
+
+# ------------------------------------------------------------------ COGMEN training
+def _cogmen_trainer(impl, device="cuda", drop=None):
+    from erc_tpu_torch.models import cogmen
+
+    p = cogmen.COGMENParams()
+    p.finalize(["--dataset=synthetic-cogmen-6", "--encoder_mode=chained", f"--graph_impl={impl}",
+                f"--device={device}", "--max_seq_len=96"])
+    if drop is not None:
+        p.drop_rate = drop
+    t = cogmen.COGMENTrainer(p)
+    t.log = lambda msg: None
+    t.initialize()
+    return t
+
+
+def test_cogmen_banded_training_launches_and_equals_dense(cuda):
+    """One banded train step at full width: K1 5 + 1, K2 1 + 1 and K1ᵀ 6
+    launches (forward: the RGCN's 4 gather-sums and the graph transformer's
+    aggregation and scores; backward: 4 RGCN d src and d v, d k through K1ᵀ,
+    d q through K1, d alpha through K2), all 16-byte; gradients ≡ the dense
+    graph's (the same dropout masks: the graph draws none) and, at dropout
+    0, ≡ a CPU run of the same weights."""
+    from erc_tpu_torch.data.loader import to_device
+
+    banded, dense = _cogmen_trainer("banded"), _cogmen_trainer("dense")
+    host = next(iter(banded.make_loader("train")))
+    batch = to_device(host, banded.device)
+    kb.reset_launches()
+    banded.compute_grads(batch)
+    torch.cuda.synchronize()
+    assert kb.launches == {"banded_gather_sum": 6, "banded_dot": 2, "banded_gather_sum_t": 6}
+    assert all(n == 0 for k, n in kb.variant_launches.items() if k.endswith("/scalar"))
+    dense.compute_grads(batch)
+    worst = max(_grad_rel(banded.model, dense.model).items(), key=lambda kv: kv[1])
+    assert worst[1] <= 1e-4, worst
+    card, cpu = _cogmen_trainer("banded", drop=0.0), _cogmen_trainer("banded", "cpu", drop=0.0)
+    card.compute_grads(batch)
+    cpu.compute_grads(to_device(host, torch.device("cpu")))
+    worst = max(_grad_rel(card.model, cpu.model).items(), key=lambda kv: kv[1])
+    assert worst[1] <= 1e-4, worst

@@ -201,6 +201,8 @@ BWD_PLANS = [  # (B, C, D, n_max) -> (variant, rows, n)
     ((3, 5, 13, 8), ("cluster", 1, 3)),  # ragged: 4 columns a block, ranks 4-15 own none
     ((2, 16, 512, 7), ("stream", 1, 2)),  # rows of 32 columns do not fit a cluster, 2 rows not a block
     ((5, 4, 400, 7), ("stream", 2, 3)),  # streaming, two rows a block
+    ((16, 128, 300, 7), ("global", 1, 16)),  # --dag_chunk=128: the stream buffers in device memory
+    ((1, 128, 300, 7), ("global", 1, 1)),  # fits neither shared-memory variant (checked below)
 ]
 
 
@@ -215,15 +217,27 @@ def test_bwd_plan(shape, want):
         assert tdb.bwd_cluster_smem(p.rows, C, D, p.cols) <= tdb._MAX_SMEM
     else:
         assert tdb.bwd_cluster_smem(1, C, D, tdb.cluster_cols(D)) > tdb._MAX_SMEM
-        assert tdb.bwd_stream_smem(p.rows, C, D) <= tdb._MAX_SMEM
+        fits = tdb.bwd_stream_smem(p.rows, C, D) <= tdb._MAX_SMEM
+        assert fits == (p.variant == "stream")
+        assert tdb.bwd_workspace(p, C, D) == (0 if fits else B * tdb.bwd_stream_smem(1, C, D) // 4)
 
 
-@pytest.mark.parametrize("B,C,D,n_max", [(1, 128, 300, 7), (16, 16, 300, 0)])
+@pytest.mark.parametrize("B,C,D,n_max", [(1, 64, 300, 0), (16, 16, 300, 0)])
 def test_bwd_plan_refuses_what_fits_neither_variant(B, C, D, n_max):
-    """C = 128 at D = 300 fits neither variant's shared memory (the error
-    names both needs); a card that holds no cluster has no plan at D = 300."""
+    """A card that holds no cluster has no plan where the cluster variant
+    fits (the error names its shared memory); every other shape has one, the
+    global variant at the latest."""
     with pytest.raises(ValueError, match="shared memory") as err:
         tdb.bwd_plan(B, C, D, n_max)
-    if n_max:
-        assert str(tdb.bwd_cluster_smem(1, C, D, tdb.cluster_cols(D))) in str(err.value)
-        assert str(tdb.bwd_stream_smem(1, C, D)) in str(err.value)
+    assert str(tdb.bwd_cluster_smem(1, C, D, tdb.cluster_cols(D))) in str(err.value)
+
+
+@pytest.mark.parametrize("D", [13, 300, 512, 2000])
+def test_bwd_plan_takes_every_block_k3_takes(D):
+    """For every C up to 256 at which K3 has a plan, K4 has one too."""
+    for C in range(1, 257):
+        try:
+            tdb.plan(16, C, D, 7)
+        except ValueError:
+            continue
+        assert tdb.bwd_plan(16, C, D, 7).rows >= 1

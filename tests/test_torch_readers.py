@@ -1,0 +1,109 @@
+"""The port's IEMOCAP-COGMEN readers and the real half of its registry ≡
+the JAX package's.
+
+The test writes the reference-format pickles itself (no dataset is
+downloaded): the 9-tuple COGMEN dump for 6 and 4 classes and the sbert,
+robert, tsn and tsnss replacement maps.  Every ``iemocap-cogmen-*`` name
+is read by both packages and compared exactly; a missing dump raises the
+same FileNotFoundError with the same hint; the data root resolves alike
+(``ERC_TPU_DATA_ROOT``); the port's trainer reads a real name through it.
+"""
+
+import pickle
+
+import numpy as np
+import pytest
+
+from erc_tpu.data import readers as jreaders
+from erc_tpu.data import registry as jregistry
+from erc_tpu_torch.data import readers as treaders
+from erc_tpu_torch.data import registry as tregistry
+
+NAMES = sorted(tregistry.regist_data)
+
+
+def _dump(n_dialogues, dims, seed):
+    """(the 9-tuple, dialogue ids) of a small COGMEN dump."""
+    r = np.random.default_rng(seed)
+    ids = [f"Ses0{i}_dlg" for i in range(n_dialogues)]
+    lens = {k: int(r.integers(2, 9)) for k in ids}
+    feats = {m: {k: r.normal(size=(lens[k], d)).astype(np.float32) for k in ids} for m, d in dims.items()}
+    spk = {k: [str(s) for s in r.choice(["M", "F"], lens[k])] for k in ids}
+    labels = {k: r.integers(0, 6, lens[k]).tolist() for k in ids}
+    sentences = {k: [f"utterance {j}" for j in range(lens[k])] for k in ids}
+    vids = {k: f"{k}.avi" for k in ids}
+    return (vids, spk, labels, feats["text"], feats["audio"], feats["visual"], sentences, ids[:3], ids[3:]), ids
+
+
+def _write(path, obj):
+    path.parent.mkdir(parents=True, exist_ok=True)
+    with open(path, "wb") as f:
+        pickle.dump(obj, f)
+
+
+@pytest.fixture(scope="module")
+def data_root(tmp_path_factory):
+    """An IEMOCAP root with both dumps and every replacement map."""
+    root = tmp_path_factory.mktemp("erc_data") / "iemocap"  # get_root's layout under the data root
+    r = np.random.default_rng(9)
+    for sub, pkl, seed in (("iemocap", "IEMOCAP_features.pkl", 0), ("iemocap_4", "IEMOCAP_features_4.pkl", 1)):
+        tup, ids = _dump(5, {"text": 7, "audio": 5, "visual": 6}, seed)
+        d = root / "cogmen" / sub
+        _write(d / pkl, tup)
+        lens = {k: len(v) for k, v in tup[3].items()}
+        for name, dim in (("sbert_map.pkl", 8), ("robert_map.pkl", 9), ("tsn_vfeat.pkl", 4), ("tsn_vfeat_ss.pkl", 3)):
+            _write(d / name, {k: r.normal(size=(lens[k], dim)).astype(np.float32) for k in ids})
+    return str(root)
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_reader_matches_jax(data_root, name):
+    assert name in jregistry.regist_data
+    for split in ("train", "test"):
+        got = tregistry.pick_datas(data_root, name, split)
+        want = jregistry.pick_datas(data_root, name, split)
+        assert len(got) == len(want) == (3 if split == "train" else 2)
+        for g, w in zip(got, want):
+            assert g.keys() == w.keys()
+            for k in g:
+                if isinstance(w[k], np.ndarray):
+                    assert g[k].dtype == w[k].dtype
+                    np.testing.assert_array_equal(g[k], w[k], err_msg=f"{name} {k}")
+                else:
+                    assert g[k] == w[k], (name, k)
+
+
+def test_every_cogmen_name_of_the_jax_registry_is_ported():
+    want = {n for n in jregistry.regist_data if n.startswith("iemocap-cogmen") and "text" not in n
+            and "video" not in n}
+    assert set(NAMES) == want and len(NAMES) == 24
+
+
+@pytest.mark.parametrize("reader", ["iemocap_cogmen_6", "iemocap_cogmen_4"])
+def test_missing_dump_raises_the_same_hint(tmp_path, reader):
+    with pytest.raises(FileNotFoundError) as want:
+        getattr(jreaders, reader)(str(tmp_path))
+    with pytest.raises(FileNotFoundError) as got:
+        getattr(treaders, reader)(str(tmp_path))
+    assert str(got.value) == str(want.value) and "ERC_TPU_DATA_ROOT" in str(got.value)
+
+
+def test_data_root_resolves_as_in_jax(monkeypatch, tmp_path):
+    monkeypatch.setenv("ERC_TPU_DATA_ROOT", str(tmp_path))
+    for name in ("iemocap-cogmen-6", "meld-mmgcn-7", "synthetic-cogmen-6"):
+        assert tregistry.get_root(name) == jregistry.get_root(name)
+    assert tregistry.default_roots() == jregistry.default_roots()
+    assert tregistry.cfg_get("data_root", env="ERC_TPU_DATA_ROOT") == str(tmp_path)
+
+
+def test_trainer_reads_a_real_dataset(data_root, monkeypatch):
+    """--dataset=iemocap-cogmen-6 under ERC_TPU_DATA_ROOT: the loader's batches
+    carry the dump's dialogues and features."""
+    from erc_tpu_torch.models import cogmen
+
+    monkeypatch.setenv("ERC_TPU_DATA_ROOT", str(data_root).rsplit("/", 1)[0])
+    p = cogmen.COGMENParams()
+    p.finalize(["--dataset=iemocap-cogmen-6", "--device=cpu", "--train.batch_size=2"])
+    batches = list(cogmen.COGMENTrainer(p).make_loader("train"))
+    assert sum(int((b["text_length"] > 0).sum()) for b in batches) == 3
+    assert all(b["input_tensor"].shape[-1] == 7 + 5 + 6 for b in batches)
