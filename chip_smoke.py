@@ -40,14 +40,30 @@ Phases (any failure raises, so the exit code is non-zero):
      steps' losses ≡ the dense graph's, card ≡ CPU, one epoch and test()
      with launch counts, dialogues/s banded vs dense, profile of one step,
      and main() → saved model → InferenceEngine with the trainer's logits;
-  7. print the run's wall time, one JSON line of kernel records, the card's
-     name and power limit, and a last JSON line {"ok": true, "device": {...}}.
+  7. drive DialogueGCN serving at full width (712 → 2-layer biLSTM 200,
+     wp = wf = 10, RGCN of 30 bases + GraphConv, banded graph) through
+     InferenceEngine with cuDNN's TF32 flag on: predict (5 K1 and 1 K2 a
+     batch, by tap-count instantiation: the RGCN's K = 10 taps in the
+     generic one), banded ≡ dense, card ≡ CPU, a single-dialogue request,
+     latency, throughput and profile, banded and dense;
+  8. drive DialogueGCN training (DGCNParams: batch 32, Adam 3e-4, dropout
+     0.4, IEMOCAP-6 class weights; max_seq_len 96) through DGCNTrainer, TF32
+     flag still on: launches of one step (K1 6, K2 5, K1ᵀ 6) by
+     instantiation, gradients and 3 steps' losses ≡ the dense graph's, card
+     ≡ CPU at dropout 0, one epoch and test() with launch counts,
+     dialogues/s banded vs dense, profile of one step, and main() → saved
+     model → InferenceEngine with the trainer's logits;
+  9. print the run's wall time, one JSON line of kernel records (K1/K2/K1ᵀ
+     also at DialogueGCN's shapes, K = 10 and 21, D = 100 and 200, with their
+     launches on its paths), the card's name and power limit, and a last
+     JSON line {"ok": true, "device": {...}}.
 Each model path is driven with every launch count set to 0 just before it
 and read just after.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import statistics
@@ -1307,11 +1323,341 @@ def drive_cogmen_training(card: str):
     return launches, variants
 
 
+# ------------------------------------------------------------------ phase 7
+# DialogueGCN's band launches by tap-count instantiation (ops/kernels/banded.py::tap_launches): a forward
+# runs K1 for the RGCN's 2 speakers x 2 directions (its backward taps at K = 10 in the generic
+# instantiation kt0, its forward ones at K = 11) and GraphConv's window sum (K = 21), and K2 for EdgeAtt's
+# scores (K = 21)
+DGCN_FORWARD_TAPS = {"banded_gather_sum/kt0": 2, "banded_gather_sum/kt11": 2, "banded_gather_sum/kt21": 1,
+                     "banded_dot/kt21": 1}
+# a train step adds K2 for the RGCN's d coef (K = 10, 11: the edge weights learn), K1 for EdgeAtt's d a
+# (K = 21), and K1ᵀ for the RGCN's 4 d src (K = 10, 11), GraphConv's d src and EdgeAtt's d b (K = 21)
+DGCN_STEP_TAPS = {"banded_gather_sum/kt0": 2, "banded_gather_sum/kt11": 2, "banded_gather_sum/kt21": 2,
+                  "banded_dot/kt0": 2, "banded_dot/kt11": 2, "banded_dot/kt21": 1,
+                  "banded_gather_sum_t/kt0": 2, "banded_gather_sum_t/kt11": 2, "banded_gather_sum_t/kt21": 2}
+DGCN_STEP_LAUNCHES = {"banded_gather_sum": 5 + 1, "banded_dot": 1 + 4, "banded_gather_sum_t": 6}
+DGCN_EVAL_LAUNCHES = {"banded_gather_sum": 5, "banded_dot": 1, "banded_gather_sum_t": 0}
+DGCN_PARAMS = 1_604_046
+
+
+def _by_kernel(taps: dict) -> dict:
+    out = {}
+    for key, n in taps.items():
+        name = key.split("/")[0]
+        out[name] = out.get(name, 0) + n
+    return out
+
+
+def _scaled(counts: dict, n: int) -> dict:
+    return {k: v * n for k, v in counts.items()}
+
+
+def _nonzero(counts: dict) -> dict:
+    return {k: n for k, n in counts.items() if n}
+
+
+def check_dgcn_kernels():
+    """K1, K2 and K1ᵀ against their plain versions at DialogueGCN's shapes
+    (B = 32, L = 112): the RGCN's backward taps over D = 100 (K = 10, the
+    generic instantiation kt0; strided Ysel views as the RGCN passes them),
+    GraphConv's window sum (K = 21, D = 100), EdgeAtt's scores and their
+    gradients (K = 21, D = 200).  Times as check_kernels; one record a
+    (kernel, K, D), keyed by its tap-count instantiation."""
+    import torch
+    from erc_tpu_torch.ops.kernels import banded as kb
+
+    g = torch.Generator(device="cuda").manual_seed(7)
+    randn = lambda *s: torch.randn(*s, device="cuda", generator=g)  # noqa: E731
+    B, L = 32, 112
+    back, full = tuple(range(-10, 0)), tuple(range(-10, 11))
+    nback = tuple(-o for o in back)
+    ysel = randn(B, L, 2, 2, 100)  # Ysel [B, L, S(tgt), 2, 100]: the RGCN's sources
+    x100, y100, x200, y200 = randn(B, L, 100), randn(B, L, 100), randn(B, L, 200), randn(B, L, 200)
+    fns = {"banded_gather_sum": (kb.banded_gather_sum, kb.banded_gather_sum_reference),
+           "banded_dot": (kb.banded_dot, kb.banded_dot_reference),
+           "banded_gather_sum_t": (kb.banded_gather_sum_t, kb.banded_gather_sum_t_reference)}
+    specs = [  # (kernel, shape label, cases: (label, x, y, offsets)); the first case is timed
+        ("banded_gather_sum", "K=10 D=100", [
+            ("rgcn-back-taps-ysel-s0", randn(B, L, 10), ysel[:, :, 0, 0, :], back),
+            ("rgcn-back-taps-ysel-s1", randn(B, L, 10), ysel[:, :, 1, 0, :], back),
+            ("contiguous", randn(B, L, 10), x100, back)]),
+        ("banded_gather_sum", "K=21 D=100", [
+            ("graphconv-window-sum", (randn(B, L, 21) > 0).float(), x100, full),
+            ("edgeatt-da-D200", randn(B, L, 21), x200, full)]),
+        ("banded_dot", "K=21 D=200", [("edgeatt-scores", x200, y200, full)]),
+        ("banded_dot", "K=10 D=100", [
+            ("rgcn-dcoef-ysel", x100, ysel[:, :, 1, 0, :], back), ("contiguous", x100, y100, back)]),
+        ("banded_gather_sum_t", "K=10 D=100", [
+            ("rgcn-dsrc", randn(B, L, 10), x100, nback)]),
+        ("banded_gather_sum_t", "K=21 D=200", [
+            ("edgeatt-db", randn(B, L, 21), x200, full), ("graphconv-dsrc-D100", randn(B, L, 21), x100, full)]),
+    ]
+    records = {}
+    for name, shape, cases in specs:
+        fn, ref = fns[name]
+        errs, bitwise = [], []
+        for label, a, b, offs in cases:
+            kb.reset_launches()
+            got = fn(a, b, offs)
+            torch.cuda.synchronize()
+            key = kb.launch_args(offs).tap_key[name]
+            require(_nonzero(kb.tap_launches) == {key: 1} and _nonzero(kb.variant_launches) == {f"{name}/vec4": 1},
+                    f"{name}[dgcn {label}]: launches by instantiation {_nonzero(kb.tap_launches)}, by width "
+                    f"{_nonzero(kb.variant_launches)}; want one {key}, 16-byte")
+            want = ref(a, b, offs)
+            err = (got - want).abs().max().item()
+            require(math.isfinite(err) and err <= KERNEL_TOL, f"{name}[dgcn {label}] max abs err {err} > {KERNEL_TOL}")
+            errs.append(err)
+            bitwise.append(bool(torch.equal(got, want)))
+            log(f"{name}[dgcn {label}] shape {tuple(b.shape)} strides {b.stride()} K={len(offs)} ({key}, vec4): "
+                f"max abs err {err:.3e}, bit for bit {bitwise[-1]}")
+        _, a, b, offs = cases[0]
+        key = kb.launch_args(offs).tap_key[name]
+        records[f"{name} {shape}"] = {
+            "name": f"{name} (DialogueGCN, {shape})",
+            "route": "cuda",
+            "source": "erc_tpu_torch/csrc/banded.cu",
+            "replaces": {"banded_gather_sum": "erc_tpu/ops/pallas/banded.py:117",
+                         "banded_dot": "erc_tpu/ops/pallas/banded.py:222",
+                         "banded_gather_sum_t": "erc_tpu/ops/pallas/banded.py:145"}[name],
+            "variant": "vec4",
+            "instantiation": key.split("/")[1],
+            "tap_key": key,
+            "max_abs_err": max(errs),
+            "bitwise_cases": f"{sum(bitwise)} of {len(bitwise)}",
+            **_band_timings(name, fn, ref, a, b, offs),
+        }
+    return records
+
+
+@contextlib.contextmanager
+def _cudnn_tf32_on():
+    """cuDNN's TF32 flag on (torch's default) for a phase, off again after."""
+    import torch
+
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+
+
+def drive_dgcn(card: str):
+    """DialogueGCN serving at full width through InferenceEngine with the
+    banded graph (K1 5 and K2 1 a batch), cuDNN's TF32 flag on: predict,
+    launches by width and instantiation, banded ≡ dense, card ≡ CPU (and
+    what the card gives without the LSTM's full-float32 guard, logged only),
+    a single-dialogue request, latency, throughput and profile, banded and
+    dense."""
+    import torch
+    from erc_tpu_torch.ops import rnn as rnn_ops
+    from erc_tpu_torch.ops.kernels import banded as kb
+    from erc_tpu_torch.serve import InferenceEngine
+
+    kw = dict(dataset="synthetic-cogmen-6", batch_size=32)
+    engine = InferenceEngine.from_module("dgcn", graph_impl="banded", **kw)
+    p = engine.params
+    n_params = sum(t.numel() for t in engine.model.parameters())
+    require(n_params == DGCN_PARAMS, f"DialogueGCN has {n_params} parameters, want {DGCN_PARAMS}")
+    log(f"engine: DialogueGCN {p.hidden_all} -> 2-layer biLSTM {p.hidden_size}, wp {p.wp} wf {p.wf}, RGCN "
+        f"(30 bases, add) + GraphConv, {n_params} params, batch 32, graph_impl banded, cudnn.allow_tf32 "
+        f"{torch.backends.cudnn.allow_tf32}, on {torch.cuda.get_device_name(0)}")
+    dialogues, desc = _dialogues()
+    n_batches = -(-len(dialogues) // engine.batch_size)
+
+    _reset_launches()
+    results = engine.predict(dialogues)
+    launches, variants, taps = _read_launches(), dict(kb.variant_launches), dict(kb.tap_launches)
+    log(f"DialogueGCN path: {desc} in {n_batches} batches; launches {launches}; by width {_nonzero(variants)}; "
+        f"by instantiation {_nonzero(taps)}")
+    want = _scaled(DGCN_FORWARD_TAPS, n_batches)
+    require(_nonzero(taps) == want, f"DialogueGCN serving launches by instantiation {_nonzero(taps)}, want {want}")
+    require({k: launches[k] for k in DGCN_EVAL_LAUNCHES} == _scaled(DGCN_EVAL_LAUNCHES, n_batches),
+            f"DialogueGCN serving launches {launches}")
+    require(_nonzero(variants) == {"banded_gather_sum/vec4": 5 * n_batches, "banded_dot/vec4": n_batches},
+            f"DialogueGCN serving: not every launch took the 16-byte variant: {variants}")
+    _check_results(dialogues, results)
+
+    # banded ≡ dense on the card, and ≡ the CPU run of the same weights
+    dense = InferenceEngine.from_module("dgcn", graph_impl="dense", **kw)
+    dense.model.load_state_dict(engine.model.state_dict())
+    cpu = InferenceEngine.from_module("dgcn", graph_impl="banded", device="cpu", **kw)
+    cpu.model.load_state_dict(engine.model.state_dict())
+    worst_dense, worst_cpu = _worst_logit_diffs(engine, [dense, cpu], dialogues)
+    guard = rnn_ops.cudnn_rnn_full_fp32
+    rnn_ops.cudnn_rnn_full_fp32 = contextlib.nullcontext
+    try:
+        (unguarded,) = _worst_logit_diffs(engine, [cpu], dialogues)
+    finally:
+        rnn_ops.cudnn_rnn_full_fp32 = guard
+    log(f"DialogueGCN logits: banded vs dense on the card max abs diff {worst_dense:.3e}; card vs CPU "
+        f"{worst_cpu:.3e} (tolerance {PATH_TOL}; cudnn.allow_tf32 on; without the LSTM's full-float32 guard "
+        f"{unguarded:.3e})")
+    require(worst_dense <= PATH_TOL, f"DialogueGCN banded vs dense {worst_dense} > {PATH_TOL}")
+    require(worst_cpu <= PATH_TOL, f"DialogueGCN card vs CPU {worst_cpu} > {PATH_TOL}")
+
+    # one dialogue: the batch carries 31 all-padding dialogues (LSTM rows of length 0)
+    one = engine.predict([dialogues[0]])
+    _check_results(dialogues[:1], one)
+    for name, eng in (("DialogueGCN dense", dense), ("DialogueGCN banded", engine)):
+        wall = _latency_throughput(eng, dialogues, card, name)
+        profile_predict(eng, dialogues, wall, n_batches, show=("banded_", "RNN", "rnn"))
+    return launches, variants, taps
+
+
+# ------------------------------------------------------------------ phase 8
+DGCN_TRAIN_ARGS = ["--dataset=synthetic-cogmen-6", "--max_seq_len=96", "--confusion_matrix=false"]
+
+
+def _dgcn_trainer(graph_impl="banded", *extra, device="cuda", dropout=None):
+    """A DGCNTrainer at DGCNParams' settings (712 -> 2-layer biLSTM 200, wp = wf = 10, batch 32, Adam 3e-4,
+    dropout 0.4, IEMOCAP-6 class weights; weights from seed 1, the same on every device), max_seq_len 96."""
+    from erc_tpu_torch.models import dgcn
+
+    p = dgcn.DGCNParams()
+    p.finalize([*DGCN_TRAIN_ARGS, f"--graph_impl={graph_impl}", f"--device={device}", "--epoch=1", *extra])
+    if dropout is not None:
+        p.drop_rate = dropout
+    trainer = dgcn.DGCNTrainer(p)
+    trainer.log = lambda msg: log(f"  [trainer] {msg}")
+    trainer.initialize()
+    return trainer
+
+
+def drive_dgcn_training(card: str):
+    """DialogueGCN training at full width through DGCNTrainer with the banded
+    graph, cuDNN's TF32 flag on: launches of one step by instantiation,
+    gradients and 3 steps' losses ≡ the dense graph's, the card ≡ the CPU at
+    dropout 0, an epoch and test() as the main path, dialogues/s banded vs
+    dense, a profile of one step, and train → save → serve."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from erc_tpu_torch.data.loader import to_device
+    from erc_tpu_torch.ops.kernels import banded as kb
+
+    band = _dgcn_trainer()
+    p = band.params
+    n_params = sum(t.numel() for t in band.model.parameters())
+    require(n_params == DGCN_PARAMS, f"DialogueGCN has {n_params} parameters, want {DGCN_PARAMS}")
+    require(band.class_weights is not None, "DGCNTrainer set no class weights for 6 classes")
+    log(f"trainer: DialogueGCN {p.hidden_all} -> {p.hidden_size}, wp {p.wp} wf {p.wf}, batch {p.train.batch_size}, "
+        f"{p.optim.name} lr {p.optim.lr} weight decay {p.optim.weight_decay}, dropout {p.drop_rate}, class weights, "
+        f"{n_params} params, graph_impl banded, on {torch.cuda.get_device_name(0)}")
+    dense = _dgcn_trainer("dense")
+    host = list(band.make_loader("train"))  # epoch 0: the batches train() will take
+    batches = [to_device(b, band.device) for b in host[:3]]
+
+    _reset_launches()
+    band.compute_grads(batches[0])
+    launches, variants, taps = _read_launches(), dict(kb.variant_launches), dict(kb.tap_launches)
+    log(f"DialogueGCN train step of one batch (L {host[0]['input_tensor'].shape[1]}): launches {launches}; by "
+        f"instantiation {_nonzero(taps)}")
+    require({k: launches[k] for k in DGCN_STEP_LAUNCHES} == DGCN_STEP_LAUNCHES,
+            f"DialogueGCN train step launches {launches}, want {DGCN_STEP_LAUNCHES}")
+    require(_nonzero(taps) == DGCN_STEP_TAPS, f"DialogueGCN train step by instantiation {_nonzero(taps)}")
+    require(all(variants[f"{k}/scalar"] == 0 for k in DGCN_STEP_LAUNCHES), f"a 4-byte launch: {variants}")
+    dense.compute_grads(batches[0])
+    worst, name = _worst_grad_diff(band.model, dense.model)
+    log(f"DialogueGCN first-batch gradients, banded vs dense on the card: worst {worst:.3e} ({name}), "
+        f"tolerance {TRAIN_TOL}")
+    require(worst <= TRAIN_TOL, f"DialogueGCN banded vs dense gradients {worst} ({name}) > {TRAIN_TOL}")
+
+    losses = {}
+    for label, t in (("banded", band), ("dense", dense)):
+        losses[label] = [t.train_step(b)["Lall"].item() for b in batches]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses["banded"], losses["dense"]))
+    log(f"3 DialogueGCN train steps, losses banded {losses['banded']} vs dense {losses['dense']}: worst relative "
+        f"diff {rel:.3e} (tolerance {TRAIN_TOL})")
+    require(rel <= TRAIN_TOL, f"DialogueGCN banded vs dense losses differ by {rel} > {TRAIN_TOL}")
+    del band, dense
+
+    card0, cpu0 = _dgcn_trainer(dropout=0.0), _dgcn_trainer(device="cpu", dropout=0.0)
+    loss_card = card0.compute_grads(batches[0])["Lall"].item()
+    t0 = time.perf_counter()
+    loss_cpu = cpu0.compute_grads(to_device(host[0], torch.device("cpu")))["Lall"].item()
+    t_cpu = time.perf_counter() - t0
+    rel = abs(loss_card - loss_cpu) / abs(loss_cpu)
+    worst, name = _worst_grad_diff(card0.model, cpu0.model)
+    log(f"DialogueGCN card vs CPU, first batch (cudnn.allow_tf32 on): loss {loss_card:.7f} vs {loss_cpu:.7f} "
+        f"(relative {rel:.3e}), gradients worst {worst:.3e} ({name}); tolerance {TRAIN_TOL}; CPU step {t_cpu:.2f} s")
+    require(rel <= TRAIN_TOL and worst <= TRAIN_TOL, f"DialogueGCN card vs CPU: loss {rel}, gradients {worst} ({name})")
+    del card0, cpu0
+
+    # the main path: one epoch (120 dialogues) and test() through DGCNTrainer.train, banded
+    run, other = _dgcn_trainer(), _dgcn_trainer("dense")
+    n_test = len(list(run.make_loader("test")))
+    _reset_launches()
+    t0 = time.perf_counter()
+    history = run.train()
+    wall = time.perf_counter() - t0
+    launches, variants, taps = _read_launches(), dict(kb.variant_launches), dict(kb.tap_launches)
+    rec = history[0]
+    want = {k: rec["steps"] * DGCN_STEP_TAPS.get(k, 0) + n_test * DGCN_FORWARD_TAPS.get(k, 0)
+            for k in set(DGCN_STEP_TAPS) | set(DGCN_FORWARD_TAPS)}
+    log(f"DialogueGCN training path: {rec['steps']} steps over {rec['dialogues']} dialogues, then test() "
+        f"({n_test} batches) in {wall:.3f} s; launches {launches}; by instantiation {_nonzero(taps)}")
+    require(_nonzero(taps) == want, f"DialogueGCN training path by instantiation {_nonzero(taps)}, want {want}")
+    require({k: launches[k] for k in DGCN_STEP_LAUNCHES} == _by_kernel(want), f"DialogueGCN training launches {launches}")
+    require(all(variants[f"{k}/scalar"] == 0 for k in DGCN_STEP_LAUNCHES), f"a 4-byte launch: {variants}")
+    res = rec["test"]
+    require(all(math.isfinite(x) for x in (rec["Lall"], rec["gnorm"], res["Lall"], res["f1"])),
+            f"non-finite DialogueGCN training results {rec}")
+    log(f"DialogueGCN epoch 0: loss {rec['Lall']:.5f}, gnorm {rec['gnorm']:.5f}; test loss {res['Lall']:.5f}, "
+        f"weighted F1 {res['f1']:.5f}, acc {res['acc']:.5f}")
+
+    rates = {"banded": [rec["dialogues"] / rec["seconds"]], "dense": []}
+    for label, t in (("dense", other), ("banded", run), ("dense", other), ("banded", run)):
+        if rates[label]:
+            t.eidx += 1
+        t.params.epoch = t.eidx + 1
+        r = t.train()[-1]
+        rates[label].append(r["dialogues"] / r["seconds"])
+    log(f"DialogueGCN training throughput (train steps of an epoch, {rec['dialogues']} dialogues, batch "
+        f"{p.train.batch_size}): banded {', '.join(f'{x:.1f}' for x in rates['banded'])} dialogues/s (first epoch "
+        f"first), dense {', '.join(f'{x:.1f}' for x in rates['dense'])} dialogues/s on {card}")
+
+    batch = batches[-1]
+    run.train_step(batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run.train_step(batch)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    _profile(lambda: run.train_step(batch), f"one DialogueGCN train step (batch 32, L "
+             f"{host[2]['input_tensor'].shape[1]}, banded)", step_s, show=("banded_", "RNN", "rnn"))
+
+    from erc_tpu_torch.models import dgcn
+    from erc_tpu_torch.serve import InferenceEngine
+
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer = dgcn.main([*DGCN_TRAIN_ARGS, "--graph_impl=banded", "--epoch=1", "--batch_count=2",
+                             f"--save_dir={tmp}"])
+        path = Path(tmp) / "model.last.ckpt"
+        require(path.exists(), f"main saved no {path}")
+        tp = trainer.params
+        engine = InferenceEngine.from_module("dgcn", str(path), dataset=tp.dataset,
+                                             batch_size=int(tp.test.batch_size), graph_impl=tp.graph_impl,
+                                             max_seq_len=tp.max_seq_len)
+        test_batch = next(iter(trainer.make_loader("test")))
+        trainer.model.eval()
+        with torch.inference_mode():
+            want_logits = trainer.model(to_device(test_batch, trainer.device)).float().cpu().numpy()
+        got = engine.logits(test_batch)
+        diff = float(np.abs(got - want_logits).max())
+        log(f"DialogueGCN train -> save -> serve: {trainer.global_steps} steps, saved {path.name}; InferenceEngine "
+            f"logits vs the trainer's eval logits max abs diff {diff:.3e}")
+        require(diff == 0.0, f"served DialogueGCN logits differ from the trainer's eval logits by {diff}")
+    return launches, variants, taps
+
+
 def main() -> int:
     import torch
 
     card = probe()
     records = check_kernels()
+    dgcn_records = check_dgcn_kernels()
     fn_err = check_band_functions()
     records["dag_block"] = check_dag_block()
     records["dag_block_bwd"] = check_dag_block_bwd()
@@ -1336,6 +1682,14 @@ def main() -> int:
         records[name]["function_grad_max_abs_err"] = fn_err
     for name, rec in records.items():
         rec["launches"] = launches[name]
+    with _cudnn_tf32_on():
+        _, _, dgcn_serve_taps = drive_dgcn(card)
+        _, _, dgcn_train_taps = drive_dgcn_training(card)
+    # the DialogueGCN-shape records: their instantiation's launches on DialogueGCN's serving and training paths
+    for rec in dgcn_records.values():
+        rec["launches"] = dgcn_serve_taps[rec["tap_key"]] + dgcn_train_taps[rec["tap_key"]]
+    records.update(dgcn_records)
+    for name, rec in records.items():
         require(rec["launches"] > 0, f"{name} was not launched on its path")
         rec["max_err"], rec["kernel_ms"] = rec["max_abs_err"], rec["ms"]
     log(f"chip_smoke wall time: {time.perf_counter() - T_START:.1f} s (kernel build included)")

@@ -6,10 +6,11 @@ flat ``.npz`` whose keys are ``/``-joined paths under ``params/`` and
 ``batch_stats/`` (``read_npz``), so JAX weights reach the card without JAX.
 
 Layouts: a flax ``Dense.kernel`` is [in, out] and a torch ``Linear.weight``
-[out, in]; the attention's packed projections and the RGCN ``weight`` /
-``root`` keep the JAX layout.
+[out, in]; the attention's packed projections, the RGCN ``weight`` /
+``root`` / ``basis``, DialogueGCN's edge-attention ``weight`` and the
+recurrent layers' ``w_ih`` / ``w_hh`` keep the JAX layout.
 
-    python -m erc_tpu_torch.convert [--module=cogmen|dagerc] variables.npz state_dict.pt
+    python -m erc_tpu_torch.convert [--module=cogmen|dagerc|dgcn] variables.npz state_dict.pt
 
 writes the module's state dict (COGMEN by default) that
 ``serve.InferenceEngine`` loads.
@@ -120,11 +121,42 @@ def dagerc_state(params: Tree) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def birnn_state(p: Tree) -> Dict[str, torch.Tensor]:
+    """ops.rnn.BiRNN: flax ``{w_ih,w_hh,b_ih,b_hh}_l{n}[_reverse]`` → layer n's
+    ``{weight_ih,weight_hh,bias_ih,bias_hh}_l0[_reverse]``, the same layout."""
+    names = {"w_ih": "weight_ih", "w_hh": "weight_hh", "b_ih": "bias_ih", "b_hh": "bias_hh"}
+    sd = {}
+    for key, value in p.items():
+        kind, rest = key.rsplit("_l", 1)
+        layer, _, reverse = rest.partition("_")
+        sd[f"layers.{layer}.{names[kind]}_l0{'_' + reverse if reverse else ''}"] = _t(value)
+    return sd
+
+
+def dgcn_state(params: Tree) -> Dict[str, torch.Tensor]:
+    """The state dict of ``models.dgcn.DGCNModule`` from its flax tree.  The
+    banded JAX module names its GraphConv ``conv2_lin_rel`` / ``conv2_lin_root``
+    at the top level, the dense one ``conv2/lin_rel`` / ``conv2/lin_root``:
+    both load into ``conv2.lin_rel`` / ``conv2.lin_root``."""
+    conv2 = params["conv2"] if "conv2" in params else {
+        "lin_rel": params["conv2_lin_rel"], "lin_root": params["conv2_lin_root"]}
+    return {
+        **_prefixed("rnn", birnn_state(params["rnn"])),
+        **_prefixed("edge_att", as_is_state(params["edge_att"])),
+        **_prefixed("conv1", rgcn_state(params["conv1"])),
+        **_prefixed("conv2.lin_rel", linear_state(conv2["lin_rel"])),
+        **_prefixed("conv2.lin_root", linear_state(conv2["lin_root"])),
+        **_prefixed("clf_lin1", linear_state(params["clf_lin1"])),
+        **_prefixed("clf_lin2", linear_state(params["clf_lin2"])),
+    }
+
+
 STATES = {
     "cogmen": lambda trees: cogmen_state(trees["params"], trees["batch_stats"]),
     "dagerc": lambda trees: dagerc_state(trees["params"]),
+    "dgcn": lambda trees: dgcn_state(trees["params"]),
 }
-USAGE = "usage: python -m erc_tpu_torch.convert [--module=cogmen|dagerc] variables.npz state_dict.pt"
+USAGE = "usage: python -m erc_tpu_torch.convert [--module=cogmen|dagerc|dgcn] variables.npz state_dict.pt"
 
 
 def read_npz(path: str) -> Dict[str, dict]:

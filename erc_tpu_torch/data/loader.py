@@ -5,7 +5,8 @@ shuffle from an explicit generator, an optional length-sorted mode that
 groups similar-length dialogues to cut padding, ``batch_count`` to cut or
 cycle an epoch, and ``drop_last``.  The same seed gives the same batches as
 the JAX package's loader.  ``to_device`` copies a batch to the card from
-pinned memory without blocking the host.
+pinned memory without blocking the host, and keeps the lengths on the host
+as well (``text_length_host``) for code that needs them there.
 """
 
 from __future__ import annotations
@@ -100,7 +101,9 @@ class DialogueLoader:
 
 def to_device(batch: Dict[str, np.ndarray], device: torch.device) -> Dict[str, torch.Tensor]:
     """A packed batch as tensors on `device`; to a card from pinned memory,
-    without blocking the host.  Arrays that are None are left out."""
+    without blocking the host.  Arrays that are None are left out.  The
+    lengths are also kept on the host as ``text_length_host`` (an RNN packs
+    by them), so that no forward copies them back from the device."""
     out = {}
     for k, v in batch.items():
         if v is None:
@@ -109,4 +112,6 @@ def to_device(batch: Dict[str, np.ndarray], device: torch.device) -> Dict[str, t
         if device.type == "cuda":
             t = t.pin_memory().to(device, non_blocking=True)
         out[k] = t
+    if batch.get("text_length") is not None:
+        out["text_length_host"] = torch.from_numpy(batch["text_length"])
     return out

@@ -1,4 +1,5 @@
-"""Masked multi-head attention and the post-LN transformer encoder.
+"""Masked softmax, masked multi-head attention and the post-LN transformer
+encoder.
 
 Port of ``erc_tpu.ops.attention``.  The attention is written out with
 matmuls and a softmax, masking keys with ``where(mask, scores, NEG_INF)``:
@@ -21,6 +22,26 @@ from erc_tpu_torch.ops.dropout import Dropout
 from erc_tpu_torch.ops.init import lecun_normal_, xavier_uniform_
 
 NEG_INF = -1e30
+
+
+def masked_softmax(scores: torch.Tensor, mask: torch.Tensor, dim: int = -1,
+                   mode: str = "subtract") -> torch.Tensor:
+    """Softmax over ``dim`` with the entries where ``mask`` is 0 left out.
+
+    mode='subtract' adds ``(1 - mask) · NEG_INF`` to the scores, as the
+    reference does; mode='where' replaces them with float32-min / 2 and
+    zeroes them after, and a row with no valid entry (an all-padding
+    dialogue) gives zeros.
+    """
+    if mode == "subtract":
+        return torch.softmax(scores + (1.0 - mask) * NEG_INF, dim=dim)
+    if mode != "where":
+        raise ValueError(f"unknown masked_softmax mode {mode!r}")
+    valid = mask > 0
+    big_neg = torch.finfo(scores.dtype).min / 2
+    out = torch.softmax(torch.where(valid, scores, torch.full_like(scores, big_neg)), dim=dim)
+    any_valid = valid.any(dim=dim, keepdim=True)
+    return torch.where(valid & any_valid, out, torch.zeros_like(out))
 
 
 class Linear(nn.Linear):

@@ -1,10 +1,10 @@
 """Dense masked graph layers.
 
 Port of ``erc_tpu.ops.gnn`` (relational_message_passing, DenseRGCN,
-DenseTransformerConv): batched [B, L, L] message passing over the
+DenseTransformerConv, DenseGraphConv): batched [B, L, L] message passing over the
 adjacency convention of ``ops.graphs`` (A[b, u, v] = edge u → v).  The
-dense path is COGMEN's default at L ≤ 256 and the in-port oracle that the
-banded path must equal.  Weights keep the JAX layout: RGCN ``weight`` is
+dense path is COGMEN's and DialogueGCN's default at L ≤ 256 and the in-port
+oracle that the banded path must equal.  Weights keep the JAX layout: RGCN ``weight`` is
 [R, D, Dout] and ``root`` is [D, Dout].
 """
 
@@ -110,3 +110,16 @@ class DenseTransformerConv(nn.Module):
         alpha = torch.where(edge, alpha, torch.zeros_like(alpha))
         out = torch.einsum("bhuv,buhd->bvhd", alpha, vh).reshape(B, L, H * d)
         return out + skip
+
+
+class DenseGraphConv(nn.Module):
+    """PyG GraphConv (aggr='add'): out_v = W_rel Σ_{u∈N(v)} x_u + W_root x_v."""
+
+    def __init__(self, in_features: int, out_features: int, *, generator=None, device=None):
+        super().__init__()
+        kw = dict(generator=generator, device=device)
+        self.lin_rel = Linear(in_features, out_features, **kw)
+        self.lin_root = Linear(in_features, out_features, **kw)
+
+    def forward(self, x, adj):
+        return self.lin_rel(torch.einsum("buv,bud->bvd", adj, x)) + self.lin_root(x)

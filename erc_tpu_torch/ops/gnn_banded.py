@@ -7,8 +7,9 @@ product) and 2S banded gather-sums.  The relation factorisation
 rel(u,v) = 2·(spk_u·S + spk_v) + 1[u≥v] reduces the per-edge weight select
 to a per-(source speaker, direction) transform gathered by target speaker.
 
-``BandedRGCN`` and ``BandedTransformerConv`` subclass their dense
-counterparts: same parameters, same state-dict keys, banded ``forward``.
+``BandedRGCN``, ``BandedTransformerConv`` and ``BandedGraphConv`` subclass
+their dense counterparts: same parameters, same state-dict keys, banded
+``forward``.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from erc_tpu_torch.ops.gnn import DenseRGCN, DenseTransformerConv
+from erc_tpu_torch.ops.gnn import DenseGraphConv, DenseRGCN, DenseTransformerConv
 from erc_tpu_torch.ops.kernels.banded import band_offsets, banded_dot, banded_gather_sum
 
 
@@ -120,3 +121,18 @@ class BandedTransformerConv(DenseTransformerConv):
         alpha = torch.softmax(torch.where(tap, scores, torch.full_like(scores, big_neg)), dim=-1)
         alpha = torch.where(tap, alpha, torch.zeros_like(alpha))
         return banded_gather_sum(alpha, v, offsets) + skip
+
+
+class BandedGraphConv(DenseGraphConv):
+    """DenseGraphConv on windowed graphs: the sum over each target's window
+    is one K1 over the full band with the tap mask as coefficients."""
+
+    def __init__(self, in_features: int, out_features: int, wp: int, wf: int, *, generator=None,
+                 device=None):
+        super().__init__(in_features, out_features, generator=generator, device=device)
+        self.wp, self.wf = wp, wf
+
+    def forward(self, x, mask):
+        offsets = band_offsets(self.wp, self.wf)
+        agg = banded_gather_sum(_tap_valid(mask, offsets), x, offsets)
+        return self.lin_rel(agg) + self.lin_root(x)

@@ -44,3 +44,8 @@ def lecun_normal_(t: torch.Tensor, fan_in: int, generator=None) -> torch.Tensor:
     return _fill(
         t, lambda c: torch.nn.init.trunc_normal_(c, 0.0, std, -2 * std, 2 * std, generator=generator)
     )
+
+
+def normal_(t: torch.Tensor, std: float, generator=None) -> torch.Tensor:
+    """N(0, std²): flax's ``initializers.normal(stddev=std)``."""
+    return _fill(t, lambda c: torch.nn.init.normal_(c, 0.0, std, generator=generator))

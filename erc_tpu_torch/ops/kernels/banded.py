@@ -14,7 +14,10 @@ Each has two instantiations: "vec4" reads rows with 16-byte loads, where
 ``vec4_ok`` says the layout allows it; "scalar" reads 4 bytes at a time.
 A wrapper given CPU tensors returns the plain version; given CUDA tensors
 it launches its kernel or raises.  ``launches`` counts kernel launches,
-``variant_launches`` the same launches by instantiation.
+``variant_launches`` the same launches by load width, and ``tap_launches``
+by tap-count instantiation: ``kt{K}`` for the counts the kernels unroll
+(``UNROLLED_TAPS``), ``kt0`` for the generic one that takes any count in
+batches of 8 taps.
 
 Gradients.  With grad mode on and an input that requires grad, K1 and K2
 go through autograd Functions whose backward is built from the same
@@ -43,10 +46,13 @@ launches = {"banded_gather_sum": 0, "banded_dot": 0, "banded_gather_sum_t": 0}
 variant_launches = {f"{name}/{v}": 0 for name in launches for v in ("vec4", "scalar")}
 _VARIANT_KEY = {(name, vec4): f"{name}/{'vec4' if vec4 else 'scalar'}" for name in launches
                 for vec4 in (True, False)}
+# the tap counts with their own instantiation in banded.cu (launch_for's cases)
+UNROLLED_TAPS = (5, 6, 11, 21)
+tap_launches = {f"{name}/kt{kt}": 0 for name in launches for kt in (0, *UNROLLED_TAPS)}
 
 
 def reset_launches() -> None:
-    for counts in (launches, variant_launches):
+    for counts in (launches, variant_launches, tap_launches):
         for k in counts:
             counts[k] = 0
 
@@ -100,16 +106,18 @@ def banded_dot_reference(a: torch.Tensor, b: torch.Tensor, offsets) -> torch.Ten
 class LaunchArgs:
     """What a launch takes from the offsets, built once per offsets: the
     offsets as ints and as a C array, and the negated offsets the backward
-    passes to K1ᵀ.  (The kernels use no shared memory, so no figure depends
-    on D.)"""
+    passes to K1ᵀ, and each kernel's ``tap_launches`` key.  (The kernels use
+    no shared memory, so no figure depends on D.)"""
 
-    __slots__ = ("offsets", "K", "c_offsets", "negated")
+    __slots__ = ("offsets", "K", "c_offsets", "negated", "tap_key")
 
     def __init__(self, offsets: Tuple[int, ...]):
         self.offsets = offsets
         self.K = len(offsets)
         self.c_offsets = (ctypes.c_int * len(offsets))(*offsets)
         self.negated = tuple(-o for o in offsets)
+        kt = self.K if self.K in UNROLLED_TAPS else 0
+        self.tap_key = {name: f"{name}/kt{kt}" for name in launches}
 
 
 _launch_args: Dict[Tuple[int, ...], LaunchArgs] = {}
@@ -203,6 +211,7 @@ def _launch(fn, name: str, x: torch.Tensor, y: torch.Tensor, out: torch.Tensor, 
         raise RuntimeError(f"{name} kernel launch failed: {msg} (cudaError {err})")
     launches[name] += 1
     variant_launches[_VARIANT_KEY[name, vec4]] += 1
+    tap_launches[args.tap_key[name]] += 1
 
 
 def _on_cpu(name: str, *tensors: torch.Tensor) -> bool:

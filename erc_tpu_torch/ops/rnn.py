@@ -1,14 +1,31 @@
-"""torch-math GRU cells.
+"""Recurrent layers with torch-math cells.
 
-Port of ``erc_tpu.ops.rnn.gru_cell, gru_cell_proj``: gates are stacked r, z,
-n along the last axis, with separate input and hidden biases, as
-``torch.nn.GRUCell`` has them.  The recurrent layers' initialiser
-(``_uniform_init``) is ``ops.init.uniform_``.
+Port of ``erc_tpu.ops.rnn``:
+
+- ``gru_cell, gru_cell_proj``: gates stacked r, z, n along the last axis,
+  with separate input and hidden biases, as ``torch.nn.GRUCell`` has them;
+- ``BiRNN`` in its LSTM form (the one DialogueGCN runs): a multi-layer
+  bidirectional LSTM over a right-padded [B, L, D] batch, with
+  packed-sequence semantics (padded steps neither update the state nor
+  produce output).  The JAX package runs a masked ``lax.scan``; here each
+  layer is one ``nn.LSTM`` call on a ``PackedSequence`` (one cuDNN call a
+  layer on the card), whose gate order (i, f, g, o) and dual biases are the
+  JAX cell's.
+
+The recurrent layers' initialiser (``_uniform_init``) is ``ops.init.uniform_``.
 """
 
 from __future__ import annotations
 
+import contextlib
+import math
+
 import torch
+from torch import nn
+from torch.nn.utils.rnn import pack_padded_sequence, pad_packed_sequence
+
+from erc_tpu_torch.ops.dropout import Dropout
+from erc_tpu_torch.ops.init import uniform_
 
 
 def gru_cell_proj(x_proj: torch.Tensor, h_proj: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
@@ -25,3 +42,108 @@ def gru_cell_proj(x_proj: torch.Tensor, h_proj: torch.Tensor, h: torch.Tensor) -
 def gru_cell(x_proj: torch.Tensor, h: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor) -> torch.Tensor:
     """One GRU step; x_proj = x·W_ihᵀ + b_ih, [..., 3H]."""
     return gru_cell_proj(x_proj, h @ w_hh.T + b_hh, h)
+
+
+@contextlib.contextmanager
+def cudnn_rnn_full_fp32():
+    """cuDNN's float32 RNNs in full float32 within the block, whatever the
+    process-wide flags say (torch lets cuDNN run them in TF32 by default,
+    which misses the port's 1e-4 agreement with the CPU): the RNN's own
+    setting, ``torch.backends.cudnn.rnn.fp32_precision``, is "ieee" within
+    and restored after."""
+    rnn = torch.backends.cudnn.rnn
+    prev = rnn.fp32_precision
+    rnn.fp32_precision = "ieee"
+    try:
+        yield
+    finally:
+        rnn.fp32_precision = prev
+
+
+def _backward_in_full_fp32(t: torch.Tensor) -> None:
+    """cuDNN reads the setting again when the RNN's backward runs, outside
+    the forward's block: hooks on the cuDNN node that made ``t`` set full
+    float32 just before that node runs and restore the setting just after.
+    Where no cuDNN node made ``t`` (cuDNN disabled) there is nothing to do."""
+    rnn = torch.backends.cudnn.rnn
+    nodes, seen = [t.grad_fn], set()
+    while nodes:
+        node = nodes.pop()
+        if node is None or node in seen:
+            continue
+        seen.add(node)
+        if node.name().startswith("CudnnRnnBackward"):
+            prev = []
+
+            def before(grad_outputs):
+                prev.append(rnn.fp32_precision)
+                rnn.fp32_precision = "ieee"
+
+            def after(grad_inputs, grad_outputs):
+                rnn.fp32_precision = prev.pop()
+
+            node.register_prehook(before)
+            node.register_hook(after)
+            return
+        if len(seen) < 4:  # the cuDNN node is the output's, or a view's just above it
+            nodes.extend(fn for fn, _ in node.next_functions)
+
+
+class BiRNN(nn.Module):
+    """``num_layers`` single-layer bidirectional ``nn.LSTM`` (batch first),
+    with dropout between layers and not after the last, as the JAX module
+    has it.
+
+    Each layer is its own module so that the dropout between layers draws
+    from the port's seeded ``Dropout``; ``nn.LSTM(dropout=...)`` would draw
+    from torch's global RNG.  Parameters per layer ``n`` are
+    ``layers.{n}.weight_ih_l0[_reverse]`` etc.: the JAX
+    ``w_ih_l{n}[_reverse]`` in the same layout.
+    """
+
+    def __init__(self, input_size: int, hidden_size: int, num_layers: int = 1, dropout: float = 0.0, *,
+                 generator=None, device=None):
+        super().__init__()
+        scale = 1.0 / math.sqrt(hidden_size)
+        self.layers = nn.ModuleList()
+        d_in = input_size
+        for _ in range(num_layers):
+            layer = nn.LSTM(d_in, hidden_size, batch_first=True, bidirectional=True, device=device)
+            with torch.no_grad():
+                for t in layer.parameters():
+                    uniform_(t, scale, generator=generator)
+            self.layers.append(layer)
+            d_in = 2 * hidden_size
+        self.dropout = Dropout(dropout)
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+        """x: [B, L, D]; mask: [B, L], 1 on each row's first ``lengths[b]``
+        positions; lengths: [B] ints, best a CPU tensor taken from the host
+        batch (packing needs them on the host, and a device tensor costs a
+        copy that waits for the device).  Returns [B, L, 2H], 0 at padded
+        positions and on rows of length 0.
+
+        cuDNN runs each layer, forward and backward, in full float32
+        (``cudnn_rnn_full_fp32``).  Rows are sorted by length on the host
+        and the permutations go to the device without blocking, so packing
+        waits for nothing (``enforce_sorted=False`` would copy its
+        permutation with a blocking copy).  A row of length 0 (a padding
+        dialogue) is packed with length 1 and its output zeroed by the mask:
+        packing refuses length 0.
+        """
+        L = x.shape[1]
+        n = lengths.to("cpu", torch.int64).clamp(min=1)
+        order = torch.argsort(n, descending=True, stable=True)
+        n_sorted, inverse = n[order], torch.argsort(order)
+        if x.is_cuda:
+            order, inverse = (t.pin_memory().to(x.device, non_blocking=True) for t in (order, inverse))
+        packed = pack_padded_sequence(x.index_select(0, order), n_sorted, batch_first=True)
+        for i, layer in enumerate(self.layers):
+            if i:
+                packed = packed._replace(data=self.dropout(packed.data))
+            with cudnn_rnn_full_fp32():
+                packed, _ = layer(packed)
+            if packed.data.requires_grad and packed.data.is_cuda:
+                _backward_in_full_fp32(packed.data)
+        out, _ = pad_packed_sequence(packed, batch_first=True, total_length=L)
+        return out.index_select(0, inverse) * mask[..., None].to(out.dtype)

@@ -6,6 +6,7 @@ programmatically (``InferenceEngine.predict``) or over HTTP::
 
     python -m erc_tpu_torch.serve --module=cogmen --graph_impl=banded
     python -m erc_tpu_torch.serve --module=dagerc --batch_size=32
+    python -m erc_tpu_torch.serve --module=dgcn --graph_impl=banded
     python -m erc_tpu_torch.serve --module=cogmen --checkpoint=model.last.ckpt
 
 ``--checkpoint`` takes a file of either package's Saver (the port's
@@ -61,7 +62,8 @@ class InferenceEngine:
         cls, module: str, checkpoint_path: Optional[str] = None,
         dataset: Optional[str] = None, batch_size: int = 8, **param_overrides,
     ) -> "InferenceEngine":
-        """Engine for ``erc_tpu_torch.models.<module>`` (``cogmen``, ``dagerc``).
+        """Engine for ``erc_tpu_torch.models.<module>`` (``cogmen``, ``dagerc``,
+        ``dgcn``).
         Overrides set params (e.g. ``graph_impl='banded'``, ``dag_impl='eager'``,
         ``device='cpu'``); weights come from
         ``checkpoint_path`` or else from a generator seeded with ``seed``."""
@@ -87,6 +89,8 @@ class InferenceEngine:
             if t.is_floating_point():
                 t = t.to(torch.float32)
             out[k] = t.to(self.device, non_blocking=True)
+        # the lengths on the host too, as data.loader.to_device keeps them
+        out["text_length_host"] = torch.from_numpy(batch["text_length"])
         return out
 
     @torch.inference_mode()

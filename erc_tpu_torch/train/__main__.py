@@ -5,13 +5,16 @@
         --encoder_mode=chained --graph_impl=banded [--epoch=N] [--save_dir=DIR]
     python -m erc_tpu_torch.train --module=dagerc --dataset=synthetic-iemocap-6 \
         --reimplement --dag_impl=kernel [--epoch=N] [--batch_count=N] [--device=cpu]
+    python -m erc_tpu_torch.train --module=dgcn --dataset=synthetic-cogmen-6 \
+        --graph_impl=banded [--epoch=N] [--save_dir=DIR]
 
 Every module under ``erc_tpu_torch/models`` that exports ``main`` trains
-(COGMEN and DAG-ERC so far).  It runs on the card unless ``--device=cpu`` is
-given; without CUDA and without ``--device=cpu`` it raises.  COGMEN's
-``main`` saves the model at the end (``model.last.ckpt`` under
-``--save_dir``, default ``~/.erc_tpu_torch/saver/cogmen/<dataset>``), which
-``python -m erc_tpu_torch.serve --module=cogmen --checkpoint=...`` serves.
+(COGMEN, DAG-ERC and DialogueGCN so far).  It runs on the card unless
+``--device=cpu`` is given; without CUDA and without ``--device=cpu`` it
+raises.  COGMEN's and DialogueGCN's ``main`` save the model at the end
+(``model.last.ckpt`` under ``--save_dir``, default
+``~/.erc_tpu_torch/saver/<module>/<dataset>``), which ``python -m
+erc_tpu_torch.serve --module=<module> --checkpoint=...`` serves.
 ``--checkpoint_per_epoch=N``, ``--keypoint_per_epoch=N`` and ``--resume``
 write and read the rotating checkpoints and keypoints there.
 Real datasets (``iemocap-cogmen-*``) are read under ``--data_root`` or

@@ -14,6 +14,8 @@ across repeats in both variants of its sweep; banded vs dense
 and kernel vs eager logits 1e-4; training, kernel vs eager form, 1e-4
 relative (gradients: each parameter's difference over its gradient's norm,
 floored at 1e-4 of the global norm where the exact gradient is 0).
+DialogueGCN's card vs CPU logits 1e-4 with cuDNN's TF32 flag on: its LSTM
+runs cuDNN in full float32 whatever the process-wide flags say.
 """
 
 import numpy as np
@@ -582,4 +584,113 @@ def test_cogmen_banded_training_launches_and_equals_dense(cuda):
     card.compute_grads(batch)
     cpu.compute_grads(to_device(host, torch.device("cpu")))
     worst = max(_grad_rel(card.model, cpu.model).items(), key=lambda kv: kv[1])
+    assert worst[1] <= 1e-4, worst
+
+
+# ------------------------------------------------------------------ DialogueGCN
+# one banded forward: K1 for the RGCN's 2 speakers x 2 directions (the backward
+# taps at K = 10 in the generic instantiation, the forward ones at K = 11) and
+# GraphConv's window sum (K = 21); K2 for EdgeAtt's scores (K = 21)
+DGCN_FORWARD_TAPS = {"banded_gather_sum/kt0": 2, "banded_gather_sum/kt11": 2, "banded_gather_sum/kt21": 1,
+                     "banded_dot/kt21": 1}
+# one train step adds K2 for the RGCN's d coef (K = 10, 11), K1 for EdgeAtt's
+# d a (K = 21), and K1ᵀ for the RGCN's d src (K = 10, 11) and for GraphConv's
+# and EdgeAtt's d src / d b (K = 21)
+DGCN_STEP_TAPS = {"banded_gather_sum/kt0": 2, "banded_gather_sum/kt11": 2, "banded_gather_sum/kt21": 2,
+                  "banded_dot/kt0": 2, "banded_dot/kt11": 2, "banded_dot/kt21": 1,
+                  "banded_gather_sum_t/kt0": 2, "banded_gather_sum_t/kt11": 2, "banded_gather_sum_t/kt21": 2}
+
+
+def _nonzero(counts):
+    return {k: n for k, n in counts.items() if n}
+
+
+def test_dgcn_engine_banded_equals_dense_and_counts_launches(cuda):
+    from erc_tpu_torch.data.synthetic import synthetic_erc
+    from erc_tpu_torch.serve import InferenceEngine
+
+    kw = dict(dataset="synthetic-cogmen-6", batch_size=4)
+    banded = InferenceEngine.from_module("dgcn", graph_impl="banded", **kw)
+    dense = InferenceEngine.from_module("dgcn", graph_impl="dense", **kw)
+    dense.model.load_state_dict(banded.model.state_dict())
+    batch = banded.batcher(synthetic_erc("iemocap-cogmen", 6, n_train=3, max_len=60))  # and a padding row
+    kb.reset_launches()
+    got = banded.logits(batch)
+    assert kb.launches == {"banded_gather_sum": 5, "banded_dot": 1, "banded_gather_sum_t": 0}
+    assert _nonzero(kb.variant_launches) == {"banded_gather_sum/vec4": 5, "banded_dot/vec4": 1}
+    assert _nonzero(kb.tap_launches) == DGCN_FORWARD_TAPS
+    np.testing.assert_allclose(got, dense.logits(batch), rtol=0, atol=1e-4)
+
+
+def test_dgcn_card_equals_cpu_with_cudnn_tf32_on(cuda):
+    """cuDNN's TF32 flag on (torch's default) for the whole test: the LSTM
+    still runs in full float32, so the card's logits equal the CPU's."""
+    from erc_tpu_torch.data.synthetic import synthetic_erc
+    from erc_tpu_torch.serve import InferenceEngine
+
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        kw = dict(dataset="synthetic-cogmen-6", batch_size=4, graph_impl="banded")
+        card = InferenceEngine.from_module("dgcn", **kw)
+        cpu = InferenceEngine.from_module("dgcn", device="cpu", **kw)
+        cpu.model.load_state_dict(card.model.state_dict())
+        batch = card.batcher(synthetic_erc("iemocap-cogmen", 6, n_train=4, max_len=110))
+        np.testing.assert_allclose(card.logits(batch), cpu.logits(batch), rtol=0, atol=1e-4)
+        assert torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+
+
+@pytest.mark.parametrize("D,offsets", [(100, tuple(range(-10, 0))), (100, tuple(range(1, 11))),
+                                       (200, tuple(range(-10, 11)))], ids=["K10-D100", "K10-negated-D100", "K21-D200"])
+def test_band_kernels_at_dgcn_shapes(cuda, D, offsets):
+    """K1, K2 and K1ᵀ at DialogueGCN's shapes: the RGCN's backward taps
+    (K = 10, the generic instantiation, kt0) and EdgeAtt's band (K = 21)."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    B, L, K = 4, 112, len(offsets)
+    coef, a, b = _randn(g, B, L, K), _randn(g, B, L, D), _randn(g, B, L, D)
+    kt = f"kt{K if K in kb.UNROLLED_TAPS else 0}"
+    assert kt == ("kt0" if K == 10 else "kt21")
+    for name, fn, ref, x, y in (
+            ("banded_gather_sum", kb.banded_gather_sum, kb.banded_gather_sum_reference, coef, a),
+            ("banded_dot", kb.banded_dot, kb.banded_dot_reference, a, b),
+            ("banded_gather_sum_t", kb.banded_gather_sum_t, kb.banded_gather_sum_t_reference, coef, a)):
+        kb.reset_launches()
+        got = fn(x, y, offsets)
+        torch.cuda.synchronize()
+        assert _nonzero(kb.tap_launches) == {f"{name}/{kt}": 1}
+        assert _nonzero(kb.variant_launches) == {f"{name}/vec4": 1}
+        torch.testing.assert_close(got, ref(x, y, offsets), rtol=0, atol=1e-5)
+
+
+def _dgcn_trainer(impl, device="cuda", drop=None):
+    from erc_tpu_torch.models import dgcn
+
+    p = dgcn.DGCNParams()
+    p.finalize(["--dataset=synthetic-cogmen-6", f"--graph_impl={impl}", f"--device={device}", "--max_seq_len=96"])
+    if drop is not None:
+        p.drop_rate = drop
+    t = dgcn.DGCNTrainer(p)
+    t.log = lambda msg: None
+    t.initialize()
+    return t
+
+
+def test_dgcn_banded_training_launches_and_equals_dense(cuda):
+    """One banded train step at full width: K1 5 + 1, K2 1 + 4 and K1ᵀ 6
+    launches, all 16-byte, by instantiation as DGCN_STEP_TAPS; gradients ≡
+    the dense graph's (the same dropout masks) by the floor rule."""
+    from erc_tpu_torch.data.loader import to_device
+
+    banded, dense = _dgcn_trainer("banded"), _dgcn_trainer("dense")
+    batch = to_device(next(iter(banded.make_loader("train"))), banded.device)
+    kb.reset_launches()
+    banded.compute_grads(batch)
+    torch.cuda.synchronize()
+    assert kb.launches == {"banded_gather_sum": 6, "banded_dot": 5, "banded_gather_sum_t": 6}
+    assert all(n == 0 for k, n in kb.variant_launches.items() if k.endswith("/scalar"))
+    assert _nonzero(kb.tap_launches) == DGCN_STEP_TAPS
+    dense.compute_grads(batch)
+    worst = max(_grad_rel(banded.model, dense.model).items(), key=lambda kv: kv[1])
     assert worst[1] <= 1e-4, worst
