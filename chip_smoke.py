@@ -53,7 +53,20 @@ Phases (any failure raises, so the exit code is non-zero):
      ≡ CPU at dropout 0, one epoch and test() with launch counts,
      dialogues/s banded vs dense, profile of one step, and main() → saved
      model → InferenceEngine with the trainer's logits;
-  9. print the run's wall time, one JSON line of kernel records (K1/K2/K1ᵀ
+  9. drive MMGCN serving at full width (712 -> 200, 2-layer text biLSTM,
+     the [B, 3L, 3L] angular-similarity graph, 64 GCNII layers of 200)
+     through InferenceEngine with cuDNN's TF32 flag on, dense and structured
+     adjacency: predict (no hand-written kernel launched: its graph products
+     are torch.bmm), structured ≡ dense, card ≡ CPU, a single-dialogue
+     request, latency, throughput and profile of both forms;
+ 10. drive MMGCN training at the IEMOCAP reimplement settings (batch 16,
+     Adam 3e-4 with L2 3e-5, dropout 0.4, gcn_remat full; max_seq_len 96)
+     through MMGCNTrainer, TF32 flag still on: remat full ≡ off gradients at
+     dropout 0.4 from one generator state, structured ≡ dense gradients and
+     3 steps' losses, card ≡ CPU at dropout 0, one epoch and test() with no
+     kernel launched, dialogues/s dense vs structured, profiles of one step,
+     and main() → saved model → InferenceEngine with the trainer's logits;
+ 11. print the run's wall time, one JSON line of kernel records (K1/K2/K1ᵀ
      also at DialogueGCN's shapes, K = 10 and 21, D = 100 and 200, with their
      launches on its paths), the card's name and power limit, and a last
      JSON line {"ok": true, "device": {...}}.
@@ -1652,6 +1665,218 @@ def drive_dgcn_training(card: str):
     return launches, variants, taps
 
 
+# ------------------------------------------------------------------ phases 9 and 10
+MMGCN_PARAMS = 5_794_006
+
+
+def _no_kernel_launches(what: str) -> dict:
+    """MMGCN's graph products are torch.bmm / torch.matmul: no hand-written kernel runs on its paths."""
+    launches = _read_launches()
+    require(not any(launches.values()), f"{what}: a hand-written kernel launched on MMGCN's path: {launches}")
+    return launches
+
+
+def drive_mmgcn(card: str):
+    """MMGCN serving at full width through InferenceEngine, dense and
+    structured adjacency, cuDNN's TF32 flag on: predict (every launch count
+    stays 0), structured ≡ dense, card ≡ CPU, a single-dialogue request,
+    latency, throughput and profile of both forms."""
+    import torch
+    from erc_tpu_torch.serve import InferenceEngine
+
+    kw = dict(dataset="synthetic-cogmen-6", batch_size=32)
+    engine = InferenceEngine.from_module("mmgcn", **kw)
+    p = engine.params
+    n_params = sum(t.numel() for t in engine.model.parameters())
+    require(n_params == MMGCN_PARAMS, f"MMGCN has {n_params} parameters, want {MMGCN_PARAMS}")
+    log(f"engine: MMGCN {p.hidden_audio}/{p.hidden_visual}/{p.hidden_text} (a/v/t) -> 200, text 2-layer biLSTM "
+        f"200, {p.gcn_layers} GCNII layers of {p.graph_hidden_size} (chunk {p.gcn_chunk}), adj_impl "
+        f"{p.adj_impl}, {n_params} params, batch 32, cudnn.allow_tf32 {torch.backends.cudnn.allow_tf32}, on "
+        f"{torch.cuda.get_device_name(0)}")
+    dialogues, desc = _dialogues()
+    n_batches = -(-len(dialogues) // engine.batch_size)
+
+    _reset_launches()
+    results = engine.predict(dialogues)
+    launches = _no_kernel_launches("MMGCN serving")
+    log(f"MMGCN path: {desc} in {n_batches} batches; launches {launches}")
+    _check_results(dialogues, results)
+
+    # structured ≡ dense on the card, and ≡ the CPU run of the same weights
+    structured = InferenceEngine.from_module("mmgcn", adj_impl="structured", **kw)
+    structured.model.load_state_dict(engine.model.state_dict())
+    cpu = InferenceEngine.from_module("mmgcn", device="cpu", **kw)
+    cpu.model.load_state_dict(engine.model.state_dict())
+    t0 = time.perf_counter()
+    worst_struct, worst_cpu = _worst_logit_diffs(engine, [structured, cpu], dialogues)
+    log(f"MMGCN logits: structured vs dense on the card max abs diff {worst_struct:.3e}; card vs CPU "
+        f"{worst_cpu:.3e} (tolerance {PATH_TOL}; cudnn.allow_tf32 on; {time.perf_counter() - t0:.2f} s)")
+    require(worst_struct <= PATH_TOL, f"MMGCN structured vs dense {worst_struct} > {PATH_TOL}")
+    require(worst_cpu <= PATH_TOL, f"MMGCN card vs CPU {worst_cpu} > {PATH_TOL}")
+
+    # one dialogue: the batch carries 31 all-padding dialogues (LSTM rows of length 0)
+    one = engine.predict([dialogues[0]])
+    _check_results(dialogues[:1], one)
+    for name, eng in (("MMGCN dense", engine), ("MMGCN structured", structured)):
+        wall = _latency_throughput(eng, dialogues, card, name)
+        profile_predict(eng, dialogues, wall, n_batches, show=("RNN", "rnn"))
+    return launches
+
+
+MMGCN_TRAIN_ARGS = ["--dataset=synthetic-cogmen-6", "--max_seq_len=96", "--confusion_matrix=false"]
+
+
+def _mmgcn_trainer(adj_impl="dense", *extra, device="cuda", dropout=None):
+    """An MMGCNTrainer at MMGCNParams' settings, which are IEMOCAP's reimplement ones (712 -> 200, 64 GCNII
+    layers of 200, batch 16, Adam 3e-4 with L2 3e-5, dropout 0.4, gcn_remat full in trips of 8; weights from
+    seed 1, the same on every device), max_seq_len 96, one epoch."""
+    from erc_tpu_torch.models import mmgcn
+
+    p = mmgcn.MMGCNParams()
+    p.finalize([*MMGCN_TRAIN_ARGS, f"--adj_impl={adj_impl}", f"--device={device}", "--epoch=1", *extra])
+    if dropout is not None:
+        p.drop_rate = dropout
+    trainer = mmgcn.MMGCNTrainer(p)
+    trainer.log = lambda msg: log(f"  [trainer] {msg}")
+    trainer.initialize()
+    return trainer
+
+
+def drive_mmgcn_training(card: str):
+    """MMGCN training at full width through MMGCNTrainer, cuDNN's TF32 flag
+    on: remat full ≡ off gradients at dropout 0.4 from one generator state
+    (the recompute draws no masks), structured ≡ dense gradients and 3
+    steps' losses, the card ≡ the CPU at dropout 0, an epoch and test() as
+    the main path (no hand-written kernel launched), dialogues/s dense vs
+    structured, a profile of one step, and train → save → serve."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from erc_tpu_torch.data.loader import to_device
+
+    dense = _mmgcn_trainer()
+    p = dense.params
+    n_params = sum(t.numel() for t in dense.model.parameters())
+    require(n_params == MMGCN_PARAMS, f"MMGCN has {n_params} parameters, want {MMGCN_PARAMS}")
+    require(dense.grad_clip_norm is None and dense.lr_sche is None and dense.class_weights is None,
+            "MMGCNTrainer set a clip, a plateau controller or class weights")
+    log(f"trainer: MMGCN {p.hidden_all} -> 200, {p.gcn_layers} GCNII layers of {p.graph_hidden_size}, batch "
+        f"{p.train.batch_size}, {p.optim.name} lr {p.optim.lr} L2 {p.optim.weight_decay}, dropout {p.drop_rate}, "
+        f"gcn_remat {p.gcn_remat} (chunk {p.gcn_chunk}), {n_params} params, adj_impl dense, on "
+        f"{torch.cuda.get_device_name(0)}")
+    host = list(dense.make_loader("train"))  # epoch 0: the batches train() will take
+    batches = [to_device(b, dense.device) for b in host[:3]]
+
+    # remat full ≡ off at dropout 0.4: the trip's masks are drawn before its checkpoint
+    off = _mmgcn_trainer("dense", "--gcn_remat=off")
+    _reset_launches()
+    dense.compute_grads(batches[0])
+    launches = _no_kernel_launches("MMGCN train step")
+    off.compute_grads(batches[0])
+    worst, name = _worst_grad_diff(dense.model, off.model)
+    same_rng = bool(torch.equal(dense._dropout_rng.get_state(), off._dropout_rng.get_state()))
+    log(f"MMGCN first-batch gradients at dropout {p.drop_rate}, gcn_remat full vs off on the card: worst "
+        f"{worst:.3e} ({name}), tolerance {TRAIN_TOL}; generators in the same state after both: {same_rng}")
+    require(worst <= TRAIN_TOL, f"MMGCN remat full vs off gradients {worst} ({name}) > {TRAIN_TOL}")
+    require(same_rng, "the checkpointed run drew from the dropout generator a different number of times")
+    del off
+
+    # structured ≡ dense: gradients of the first batch, then 3 steps on the same dropout masks
+    struct = _mmgcn_trainer("structured")
+    struct.compute_grads(batches[0])
+    worst, name = _worst_grad_diff(struct.model, dense.model)
+    log(f"MMGCN first-batch gradients, structured vs dense on the card: worst {worst:.3e} ({name}), "
+        f"tolerance {TRAIN_TOL}")
+    require(worst <= TRAIN_TOL, f"MMGCN structured vs dense gradients {worst} ({name}) > {TRAIN_TOL}")
+    losses = {}
+    for label, t in (("structured", struct), ("dense", dense)):
+        losses[label] = [t.train_step(b)["Lall"].item() for b in batches]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses["structured"], losses["dense"]))
+    log(f"3 MMGCN train steps, losses structured {losses['structured']} vs dense {losses['dense']}: worst "
+        f"relative diff {rel:.3e} (tolerance {TRAIN_TOL})")
+    require(rel <= TRAIN_TOL, f"MMGCN structured vs dense losses differ by {rel} > {TRAIN_TOL}")
+    del struct, dense
+
+    card0, cpu0 = _mmgcn_trainer(dropout=0.0), _mmgcn_trainer(device="cpu", dropout=0.0)
+    loss_card = card0.compute_grads(batches[0])["Lall"].item()
+    t0 = time.perf_counter()
+    loss_cpu = cpu0.compute_grads(to_device(host[0], torch.device("cpu")))["Lall"].item()
+    t_cpu = time.perf_counter() - t0
+    rel = abs(loss_card - loss_cpu) / abs(loss_cpu)
+    worst, name = _worst_grad_diff(card0.model, cpu0.model)
+    log(f"MMGCN card vs CPU, first batch (cudnn.allow_tf32 on): loss {loss_card:.7f} vs {loss_cpu:.7f} "
+        f"(relative {rel:.3e}), gradients worst {worst:.3e} ({name}); tolerance {TRAIN_TOL}; CPU step {t_cpu:.2f} s")
+    require(rel <= TRAIN_TOL and worst <= TRAIN_TOL, f"MMGCN card vs CPU: loss {rel}, gradients {worst} ({name})")
+    del card0, cpu0
+
+    # the main path: one epoch (120 dialogues) and test() through MMGCNTrainer.train, dense
+    run, other = _mmgcn_trainer(), _mmgcn_trainer("structured")
+    n_test = len(list(run.make_loader("test")))
+    _reset_launches()
+    t0 = time.perf_counter()
+    history = run.train()
+    wall = time.perf_counter() - t0
+    launches = _no_kernel_launches("MMGCN training path")
+    rec = history[0]
+    log(f"MMGCN training path: {rec['steps']} steps over {rec['dialogues']} dialogues, then test() ({n_test} "
+        f"batches) in {wall:.3f} s; launches {launches}")
+    res = rec["test"]
+    require(all(math.isfinite(x) for x in (rec["Lall"], rec["gnorm"], res["Lall"], res["f1"])),
+            f"non-finite MMGCN training results {rec}")
+    log(f"MMGCN epoch 0: loss {rec['Lall']:.5f}, gnorm {rec['gnorm']:.5f}; test loss {res['Lall']:.5f}, "
+        f"weighted F1 {res['f1']:.5f}, acc {res['acc']:.5f}")
+
+    rates = {"dense": [rec["dialogues"] / rec["seconds"]], "structured": []}
+    for label, t in (("structured", other), ("dense", run), ("structured", other), ("dense", run)):
+        if rates[label]:
+            t.eidx += 1
+        t.params.epoch = t.eidx + 1
+        r = t.train()[-1]
+        rates[label].append(r["dialogues"] / r["seconds"])
+    log(f"MMGCN training throughput (train steps of an epoch, {rec['dialogues']} dialogues, batch "
+        f"{p.train.batch_size}): dense {', '.join(f'{x:.1f}' for x in rates['dense'])} dialogues/s (first epoch "
+        f"first), structured {', '.join(f'{x:.1f}' for x in rates['structured'])} dialogues/s on {card}")
+
+    batch = batches[-1]
+    for label, t in (("dense", run), ("structured", other)):
+        t.train_step(batch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        t.train_step(batch)
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        _profile(lambda: t.train_step(batch), f"one MMGCN train step (batch {p.train.batch_size}, L "
+                 f"{host[2]['input_tensor'].shape[1]}, {label}, gcn_remat full)", step_s, show=("RNN", "rnn"))
+
+    from erc_tpu_torch.models import mmgcn
+    from erc_tpu_torch.serve import InferenceEngine
+
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer = mmgcn.main([*MMGCN_TRAIN_ARGS, "--adj_impl=structured", "--epoch=1", "--batch_count=2",
+                              f"--save_dir={tmp}"])
+        path = Path(tmp) / "model.last.ckpt"
+        require(path.exists(), f"main saved no {path}")
+        tp = trainer.params
+        engine = InferenceEngine.from_module("mmgcn", str(path), dataset=tp.dataset,
+                                             batch_size=int(tp.test.batch_size), adj_impl=tp.adj_impl,
+                                             max_seq_len=tp.max_seq_len)
+        test_batch = next(iter(trainer.make_loader("test")))
+        trainer.model.eval()
+        with torch.inference_mode():
+            want_logits = trainer.model(to_device(test_batch, trainer.device)).float().cpu().numpy()
+        got = engine.logits(test_batch)
+        diff = float(np.abs(got - want_logits).max())
+        log(f"MMGCN train -> save -> serve: {trainer.global_steps} steps, saved {path.name}; InferenceEngine "
+            f"logits vs the trainer's eval logits max abs diff {diff:.3e}")
+        require(diff == 0.0, f"served MMGCN logits differ from the trainer's eval logits by {diff}")
+    return launches
+
+
+def _stamp(phase: str) -> None:
+    log(f"phase {phase} done at {time.perf_counter() - T_START:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -1661,18 +1886,23 @@ def main() -> int:
     fn_err = check_band_functions()
     records["dag_block"] = check_dag_block()
     records["dag_block_bwd"] = check_dag_block_bwd()
+    _stamp("kernels")
     launches, variants = drive_cogmen(card)
+    _stamp("COGMEN serving")
     for name in ("banded_gather_sum", "banded_dot"):
         records[name]["variant_launches"] = {k: n for k, n in variants.items() if k.startswith(name + "/")}
     serve, serve_variants = drive_dagerc(card)
+    _stamp("DAG-ERC serving")
     launches["dag_block"] = serve["dag_block"]
     records["dag_block"]["variant_launches"] = {k: n for k, n in serve_variants.items() if k.startswith("dag_block/")}
     train, train_variants = drive_training(card)
+    _stamp("DAG-ERC training")
     launches["dag_block_bwd"] = train["dag_block_bwd"]
     records["dag_block"]["train_launches"] = train["dag_block"]
     records["dag_block_bwd"]["variant_launches"] = {k: n for k, n in train_variants.items()
                                                     if k.startswith("dag_block_bwd/")}
     cogmen_train, cogmen_train_variants = drive_cogmen_training(card)
+    _stamp("COGMEN training")
     launches["banded_gather_sum_t"] = cogmen_train["banded_gather_sum_t"]
     for name in ("banded_gather_sum", "banded_dot", "banded_gather_sum_t"):
         records[name]["train_launches"] = cogmen_train[name]
@@ -1684,7 +1914,13 @@ def main() -> int:
         rec["launches"] = launches[name]
     with _cudnn_tf32_on():
         _, _, dgcn_serve_taps = drive_dgcn(card)
+        _stamp("DialogueGCN serving")
         _, _, dgcn_train_taps = drive_dgcn_training(card)
+        _stamp("DialogueGCN training")
+        drive_mmgcn(card)
+        _stamp("MMGCN serving")
+        drive_mmgcn_training(card)
+        _stamp("MMGCN training")
     # the DialogueGCN-shape records: their instantiation's launches on DialogueGCN's serving and training paths
     for rec in dgcn_records.values():
         rec["launches"] = dgcn_serve_taps[rec["tap_key"]] + dgcn_train_taps[rec["tap_key"]]

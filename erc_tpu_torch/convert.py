@@ -8,9 +8,10 @@ flat ``.npz`` whose keys are ``/``-joined paths under ``params/`` and
 Layouts: a flax ``Dense.kernel`` is [in, out] and a torch ``Linear.weight``
 [out, in]; the attention's packed projections, the RGCN ``weight`` /
 ``root`` / ``basis``, DialogueGCN's edge-attention ``weight`` and the
-recurrent layers' ``w_ih`` / ``w_hh`` keep the JAX layout.
+recurrent layers' ``w_ih`` / ``w_hh`` and MMGCN's GCNII ``convs`` keep
+the JAX layout.
 
-    python -m erc_tpu_torch.convert [--module=cogmen|dagerc|dgcn] variables.npz state_dict.pt
+    python -m erc_tpu_torch.convert [--module=cogmen|dagerc|dgcn|mmgcn] variables.npz state_dict.pt
 
 writes the module's state dict (COGMEN by default) that
 ``serve.InferenceEngine`` loads.
@@ -151,12 +152,30 @@ def dgcn_state(params: Tree) -> Dict[str, torch.Tensor]:
     }
 
 
+def mmgcn_state(params: Tree) -> Dict[str, torch.Tensor]:
+    """The state dict of ``models.mmgcn.MMGCNModule`` from its flax tree,
+    which is the same for both ``adj_impl``s; the encoders of the modalities
+    the tree has, and ``gcnii/convs`` as is ([nlayers, 2·nh, nh] on both
+    sides)."""
+    sd = {}
+    for name in ("linear_a", "linear_v", "linear_l", "fc0", "smax_fc"):
+        if name in params:
+            sd.update(_prefixed(name, linear_state(params[name])))
+    if "lstm_l" in params:
+        sd.update(_prefixed("lstm_l", birnn_state(params["lstm_l"])))
+    if "speaker_embeddings" in params:
+        sd["speaker_embeddings.weight"] = _t(params["speaker_embeddings"]["embedding"])
+    sd["gcnii.convs"] = _t(params["gcnii"]["convs"])
+    return sd
+
+
 STATES = {
     "cogmen": lambda trees: cogmen_state(trees["params"], trees["batch_stats"]),
     "dagerc": lambda trees: dagerc_state(trees["params"]),
     "dgcn": lambda trees: dgcn_state(trees["params"]),
+    "mmgcn": lambda trees: mmgcn_state(trees["params"]),
 }
-USAGE = "usage: python -m erc_tpu_torch.convert [--module=cogmen|dagerc|dgcn] variables.npz state_dict.pt"
+USAGE = "usage: python -m erc_tpu_torch.convert [--module=cogmen|dagerc|dgcn|mmgcn] variables.npz state_dict.pt"
 
 
 def read_npz(path: str) -> Dict[str, dict]:

@@ -1,14 +1,15 @@
-"""Feature-dump readers: IEMOCAP in the COGMEN dump.
+"""Feature-dump readers: IEMOCAP in the COGMEN dump, MELD in the MMGCN dump.
 
-Port of ``erc_tpu.data.readers`` for the ``iemocap-cogmen-*`` names (the
-reference's pickle format: mmdatasets/datas/mm/iemocap_feature.py:360-408).
+Port of ``erc_tpu.data.readers`` for the ``iemocap-cogmen-*`` and
+``meld-mmgcn-*`` names (the reference's pickle formats:
+mmdatasets/datas/mm/iemocap_feature.py:360-408, meld_feature.py:14-45).
 Every reader returns a list of per-dialogue sample dicts with keys
     speakers   — list of one-hot speaker vectors per utterance
     visual / audio / text — [L_i, D_m] float arrays
     label      — [L_i] int array
     sentence   — list of strings
     ids        — the dialogue's id.
-The MELD and MOSEI readers come with the slices that need them.
+The MOSEI readers come with the slice that needs them.
 """
 
 from __future__ import annotations
@@ -87,3 +88,26 @@ def iemocap_cogmen_4(root, split="train", text="", visual=""):
     """The 9-tuple COGMEN dump, 4 classes."""
     return _iemocap_cogmen(root, "cogmen/iemocap_4/IEMOCAP_features_4.pkl", "cogmen/iemocap_4", split, text,
                            visual)
+
+
+def meld_mmgcn_7(root, split="train", text=None):
+    """The 10-tuple MMGCN MELD dump, 7 classes (meld_feature.py:14-45);
+    ``text="sbert"`` takes the text features from ``MMGCN/sbert_map.pkl``.
+    The speakers are the dump's one-hot rows; features become float32."""
+    (video_ids, video_speakers, video_labels, video_text, video_audio, video_visual, video_sentence,
+     train_ids, test_ids, _) = load_pkl(os.path.join(root, "MMGCN/MELD_features_raw.pkl"))
+    if text == "sbert":
+        video_text = load_pkl(os.path.join(root, "MMGCN", "sbert_map.pkl"))
+    ids = train_ids if split == "train" else test_ids
+    return [
+        {
+            "ids": video_ids[k],
+            "speakers": video_speakers[k],
+            "visual": video_visual[k].astype(np.float32),
+            "audio": video_audio[k].astype(np.float32),
+            "text": video_text[k].astype(np.float32),
+            "label": video_labels[k],
+            "sentence": video_sentence[k],
+        }
+        for k in ids
+    ]

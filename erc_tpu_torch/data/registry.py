@@ -3,10 +3,12 @@
 Port of ``erc_tpu.data.registry``: ``synthetic-*`` names generate dialogues
 in memory with the geometry of the corpus they name (``synthetic-iemocap-6``
 and ``synthetic-cogmen-6``: IEMOCAP-COGMEN, ``synthetic-meld-7``:
-MELD-MMGCN); the ``iemocap-cogmen-*`` names read the COGMEN feature dump
-under the dataset's root (``get_root``: ``ERC_TPU_DATA_ROOT``, else
-``data_root`` in ``.erc_tpurc.json``, else ``~/erc_data``).  The other real
-names (MELD, MOSEI, the raw corpus) come with the slices that need them.
+MELD-MMGCN); the ``iemocap-cogmen-*`` names read the COGMEN feature dump and
+``meld-mmgcn-7`` / ``meld-mmgcn-sbert-7`` the MMGCN MELD dump under the
+dataset's root (``get_root``: ``ERC_TPU_DATA_ROOT``, else ``data_root`` in
+``.erc_tpurc.json``, else ``~/erc_data``; then ``iemocap/`` or ``meld/``).
+The other real names (MOSEI, the raw corpus) come with the slices that need
+them.
 """
 
 from __future__ import annotations
@@ -85,7 +87,12 @@ def _cogmen_names(n_class: int) -> Dict[str, Callable]:
     return names
 
 
-regist_data: Dict[str, Callable] = {**_cogmen_names(6), **_cogmen_names(4)}
+regist_data: Dict[str, Callable] = {
+    **_cogmen_names(6),
+    **_cogmen_names(4),
+    "meld-mmgcn-7": partial(readers.meld_mmgcn_7, text=None),
+    "meld-mmgcn-sbert-7": partial(readers.meld_mmgcn_7, text="sbert"),
+}
 
 
 def n_classes_of(dataset_name: str) -> int:
@@ -133,6 +140,6 @@ def pick_datas(root, dataset_name: str, split: str = "train", **kw):
     if fn is None:
         raise NotImplementedError(
             f"dataset {dataset_name!r}: its reader is not ported yet; the port reads "
-            "iemocap-cogmen-* dumps and synthetic-* names"
+            "iemocap-cogmen-* and meld-mmgcn-* dumps and synthetic-* names"
         )
     return fn(root, split=split, **kw)

@@ -27,5 +27,16 @@ class Dropout(nn.Module):
         keep = torch.empty_like(x).bernoulli_(1.0 - self.p, generator=self.generator)
         return x * keep / (1.0 - self.p)
 
+    def masks(self, shape, like: torch.Tensor):
+        """Masks for ``shape`` drawn ahead of their use: keep / (1 − p) where
+        an element is kept, else 0, in ``like``'s dtype and on its device; None
+        where dropout is off.  A checkpointed region takes its masks as inputs,
+        since its recompute would draw new ones from ``generator``
+        (``torch.utils.checkpoint`` restores only the default generators)."""
+        if not self.training or self.p == 0.0:
+            return None
+        keep = torch.empty(shape, dtype=like.dtype, device=like.device)
+        return keep.bernoulli_(1.0 - self.p, generator=self.generator) / (1.0 - self.p)
+
     def extra_repr(self) -> str:
         return f"p={self.p}"

@@ -1,7 +1,8 @@
 """Dense masked graph layers.
 
 Port of ``erc_tpu.ops.gnn`` (relational_message_passing, DenseRGCN,
-DenseTransformerConv, DenseGraphConv): batched [B, L, L] message passing over the
+DenseTransformerConv, DenseGraphConv, and MMGCN's GCNIIStack and
+GCNIIStackStructured): batched [B, L, L] message passing over the
 adjacency convention of ``ops.graphs`` (A[b, u, v] = edge u → v).  The
 dense path is COGMEN's and DialogueGCN's default at L ≤ 256 and the in-port
 oracle that the banded path must equal.  Weights keep the JAX layout: RGCN ``weight`` is
@@ -10,14 +11,18 @@ oracle that the banded path must equal.  Weights keep the JAX layout: RGCN ``wei
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 from torch import nn
 
 from erc_tpu_torch.ops.attention import Linear
-from erc_tpu_torch.ops.init import xavier_uniform_
+from erc_tpu_torch.ops.dropout import Dropout
+from erc_tpu_torch.ops.graphs import structured_adj_matmul
+from erc_tpu_torch.ops.init import uniform_, xavier_uniform_
 
 
 def relational_message_passing(x, adj, rel, weights, edge_norm=None, aggr: str = "mean"):
@@ -123,3 +128,105 @@ class DenseGraphConv(nn.Module):
 
     def forward(self, x, adj):
         return self.lin_rel(torch.einsum("buv,bud->bvd", adj, x)) + self.lin_root(x)
+
+
+def _chunk_of(n: int, want: int) -> int:
+    """The largest divisor of ``n`` that is ≤ ``want``: layers a trip."""
+    c = max(1, min(want, n))
+    while n % c:
+        c -= 1
+    return c
+
+
+_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default, torch.ops.aten.addmm.default)
+
+
+def _save_products(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of ``remat='dots'``: keep the matrix
+    products' outputs, recompute the elementwise chain (JAX's
+    ``dots_saveable``)."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    return CheckpointPolicy.MUST_SAVE if op in _PRODUCTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(trip, mode):
+    """``trip`` run as ``mode`` says: 'off' (or False) as is, 'full' (or
+    True) under ``torch.utils.checkpoint``, 'dots' under a checkpoint that
+    saves the products."""
+    if not mode or mode == "off":
+        return trip
+    from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
+
+    if mode in (True, "full"):
+        return lambda *a: checkpoint(trip, *a, use_reentrant=False)
+    if mode == "dots":
+        context_fn = functools.partial(create_selective_checkpoint_contexts, _save_products)
+        return lambda *a: checkpoint(trip, *a, use_reentrant=False, context_fn=context_fn)
+    raise ValueError(f"unknown remat mode {mode!r}")
+
+
+class GCNIIStack(nn.Module):
+    """Deep GCNII (variant) over a dense adjacency [B, N, N].  Layer l
+    (1-indexed), with dropout before each:
+        θ_l = log(λ / l + 1),  hi = Aᵀ h
+        out = relu(θ_l · ([hi, h0] @ W_l) + (1 − θ_l) · ((1 − α) hi + α h0))
+    ``convs`` is the JAX layout [nlayers, 2·nh, nh].  [hi, h0] @ W is split
+    as hi @ W[:nh] + h0 @ W[nh:], and h0 is the same in every layer, so its
+    half is one [B·N, nh] × [nh, C·nh] product a trip of C layers
+    (``_chunk_of(nlayers, chunk)``).  ``remat`` (``_remat``) checkpoints each
+    trip; its dropout masks are drawn before the trip and passed in."""
+
+    def __init__(self, nlayers: int, nhidden: int, lamda: float = 0.5, alpha: float = 0.1, dropout: float = 0.0,
+                 remat="off", chunk: int = 8, *, generator=None, device=None):
+        super().__init__()
+        self.nlayers, self.nhidden, self.alpha, self.remat = nlayers, nhidden, alpha, remat
+        self.chunk = _chunk_of(nlayers, chunk)
+        self.convs = nn.Parameter(torch.empty(nlayers, 2 * nhidden, nhidden, device=device))
+        with torch.no_grad():
+            uniform_(self.convs, 1.0 / math.sqrt(nhidden), generator=generator)
+        # (θ_l, 1 − θ_l) computed in float32, as the JAX stack computes them
+        thetas = np.log(np.float32(lamda) / np.arange(1, nlayers + 1, dtype=np.float32) + np.float32(1.0))
+        self.thetas = [(float(t), float(np.float32(1.0) - t)) for t in thetas]
+        self.dropout = Dropout(dropout)
+
+    def aggregate(self, adj, h):
+        return torch.bmm(adj.transpose(1, 2), h)
+
+    def forward(self, x, *adj):
+        """x [..., nh] (h0); ``adj``: what ``aggregate`` takes."""
+        nh, C, a = self.nhidden, self.chunk, self.alpha
+        h0 = x
+        ah0 = a * h0
+        rows = h0.reshape(-1, nh)
+        trip = _remat(self._trip, self.remat if torch.is_grad_enabled() else "off")
+        h = h0
+        for s in range(0, self.nlayers, C):
+            Wc = self.convs[s : s + C]
+            # h0's half of the support for the trip's C layers: [B·N, C·nh]
+            b2c = rows @ Wc[:, nh:].transpose(0, 1).reshape(nh, C * nh)
+            masks = self.dropout.masks((C, *h.shape), h)
+            h = trip(h, Wc[:, :nh], b2c, ah0, masks, s, *adj)
+        return h
+
+    def _trip(self, h, W1c, b2c, ah0, masks, s, *adj):
+        nh = self.nhidden
+        for t in range(W1c.shape[0]):
+            if masks is not None:
+                h = h * masks[t]
+            hi = self.aggregate(*adj, h)
+            support = torch.addmm(b2c[:, t * nh : (t + 1) * nh], hi.reshape(-1, nh), W1c[t]).view_as(hi)
+            theta, rest = self.thetas[s + t]
+            r = torch.add(ah0, hi, alpha=1.0 - self.alpha)
+            h = torch.relu(torch.add(theta * support, r, alpha=rest))
+        return h
+
+
+class GCNIIStackStructured(GCNIIStack):
+    """GCNIIStack over MMGCN's structured adjacency (``ops.graphs.
+    mmgcn_structured_adjacency``): x [B, M, L, nh], ``forward(x, intra,
+    cross)``; about 3× fewer aggregation operations than the dense (M·L)²
+    form, the same function."""
+
+    def aggregate(self, intra, cross, h):
+        return structured_adj_matmul(intra, cross, h)

@@ -7,6 +7,7 @@ programmatically (``InferenceEngine.predict``) or over HTTP::
     python -m erc_tpu_torch.serve --module=cogmen --graph_impl=banded
     python -m erc_tpu_torch.serve --module=dagerc --batch_size=32
     python -m erc_tpu_torch.serve --module=dgcn --graph_impl=banded
+    python -m erc_tpu_torch.serve --module=mmgcn --adj_impl=dense --batch_size=32
     python -m erc_tpu_torch.serve --module=cogmen --checkpoint=model.last.ckpt
 
 ``--checkpoint`` takes a file of either package's Saver (the port's
@@ -63,9 +64,9 @@ class InferenceEngine:
         dataset: Optional[str] = None, batch_size: int = 8, **param_overrides,
     ) -> "InferenceEngine":
         """Engine for ``erc_tpu_torch.models.<module>`` (``cogmen``, ``dagerc``,
-        ``dgcn``).
+        ``dgcn``, ``mmgcn``).
         Overrides set params (e.g. ``graph_impl='banded'``, ``dag_impl='eager'``,
-        ``device='cpu'``); weights come from
+        ``adj_impl='structured'``, ``device='cpu'``); weights come from
         ``checkpoint_path`` or else from a generator seeded with ``seed``."""
         mod = importlib.import_module(f"erc_tpu_torch.models.{module}")
         p = mod.ParamsType()

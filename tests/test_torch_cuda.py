@@ -14,8 +14,10 @@ across repeats in both variants of its sweep; banded vs dense
 and kernel vs eager logits 1e-4; training, kernel vs eager form, 1e-4
 relative (gradients: each parameter's difference over its gradient's norm,
 floored at 1e-4 of the global norm where the exact gradient is 0).
-DialogueGCN's card vs CPU logits 1e-4 with cuDNN's TF32 flag on: its LSTM
-runs cuDNN in full float32 whatever the process-wide flags say.
+DialogueGCN's and MMGCN's card vs CPU logits 1e-4 with cuDNN's TF32 flag
+on: their LSTM runs cuDNN in full float32 whatever the process-wide flags
+say.  MMGCN's structured vs dense logits 1e-4, and its gradients with
+checkpointed GCNII trips vs without, at dropout 0.4, 1e-4 relative.
 """
 
 import numpy as np
@@ -693,4 +695,65 @@ def test_dgcn_banded_training_launches_and_equals_dense(cuda):
     assert _nonzero(kb.tap_launches) == DGCN_STEP_TAPS
     dense.compute_grads(batch)
     worst = max(_grad_rel(banded.model, dense.model).items(), key=lambda kv: kv[1])
+    assert worst[1] <= 1e-4, worst
+
+
+def _mmgcn_trainer(*extra, device="cuda", drop=None):
+    from erc_tpu_torch.models import mmgcn
+
+    p = mmgcn.MMGCNParams()
+    p.finalize(["--dataset=synthetic-cogmen-6", f"--device={device}", "--max_seq_len=96", *extra])
+    if drop is not None:
+        p.drop_rate = drop
+    t = mmgcn.MMGCNTrainer(p)
+    t.log = lambda msg: None
+    t.initialize()
+    return t
+
+
+@pytest.mark.parametrize("lstm_mode", ["packed", "unpacked"])
+def test_mmgcn_card_equals_cpu_with_cudnn_tf32_on_and_structured_equals_dense(cuda, lstm_mode):
+    """MMGCN at full width (64 GCNII layers of 200) launches none of the
+    hand-written kernels; with cuDNN's TF32 flag on the card's logits equal
+    the CPU's, and the structured adjacency's equal the dense one's, with the
+    text LSTM packed or run over the padding."""
+    from erc_tpu_torch.data.synthetic import synthetic_erc
+    from erc_tpu_torch.serve import InferenceEngine
+
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        kw = dict(dataset="synthetic-cogmen-6", batch_size=4, lstm_mode=lstm_mode)
+        card = InferenceEngine.from_module("mmgcn", **kw)
+        structured = InferenceEngine.from_module("mmgcn", adj_impl="structured", **kw)
+        cpu = InferenceEngine.from_module("mmgcn", device="cpu", **kw)
+        structured.model.load_state_dict(card.model.state_dict())
+        cpu.model.load_state_dict(card.model.state_dict())
+        batch = card.batcher(synthetic_erc("iemocap-cogmen", 6, n_train=3, max_len=110))  # and a padding row
+        from erc_tpu_torch.ops.kernels import dag_block as kd
+
+        kb.reset_launches()
+        kd.reset_launches()
+        got = card.logits(batch)
+        assert not any(kb.launches.values()) and not any(kd.launches.values())
+        np.testing.assert_allclose(got, cpu.logits(batch), rtol=0, atol=1e-4)
+        np.testing.assert_allclose(structured.logits(batch), got, rtol=0, atol=1e-4)
+        assert torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+
+
+@pytest.mark.parametrize("remat", ["full", "dots"])
+def test_mmgcn_remat_gradients_equal_off_with_dropout(cuda, remat):
+    """Dropout 0.4 from one generator seed: checkpointed GCNII trips give the
+    gradients of the run without checkpoints (the masks are drawn before each
+    trip, so the recompute does not draw new ones)."""
+    from erc_tpu_torch.data.loader import to_device
+
+    off, other = _mmgcn_trainer("--gcn_remat=off"), _mmgcn_trainer(f"--gcn_remat={remat}")
+    assert off.params.drop_rate == 0.4
+    batch = to_device(next(iter(off.make_loader("train"))), off.device)
+    off.compute_grads(batch)
+    other.compute_grads(batch)
+    worst = max(_grad_rel(other.model, off.model).items(), key=lambda kv: kv[1])
     assert worst[1] <= 1e-4, worst

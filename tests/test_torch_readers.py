@@ -1,9 +1,10 @@
-"""The port's IEMOCAP-COGMEN readers and the real half of its registry ≡
-the JAX package's.
+"""The port's IEMOCAP-COGMEN and MELD-MMGCN readers and the real half of its
+registry ≡ the JAX package's.
 
 The test writes the reference-format pickles itself (no dataset is
 downloaded): the 9-tuple COGMEN dump for 6 and 4 classes and the sbert,
-robert, tsn and tsnss replacement maps.  Every ``iemocap-cogmen-*`` name
+robert, tsn and tsnss replacement maps; the 10-tuple MMGCN MELD dump (float64
+features, 9 one-hot speakers) and its sbert map.  Every ``iemocap-cogmen-*`` name
 is read by both packages and compared exactly; a missing dump raises the
 same FileNotFoundError with the same hint; the data root resolves alike
 (``ERC_TPU_DATA_ROOT``); the port's trainer reads a real name through it.
@@ -19,7 +20,8 @@ from erc_tpu.data import registry as jregistry
 from erc_tpu_torch.data import readers as treaders
 from erc_tpu_torch.data import registry as tregistry
 
-NAMES = sorted(tregistry.regist_data)
+NAMES = sorted(n for n in tregistry.regist_data if n.startswith("iemocap-cogmen"))
+MELD_NAMES = ("meld-mmgcn-7", "meld-mmgcn-sbert-7")
 
 
 def _dump(n_dialogues, dims, seed):
@@ -79,7 +81,7 @@ def test_every_cogmen_name_of_the_jax_registry_is_ported():
     assert set(NAMES) == want and len(NAMES) == 24
 
 
-@pytest.mark.parametrize("reader", ["iemocap_cogmen_6", "iemocap_cogmen_4"])
+@pytest.mark.parametrize("reader", ["iemocap_cogmen_6", "iemocap_cogmen_4", "meld_mmgcn_7"])
 def test_missing_dump_raises_the_same_hint(tmp_path, reader):
     with pytest.raises(FileNotFoundError) as want:
         getattr(jreaders, reader)(str(tmp_path))
@@ -107,3 +109,66 @@ def test_trainer_reads_a_real_dataset(data_root, monkeypatch):
     batches = list(cogmen.COGMENTrainer(p).make_loader("train"))
     assert sum(int((b["text_length"] > 0).sum()) for b in batches) == 3
     assert all(b["input_tensor"].shape[-1] == 7 + 5 + 6 for b in batches)
+
+
+MELD_DIMS = {"text": 600, "audio": 300, "visual": 342}  # the MMGCN dump's widths (models/base.py)
+
+
+@pytest.fixture(scope="module")
+def meld_root(tmp_path_factory):
+    """A MELD root (get_root's ``meld/``) with the MMGCN dump and its sbert map."""
+    root = tmp_path_factory.mktemp("erc_data") / "meld"
+    r = np.random.default_rng(11)
+    ids = [f"dia{i}" for i in range(6)]
+    lens = {k: int(r.integers(1, 8)) for k in ids}
+    feats = {m: {k: r.normal(size=(lens[k], d)) for k in ids} for m, d in MELD_DIMS.items()}  # float64
+    spk = {k: np.eye(9, dtype=int)[r.integers(0, 9, lens[k])].tolist() for k in ids}
+    labels = {k: r.integers(0, 7, lens[k]).tolist() for k in ids}
+    sentences = {k: [f"line {j}" for j in range(lens[k])] for k in ids}
+    vids = {k: f"{k}.mp4" for k in ids}
+    _write(root / "MMGCN" / "MELD_features_raw.pkl",
+           (vids, spk, labels, feats["text"], feats["audio"], feats["visual"], sentences, ids[:4], ids[4:], None))
+    _write(root / "MMGCN" / "sbert_map.pkl", {k: r.normal(size=(lens[k], 768)) for k in ids})
+    return str(root)
+
+
+@pytest.mark.parametrize("name", MELD_NAMES)
+def test_meld_reader_matches_jax(meld_root, name):
+    assert name in jregistry.regist_data and name in tregistry.regist_data
+    for split in ("train", "test"):
+        got = tregistry.pick_datas(meld_root, name, split)
+        want = jregistry.pick_datas(meld_root, name, split)
+        assert len(got) == len(want) == (4 if split == "train" else 2)
+        for g, w in zip(got, want):
+            assert g.keys() == w.keys()
+            for k in g:
+                if isinstance(w[k], np.ndarray):
+                    assert g[k].dtype == w[k].dtype == np.float32
+                    np.testing.assert_array_equal(g[k], w[k], err_msg=f"{name} {k}")
+                else:
+                    assert g[k] == w[k], (name, k)
+            assert g["text"].shape[1] == (768 if "sbert" in name else 600)
+
+
+def test_mmgcn_trainer_reads_meld(meld_root, monkeypatch):
+    """--dataset=meld-mmgcn-7 under ERC_TPU_DATA_ROOT: 9 speakers, 7 classes,
+    the dump's widths, and MMGCN's forward on a batch of it."""
+    import torch
+
+    from erc_tpu_torch.data.loader import to_device
+    from erc_tpu_torch.models import mmgcn
+
+    monkeypatch.setenv("ERC_TPU_DATA_ROOT", str(meld_root).rsplit("/", 1)[0])
+    p = mmgcn.MMGCNParams()
+    p.finalize(["--dataset=meld-mmgcn-7", "--device=cpu", "--train.batch_size=4", "--gcn_layers=2",
+                "--graph_hidden_size=8", "--reimplement"])
+    assert (p.n_speakers, p.n_classes, p.optim.lr, p.optim.weight_decay) == (9, 7, 0.0001, 0)
+    trainer = mmgcn.MMGCNTrainer(p)
+    batches = list(trainer.make_loader("train"))
+    assert sum(int((b["text_length"] > 0).sum()) for b in batches) == 4
+    b = batches[0]
+    assert (b["text_feature"].shape[-1], b["audio_feature"].shape[-1], b["visual_feature"].shape[-1]) == (600, 300, 342)
+    model = mmgcn.build(p, generator=torch.Generator().manual_seed(0)).eval()
+    with torch.no_grad():
+        logits = model(to_device(b, torch.device("cpu")))
+    assert logits.shape == (*b["attention_mask"].shape, 7) and torch.isfinite(logits).all()

@@ -164,6 +164,7 @@ def test_port_imports_no_jax():
         "import importlib, pkgutil, sys\n"
         "import erc_tpu_torch\n"
         "import erc_tpu_torch.models.dgcn\n"
+        "import erc_tpu_torch.models.mmgcn\n"
         "for m in pkgutil.walk_packages(erc_tpu_torch.__path__, 'erc_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = [n for n in sys.modules if n.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'erc_tpu')]\n"
