@@ -66,7 +66,25 @@ Phases (any failure raises, so the exit code is non-zero):
      3 steps' losses, card ≡ CPU at dropout 0, one epoch and test() with no
      kernel launched, dialogues/s dense vs structured, profiles of one step,
      and main() → saved model → InferenceEngine with the trainer's logits;
- 11. print the run's wall time, one JSON line of kernel records (K1/K2/K1ᵀ
+ 11. drive DialogueGCN v2 serving at full width (712 -> DialogueRNN with
+     D_g = D_p = 150 and 100 a direction, or a 2-layer biLSTM/biGRU of 100,
+     or a linear base; wp = wf = 10, RGCN of 30 bases + GraphConv, nodal
+     attention) through InferenceEngine, TF32 flag still on: with the
+     DialogueRNN and the biLSTM base, predict (no hand-written kernel
+     launched), card ≡ CPU, a single-dialogue request, latency, throughput
+     and profile; with the biGRU and the linear base, one batch card ≡ CPU;
+ 12. drive DialogueGCN v2 training (DGCNV2Params, DialogueRNN base: batch
+     32, Adam 3e-4, dropout 0.5, IEMOCAP-6 class weights; max_seq_len 96)
+     through DGCNV2Trainer: card ≡ CPU at dropout 0 (gradients and 3 steps'
+     losses), one epoch and test() with no kernel launched, dialogues/s,
+     profile of one step, and main() → saved model → InferenceEngine with
+     the trainer's logits;
+ 13. drive the DailyDialog token track's training at full width
+     (DGCNV2DailyParams: vocabulary 20 000, embedding 300, 50 words, TextCNN
+     -> 100, biLSTM of 100, L 128, batch 32) through DGCNV2DailyTrainer:
+     card ≡ CPU at dropout 0 (the embedding's gradient included), one epoch
+     and test() with no kernel launched, dialogues/s, profile of one step;
+ 14. print the run's wall time, one JSON line of kernel records (K1/K2/K1ᵀ
      also at DialogueGCN's shapes, K = 10 and 21, D = 100 and 200, with their
      launches on its paths), the card's name and power limit, and a last
      JSON line {"ok": true, "device": {...}}.
@@ -1670,9 +1688,10 @@ MMGCN_PARAMS = 5_794_006
 
 
 def _no_kernel_launches(what: str) -> dict:
-    """MMGCN's graph products are torch.bmm / torch.matmul: no hand-written kernel runs on its paths."""
+    """MMGCN's and DialogueGCN v2's graph products are torch.bmm / torch.matmul: no hand-written kernel runs
+    on their paths."""
     launches = _read_launches()
-    require(not any(launches.values()), f"{what}: a hand-written kernel launched on MMGCN's path: {launches}")
+    require(not any(launches.values()), f"{what}: a hand-written kernel launched on the path: {launches}")
     return launches
 
 
@@ -1873,6 +1892,231 @@ def drive_mmgcn_training(card: str):
     return launches
 
 
+# ------------------------------------------------------------------ phases 11 to 13
+DGCNV2_PARAMS = {"DialogRNN": 2_977_146, "LSTM": 1_679_946, "GRU": 1_456_746, "None": 929_746}
+DGCNV2_DAILY_PARAMS = 7_385_697
+DGCNV2_TRAIN_PARAMS = 2_970_746  # DialogRNN at max_seq_len 96: the edge attention's W has 96 rows, not 128
+
+
+def drive_dgcnv2(card: str):
+    """DialogueGCN v2 serving (the feature track) at full width through
+    InferenceEngine, cuDNN's TF32 flag on: with DialogueRNN and the biLSTM as
+    base encoder, predict (every launch count stays 0), card ≡ CPU, a
+    single-dialogue request, latency, throughput and profile; with the biGRU
+    and the linear base, one batch card ≡ CPU."""
+    import numpy as np
+    import torch
+    from erc_tpu_torch.serve import InferenceEngine
+
+    kw = dict(dataset="synthetic-cogmen-6", batch_size=32)
+    dialogues, desc = _dialogues()
+    n_batches = -(-len(dialogues) // 32)
+    for base in ("DialogRNN", "LSTM", "GRU", "None"):
+        engine = InferenceEngine.from_module("dgcnv2", base_model=base, **kw)
+        p = engine.params
+        n_params = sum(t.numel() for t in engine.model.parameters())
+        require(n_params == DGCNV2_PARAMS[base], f"dgcnv2 {base} has {n_params} parameters, want {DGCNV2_PARAMS[base]}")
+        cpu = InferenceEngine.from_module("dgcnv2", base_model=base, device="cpu", **kw)
+        cpu.model.load_state_dict(engine.model.state_dict())
+        name = f"DialogueGCN v2 ({base})"
+        if base in ("GRU", "None"):
+            batch = engine.batcher(dialogues[:32])
+            _reset_launches()
+            diff = float(np.abs(engine.logits(batch) - cpu.logits(batch)).max())
+            _no_kernel_launches(f"{name} serving")
+            log(f"{name} serving, one batch of 32 (L {batch['input_tensor'].shape[1]}): {n_params} params; card vs CPU "
+                f"logits max abs diff {diff:.3e} (tolerance {PATH_TOL})")
+            require(diff <= PATH_TOL, f"{name} card vs CPU {diff} > {PATH_TOL}")
+            continue
+        log(f"engine: {name} {p.hidden_all} -> base {base} of {p.hidden_size} a direction (D_g {p.get('d_g', 150)}), "
+            f"wp {p.wp} wf {p.wf}, RGCN (30 bases, add) + GraphConv, nodal attention, {n_params} params, batch 32, "
+            f"cudnn.allow_tf32 {torch.backends.cudnn.allow_tf32}, on {torch.cuda.get_device_name(0)}")
+        _reset_launches()
+        results = engine.predict(dialogues)
+        launches = _no_kernel_launches(f"{name} serving")
+        log(f"{name} path: {desc} in {n_batches} batches; launches {launches}")
+        _check_results(dialogues, results)
+        t0 = time.perf_counter()
+        (worst_cpu,) = _worst_logit_diffs(engine, [cpu], dialogues)
+        log(f"{name} logits: card vs CPU max abs diff {worst_cpu:.3e} (tolerance {PATH_TOL}; cudnn.allow_tf32 on; "
+            f"{time.perf_counter() - t0:.2f} s)")
+        require(worst_cpu <= PATH_TOL, f"{name} card vs CPU {worst_cpu} > {PATH_TOL}")
+        # one dialogue: the batch carries 31 all-padding dialogues
+        _check_results(dialogues[:1], engine.predict([dialogues[0]]))
+        wall = _latency_throughput(engine, dialogues, card, name)
+        profile_predict(engine, dialogues, wall, n_batches, show=("RNN", "rnn"))
+
+
+DGCNV2_TRAIN_ARGS = ["--dataset=synthetic-cogmen-6", "--base_model=DialogRNN", "--max_seq_len=96",
+                     "--confusion_matrix=false"]
+# the token track at full width: 96 train dialogues (3 steps of 32), 32 test ones (1 batch), L = 128 static
+DGCNV2_DAILY_TRAIN_ARGS = ["--dataset=synthetic-daily-token-7", "--synthetic_n_train=96", "--confusion_matrix=false"]
+
+
+def _dgcnv2_trainer(daily=False, *extra, device="cuda", dropout_off=False):
+    """A DGCNV2Trainer at DGCNV2Params' settings (712 -> DialogueRNN, D_g = D_p = 150, 100 a direction, wp = wf
+    = 10, batch 32, Adam 3e-4, dropouts 0.5 (DialogueRNN) and 0.5 (head), IEMOCAP-6 class weights), max_seq_len
+    96; or a DGCNV2DailyTrainer at DGCNV2DailyParams' (vocabulary 20 000, embedding 300, 50 words, TextCNN 50
+    filters of 3/4/5 -> 100, biLSTM of 100, max_seq_len 128, batch 32, Adam 3e-4, dropouts 0.5/0.4/0.5). One
+    epoch; weights from seed 1, the same on every device.  `dropout_off` sets every dropout to 0."""
+    from erc_tpu_torch.models import dgcnv2
+    from erc_tpu_torch.ops.dropout import Dropout
+
+    p = dgcnv2.DGCNV2DailyParams() if daily else dgcnv2.DGCNV2Params()
+    p.finalize([*(DGCNV2_DAILY_TRAIN_ARGS if daily else DGCNV2_TRAIN_ARGS), f"--device={device}", "--epoch=1",
+                *extra])
+    trainer = (dgcnv2.DGCNV2DailyTrainer if daily else dgcnv2.DGCNV2Trainer)(p)
+    trainer.log = lambda msg: log(f"  [trainer] {msg}")
+    trainer.initialize()
+    if dropout_off:
+        for m in trainer.model.modules():
+            if isinstance(m, Dropout):
+                m.p = 0.0
+    return trainer
+
+
+def _card_vs_cpu_steps(name, card0, cpu0, host):
+    """At dropout 0: the first batch's gradients, then 3 steps' losses, the card against the CPU."""
+    import torch
+    from erc_tpu_torch.data.loader import to_device
+
+    cuda, cpu = card0.device, torch.device("cpu")
+    card0.compute_grads(to_device(host[0], cuda))
+    t0 = time.perf_counter()
+    cpu0.compute_grads(to_device(host[0], cpu))
+    t_cpu = time.perf_counter() - t0
+    worst, pname = _worst_grad_diff(card0.model, cpu0.model)
+    losses = [(card0.train_step(to_device(b, cuda))["Lall"].item(), cpu0.train_step(to_device(b, cpu))["Lall"].item())
+              for b in host[:3]]
+    rel = max(abs(a - b) / abs(b) for a, b in losses)
+    log(f"{name} card vs CPU at dropout 0 (cudnn.allow_tf32 on): first-batch gradients worst {worst:.3e} ({pname}); "
+        f"{len(losses)} steps' losses {losses}, worst relative {rel:.3e}; tolerance {TRAIN_TOL}; CPU forward and "
+        f"backward {t_cpu:.2f} s")
+    require(worst <= TRAIN_TOL, f"{name} card vs CPU gradients {worst} ({pname}) > {TRAIN_TOL}")
+    require(rel <= TRAIN_TOL, f"{name} card vs CPU losses differ by {rel} > {TRAIN_TOL}")
+
+
+def _epoch_and_step(name, run, host, batch_desc):
+    """The main path: one epoch and test() with every launch count at 0 before it and none launched, a second
+    epoch's dialogues/s, and a profile of one train step."""
+    import torch
+    from erc_tpu_torch.data.loader import to_device
+
+    n_test = len(list(run.make_loader("test")))
+    _reset_launches()
+    t0 = time.perf_counter()
+    rec = run.train()[0]
+    wall = time.perf_counter() - t0
+    launches = _no_kernel_launches(f"{name} training path")
+    res = rec["test"]
+    log(f"{name} training path: {rec['steps']} steps over {rec['dialogues']} dialogues, then test() ({n_test} "
+        f"batches) in {wall:.3f} s; launches {launches}")
+    require(all(math.isfinite(x) for x in (rec["Lall"], rec["gnorm"], res["Lall"], res["f1"])),
+            f"non-finite {name} training results {rec}")
+    run.eidx += 1
+    run.params.epoch = run.eidx + 1
+    rec2 = run.train()[-1]
+    log(f"{name} epoch 0: loss {rec['Lall']:.5f}, gnorm {rec['gnorm']:.5f}; test loss {res['Lall']:.5f}, weighted "
+        f"F1 {res['f1']:.5f}, acc {res['acc']:.5f}; training throughput (train steps of an epoch, "
+        f"{rec['dialogues']} dialogues, batch {run.params.train.batch_size}): "
+        f"{rec['dialogues'] / rec['seconds']:.1f} (first epoch), {rec2['dialogues'] / rec2['seconds']:.1f} "
+        f"dialogues/s on {torch.cuda.get_device_name(0)}")
+    batch = to_device(host[-1], run.device)
+    run.train_step(batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run.train_step(batch)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    _profile(lambda: run.train_step(batch), f"one {name} train step ({batch_desc})", step_s, show=("RNN", "rnn"))
+
+
+def drive_dgcnv2_training(card: str):
+    """DialogueGCN v2 training (the feature track, DialogueRNN base) at full
+    width through DGCNV2Trainer, cuDNN's TF32 flag on: the card ≡ the CPU at
+    dropout 0 (gradients and 3 steps' losses), an epoch and test() as the
+    main path (no hand-written kernel launched), dialogues/s, a profile of
+    one step, and train → save → serve."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from erc_tpu_torch.data.loader import to_device
+
+    run = _dgcnv2_trainer()
+    p = run.params
+    n_params = sum(t.numel() for t in run.model.parameters())
+    require(n_params == DGCNV2_TRAIN_PARAMS, f"dgcnv2 has {n_params} parameters, want {DGCNV2_TRAIN_PARAMS}")
+    require(run.class_weights is not None and run.grad_clip_norm is None and run.lr_sche is None,
+            "DGCNV2Trainer: want the class weights at 6 classes, no clip and no plateau controller")
+    log(f"trainer: DialogueGCN v2 {p.hidden_all} -> DialogueRNN (D_g {p.get('d_g', 150)}, {p.hidden_size} a "
+        f"direction), max_seq_len {p.max_seq_len}, batch "
+        f"{p.train.batch_size}, {p.optim.name} lr {p.optim.lr} weight decay {p.optim.weight_decay}, dropout 0.5 "
+        f"(DialogueRNN and head), class weights, {n_params} params, on {torch.cuda.get_device_name(0)}")
+    host = list(run.make_loader("train"))  # epoch 0: the batches train() will take
+    _card_vs_cpu_steps("DialogueGCN v2", _dgcnv2_trainer(dropout_off=True),
+                       _dgcnv2_trainer(device="cpu", dropout_off=True), host)
+    _epoch_and_step("DialogueGCN v2", run, host,
+                    f"batch {p.train.batch_size}, L {host[-1]['input_tensor'].shape[1]}, DialogRNN")
+
+    from erc_tpu_torch.models import dgcnv2
+    from erc_tpu_torch.serve import InferenceEngine
+
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer = dgcnv2.main([*DGCNV2_TRAIN_ARGS, "--epoch=1", "--batch_count=2", f"--save_dir={tmp}"])
+        path = Path(tmp) / "model.last.ckpt"
+        require(path.exists(), f"main saved no {path}")
+        tp = trainer.params
+        engine = InferenceEngine.from_module("dgcnv2", str(path), dataset=tp.dataset,
+                                             batch_size=int(tp.test.batch_size), base_model=tp.base_model,
+                                             max_seq_len=tp.max_seq_len)
+        test_batch = next(iter(trainer.make_loader("test")))
+        trainer.model.eval()
+        with torch.inference_mode():
+            want_logits = trainer.model(to_device(test_batch, trainer.device)).float().cpu().numpy()
+        diff = float(np.abs(engine.logits(test_batch) - want_logits).max())
+        log(f"DialogueGCN v2 train -> save -> serve: {trainer.global_steps} steps, saved {path.name}; "
+            f"InferenceEngine logits vs the trainer's eval logits max abs diff {diff:.3e}")
+        require(diff == 0.0, f"served dgcnv2 logits differ from the trainer's eval logits by {diff}")
+
+
+def drive_dgcnv2_daily_training(card: str):
+    """DialogueGCN v2's DailyDialog token track at full width through
+    DGCNV2DailyTrainer, cuDNN's TF32 flag on: the card ≡ the CPU at dropout 0
+    (gradients, the embedding's included, and 3 steps' losses; and what the
+    card gives without the convolutions' full-float32 guard, logged only), an
+    epoch and test() as the main path (no hand-written kernel launched),
+    dialogues/s and a profile of one step."""
+    import torch
+    from erc_tpu_torch.data.loader import to_device
+    from erc_tpu_torch.models import dgcnv2
+
+    run = _dgcnv2_trainer(True)
+    p = run.params
+    n_params = sum(t.numel() for t in run.model.parameters())
+    require(n_params == DGCNV2_DAILY_PARAMS, f"dgcnv2_daily has {n_params} parameters, want {DGCNV2_DAILY_PARAMS}")
+    log(f"trainer: DialogueGCN v2 daily, vocabulary {p.vocab_size}, embedding {p.embedding_dim}, {p.n_words} words, "
+        f"TextCNN 3/4/5 x 50 -> 100, base {p.base_model} of {p.hidden_size} a direction, L {p.max_seq_len}, batch "
+        f"{p.train.batch_size}, {p.optim.name} lr {p.optim.lr}, {n_params} params, on {torch.cuda.get_device_name(0)}")
+    host = list(run.make_loader("train"))
+    card0, cpu0 = _dgcnv2_trainer(True, dropout_off=True), _dgcnv2_trainer(True, device="cpu", dropout_off=True)
+    guard, hook = dgcnv2.cudnn_full_fp32, dgcnv2._backward_in_full_fp32
+    dgcnv2.cudnn_full_fp32, dgcnv2._backward_in_full_fp32 = (lambda backend: contextlib.nullcontext()), (
+        lambda *a: None)
+    try:
+        card0.compute_grads(to_device(host[0], card0.device))
+    finally:
+        dgcnv2.cudnn_full_fp32, dgcnv2._backward_in_full_fp32 = guard, hook
+    cpu0.compute_grads(to_device(host[0], torch.device("cpu")))
+    unguarded, uname = _worst_grad_diff(card0.model, cpu0.model)
+    log(f"DialogueGCN v2 daily without the convolutions' full-float32 guard: card vs CPU gradients worst "
+        f"{unguarded:.3e} ({uname}) (logged only)")
+    _card_vs_cpu_steps("DialogueGCN v2 daily", card0, cpu0, host)
+    del card0, cpu0
+    _epoch_and_step("DialogueGCN v2 daily", run, host, f"batch {p.train.batch_size}, L {p.max_seq_len}, "
+                    f"{p.n_words} words")
+
+
 def _stamp(phase: str) -> None:
     log(f"phase {phase} done at {time.perf_counter() - T_START:.1f} s")
 
@@ -1921,6 +2165,12 @@ def main() -> int:
         _stamp("MMGCN serving")
         drive_mmgcn_training(card)
         _stamp("MMGCN training")
+        drive_dgcnv2(card)
+        _stamp("DialogueGCN v2 serving")
+        drive_dgcnv2_training(card)
+        _stamp("DialogueGCN v2 training")
+        drive_dgcnv2_daily_training(card)
+        _stamp("DialogueGCN v2 daily training")
     # the DialogueGCN-shape records: their instantiation's launches on DialogueGCN's serving and training paths
     for rec in dgcn_records.values():
         rec["launches"] = dgcn_serve_taps[rec["tap_key"]] + dgcn_train_taps[rec["tap_key"]]

@@ -1,11 +1,12 @@
 """erc_tpu_torch — the PyTorch/CUDA port of erc_tpu for NVIDIA Hopper.
 
 Mirrors the layout of ``erc_tpu``: ``core`` (config), ``data`` (synthetic
-dialogues, the IEMOCAP-COGMEN and MELD-MMGCN readers, batching), ``ops``
-(graphs, attention, norm, dense and banded graph layers, GCNII, recurrent
-layers), ``ops/kernels`` (wrappers of the hand-written CUDA kernels in
-``csrc/``), ``models`` (COGMEN, DAG-ERC, DialogueGCN, MMGCN), ``train`` (the
-train loop and checkpoints) and ``serve``.
+dialogues, the IEMOCAP-COGMEN, MELD-MMGCN and DailyDialog readers,
+batching), ``ops`` (graphs, attention, norm, dense and banded graph layers,
+GCNII, recurrent layers), ``ops/kernels`` (wrappers of the hand-written CUDA
+kernels in ``csrc/``), ``models`` (COGMEN, DAG-ERC, DialogueGCN, MMGCN,
+DialogueGCN v2 and its DailyDialog token track), ``train`` (the train loop
+and checkpoints) and ``serve``.
 The package imports torch, numpy and the standard library only; the JAX
 package is its reference in the tests, never a dependency.
 

@@ -9,9 +9,11 @@ Layouts: a flax ``Dense.kernel`` is [in, out] and a torch ``Linear.weight``
 [out, in]; the attention's packed projections, the RGCN ``weight`` /
 ``root`` / ``basis``, DialogueGCN's edge-attention ``weight`` and the
 recurrent layers' ``w_ih`` / ``w_hh`` and MMGCN's GCNII ``convs`` keep
-the JAX layout.
+the JAX layout, as do DialogueGCN v2's DialogueRNN cells, edge attention
+and nodal attention; a flax ``Conv`` kernel is [K, in, out] and a torch
+``Conv1d.weight`` [out, in, K].
 
-    python -m erc_tpu_torch.convert [--module=cogmen|dagerc|dgcn|mmgcn] variables.npz state_dict.pt
+    python -m erc_tpu_torch.convert [--module=cogmen|dagerc|dgcn|mmgcn|dgcnv2|dgcnv2_daily] variables.npz state_dict.pt
 
 writes the module's state dict (COGMEN by default) that
 ``serve.InferenceEngine`` loads.
@@ -169,13 +171,52 @@ def mmgcn_state(params: Tree) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def conv1d_state(p: Tree) -> Dict[str, torch.Tensor]:
+    """flax Conv {kernel [K, in, out], bias} → Conv1d {weight [out, in, K], bias}."""
+    return {"weight": _t(np.transpose(p["kernel"], (2, 1, 0))), "bias": _t(p["bias"])}
+
+
+def text_cnn_state(p: Tree) -> Dict[str, torch.Tensor]:
+    """models.dgcnv2.CNNFeatureExtractor: flax ``embedding/embedding``,
+    ``conv_{K}`` and ``fc``."""
+    sd = {"embedding.weight": _t(p["embedding"]["embedding"]), **_prefixed("fc", linear_state(p["fc"]))}
+    for name in p:
+        if name.startswith("conv_"):
+            sd.update(_prefixed(name, conv1d_state(p[name])))
+    return sd
+
+
+def dgcnv2_state(params: Tree) -> Dict[str, torch.Tensor]:
+    """The state dict of ``models.dgcnv2.DGCNV2Module`` from its flax tree,
+    for every base encoder (``dialog_rnn_f``/``_r``, ``rnn`` or
+    ``base_linear``) and for the token track (``cnn_feat_extractor``)."""
+    sd = {}
+    for name in ("dialog_rnn_f", "dialog_rnn_r", "att_model", "conv1"):
+        if name in params:
+            sd.update(_prefixed(name, as_is_state(params[name])))
+    if "rnn" in params:
+        sd.update(_prefixed("rnn", birnn_state(params["rnn"])))
+    for name in ("base_linear", "linear", "smax_fc"):
+        if name in params:
+            sd.update(_prefixed(name, linear_state(params[name])))
+    for name in ("lin_rel", "lin_root"):
+        sd.update(_prefixed(f"conv2.{name}", linear_state(params["conv2"][name])))
+    sd["matchatt_w"], sd["matchatt_b"] = _t(params["matchatt_w"]), _t(params["matchatt_b"])
+    if "cnn_feat_extractor" in params:
+        sd.update(_prefixed("cnn_feat_extractor", text_cnn_state(params["cnn_feat_extractor"])))
+    return sd
+
+
 STATES = {
     "cogmen": lambda trees: cogmen_state(trees["params"], trees["batch_stats"]),
     "dagerc": lambda trees: dagerc_state(trees["params"]),
     "dgcn": lambda trees: dgcn_state(trees["params"]),
     "mmgcn": lambda trees: mmgcn_state(trees["params"]),
+    "dgcnv2": lambda trees: dgcnv2_state(trees["params"]),
+    "dgcnv2_daily": lambda trees: dgcnv2_state(trees["params"]),
 }
-USAGE = "usage: python -m erc_tpu_torch.convert [--module=cogmen|dagerc|dgcn|mmgcn] variables.npz state_dict.pt"
+USAGE = ("usage: python -m erc_tpu_torch.convert [--module=cogmen|dagerc|dgcn|mmgcn|dgcnv2|dgcnv2_daily] "
+         "variables.npz state_dict.pt")
 
 
 def read_npz(path: str) -> Dict[str, dict]:

@@ -3,12 +3,14 @@
 Port of ``erc_tpu.data.registry``: ``synthetic-*`` names generate dialogues
 in memory with the geometry of the corpus they name (``synthetic-iemocap-6``
 and ``synthetic-cogmen-6``: IEMOCAP-COGMEN, ``synthetic-meld-7``:
-MELD-MMGCN); the ``iemocap-cogmen-*`` names read the COGMEN feature dump and
-``meld-mmgcn-7`` / ``meld-mmgcn-sbert-7`` the MMGCN MELD dump under the
+MELD-MMGCN, ``synthetic-daily-token-7``: DailyDialog token dialogues, with
+``vocab_size`` and ``n_train`` keywords); the ``iemocap-cogmen-*`` names read
+the COGMEN feature dump, ``meld-mmgcn-7`` / ``meld-mmgcn-sbert-7`` the MMGCN
+MELD dump and ``dailydialog-token-7`` the DailyDialog text under the
 dataset's root (``get_root``: ``ERC_TPU_DATA_ROOT``, else ``data_root`` in
-``.erc_tpurc.json``, else ``~/erc_data``; then ``iemocap/`` or ``meld/``).
-The other real names (MOSEI, the raw corpus) come with the slices that need
-them.
+``.erc_tpurc.json``, else ``~/erc_data``; then ``iemocap/``, ``meld/`` or
+``dailydialog/``).  The other real names (MOSEI, the raw corpus) come with
+the slices that need them.
 """
 
 from __future__ import annotations
@@ -19,8 +21,8 @@ import subprocess
 from functools import partial
 from typing import Callable, Dict, Optional
 
-from erc_tpu_torch.data import readers
-from erc_tpu_torch.data.synthetic import synthetic_erc
+from erc_tpu_torch.data import dailydialog, readers
+from erc_tpu_torch.data.synthetic import synthetic_daily, synthetic_erc
 
 
 def _read_json(path: Optional[str]) -> dict:
@@ -92,6 +94,7 @@ regist_data: Dict[str, Callable] = {
     **_cogmen_names(4),
     "meld-mmgcn-7": partial(readers.meld_mmgcn_7, text=None),
     "meld-mmgcn-sbert-7": partial(readers.meld_mmgcn_7, text="sbert"),
+    "dailydialog-token-7": dailydialog.dailydialog_token,
 }
 
 
@@ -101,7 +104,10 @@ def n_classes_of(dataset_name: str) -> int:
 
 def _synthetic_loader(name: str):
     n_cls = n_classes_of(name)
-    if "daily" in name or "mmin" in name or "mosei" in name:
+    if "daily" in name:
+        return lambda root, split="train", vocab_size=400, n_train=24, **kw: synthetic_daily(
+            n_cls, split, vocab=int(vocab_size), n_train=int(n_train))
+    if "mmin" in name or "mosei" in name:
         raise NotImplementedError(f"synthetic dataset {name!r}: its generator is not ported yet")
     # the corpus token picks the generated dims, which must agree with the
     # params grammar's (models/base.py)
@@ -112,7 +118,7 @@ def _synthetic_loader(name: str):
     else:
         raise ValueError(
             f"unrecognized synthetic dataset {name!r}: use synthetic-cogmen-N, "
-            "synthetic-iemocap-N or synthetic-meld-N"
+            "synthetic-iemocap-N, synthetic-meld-N or synthetic-daily-token-N"
         )
     return lambda root, split="train", **kw: synthetic_erc(prefix, n_cls, split)
 
@@ -140,6 +146,6 @@ def pick_datas(root, dataset_name: str, split: str = "train", **kw):
     if fn is None:
         raise NotImplementedError(
             f"dataset {dataset_name!r}: its reader is not ported yet; the port reads "
-            "iemocap-cogmen-* and meld-mmgcn-* dumps and synthetic-* names"
+            "iemocap-cogmen-* and meld-mmgcn-* dumps, dailydialog-token-7 and synthetic-* names"
         )
     return fn(root, split=split, **kw)

@@ -1,8 +1,9 @@
-"""Synthetic dialogue generator matching the real feature-dump geometry.
+"""Synthetic dialogue generators matching the real corpora's geometry.
 
-Port of ``erc_tpu.data.synthetic.synthetic_erc``: the same numpy streams
-from the same seed.  Labels are a noisy function of the features, so a
-model can learn on the data.
+Port of ``erc_tpu.data.synthetic.synthetic_erc`` (feature dialogues) and
+``synthetic_daily`` (DailyDialog token dialogues): the same numpy streams
+from the same seed.  Labels are a noisy function of the features or
+tokens, so a model can learn on the data.
 """
 
 from __future__ import annotations
@@ -63,3 +64,30 @@ def synthetic_erc(
             sample[m] = feat.astype(np.float32)
         res.append(sample)
     return res
+
+
+def synthetic_daily(n_classes=7, split="train", n_train=24, vocab=400,
+                    min_len=4, max_len=12, n_words=20, seed=0):
+    """Token dialogues shaped like the DailyDialog reader's output
+    (``data/dailydialog.py``): the same numpy stream as the JAX package's
+    ``synthetic_daily`` from the same seed."""
+    rng = np.random.default_rng(seed + {"train": 0, "test": 1}.get(split, 2))
+    n = n_train if split == "train" else max(n_train // 3, 2)
+    # each class draws most tokens from its own slice of the vocabulary (20 %
+    # uniform noise), so the token track can learn on the data
+    band = max((vocab - 2) // max(n_classes, 1), 1)
+    out = []
+    for _ in range(n):
+        ln = int(rng.integers(min_len, max_len + 1))
+        labels = rng.integers(0, n_classes, size=ln)
+        tokens = []
+        for y in labels:
+            k = int(rng.integers(3, n_words))
+            # the band stays inside [1, vocab) however small the vocabulary
+            lo = min(1 + int(y) * band, max(vocab - band, 1))
+            toks = rng.integers(lo, min(lo + band, vocab), size=k)
+            noise = rng.random(k) < 0.2
+            toks = np.where(noise, rng.integers(1, vocab, size=k), toks)
+            tokens.append(toks.tolist())
+        out.append({"tokens": tokens, "speakers": rng.integers(0, 2, size=ln).tolist(), "label": labels.tolist()})
+    return out

@@ -4,13 +4,14 @@ Port of ``erc_tpu.ops.rnn``:
 
 - ``gru_cell, gru_cell_proj``: gates stacked r, z, n along the last axis,
   with separate input and hidden biases, as ``torch.nn.GRUCell`` has them;
-- ``BiRNN`` in its LSTM form (the one DialogueGCN runs): a multi-layer
-  bidirectional LSTM over a right-padded [B, L, D] batch, with
-  packed-sequence semantics (padded steps neither update the state nor
-  produce output).  The JAX package runs a masked ``lax.scan``; here each
-  layer is one ``nn.LSTM`` call on a ``PackedSequence`` (one cuDNN call a
-  layer on the card), whose gate order (i, f, g, o) and dual biases are the
-  JAX cell's.
+- ``BiRNN``: a multi-layer bidirectional LSTM (DialogueGCN, MMGCN,
+  DialogueGCN v2) or GRU (DialogueGCN v2) over a right-padded [B, L, D]
+  batch, with packed-sequence semantics (padded steps neither update the
+  state nor produce output).  The JAX package runs a masked ``lax.scan``;
+  here each layer is one ``nn.LSTM`` or ``nn.GRU`` call on a
+  ``PackedSequence`` (one cuDNN call a layer on the card), whose gate order
+  (i, f, g, o for the LSTM; r, z, n for the GRU, with ``b_hn`` inside
+  ``r·(…)``) and dual biases are the JAX cells'.
 
 The recurrent layers' initialiser (``_uniform_init``) is ``ops.init.uniform_``.
 """
@@ -45,42 +46,47 @@ def gru_cell(x_proj: torch.Tensor, h: torch.Tensor, w_hh: torch.Tensor, b_hh: to
 
 
 @contextlib.contextmanager
-def cudnn_rnn_full_fp32():
-    """cuDNN's float32 RNNs in full float32 within the block, whatever the
-    process-wide flags say (torch lets cuDNN run them in TF32 by default,
-    which misses the port's 1e-4 agreement with the CPU): the RNN's own
-    setting, ``torch.backends.cudnn.rnn.fp32_precision``, is "ieee" within
-    and restored after."""
-    rnn = torch.backends.cudnn.rnn
-    prev = rnn.fp32_precision
-    rnn.fp32_precision = "ieee"
+def cudnn_full_fp32(backend):
+    """cuDNN's float32 ops of ``backend`` (``torch.backends.cudnn.rnn`` or
+    ``.conv``) in full float32 within the block, whatever the process-wide
+    flags say (torch lets cuDNN run them in TF32 by default, which misses the
+    port's 1e-4 agreement with the CPU): the backend's own setting,
+    ``fp32_precision``, is "ieee" within and restored after."""
+    prev = backend.fp32_precision
+    backend.fp32_precision = "ieee"
     try:
         yield
     finally:
-        rnn.fp32_precision = prev
+        backend.fp32_precision = prev
 
 
-def _backward_in_full_fp32(t: torch.Tensor) -> None:
-    """cuDNN reads the setting again when the RNN's backward runs, outside
-    the forward's block: hooks on the cuDNN node that made ``t`` set full
-    float32 just before that node runs and restore the setting just after.
-    Where no cuDNN node made ``t`` (cuDNN disabled) there is nothing to do."""
-    rnn = torch.backends.cudnn.rnn
+def cudnn_rnn_full_fp32():
+    """``cudnn_full_fp32`` for cuDNN's RNNs."""
+    return cudnn_full_fp32(torch.backends.cudnn.rnn)
+
+
+def _backward_in_full_fp32(t: torch.Tensor, backend=torch.backends.cudnn.rnn,
+                           node_prefix: str = "CudnnRnnBackward") -> None:
+    """cuDNN reads the setting again when the backward runs, outside the
+    forward's block: hooks on the cuDNN node that made ``t`` (its name starts
+    with ``node_prefix``) set ``backend``'s full float32 just before that
+    node runs and restore the setting just after.  Where no such node made
+    ``t`` (cuDNN disabled) there is nothing to do."""
     nodes, seen = [t.grad_fn], set()
     while nodes:
         node = nodes.pop()
         if node is None or node in seen:
             continue
         seen.add(node)
-        if node.name().startswith("CudnnRnnBackward"):
+        if node.name().startswith(node_prefix):
             prev = []
 
             def before(grad_outputs):
-                prev.append(rnn.fp32_precision)
-                rnn.fp32_precision = "ieee"
+                prev.append(backend.fp32_precision)
+                backend.fp32_precision = "ieee"
 
             def after(grad_inputs, grad_outputs):
-                rnn.fp32_precision = prev.pop()
+                backend.fp32_precision = prev.pop()
 
             node.register_prehook(before)
             node.register_hook(after)
@@ -90,9 +96,9 @@ def _backward_in_full_fp32(t: torch.Tensor) -> None:
 
 
 class BiRNN(nn.Module):
-    """``num_layers`` single-layer bidirectional ``nn.LSTM`` (batch first),
-    with dropout between layers and not after the last, as the JAX module
-    has it.
+    """``num_layers`` single-layer bidirectional ``nn.LSTM`` (``cell='lstm'``)
+    or ``nn.GRU`` (``cell='gru'``), batch first, with dropout between layers
+    and not after the last, as the JAX module has it.
 
     Each layer is its own module so that the dropout between layers draws
     from the port's seeded ``Dropout``; ``nn.LSTM(dropout=...)`` would draw
@@ -101,14 +107,17 @@ class BiRNN(nn.Module):
     ``w_ih_l{n}[_reverse]`` in the same layout.
     """
 
-    def __init__(self, input_size: int, hidden_size: int, num_layers: int = 1, dropout: float = 0.0, *,
-                 generator=None, device=None):
+    def __init__(self, input_size: int, hidden_size: int, num_layers: int = 1, dropout: float = 0.0,
+                 cell: str = "lstm", *, generator=None, device=None):
         super().__init__()
+        rnn = {"lstm": nn.LSTM, "gru": nn.GRU}.get(cell)
+        if rnn is None:
+            raise ValueError(f"unknown cell {cell!r}: use 'lstm' or 'gru'")
         scale = 1.0 / math.sqrt(hidden_size)
         self.layers = nn.ModuleList()
         d_in = input_size
         for _ in range(num_layers):
-            layer = nn.LSTM(d_in, hidden_size, batch_first=True, bidirectional=True, device=device)
+            layer = rnn(d_in, hidden_size, batch_first=True, bidirectional=True, device=device)
             with torch.no_grad():
                 for t in layer.parameters():
                     uniform_(t, scale, generator=generator)

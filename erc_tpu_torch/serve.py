@@ -8,11 +8,15 @@ programmatically (``InferenceEngine.predict``) or over HTTP::
     python -m erc_tpu_torch.serve --module=dagerc --batch_size=32
     python -m erc_tpu_torch.serve --module=dgcn --graph_impl=banded
     python -m erc_tpu_torch.serve --module=mmgcn --adj_impl=dense --batch_size=32
+    python -m erc_tpu_torch.serve --module=dgcnv2 --base_model=DialogRNN --batch_size=32
     python -m erc_tpu_torch.serve --module=cogmen --checkpoint=model.last.ckpt
 
 ``--checkpoint`` takes a file of either package's Saver (the port's
 ``model.*.ckpt``, or the JAX package's flax-msgpack file, converted on
 load with no JAX installed) or a state dict from ``erc_tpu_torch.convert``.
+DialogueGCN v2 serves its feature track (``--base_model=DialogRNN|LSTM|GRU|None``);
+its DailyDialog token track (``dgcnv2_daily``) has no serving engine, as in
+the JAX package.
 
 Requests are micro-batched: every chunk of up to ``batch_size`` dialogues
 is padded to ``batch_size`` dialogues and a bucketed length.  The engine
@@ -64,9 +68,9 @@ class InferenceEngine:
         dataset: Optional[str] = None, batch_size: int = 8, **param_overrides,
     ) -> "InferenceEngine":
         """Engine for ``erc_tpu_torch.models.<module>`` (``cogmen``, ``dagerc``,
-        ``dgcn``, ``mmgcn``).
+        ``dgcn``, ``mmgcn``, ``dgcnv2``).
         Overrides set params (e.g. ``graph_impl='banded'``, ``dag_impl='eager'``,
-        ``adj_impl='structured'``, ``device='cpu'``); weights come from
+        ``adj_impl='structured'``, ``base_model='DialogRNN'``, ``device='cpu'``); weights come from
         ``checkpoint_path`` or else from a generator seeded with ``seed``."""
         mod = importlib.import_module(f"erc_tpu_torch.models.{module}")
         p = mod.ParamsType()

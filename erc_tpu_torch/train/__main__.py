@@ -9,19 +9,23 @@
         --graph_impl=banded [--epoch=N] [--save_dir=DIR]
     python -m erc_tpu_torch.train --module=mmgcn --dataset=synthetic-cogmen-6 \
         [--adj_impl=dense|structured] [--gcn_remat=full|off|dots] [--lstm_mode=packed|unpacked]
+    python -m erc_tpu_torch.train --module=dgcnv2 --dataset=synthetic-cogmen-6 \
+        [--base_model=DialogRNN|LSTM|GRU|None] [--lstm_mode=packed|unpacked]
+    python -m erc_tpu_torch.train --module=dgcnv2_daily --dataset=synthetic-daily-token-7
 
 Every module under ``erc_tpu_torch/models`` that exports ``main`` trains
-(COGMEN, DAG-ERC, DialogueGCN and MMGCN so far).  It runs on the card unless
-``--device=cpu`` is given; without CUDA and without ``--device=cpu`` it
-raises.  COGMEN's, DialogueGCN's and MMGCN's ``main`` save the model at the end
+(COGMEN, DAG-ERC, DialogueGCN, MMGCN and DialogueGCN v2 with its DailyDialog
+token track so far).  It runs on the card unless ``--device=cpu`` is given;
+without CUDA and without ``--device=cpu`` it raises.  Every ``main`` but
+DAG-ERC's saves the model at the end
 (``model.last.ckpt`` under ``--save_dir``, default
 ``~/.erc_tpu_torch/saver/<module>/<dataset>``), which ``python -m
 erc_tpu_torch.serve --module=<module> --checkpoint=...`` serves.
 ``--checkpoint_per_epoch=N``, ``--keypoint_per_epoch=N`` and ``--resume``
 write and read the rotating checkpoints and keypoints there.
 Real datasets (``iemocap-cogmen-*``, ``meld-mmgcn-7``,
-``meld-mmgcn-sbert-7``) are read under ``--data_root`` or
-``ERC_TPU_DATA_ROOT``.
+``meld-mmgcn-sbert-7``, ``dailydialog-token-7``) are read under
+``--data_root`` or ``ERC_TPU_DATA_ROOT``.
 """
 
 from __future__ import annotations

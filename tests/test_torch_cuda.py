@@ -18,6 +18,9 @@ DialogueGCN's and MMGCN's card vs CPU logits 1e-4 with cuDNN's TF32 flag
 on: their LSTM runs cuDNN in full float32 whatever the process-wide flags
 say.  MMGCN's structured vs dense logits 1e-4, and its gradients with
 checkpointed GCNII trips vs without, at dropout 0.4, 1e-4 relative.
+DialogueGCN v2's card vs CPU logits 1e-4 for every base encoder, and its
+gradients (the GRU base, the DialogueRNN base, the token track's TextCNN)
+1e-4 relative, with cuDNN's TF32 flag on.
 """
 
 import numpy as np
@@ -757,3 +760,71 @@ def test_mmgcn_remat_gradients_equal_off_with_dropout(cuda, remat):
     other.compute_grads(batch)
     worst = max(_grad_rel(other.model, off.model).items(), key=lambda kv: kv[1])
     assert worst[1] <= 1e-4, worst
+
+
+@pytest.mark.parametrize("base_model,lstm_mode", [("DialogRNN", "packed"), ("LSTM", "unpacked"), ("GRU", "packed"),
+                                                  ("GRU", "unpacked"), ("None", "packed")])
+def test_dgcnv2_card_equals_cpu_with_cudnn_tf32_on(cuda, base_model, lstm_mode):
+    """DialogueGCN v2 at full width launches none of the hand-written
+    kernels, and with cuDNN's TF32 flag on the card's logits equal the CPU's
+    for every base encoder (the biGRU runs cuDNN in full float32 as the
+    biLSTM does)."""
+    from erc_tpu_torch.data.synthetic import synthetic_erc
+    from erc_tpu_torch.ops.kernels import dag_block as kd
+    from erc_tpu_torch.serve import InferenceEngine
+
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        kw = dict(dataset="synthetic-cogmen-6", batch_size=4, base_model=base_model, lstm_mode=lstm_mode)
+        card = InferenceEngine.from_module("dgcnv2", **kw)
+        cpu = InferenceEngine.from_module("dgcnv2", device="cpu", **kw)
+        cpu.model.load_state_dict(card.model.state_dict())
+        batch = card.batcher(synthetic_erc("iemocap-cogmen", 6, n_train=3, max_len=110))  # and a padding row
+        kb.reset_launches()
+        kd.reset_launches()
+        got = card.logits(batch)
+        assert not any(kb.launches.values()) and not any(kd.launches.values())
+        np.testing.assert_allclose(got, cpu.logits(batch), rtol=0, atol=1e-4)
+        assert torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+
+
+def _dgcnv2_trainer(daily, *extra, device="cuda"):
+    from erc_tpu_torch.models import dgcnv2
+    from erc_tpu_torch.ops.dropout import Dropout
+
+    p = dgcnv2.DGCNV2DailyParams() if daily else dgcnv2.DGCNV2Params()
+    p.finalize([f"--dataset=synthetic-{'daily-token-7' if daily else 'cogmen-6'}", f"--device={device}",
+                "--train.batch_size=4", *extra])
+    t = (dgcnv2.DGCNV2DailyTrainer if daily else dgcnv2.DGCNV2Trainer)(p)
+    t.log = lambda msg: None
+    t.initialize()
+    for m in t.model.modules():
+        if isinstance(m, Dropout):
+            m.p = 0.0
+    return t
+
+
+@pytest.mark.parametrize("daily,extra", [(False, ("--base_model=GRU",)), (False, ("--base_model=DialogRNN",)),
+                                         (True, ())], ids=["GRU", "DialogRNN", "daily"])
+def test_dgcnv2_gradients_card_equal_cpu_with_cudnn_tf32_on(cuda, daily, extra):
+    """One training batch at full width and dropout 0, cuDNN's TF32 flag on:
+    the gradients on the card equal the CPU's (the biGRU's and the TextCNN
+    convolutions' backward run cuDNN in full float32; the embedding's
+    gradient included)."""
+    from erc_tpu_torch.data.loader import to_device
+
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        card, cpu = _dgcnv2_trainer(daily, *extra), _dgcnv2_trainer(daily, *extra, device="cpu")
+        host = next(iter(card.make_loader("train")))
+        card.compute_grads(to_device(host, card.device))
+        cpu.compute_grads(to_device(host, cpu.device))
+        worst = max(_grad_rel(card.model, cpu.model).items(), key=lambda kv: kv[1])
+        assert worst[1] <= 1e-4, worst
+        assert torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
