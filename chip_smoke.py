@@ -84,7 +84,18 @@ Phases (any failure raises, so the exit code is non-zero):
      -> 100, biLSTM of 100, L 128, batch 32) through DGCNV2DailyTrainer:
      card ≡ CPU at dropout 0 (the embedding's gradient included), one epoch
      and test() with no kernel launched, dialogues/s, profile of one step;
- 14. print the run's wall time, one JSON line of kernel records (K1/K2/K1ᵀ
+ 14. drive CIM serving at full width (synthetic-cogmen-6 geometry: three
+     biGRUs of 200 a direction, adapters to 100, six cross-modal
+     attentions, heads 6 and 7) through InferenceEngine, TF32 flag still on:
+     predict (no hand-written kernel launched), card ≡ CPU for both heads, a
+     single-dialogue request, latency, throughput and profile;
+ 15. drive CIM training on synthetic-mosei-2 (CIMParams: batch 16, Adam 1e-3,
+     dropout 0.3, the multitask loss Lce + Lmulti) through CIMTrainer: card ≡
+     CPU at dropout 0 (gradients and 3 steps' losses), then one epoch with
+     the val stage and --select_on=val and test() with the multilabel block
+     (no kernel launched), model.best_val.ckpt served with the trainer's
+     logits exactly, dialogues/s, profile of one step;
+ 16. print the run's wall time, one JSON line of kernel records (K1/K2/K1ᵀ
      also at DialogueGCN's shapes, K = 10 and 21, D = 100 and 200, with their
      launches on its paths), the card's name and power limit, and a last
      JSON line {"ok": true, "device": {...}}.
@@ -1688,8 +1699,8 @@ MMGCN_PARAMS = 5_794_006
 
 
 def _no_kernel_launches(what: str) -> dict:
-    """MMGCN's and DialogueGCN v2's graph products are torch.bmm / torch.matmul: no hand-written kernel runs
-    on their paths."""
+    """MMGCN's and DialogueGCN v2's graph products and CIM's attentions are torch.bmm / torch.matmul: no
+    hand-written kernel runs on their paths."""
     launches = _read_launches()
     require(not any(launches.values()), f"{what}: a hand-written kernel launched on the path: {launches}")
     return launches
@@ -1996,9 +2007,10 @@ def _card_vs_cpu_steps(name, card0, cpu0, host):
     require(rel <= TRAIN_TOL, f"{name} card vs CPU losses differ by {rel} > {TRAIN_TOL}")
 
 
-def _epoch_and_step(name, run, host, batch_desc):
+def _epoch_and_step(name, run, host, batch_desc, check_first=None):
     """The main path: one epoch and test() with every launch count at 0 before it and none launched, a second
-    epoch's dialogues/s, and a profile of one train step."""
+    epoch's dialogues/s, and a profile of one train step.  `check_first(rec)` runs on the first epoch's record
+    before the second epoch."""
     import torch
     from erc_tpu_torch.data.loader import to_device
 
@@ -2013,6 +2025,8 @@ def _epoch_and_step(name, run, host, batch_desc):
         f"batches) in {wall:.3f} s; launches {launches}")
     require(all(math.isfinite(x) for x in (rec["Lall"], rec["gnorm"], res["Lall"], res["f1"])),
             f"non-finite {name} training results {rec}")
+    if check_first is not None:
+        check_first(rec)
     run.eidx += 1
     run.params.epoch = run.eidx + 1
     rec2 = run.train()[-1]
@@ -2117,6 +2131,134 @@ def drive_dgcnv2_daily_training(card: str):
                     f"{p.n_words} words")
 
 
+# ------------------------------------------------------------------ phases 14 and 15
+CIM_PARAMS = 1_713_613  # CIMParams on synthetic-cogmen-6: audio 100, visual 512, text 100
+CIM_MOSEI_PARAMS = 1_346_409  # on synthetic-mosei-2: text 300, audio 74, visual 35
+
+
+def drive_cim(card: str):
+    """CIM serving at full width (synthetic-cogmen-6 geometry: three biGRUs of
+    200 a direction, adapters to 100, six cross-modal attentions, heads 6 and 7)
+    through InferenceEngine, cuDNN's TF32 flag on: predict (every launch count
+    stays 0), card ≡ CPU (the served head, and both heads of one batch), a
+    single-dialogue request, latency, throughput and profile."""
+    import numpy as np
+    import torch
+    from erc_tpu_torch.data.loader import to_device
+    from erc_tpu_torch.serve import InferenceEngine
+
+    kw = dict(dataset="synthetic-cogmen-6", batch_size=32)
+    engine = InferenceEngine.from_module("cim", **kw)
+    p = engine.params
+    n_params = sum(t.numel() for t in engine.model.parameters())
+    require(n_params == CIM_PARAMS, f"CIM has {n_params} parameters, want {CIM_PARAMS}")
+    log(f"engine: CIM {p.hidden_audio}/{p.hidden_visual}/{p.hidden_text} (a/v/t) -> biGRU {p.hidden_size} a "
+        f"direction each -> adapters 100 -> 6 cross-modal attentions -> heads {p.n_classes} and 7, {n_params} "
+        f"params, batch 32, cudnn.allow_tf32 {torch.backends.cudnn.allow_tf32}, on {torch.cuda.get_device_name(0)}")
+    dialogues, desc = _dialogues()
+    n_batches = -(-len(dialogues) // engine.batch_size)
+
+    _reset_launches()
+    results = engine.predict(dialogues)
+    launches = _no_kernel_launches("CIM serving")
+    log(f"CIM path: {desc} in {n_batches} batches; launches {launches}")
+    _check_results(dialogues, results)
+
+    cpu = InferenceEngine.from_module("cim", device="cpu", **kw)
+    cpu.model.load_state_dict(engine.model.state_dict())
+    t0 = time.perf_counter()
+    (worst_cpu,) = _worst_logit_diffs(engine, [cpu], dialogues)
+    batch = engine.batcher(dialogues[:32])
+    with torch.inference_mode():
+        card7 = engine.model(to_device(batch, engine.device))[1].float().cpu().numpy()
+        cpu7 = cpu.model(to_device(batch, cpu.device))[1].numpy()
+    worst7 = float(np.abs(card7 - cpu7).max())
+    log(f"CIM logits: card vs CPU max abs diff {worst_cpu:.3e} (served head cls2), {worst7:.3e} (cls7, one batch); "
+        f"tolerance {PATH_TOL}; cudnn.allow_tf32 on; {time.perf_counter() - t0:.2f} s")
+    require(worst_cpu <= PATH_TOL and worst7 <= PATH_TOL, f"CIM card vs CPU {worst_cpu}, {worst7} > {PATH_TOL}")
+    # one dialogue: the batch carries 31 all-padding dialogues (uniform attention, finite logits)
+    _check_results(dialogues[:1], engine.predict([dialogues[0]]))
+    wall = _latency_throughput(engine, dialogues, card, "CIM")
+    profile_predict(engine, dialogues, wall, n_batches, show=("RNN", "rnn", "gemm"))
+
+
+CIM_TRAIN_ARGS = ["--dataset=synthetic-mosei-2", "--confusion_matrix=false"]
+
+
+def _cim_trainer(*extra, device="cuda", dropout_off=False):
+    """A CIMTrainer at CIMParams' settings on synthetic-mosei-2 (300/74/35 -> biGRUs of 200, batch 16, Adam 1e-3,
+    dropout 0.3 twice, the multitask loss Lce + Lmulti; weights from seed 1, the same on every device), one
+    epoch; `dropout_off` sets both dropouts to 0."""
+    from erc_tpu_torch.models import cim
+
+    p = cim.CIMParams()
+    p.finalize([*CIM_TRAIN_ARGS, f"--device={device}", "--epoch=1", *extra])
+    trainer = cim.CIMTrainer(p)
+    trainer.log = lambda msg: log(f"  [trainer] {msg}")
+    trainer.initialize()
+    if dropout_off:
+        trainer.model.drop0.p = trainer.model.drop1.p = 0.0
+    return trainer
+
+
+def drive_cim_training(card: str):
+    """CIM training on synthetic-mosei-2 at full width through CIMTrainer,
+    cuDNN's TF32 flag on: the card ≡ the CPU at dropout 0 (gradients and 3
+    steps' losses of Lce + Lmulti), then an epoch with the val stage and
+    --select_on=val, and test() with the multilabel block, as the main path
+    (no hand-written kernel launched); model.best_val.ckpt serves the
+    trainer's logits exactly; dialogues/s and a profile of one step."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from erc_tpu_torch.data.loader import to_device
+    from erc_tpu_torch.serve import InferenceEngine
+
+    with tempfile.TemporaryDirectory() as tmp:
+        run = _cim_trainer("--select_on=val", f"--save_dir={tmp}")
+        p = run.params
+        n_params = sum(t.numel() for t in run.model.parameters())
+        require(n_params == CIM_MOSEI_PARAMS, f"CIM on MOSEI has {n_params} parameters, want {CIM_MOSEI_PARAMS}")
+        require(p.apply_multi and p.mosei_metric == "multiemo" and run.grad_clip_norm is None and run.lr_sche is None,
+                "CIMTrainer on synthetic-mosei-2: want the multitask loss and the multilabel metric, no clip and no "
+                "plateau controller")
+        log(f"trainer: CIM {p.hidden_text}/{p.hidden_audio}/{p.hidden_visual} (t/a/v) -> biGRU {p.hidden_size} a "
+            f"direction each, heads {p.n_classes} and 7, batch {p.train.batch_size}, {p.optim.name} lr {p.optim.lr}, "
+            f"dropout 0.3 twice, Lce + Lmulti, select_on {p.select_on}, {n_params} params, on "
+            f"{torch.cuda.get_device_name(0)}")
+        host = list(run.make_loader("train"))
+        card0 = _cim_trainer(dropout_off=True)
+        require("Lmulti" in card0.compute_grads(to_device(host[0], card0.device)), "no Lmulti in CIM's metrics")
+        _card_vs_cpu_steps("CIM", card0, _cim_trainer(device="cpu", dropout_off=True), host)
+        del card0
+
+        def check_first(rec):
+            val, multi = rec.get("val"), rec["test"].get("multilabel")
+            require(val is not None and all(math.isfinite(val[k]) for k in ("Lall", "f1", "acc", "wa")),
+                    f"CIM's epoch record has no finite val stage: {val}")
+            require(multi is not None and all(math.isfinite(multi[k]) for k in ("emo_acc", "emo_f1", "emo_wa")),
+                    f"CIM's test record has no finite multilabel block: {multi}")
+            require(math.isfinite(rec["Lmulti"]), f"non-finite CIM Lmulti {rec['Lmulti']}")
+            path = Path(tmp) / "model.best_val.ckpt"
+            require(path.exists(), f"--select_on=val saved no {path.name}")
+            engine = InferenceEngine.from_module("cim", str(path), dataset=p.dataset,
+                                                 batch_size=int(p.test.batch_size))
+            test_batch = next(iter(run.make_loader("test")))
+            run.model.eval()
+            with torch.inference_mode():
+                want = run.model(to_device(test_batch, run.device))[0].float().cpu().numpy()
+            diff = float(np.abs(engine.logits(test_batch) - want).max())
+            log(f"CIM epoch 0: val Lall {val['Lall']:.5f}, F1 {val['f1']:.5f}, acc {val['acc']:.5f}; test multilabel "
+                f"emo_acc {multi['emo_acc']:.5f}, emo_f1 {multi['emo_f1']:.5f}, emo_wa {multi['emo_wa']:.5f}; "
+                f"{path.name} served vs the trainer's eval logits max abs diff {diff:.3e}")
+            require(diff == 0.0, f"served best_val logits differ from the trainer's by {diff}")
+
+        longest = max(host, key=lambda b: b["text_feature"].shape[1])  # the step profiled: host[-1]
+        _epoch_and_step("CIM", run, [longest], f"batch {p.train.batch_size}, L {longest['text_feature'].shape[1]}",
+                        check_first=check_first)
+
+
 def _stamp(phase: str) -> None:
     log(f"phase {phase} done at {time.perf_counter() - T_START:.1f} s")
 
@@ -2171,6 +2313,12 @@ def main() -> int:
         _stamp("DialogueGCN v2 training")
         drive_dgcnv2_daily_training(card)
         _stamp("DialogueGCN v2 daily training")
+        t_cim = time.perf_counter()
+        drive_cim(card)
+        _stamp("CIM serving")
+        drive_cim_training(card)
+        _stamp("CIM training")
+        log(f"CIM phases: {time.perf_counter() - t_cim:.1f} s")
     # the DialogueGCN-shape records: their instantiation's launches on DialogueGCN's serving and training paths
     for rec in dgcn_records.values():
         rec["launches"] = dgcn_serve_taps[rec["tap_key"]] + dgcn_train_taps[rec["tap_key"]]

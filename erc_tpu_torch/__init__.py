@@ -1,12 +1,13 @@
 """erc_tpu_torch — the PyTorch/CUDA port of erc_tpu for NVIDIA Hopper.
 
 Mirrors the layout of ``erc_tpu``: ``core`` (config), ``data`` (synthetic
-dialogues, the IEMOCAP-COGMEN, MELD-MMGCN and DailyDialog readers,
+dialogues, the IEMOCAP-COGMEN, MELD-MMGCN, MOSEI and DailyDialog readers,
 batching), ``ops`` (graphs, attention, norm, dense and banded graph layers,
 GCNII, recurrent layers), ``ops/kernels`` (wrappers of the hand-written CUDA
-kernels in ``csrc/``), ``models`` (COGMEN, DAG-ERC, DialogueGCN, MMGCN,
-DialogueGCN v2 and its DailyDialog token track), ``train`` (the train loop
-and checkpoints) and ``serve``.
+kernels in ``csrc/``), ``models`` (COGMEN and its MOSEI alias
+``cogmen_mosei``, DAG-ERC, DialogueGCN, MMGCN, DialogueGCN v2 and its
+DailyDialog token track, CIM), ``train`` (the train loop with its val and
+test stages, the metrics and checkpoints) and ``serve``.
 The package imports torch, numpy and the standard library only; the JAX
 package is its reference in the tests, never a dependency.
 

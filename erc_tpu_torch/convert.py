@@ -13,10 +13,11 @@ the JAX layout, as do DialogueGCN v2's DialogueRNN cells, edge attention
 and nodal attention; a flax ``Conv`` kernel is [K, in, out] and a torch
 ``Conv1d.weight`` [out, in, K].
 
-    python -m erc_tpu_torch.convert [--module=cogmen|dagerc|dgcn|mmgcn|dgcnv2|dgcnv2_daily] variables.npz state_dict.pt
+    python -m erc_tpu_torch.convert [--module=NAME] variables.npz state_dict.pt
 
-writes the module's state dict (COGMEN by default) that
-``serve.InferenceEngine`` loads.
+writes the state dict of module NAME (``cogmen``, the default, ``dagerc``,
+``dgcn``, ``mmgcn``, ``dgcnv2``, ``dgcnv2_daily``, ``cim`` or
+``cogmen_mosei``) that ``serve.InferenceEngine`` loads.
 """
 
 from __future__ import annotations
@@ -207,6 +208,19 @@ def dgcnv2_state(params: Tree) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def cim_state(params: Tree) -> Dict[str, torch.Tensor]:
+    """The state dict of ``models.cim.CIMModule`` from its flax tree (the
+    same for both ``fused_rnn`` settings): the biGRUs ``rnn_{a,v,t}`` as
+    ``birnn_state``, the adapters and heads as Dense → Linear."""
+    sd = {}
+    for m in ("a", "v", "t"):
+        sd.update(_prefixed(f"rnn_{m}", birnn_state(params[f"rnn_{m}"])))
+        sd.update(_prefixed(f"adapter_{m}", linear_state(params[f"adapter_{m}"])))
+    for name in ("cls2", "cls7"):
+        sd.update(_prefixed(name, linear_state(params[name])))
+    return sd
+
+
 STATES = {
     "cogmen": lambda trees: cogmen_state(trees["params"], trees["batch_stats"]),
     "dagerc": lambda trees: dagerc_state(trees["params"]),
@@ -214,9 +228,11 @@ STATES = {
     "mmgcn": lambda trees: mmgcn_state(trees["params"]),
     "dgcnv2": lambda trees: dgcnv2_state(trees["params"]),
     "dgcnv2_daily": lambda trees: dgcnv2_state(trees["params"]),
+    "cim": lambda trees: cim_state(trees["params"]),
+    "cogmen_mosei": lambda trees: cogmen_state(trees["params"], trees["batch_stats"]),
 }
-USAGE = ("usage: python -m erc_tpu_torch.convert [--module=cogmen|dagerc|dgcn|mmgcn|dgcnv2|dgcnv2_daily] "
-         "variables.npz state_dict.pt")
+USAGE = ("usage: python -m erc_tpu_torch.convert [--module=cogmen|dagerc|dgcn|mmgcn|dgcnv2|dgcnv2_daily|cim|"
+         "cogmen_mosei] variables.npz state_dict.pt")
 
 
 def read_npz(path: str) -> Dict[str, dict]:

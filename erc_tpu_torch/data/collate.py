@@ -2,7 +2,9 @@
 
 Port of ``erc_tpu.data.collate``: lengths round up to a few buckets, and
 the batch dict has the same keys, dtypes and values as the JAX package's
-``ERCBatcher`` (numpy packing; label padded with -1, speakers with 0).
+``ERCBatcher`` (numpy packing; label padded with -1, speakers with 0;
+MOSEI samples add ``emo_label`` and ``senti2_label``).  A one-entry speaker
+row (``mosei_cim``'s ``[0]``) is broadcast over the dialogue.
 """
 
 from __future__ import annotations
@@ -83,6 +85,13 @@ class ERCBatcher:
 
         input_tensor = np.concatenate([mod_arrays[m] for m in self.modality], -1)
 
+        # MOSEI's multitask labels: multi-hot emotions (0 past each length)
+        # and binary sentiment (-1 past each length)
+        multitask = {}
+        if "emo_label" in samples[0]:
+            multitask["emo_label"] = _pack([s["emo_label"] for s in samples], lens_p, (Bp, L, 7), np.int32, 0)
+            multitask["senti2_label"] = _pack([s["senti2_label"] for s in samples], lens_p, (Bp, L), np.int32, -1)
+
         if self.speaker_onehot:
             speaker_tensor = np.eye(self.n_speakers, dtype=np.float32)[spk] * mask[..., None]
         else:
@@ -98,4 +107,5 @@ class ERCBatcher:
             "speaker_tensor": speaker_tensor,
             "speaker_ids": spk,
             "label": label,
+            **multitask,
         }

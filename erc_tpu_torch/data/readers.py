@@ -1,15 +1,20 @@
-"""Feature-dump readers: IEMOCAP in the COGMEN dump, MELD in the MMGCN dump.
+"""Feature-dump readers: IEMOCAP in the COGMEN dump, MELD in the MMGCN dump,
+MOSEI in the adapted pickle and in the CIM npz dumps.
 
-Port of ``erc_tpu.data.readers`` for the ``iemocap-cogmen-*`` and
-``meld-mmgcn-*`` names (the reference's pickle formats:
-mmdatasets/datas/mm/iemocap_feature.py:360-408, meld_feature.py:14-45).
-Every reader returns a list of per-dialogue sample dicts with keys
-    speakers   — list of one-hot speaker vectors per utterance
+Port of ``erc_tpu.data.readers`` for the ``iemocap-cogmen-*``,
+``meld-mmgcn-*`` and ``mosei-*`` names (the reference's formats:
+mmdatasets/datas/mm/iemocap_feature.py:360-408, meld_feature.py:14-45,
+mosei_feature.py:55-223).  Every reader returns a list of per-dialogue
+sample dicts with keys
+    speakers   — list of one-hot speaker vectors per utterance (MOSEI: one
+                 row for the whole video, ``[[0]]`` or ``[0]``)
     visual / audio / text — [L_i, D_m] float arrays
     label      — [L_i] int array
-    sentence   — list of strings
-    ids        — the dialogue's id.
-The MOSEI readers come with the slice that needs them.
+    sentence   — list of strings (not in the CIM dumps)
+    ids        — the dialogue's id
+plus MOSEI's ``emo_label`` [L_i, 7] multi-hot, ``senti2_label`` and
+``senti7_label``.  The raw MOSEI views (``mosei_text``, ``mosei_interval``)
+are for preprocessing and come with it.
 """
 
 from __future__ import annotations
@@ -111,3 +116,163 @@ def meld_mmgcn_7(root, split="train", text=None):
         }
         for k in ids
     ]
+
+
+# -- MOSEI ---------------------------------------------------------------
+
+
+def cmumosei_7(a: float) -> int:
+    """7-bin sentiment (mosei_feature.py:9-26)."""
+    if a < -2:
+        return 0
+    if a < -1:
+        return 1
+    if a < 0:
+        return 2
+    if a == 0:
+        return 3
+    if a <= 1:
+        return 4
+    if a <= 2:
+        return 5
+    return 6
+
+
+def cmumosei_2(a: float) -> int:
+    return 0 if a < 0 else 1
+
+
+def create_emotion_label(emo_label: np.ndarray) -> np.ndarray:
+    """Multi-hot rows of 7; a row with no emotion gets class 6
+    (mosei_feature.py:36-52)."""
+    rows = []
+    for j in range(emo_label.shape[0]):
+        temp = np.zeros(7, dtype=int)
+        pos = np.nonzero(emo_label[j])[0]
+        if len(pos) == 0:
+            temp[-1] = 1
+        else:
+            temp[pos] = 1
+        rows.append(temp)
+    return np.array(rows)
+
+
+def mosei_adapted(root, split="train", audio=None, text=None, label_type="emo", balance=False):
+    """The 13-tuple ``MOSEI.adpated.pkl`` (mosei_feature.py:129-223).
+    ``label_type``: ``emo`` (argmax of the six emotions), ``multi`` (the raw
+    [L, 7] rows), ``sent_2``, ``sent_2+`` (non-zero sentiment only: a video
+    with none is dropped, the others keep their non-zero utterances) or
+    ``sent_7``.  ``balance`` adds ``balanced_train_id.pkl`` to the train ids;
+    ``text="sbert"`` reads ``sbert_map.pkl``, ``audio="fbank"``
+    ``fbank480.pkl`` and ``audio="is10"`` ``MOSEI.is10.pkl``."""
+    pkl = load_pkl(os.path.join(root, "MOSEI.adpated.pkl"))
+    (
+        train_id, test_id, valid_id, video_interval, video_emo_label,
+        video_audio, video_text, video_vision, video_sentence,
+        empty_vision, empty_audio, empty_text, invalid_time,
+    ) = pkl
+
+    ids = list(train_id if split == "train" else test_id if split == "test" else valid_id)
+    if balance and split == "train":
+        ids.extend(load_pkl(os.path.join(root, "balanced_train_id.pkl")))
+
+    if text == "sbert":
+        video_text = load_pkl(os.path.join(root, "sbert_map.pkl"))
+    if audio == "fbank":
+        video_audio = load_pkl(os.path.join(root, "fbank480.pkl"))
+    elif audio == "is10":
+        video_audio = load_pkl(os.path.join(root, "MOSEI.is10.pkl"))
+
+    res = []
+    for k in ids:
+        emo = video_emo_label[k]  # [L, 7]: sentiment, then hap, sad, ang, surprise, disgust, fear
+        if label_type == "emo":
+            label = emo[:, 1:].argmax(axis=-1)
+        elif label_type == "multi":
+            label = emo
+        elif label_type in ("sent_2", "sent_2+"):
+            if label_type == "sent_2+" and not emo[:, 0].any():
+                continue
+            label = np.array([cmumosei_2(i) for i in emo[:, 0]], dtype=int)
+        elif label_type == "sent_7":
+            label = np.array([cmumosei_7(i) for i in emo[:, 0]], dtype=int)
+        else:
+            raise NotImplementedError(label_type)
+
+        senti2 = np.array([cmumosei_2(i) for i in emo[:, 0]])
+        senti7 = np.array([cmumosei_7(i) for i in emo[:, 0]])
+        emo_multi = create_emotion_label(emo[:, 1:])
+
+        visual_data, audio_data = video_vision[k], video_audio[k]
+        text_data, sentence_data = video_text[k], video_sentence[k]
+
+        if label_type == "sent_2+":
+            keep = emo[:, 0] != 0
+            visual_data, audio_data, text_data = visual_data[keep], audio_data[keep], text_data[keep]
+            sentence_data = np.array(sentence_data)[keep].tolist()
+            label, emo_multi = label[keep], emo_multi[keep]
+            senti2, senti7 = senti2[keep], senti7[keep]
+
+        res.append({
+            "ids": k,
+            "label": label,
+            "speakers": [[0]],
+            "visual": visual_data,
+            "audio": audio_data,
+            "text": text_data,
+            "sentence": sentence_data,
+            "emo_label": emo_multi,
+            "senti2_label": senti2,
+            "senti7_label": senti7,
+        })
+    return res
+
+
+def mosei_cim(root, split="train", audio=None):
+    """The NAACL-19 CIM npz dumps (``CIM/{text,video,audio}.npz``,
+    mosei_feature.py:55-128): binary sentiment as ``label``, plus
+    ``emo_label`` and ``senti7_label``.  The val split reads
+    ``valid_idName`` where the dump has it, else ``train_idName`` as the
+    reference does (mosei_feature.py:85).  ``audio="pad80"`` pads the audio
+    features with 6 zero columns (the reference's padding, whose shape
+    argument is wrong, mosei_feature.py:110)."""
+    text = np.load(os.path.join(root, "CIM/text.npz"))
+    video = np.load(os.path.join(root, "CIM/video.npz"))
+    audio_npz = np.load(os.path.join(root, "CIM/audio.npz"))
+
+    tag = {"train": "train", "val": "valid", "test": "test"}.get(split)
+    if tag is None:
+        raise NotImplementedError(f"split {split!r} in MOSEI CIM")
+    lengths = text[f"{tag}_length"]
+    emo_labels = text[f"{tag}EmoLabel"]
+    sent_labels = text[f"{tag}SentiLabel"]
+    text_features = text[f"{tag}_data"]
+    video_features = video[f"{tag}_data"]
+    audio_features = audio_npz[f"{tag}_data"]
+    id_key = f"{tag}_idName"
+    if tag == "valid" and id_key not in text:
+        id_key = "train_idName"
+    ids = text[id_key]
+
+    res = []
+    for i in range(len(ids)):
+        length = int(lengths[i])
+        senti2 = np.array([cmumosei_2(v) for v in sent_labels[i][:length, 0]])
+        senti7 = np.array([cmumosei_7(v) for v in sent_labels[i][:length, 0]])
+        emo = create_emotion_label(emo_labels[i][:length])
+        audio_feature = audio_features[i][:length].astype(np.float32)
+        if audio == "pad80":
+            audio_feature = np.concatenate([audio_feature, np.zeros((audio_feature.shape[0], 6), np.float32)], -1)
+        res.append({
+            "ids": ids[i],
+            "length": length,
+            "speakers": [0],
+            "visual": video_features[i][:length].astype(np.float32),
+            "audio": audio_feature,
+            "text": text_features[i][:length].astype(np.float32),
+            "label": senti2,
+            "emo_label": emo,
+            "senti2_label": senti2,
+            "senti7_label": senti7,
+        })
+    return res

@@ -3,14 +3,17 @@
 Port of ``erc_tpu.data.registry``: ``synthetic-*`` names generate dialogues
 in memory with the geometry of the corpus they name (``synthetic-iemocap-6``
 and ``synthetic-cogmen-6``: IEMOCAP-COGMEN, ``synthetic-meld-7``:
-MELD-MMGCN, ``synthetic-daily-token-7``: DailyDialog token dialogues, with
+MELD-MMGCN, ``synthetic-mosei-N``: MOSEI with its multitask labels,
+``synthetic-daily-token-7``: DailyDialog token dialogues, with
 ``vocab_size`` and ``n_train`` keywords); the ``iemocap-cogmen-*`` names read
 the COGMEN feature dump, ``meld-mmgcn-7`` / ``meld-mmgcn-sbert-7`` the MMGCN
-MELD dump and ``dailydialog-token-7`` the DailyDialog text under the
-dataset's root (``get_root``: ``ERC_TPU_DATA_ROOT``, else ``data_root`` in
-``.erc_tpurc.json``, else ``~/erc_data``; then ``iemocap/``, ``meld/`` or
-``dailydialog/``).  The other real names (MOSEI, the raw corpus) come with
-the slices that need them.
+MELD dump, ``mosei-cim-2`` the CIM npz dumps, the ``mosei-*-sbert*`` names
+the adapted MOSEI pickle and ``dailydialog-token-7`` the DailyDialog text
+under the dataset's root (``get_root``: ``ERC_TPU_DATA_ROOT``, else
+``data_root`` in ``.erc_tpurc.json``, else ``~/erc_data``; then
+``iemocap/``, ``meld/``, ``mosei/`` or ``dailydialog/``).  The other real
+names (the MMIN dump, the raw corpus and the extraction views) are not read
+yet.
 """
 
 from __future__ import annotations
@@ -22,7 +25,7 @@ from functools import partial
 from typing import Callable, Dict, Optional
 
 from erc_tpu_torch.data import dailydialog, readers
-from erc_tpu_torch.data.synthetic import synthetic_daily, synthetic_erc
+from erc_tpu_torch.data.synthetic import synthetic_daily, synthetic_erc, synthetic_mosei
 
 
 def _read_json(path: Optional[str]) -> dict:
@@ -95,6 +98,21 @@ regist_data: Dict[str, Callable] = {
     "meld-mmgcn-7": partial(readers.meld_mmgcn_7, text=None),
     "meld-mmgcn-sbert-7": partial(readers.meld_mmgcn_7, text="sbert"),
     "dailydialog-token-7": dailydialog.dailydialog_token,
+    "mosei-cim-2": readers.mosei_cim,
+    "mosei-emo-sbert-6": partial(readers.mosei_adapted, text="sbert"),
+    "mosei-sent-sbert-7": partial(readers.mosei_adapted, text="sbert", label_type="sent_7"),
+    "mosei-sent-sbert-2": partial(readers.mosei_adapted, text="sbert", label_type="sent_2"),
+    "mosei-multi-sbert-fbank-6": partial(readers.mosei_adapted, text="sbert", audio="fbank", label_type="multi"),
+    "mosei-emo-sbert-fbank-6": partial(readers.mosei_adapted, text="sbert", audio="fbank", label_type="emo"),
+    "mosei-emo-sbert-fbank-blc-6": partial(readers.mosei_adapted, text="sbert", audio="fbank", label_type="emo",
+                                           balance=True),
+    "mosei-sent-sbert-fbank-7": partial(readers.mosei_adapted, text="sbert", audio="fbank", label_type="sent_7"),
+    "mosei-sent-sbert-fbank-2": partial(readers.mosei_adapted, text="sbert", audio="fbank", label_type="sent_2"),
+    "mosei-sent-sbert-fbank-+-2": partial(readers.mosei_adapted, text="sbert", audio="fbank", label_type="sent_2+"),
+    "mosei-emo-sbert-is10-6": partial(readers.mosei_adapted, text="sbert", audio="is10", label_type="emo"),
+    "mosei-sent-sbert-is10-7": partial(readers.mosei_adapted, text="sbert", audio="is10", label_type="sent_7"),
+    "mosei-sent-sbert-is10-2": partial(readers.mosei_adapted, text="sbert", audio="is10", label_type="sent_2"),
+    "mosei-sent-sbert-is10-+-2": partial(readers.mosei_adapted, text="sbert", audio="is10", label_type="sent_2+"),
 }
 
 
@@ -107,8 +125,10 @@ def _synthetic_loader(name: str):
     if "daily" in name:
         return lambda root, split="train", vocab_size=400, n_train=24, **kw: synthetic_daily(
             n_cls, split, vocab=int(vocab_size), n_train=int(n_train))
-    if "mmin" in name or "mosei" in name:
+    if "mmin" in name:
         raise NotImplementedError(f"synthetic dataset {name!r}: its generator is not ported yet")
+    if "mosei" in name:
+        return lambda root, split="train", **kw: synthetic_mosei(n_cls, split)
     # the corpus token picks the generated dims, which must agree with the
     # params grammar's (models/base.py)
     if "meld" in name:
@@ -118,7 +138,7 @@ def _synthetic_loader(name: str):
     else:
         raise ValueError(
             f"unrecognized synthetic dataset {name!r}: use synthetic-cogmen-N, "
-            "synthetic-iemocap-N, synthetic-meld-N or synthetic-daily-token-N"
+            "synthetic-iemocap-N, synthetic-meld-N, synthetic-mosei-N or synthetic-daily-token-N"
         )
     return lambda root, split="train", **kw: synthetic_erc(prefix, n_cls, split)
 
@@ -146,6 +166,7 @@ def pick_datas(root, dataset_name: str, split: str = "train", **kw):
     if fn is None:
         raise NotImplementedError(
             f"dataset {dataset_name!r}: its reader is not ported yet; the port reads "
-            "iemocap-cogmen-* and meld-mmgcn-* dumps, dailydialog-token-7 and synthetic-* names"
+            "iemocap-cogmen-*, meld-mmgcn-* and mosei-* dumps (mosei-cim-2 and the mosei-*-sbert* names), "
+            "dailydialog-token-7 and synthetic-* names"
         )
     return fn(root, split=split, **kw)

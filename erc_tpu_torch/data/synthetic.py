@@ -1,6 +1,7 @@
 """Synthetic dialogue generators matching the real corpora's geometry.
 
-Port of ``erc_tpu.data.synthetic.synthetic_erc`` (feature dialogues) and
+Port of ``erc_tpu.data.synthetic.synthetic_erc`` (feature dialogues),
+``synthetic_mosei`` (MOSEI dialogues with multitask labels) and
 ``synthetic_daily`` (DailyDialog token dialogues): the same numpy streams
 from the same seed.  Labels are a noisy function of the features or
 tokens, so a model can learn on the data.
@@ -64,6 +65,30 @@ def synthetic_erc(
             sample[m] = feat.astype(np.float32)
         res.append(sample)
     return res
+
+
+def synthetic_mosei(n_classes: int, split: str = "train", seed: int = 0, **kw):
+    """MOSEI-shaped dialogues (text 300, audio 74, visual 35, one speaker
+    row ``[[0]]``) with the multitask labels: a multi-hot ``emo_label`` [L, 7]
+    of the 7-way label, ``senti2_label`` and ``senti7_label`` derived from it
+    with 10 % flips; ``label`` is ``senti2_label`` at 2 classes, else the
+    7-way label.  The same numpy stream as the JAX package's
+    ``synthetic_mosei`` from the same seed."""
+    base = synthetic_erc("mosei", 7, split, seed=seed, **kw)
+    rng = np.random.default_rng(seed + 7)
+    for s in base:
+        L = len(s["label"])
+        s["speakers"] = [[0]]
+        emo = np.zeros((L, 7), dtype=int)
+        emo[np.arange(L), s["label"]] = 1
+        s["emo_label"] = emo
+        # sentiment follows the (feature-correlated) emotion label, so a
+        # sentiment head can learn on the data
+        flip = rng.random(L) < 0.1
+        s["senti2_label"] = np.where(flip, rng.integers(0, 2, L), (s["label"] >= 4).astype(np.int64))
+        s["senti7_label"] = np.where(flip, rng.integers(0, 7, L), s["label"])
+        s["label"] = s["senti2_label"].astype(np.int64) if n_classes == 2 else s["label"]
+    return base
 
 
 def synthetic_daily(n_classes=7, split="train", n_train=24, vocab=400,

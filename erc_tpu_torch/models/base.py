@@ -40,6 +40,14 @@ class MMBaseParams(BaseParams):
         self.max_seq_len = 128
         self.length_bucket = 16
 
+        # the val stage runs each eval epoch where the dataset has a real val
+        # split (MOSEI, MOSI, DailyDialog, MMIN folds); --select_on=val picks
+        # the best model by val F1 instead of test F1
+        self.eval_val = True
+        self.select_on = self.choice("test", "val")
+        # MOSEI's multilabel emotion block (CIM's test stage); "" elsewhere
+        self.mosei_metric = "multiemo"
+
         # serving builds no optimizer: the settings are only carried
         self.optim = Params(name="Adam", lr=1e-3, weight_decay=0.0)
 
@@ -50,6 +58,8 @@ class MMBaseParams(BaseParams):
     def iparams(self):
         super().iparams()
         ds = self.dataset
+        if "mosei" not in ds:
+            self.mosei_metric = ""
         if "iemocap" in ds or ("synthetic" in ds and "cogmen" in ds):
             if self.n_classes == 4:
                 self.class_names = ["hap", "sad", "neu", "ang"]

@@ -9,6 +9,8 @@ programmatically (``InferenceEngine.predict``) or over HTTP::
     python -m erc_tpu_torch.serve --module=dgcn --graph_impl=banded
     python -m erc_tpu_torch.serve --module=mmgcn --adj_impl=dense --batch_size=32
     python -m erc_tpu_torch.serve --module=dgcnv2 --base_model=DialogRNN --batch_size=32
+    python -m erc_tpu_torch.serve --module=cim --batch_size=32
+    python -m erc_tpu_torch.serve --module=cogmen_mosei --dataset=synthetic-mosei-6
     python -m erc_tpu_torch.serve --module=cogmen --checkpoint=model.last.ckpt
 
 ``--checkpoint`` takes a file of either package's Saver (the port's
@@ -16,7 +18,8 @@ programmatically (``InferenceEngine.predict``) or over HTTP::
 load with no JAX installed) or a state dict from ``erc_tpu_torch.convert``.
 DialogueGCN v2 serves its feature track (``--base_model=DialogRNN|LSTM|GRU|None``);
 its DailyDialog token track (``dgcnv2_daily``) has no serving engine, as in
-the JAX package.
+the JAX package.  CIM's forward returns two heads: the engine serves the
+first, ``cls2``, as the JAX engine does.
 
 Requests are micro-batched: every chunk of up to ``batch_size`` dialogues
 is padded to ``batch_size`` dialogues and a bucketed length.  The engine
@@ -68,7 +71,7 @@ class InferenceEngine:
         dataset: Optional[str] = None, batch_size: int = 8, **param_overrides,
     ) -> "InferenceEngine":
         """Engine for ``erc_tpu_torch.models.<module>`` (``cogmen``, ``dagerc``,
-        ``dgcn``, ``mmgcn``, ``dgcnv2``).
+        ``dgcn``, ``mmgcn``, ``dgcnv2``, ``cim``, ``cogmen_mosei``).
         Overrides set params (e.g. ``graph_impl='banded'``, ``dag_impl='eager'``,
         ``adj_impl='structured'``, ``base_model='DialogRNN'``, ``device='cpu'``); weights come from
         ``checkpoint_path`` or else from a generator seeded with ``seed``."""
@@ -100,8 +103,12 @@ class InferenceEngine:
 
     @torch.inference_mode()
     def logits(self, batch: Dict[str, np.ndarray]) -> np.ndarray:
-        """float32 logits [B, L, C] of one packed batch, on the host."""
-        return self.model(self._to_device(batch)).float().cpu().numpy()
+        """float32 logits [B, L, C] of one packed batch, on the host; of the
+        first head where the model returns several (CIM)."""
+        out = self.model(self._to_device(batch))
+        if isinstance(out, tuple):
+            out = out[0]
+        return out.float().cpu().numpy()
 
     def predict(self, dialogues: List[dict]) -> List[dict]:
         """dialogues: sample dicts (text/audio/visual [L, D], speakers).

@@ -210,7 +210,7 @@ def load_flax_msgpack(path: str) -> Dict[str, Any]:
 
 def load_model_state(path: str, module: Optional[str] = None) -> Dict[str, torch.Tensor]:
     """The torch state dict of `module` ("cogmen", "dagerc", "dgcn", "mmgcn", "dgcnv2",
-    "dgcnv2_daily") from `path`: a
+    "dgcnv2_daily", "cim", "cogmen_mosei") from `path`: a
     file of the port's Saver (its ``model`` entry), a bare state dict, or a
     file of the JAX package's Saver (converted by ``convert.STATES``)."""
     if zipfile.is_zipfile(path):  # torch.save's format

@@ -3,24 +3,30 @@
 Port of the core of ``erc_tpu.train.trainer.Trainer``: build the model and
 optimizer (``imodels``), the train step (loss, gradients, their global norm
 before the clip, optax's clip, the optimizer step), the epoch loop with
-``batch_count`` and ``log_every``, the test stage (masked NLL and the
-classification summary on the host) and the plateau controller, with
+``batch_count`` and ``log_every``, the val stage (``evaluate``: on datasets
+with a real val split, before each test stage) and the test stage (masked
+NLL and the classification summary on the host), ``--select_on=test|val``,
+the plateau controller on the test or val loss (``plateau_source``), with
 logging to stdout, and checkpoints through the port's ``Saver``
 (``train/checkpoint.py``) into ``--save_dir`` (default
 ``~/.erc_tpu_torch/saver/<module>/<dataset>``): ``save_model``, a rotating
 checkpoint every ``--checkpoint_per_epoch`` epochs (the best epoch's by test
-F1 also as ``best.checkpoint.ckpt``), a keypoint every
+F1, or by val F1 with ``--select_on=val``, also as ``best.checkpoint.ckpt``),
+``model.best_val.ckpt`` with ``--select_on=val``, a keypoint every
 ``--keypoint_per_epoch`` epochs, and ``--resume`` from the newest readable
 rotating checkpoint, as the JAX package's callbacks of those names do.  A
 subclass sets ``model``, ``optimizer`` and, where it wants them,
-``grad_clip_norm`` and ``lr_sche``.
+``grad_clip_norm`` and ``lr_sche``; it may override ``to_logits`` (the eval
+forward; a tuple of outputs is fine, ``test_step_collect`` then gets a
+tuple of arrays) and the hooks ``on_eval_begin``, ``on_test_begin`` and
+``on_test_end(res)``, called where the JAX trainer fires them.
 
 The trainer runs in float32 on ``params.device`` (the card unless it is
 ``"cpu"``).  Dropout draws from a generator on that device seeded from
 ``params.seed``.  Left out, for later slices: callbacks, experiment
-directories, the metric database and board, the val stage, step-count
-checkpoints, several processes or devices, ``steps_per_call``,
-``compute_dtype``, ``transfer_dtype`` and ``profile_steps``.
+directories, the metric database and board, step-count checkpoints,
+several processes or devices, ``steps_per_call``, ``compute_dtype``,
+``transfer_dtype`` and ``profile_steps``.
 """
 
 from __future__ import annotations
@@ -36,7 +42,7 @@ from erc_tpu_torch.core.device import resolve_device
 from erc_tpu_torch.core.seed import RngPool
 from erc_tpu_torch.data.collate import ERCBatcher
 from erc_tpu_torch.data.loader import DialogueLoader, to_device
-from erc_tpu_torch.data.registry import get_root, pick_datas
+from erc_tpu_torch.data.registry import dataset_has_val, get_root, pick_datas
 from erc_tpu_torch.ops.dropout import Dropout
 from erc_tpu_torch.train.checkpoint import Saver
 from erc_tpu_torch.train.metrics import classification_summary
@@ -65,6 +71,8 @@ def masked_accuracy(logits, labels, mask) -> torch.Tensor:
 class Trainer:
     """Generic ERC trainer; one subclass per model family."""
 
+    plateau_source = "test"  # which stage's loss steps lr_sche ("val": MMIN)
+
     def __init__(self, params):
         self.params = params
         self.device = resolve_device(params.get("device", 0))
@@ -77,8 +85,10 @@ class Trainer:
         self.eidx = 0
         self.global_steps = 0
         self.best_f1 = float("-inf")
+        self.best_val_f1 = float("-inf")
         self._dropout_rng: Optional[torch.Generator] = None
         self._test_loader = None
+        self._val_loader = None
         self._saver: Optional[Saver] = None
 
     # ------------------------------------------------------------------ setup
@@ -168,13 +178,21 @@ class Trainer:
 
     # ------------------------------------------------------------------- loop
     def train(self) -> List[Dict[str, Any]]:
-        """Every epoch: the train steps, then the test stage.  Returns one
-        record per epoch: the metrics' means, steps, dialogues (padding rows
-        not counted), the train steps' wall seconds and the test results."""
+        """Every epoch: the train steps, then the val stage (where the
+        dataset has a real val split and ``eval_val`` holds) and the test
+        stage.  Returns one record per epoch: the metrics' means, steps,
+        dialogues (padding rows not counted), the train steps' wall seconds
+        and the val and test results."""
         p = self.params
         self.initialize()
         if p.get("resume"):
             self.resume()
+        has_val = dataset_has_val(str(p.dataset))
+        if p.get("select_on", "test") == "val" and not has_val:
+            # selecting on val where val aliases test would save no best model at all
+            self.log(f"--select_on=val but dataset {p.dataset!r} has no real val split (val aliases test); "
+                     "falling back to select_on=test")
+            p.select_on = "test"
         loader = self.make_loader("train")
         log_every = max(int(p.get("log_every", 10)), 1)
         eval_every = int(p.get("eval_per_epoch", 1) or 0)
@@ -198,17 +216,25 @@ class Trainer:
             self.log(f"epoch {eidx}: {_fmt(means)} | {n_steps} steps, {n_dialogues / max(dt, 1e-9):.1f} dia/s")
             record = {"epoch": eidx, **means, "steps": n_steps, "dialogues": n_dialogues, "seconds": dt}
             if eval_every and (eidx + 1) % eval_every == 0:
+                if p.get("eval_val", True) and has_val:
+                    record["val"] = self.evaluate()
                 record["test"] = self.test()
             self._epoch_checkpoints(record)
             history.append(record)
         return history
 
     def _epoch_checkpoints(self, record: Dict[str, Any]) -> None:
+        """The epoch's rotating checkpoint and keypoint.  ``best_f1`` follows
+        test F1; the rotating checkpoint is the best so far by test F1, or by
+        val F1 (which ``evaluate`` tracks) with ``--select_on=val``."""
         p = self.params
         f1 = record.get("test", {}).get("f1")
         is_best = f1 is not None and f1 >= self.best_f1
         if is_best:
             self.best_f1 = f1
+        if p.get("select_on", "test") == "val":
+            val_f1 = record.get("val", {}).get("f1")
+            is_best = val_f1 is not None and val_f1 >= self.best_val_f1
         every = int(p.get("checkpoint_per_epoch") or 0)
         if every and (self.eidx + 1) % every == 0:
             self.save_checkpoint(is_best=is_best)
@@ -237,12 +263,31 @@ class Trainer:
         self._pred.extend(logits.argmax(-1)[sel].tolist())
         self._collect_nll(logits, labels, sel)
 
+    def to_logits(self, batch: Dict[str, torch.Tensor]):
+        """The eval forward: logits [B, L, C], or a tuple of outputs."""
+        return self.model(batch)
+
     def _eval_loop(self, loader) -> None:
         self.model.eval()
         with torch.inference_mode():
             for host_batch in loader:
-                logits = self.model(to_device(host_batch, self.device)).float().cpu().numpy()
-                self.test_step_collect(host_batch, logits)
+                out = self.to_logits(to_device(host_batch, self.device))
+                self.test_step_collect(host_batch, _to_host(out))
+
+    # hooks where the JAX trainer fires them; a subclass overrides what it needs
+    def on_eval_begin(self) -> None:
+        pass
+
+    def on_test_begin(self) -> None:
+        pass
+
+    def on_test_end(self, res: Dict[str, Any]) -> None:
+        pass
+
+    def _reset_collectors(self) -> None:
+        self._true: List[int] = []
+        self._pred: List[int] = []
+        self._nll_sum, self._nll_n = 0.0, 0
 
     def _plateau_step(self, loss: Optional[float]) -> None:
         """Step the plateau controller (where the subclass set one) on a loss."""
@@ -254,15 +299,39 @@ class Trainer:
         if new != cur:
             self.log(f"ReduceLROnPlateau: lr {cur} -> {new}")
 
+    def evaluate(self) -> Dict[str, Any]:
+        """The val split: loss ``Lall`` and the summary's ``acc``, ``f1`` and
+        ``wa``.  With ``--select_on=val`` it saves ``model.best_val.ckpt``
+        whenever val F1 is at least the best so far; with
+        ``plateau_source == "val"`` the val loss steps the plateau controller."""
+        p = self.params
+        self.initialize()
+        if self._val_loader is None:
+            self._val_loader = self.make_loader("val")
+        self._reset_collectors()
+        self.on_eval_begin()
+        self._eval_loop(self._val_loader)
+        val_loss = self._nll_sum / max(self._nll_n, 1)
+        res: Dict[str, Any] = {"Lall": val_loss}
+        if self._true:
+            summ = classification_summary(self._true, self._pred, p.n_classes)
+            res.update({k: summ[k] for k in ("acc", "f1", "wa")})
+        self.log(f"val: Lall={val_loss:.5f}" + (f" f1={res['f1']:.5f}" if "f1" in res else ""))
+        if p.get("select_on", "test") == "val" and "f1" in res and res["f1"] >= self.best_val_f1:
+            self.best_val_f1 = res["f1"]
+            self.save_model("best_val")
+        if self.plateau_source == "val":
+            self._plateau_step(val_loss if self._nll_n else None)
+        return res
+
     def test(self) -> Dict[str, Any]:
         """The test split: loss ``Lall`` and the classification summary."""
         p = self.params
         self.initialize()
         if self._test_loader is None:
             self._test_loader = self.make_loader("test")
-        self._true: List[int] = []
-        self._pred: List[int] = []
-        self._nll_sum, self._nll_n = 0.0, 0
+        self._reset_collectors()
+        self.on_test_begin()
         self._eval_loop(self._test_loader)
         test_loss = self._nll_sum / max(self._nll_n, 1)
         res: Dict[str, Any] = {}
@@ -274,7 +343,9 @@ class Trainer:
             self.log("test: " + _fmt({k: res[k] for k in ("acc", "wa", "pre", "rec", "f1", "mif1", "maf1")}))
         res["Lall"] = test_loss
         self.log(f"test: Lall={test_loss:.5f} over {self._nll_n} utterances")
-        self._plateau_step(test_loss if self._nll_n else None)
+        if self.plateau_source == "test":
+            self._plateau_step(test_loss if self._nll_n else None)
+        self.on_test_end(res)
         return res
 
     # ------------------------------------------------------------ checkpoints
@@ -290,10 +361,11 @@ class Trainer:
     def state_tree(self) -> Dict[str, Any]:
         """What a checkpoint holds: the state dicts of the model, the
         optimizer and the plateau controller (where there is one), the
-        dropout generator's state, the step, the epoch and the best test F1."""
+        dropout generator's state, the step, the epoch and the best test and
+        val F1."""
         tree = {"model": self.model.state_dict(), "optimizer": self.optimizer.state_dict(),
                 "rng": self._dropout_rng.get_state(), "step": self.global_steps, "eidx": self.eidx,
-                "best_f1": self.best_f1}
+                "best_f1": self.best_f1, "best_val_f1": self.best_val_f1}
         if self.lr_sche is not None:
             tree["lr_sche"] = self.lr_sche.state_dict()
         return tree
@@ -328,9 +400,17 @@ class Trainer:
                 self.lr_sche.load_state_dict(tree["lr_sche"])
             self._dropout_rng.set_state(tree["rng"])
             self.global_steps, self.eidx, self.best_f1 = tree["step"], tree["eidx"] + 1, tree["best_f1"]
+            self.best_val_f1 = tree.get("best_val_f1", float("-inf"))  # older checkpoints lack it
             self.log(f"resumed from {path} (eidx={self.eidx}, global_steps={self.global_steps})")
             return path
         return None
+
+
+def _to_host(out):
+    """Float32 numpy of the eval forward's output, or a tuple of them."""
+    if isinstance(out, tuple):
+        return tuple(_to_host(t) for t in out)
+    return out.float().cpu().numpy()
 
 
 def _fmt(values: Dict[str, float]) -> str:

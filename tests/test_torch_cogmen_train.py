@@ -240,7 +240,8 @@ def test_train_entry_point_runs_two_steps_saves_and_serves(tmp_path):
     engine = InferenceEngine.from_module("cogmen", str(path), dataset="synthetic-cogmen-6", batch_size=4,
                                          hidden_size=16, encoder_mode="chained", graph_impl="banded", device="cpu")
     saved = torch.load(path, weights_only=True)
-    assert saved["step"] == 2 and set(saved) == {"model", "optimizer", "rng", "step", "eidx", "best_f1"}
+    assert saved["step"] == 2 and set(saved) == {"model", "optimizer", "rng", "step", "eidx", "best_f1",
+                                                 "best_val_f1"}
     model = tcogmen.COGMENModule(graph_impl="dense", encoder_mode="chained", **{**KW, "drop_rate": 0.5})
     model.load_state_dict(saved["model"])
     batch = engine.batcher(j_synthetic_erc("iemocap-cogmen", 6, "test", n_train=4, max_len=20, seed=5)[:4])

@@ -20,7 +20,8 @@ say.  MMGCN's structured vs dense logits 1e-4, and its gradients with
 checkpointed GCNII trips vs without, at dropout 0.4, 1e-4 relative.
 DialogueGCN v2's card vs CPU logits 1e-4 for every base encoder, and its
 gradients (the GRU base, the DialogueRNN base, the token track's TextCNN)
-1e-4 relative, with cuDNN's TF32 flag on.
+1e-4 relative, with cuDNN's TF32 flag on.  CIM's card vs CPU logits of both
+heads 1e-4, and its gradients of Lce + Lmulti 1e-4 relative, TF32 flag on.
 """
 
 import numpy as np
@@ -822,6 +823,53 @@ def test_dgcnv2_gradients_card_equal_cpu_with_cudnn_tf32_on(cuda, daily, extra):
         card, cpu = _dgcnv2_trainer(daily, *extra), _dgcnv2_trainer(daily, *extra, device="cpu")
         host = next(iter(card.make_loader("train")))
         card.compute_grads(to_device(host, card.device))
+        cpu.compute_grads(to_device(host, cpu.device))
+        worst = max(_grad_rel(card.model, cpu.model).items(), key=lambda kv: kv[1])
+        assert worst[1] <= 1e-4, worst
+        assert torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+
+
+@pytest.mark.parametrize("dataset", ["synthetic-cogmen-6", "synthetic-mosei-2"])
+def test_cim_card_equals_cpu_with_cudnn_tf32_on(cuda, dataset):
+    """CIM at full width launches none of the hand-written kernels, and with
+    cuDNN's TF32 flag on the card's logits of both heads equal the CPU's
+    (every position, the padding row's included), and so do the gradients of
+    Lce + Lmulti at dropout 0 (the biGRUs run cuDNN in full float32 forward
+    and backward)."""
+    from erc_tpu_torch.data.loader import to_device
+    from erc_tpu_torch.models import cim
+    from erc_tpu_torch.ops.kernels import dag_block as kd
+
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        trainers = []
+        for device in ("cuda", "cpu"):
+            p = cim.CIMParams()
+            p.finalize([f"--dataset={dataset}", f"--device={device}", "--train.batch_size=4"])
+            t = cim.CIMTrainer(p)
+            t.log = lambda msg: None
+            t.initialize()
+            t.model.drop0.p = t.model.drop1.p = 0.0
+            trainers.append(t)
+        card, cpu = trainers
+        host = next(iter(card.make_loader("train")))
+        host = {k: (None if v is None else v.copy()) for k, v in host.items()}
+        host["text_length"][-1] = 0  # a padding row
+        for key in ("attention_mask", "text_feature", "audio_feature", "visual_feature"):
+            host[key][-1] = 0.0
+        kb.reset_launches()
+        kd.reset_launches()
+        with torch.inference_mode():
+            got = [t.float().cpu().numpy() for t in card.model.eval()(to_device(host, card.device))]
+            want = [t.numpy() for t in cpu.model.eval()(to_device(host, cpu.device))]
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g, w, rtol=0, atol=1e-4)
+        mets = card.compute_grads(to_device(host, card.device))
+        assert not any(kb.launches.values()) and not any(kd.launches.values())
+        assert ("Lmulti" in mets) == (dataset == "synthetic-mosei-2")
         cpu.compute_grads(to_device(host, cpu.device))
         worst = max(_grad_rel(card.model, cpu.model).items(), key=lambda kv: kv[1])
         assert worst[1] <= 1e-4, worst

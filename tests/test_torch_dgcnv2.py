@@ -206,9 +206,8 @@ def test_registry_daily_names_match_jax():
             None, "synthetic-daily-token-7", split)
     assert tregistry.regist_data["dailydialog-token-7"] is tdd.dailydialog_token
     assert tregistry.dataset_has_val("dailydialog-token-7") and tregistry.n_classes_of("dailydialog-token-7") == 7
-    for name in ("synthetic-mmin-4", "synthetic-mosei-6"):
-        with pytest.raises(NotImplementedError):
-            tregistry.pick_datas(None, name)
+    with pytest.raises(NotImplementedError):  # MOSEI's generator is ported, MMIN's not yet
+        tregistry.pick_datas(None, "synthetic-mmin-4")
 
 
 # ------------------------------------------------------------------ BiRNN, GRU form

@@ -239,7 +239,7 @@ def test_registry_matches_jax_for_synthetic_names():
         assert len(got) == len(want) == {"train": 120, "test": 31}[split]
         np.testing.assert_array_equal(got[3]["visual"], want[3]["visual"])
     with pytest.raises(NotImplementedError):
-        tregistry.pick_datas(None, "mosei-emo-sbert-6")  # a reader not ported yet
+        tregistry.pick_datas(None, "mosei-text-any-7")  # a reader not ported yet (an extraction view)
 
 
 # ------------------------------------------------------------------ trajectory
