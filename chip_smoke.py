@@ -95,7 +95,20 @@ Phases (any failure raises, so the exit code is non-zero):
      the val stage and --select_on=val and test() with the multilabel block
      (no kernel launched), model.best_val.ckpt served with the trainer's
      logits exactly, dialogues/s, profile of one step;
- 16. print the run's wall time, one JSON line of kernel records (K1/K2/K1ᵀ
+ 16. drive the MMIN family's training at full width on synthetic-mmin-4 (audio
+     130 x up to 128 frames, visual 50 x 342, text 22 x 1024 -> LSTMs of 128,
+     TextCNN 3 x 128 -> 128, classifier 128/128 -> 4; batch 32, Adam 2e-4,
+     EMA 0.999) through MMINBaseTrainer, MMINMissTrainer (ResidualAE
+     (256, 128, 64) x 5, a frozen pretrained encoder) and MMINMiss2Trainer
+     (twin nets): parameter counts against the JAX trees', card ≡ CPU at
+     dropout 0 (gradients, 3 steps' losses, the EMA shadow; the shadow also
+     against its formula at alpha 0.5, where it moves), one epoch with
+     the val stage and --select_on=val (Acc2 in the val row and the test
+     result; no kernel launched), model.best_val.ckpt in a fresh trainer
+     giving its raw and EMA logits bit for bit, mmin_base's best_val as
+     --pretrain_path of the other two (loaded exactly; the frozen encoder
+     does not move), utterances/s and a profile of one step;
+ 17. print the run's wall time, one JSON line of kernel records (K1/K2/K1ᵀ
      also at DialogueGCN's shapes, K = 10 and 21, D = 100 and 200, with their
      launches on its paths), the card's name and power limit, and a last
      JSON line {"ok": true, "device": {...}}.
@@ -1699,8 +1712,8 @@ MMGCN_PARAMS = 5_794_006
 
 
 def _no_kernel_launches(what: str) -> dict:
-    """MMGCN's and DialogueGCN v2's graph products and CIM's attentions are torch.bmm / torch.matmul: no
-    hand-written kernel runs on their paths."""
+    """MMGCN's and DialogueGCN v2's graph products and CIM's attentions are torch.bmm / torch.matmul, and MMIN
+    runs cuDNN's LSTM and convolutions and dense layers: no hand-written kernel runs on their paths."""
     launches = _read_launches()
     require(not any(launches.values()), f"{what}: a hand-written kernel launched on the path: {launches}")
     return launches
@@ -2007,10 +2020,10 @@ def _card_vs_cpu_steps(name, card0, cpu0, host):
     require(rel <= TRAIN_TOL, f"{name} card vs CPU losses differ by {rel} > {TRAIN_TOL}")
 
 
-def _epoch_and_step(name, run, host, batch_desc, check_first=None):
+def _epoch_and_step(name, run, host, batch_desc, check_first=None, unit="dialogues", show=("RNN", "rnn")):
     """The main path: one epoch and test() with every launch count at 0 before it and none launched, a second
-    epoch's dialogues/s, and a profile of one train step.  `check_first(rec)` runs on the first epoch's record
-    before the second epoch."""
+    epoch's `unit`/s (dialogues, or MMIN's utterances), and a profile of one train step.  `check_first(rec)` runs
+    on the first epoch's record before the second epoch."""
     import torch
     from erc_tpu_torch.data.loader import to_device
 
@@ -2021,7 +2034,7 @@ def _epoch_and_step(name, run, host, batch_desc, check_first=None):
     wall = time.perf_counter() - t0
     launches = _no_kernel_launches(f"{name} training path")
     res = rec["test"]
-    log(f"{name} training path: {rec['steps']} steps over {rec['dialogues']} dialogues, then test() ({n_test} "
+    log(f"{name} training path: {rec['steps']} steps over {rec['dialogues']} {unit}, then test() ({n_test} "
         f"batches) in {wall:.3f} s; launches {launches}")
     require(all(math.isfinite(x) for x in (rec["Lall"], rec["gnorm"], res["Lall"], res["f1"])),
             f"non-finite {name} training results {rec}")
@@ -2032,9 +2045,9 @@ def _epoch_and_step(name, run, host, batch_desc, check_first=None):
     rec2 = run.train()[-1]
     log(f"{name} epoch 0: loss {rec['Lall']:.5f}, gnorm {rec['gnorm']:.5f}; test loss {res['Lall']:.5f}, weighted "
         f"F1 {res['f1']:.5f}, acc {res['acc']:.5f}; training throughput (train steps of an epoch, "
-        f"{rec['dialogues']} dialogues, batch {run.params.train.batch_size}): "
+        f"{rec['dialogues']} {unit}, batch {run.params.train.batch_size}): "
         f"{rec['dialogues'] / rec['seconds']:.1f} (first epoch), {rec2['dialogues'] / rec2['seconds']:.1f} "
-        f"dialogues/s on {torch.cuda.get_device_name(0)}")
+        f"{unit}/s on {torch.cuda.get_device_name(0)}")
     batch = to_device(host[-1], run.device)
     run.train_step(batch)
     torch.cuda.synchronize()
@@ -2042,7 +2055,7 @@ def _epoch_and_step(name, run, host, batch_desc, check_first=None):
     run.train_step(batch)
     torch.cuda.synchronize()
     step_s = time.perf_counter() - t0
-    _profile(lambda: run.train_step(batch), f"one {name} train step ({batch_desc})", step_s, show=("RNN", "rnn"))
+    _profile(lambda: run.train_step(batch), f"one {name} train step ({batch_desc})", step_s, show=show)
 
 
 def drive_dgcnv2_training(card: str):
@@ -2259,6 +2272,175 @@ def drive_cim_training(card: str):
                         check_first=check_first)
 
 
+# ------------------------------------------------------------------ phase 16
+# the JAX trees' counts (tests/test_torch_mmin_models.py); mmin_miss's frozen encoder is an MMINBaseModule apart
+MMIN_PARAMS = {"mmin_base": 2_063_620, "mmin_miss": 5_444_228, "mmin_miss2": 4_127_240}
+MMIN_TRAIN_ARGS = ["--dataset=synthetic-mmin-4", "--confusion_matrix=false"]
+MMIN_EMA_TOL = 1e-5  # absolute, the EMA shadow after 3 steps: against its formula, and card vs CPU
+MMIN_EMA_CHECK_ALPHA = 0.5  # the card vs CPU trainers' alpha: 3 steps move the shadow > 10 x MMIN_EMA_TOL
+
+
+def _mmin_trainer(module, *extra, device="cuda", dropout_off=False):
+    """An MMIN trainer (`module`: mmin_base, mmin_miss or mmin_miss2) at its published settings on synthetic-mmin-4:
+    audio 130 x up to 128 frames, visual 50 x 342, text 22 x 1024 -> LSTMs of 128 and a TextCNN of 3 x 128 -> 128,
+    classifier 128/128 -> 4 (mmin_miss: ResidualAE (256, 128, 64) x 5 blocks, twice), batch 32, Adam 2e-4, EMA
+    0.999; one epoch; weights from seed 1, the same on every device.  `dropout_off` sets every dropout to 0."""
+    import importlib
+
+    from erc_tpu_torch.ops.dropout import Dropout
+
+    mod = importlib.import_module(f"erc_tpu_torch.models.{module}")
+    p = mod.ParamsType()
+    p.finalize([*MMIN_TRAIN_ARGS, f"--device={device}", "--epoch=1", *extra])
+    trainer = {"mmin_base": "MMINBaseTrainer", "mmin_miss": "MMINMissTrainer", "mmin_miss2": "MMINMiss2Trainer"}
+    trainer = getattr(mod, trainer[module])(p)
+    trainer.log = lambda msg: log(f"  [trainer] {msg}")
+    trainer.initialize()
+    if dropout_off:
+        for m in trainer.model.modules():
+            if isinstance(m, Dropout):
+                m.p = 0.0
+    return trainer
+
+
+def _mmin_card_vs_cpu(name, card0, cpu0, host, published):
+    """At dropout 0 on the same host batches (the same Missing patterns): the first batch's gradients, 3 steps'
+    losses (each of Lall, Lce, Lmse, Lcycle, Lrce the trainer has) and the EMA shadow after them.  The trainers run at
+    alpha MMIN_EMA_CHECK_ALPHA, where 3 steps move the shadow by more than 10 x MMIN_EMA_TOL: each device's shadow
+    is held against the EMA formula replayed in float32 on the host over that device's weights after each step, so
+    a shadow that is not updated, or is updated with another alpha, fails.  Card vs CPU, the shadow that the
+    published alpha gives, replayed from each device's weights: the weights' own card vs CPU drift (Adam's steps on
+    near-zero gradients) is larger than MMIN_EMA_TOL at alpha 0.5."""
+    import torch
+    from erc_tpu_torch.data.loader import to_device
+
+    cuda, cpu = card0.device, torch.device("cpu")
+    alpha = float(card0.params.ema_alpha)
+    require(alpha == MMIN_EMA_CHECK_ALPHA == float(cpu0.params.ema_alpha), f"{name}: EMA check alpha {alpha}")
+    card0.compute_grads(to_device(host[0], cuda))
+    t0 = time.perf_counter()
+    cpu0.compute_grads(to_device(host[0], cpu))
+    t_cpu = time.perf_counter() - t0
+    worst, pname = _worst_grad_diff(card0.model, cpu0.model)
+
+    def weights(t):
+        return [w.detach().to("cpu", copy=True) for w in t.model.parameters()]
+
+    def replay(ws, a):
+        e = [w.clone() for w in ws[0]]
+        for step in ws[1:]:
+            e = [x * a + w * (1 - a) for x, w in zip(e, step, strict=True)]
+        return e
+
+    def max_abs(xs, ys):
+        return max(float((x.cpu() - y.cpu()).abs().max()) for x, y in zip(xs, ys, strict=True))
+
+    losses, traj = [], {"card": [weights(card0)], "cpu": [weights(cpu0)]}
+    for b in host[:3]:
+        mc, mp = card0.train_step(to_device(b, cuda)), cpu0.train_step(to_device(b, cpu))
+        losses.append({k: (mc[k].item(), mp[k].item()) for k in ("Lall", "Lce", "Lmse", "Lcycle", "Lrce") if k in mp})
+        traj["card"].append(weights(card0))
+        traj["cpu"].append(weights(cpu0))
+    rel = max(abs(a - b) / abs(b) for step in losses for a, b in step.values())
+    formula = max(max_abs(list(t.ema_model.parameters()), replay(traj[k], alpha))
+                  for k, t in (("card", card0), ("cpu", cpu0)))
+    moved = max_abs(replay(traj["card"], alpha), traj["card"][0])
+    ema = max_abs(replay(traj["card"], published), replay(traj["cpu"], published))
+    log(f"{name} card vs CPU at dropout 0 (cudnn.allow_tf32 on): first-batch gradients worst {worst:.3e} ({pname}); "
+        f"3 steps' losses {losses}, worst relative {rel:.3e}; tolerance {TRAIN_TOL}; EMA shadow at alpha {alpha} vs "
+        f"its formula over each device's weights max abs {formula:.3e}, moved {moved:.3e}; card vs CPU shadow at "
+        f"alpha {published} max abs diff {ema:.3e} (tolerance {MMIN_EMA_TOL}); CPU forward and backward {t_cpu:.2f} s")
+    require(worst <= TRAIN_TOL, f"{name} card vs CPU gradients {worst} ({pname}) > {TRAIN_TOL}")
+    require(rel <= TRAIN_TOL, f"{name} card vs CPU losses differ by {rel} > {TRAIN_TOL}")
+    require(moved > 10 * MMIN_EMA_TOL, f"{name}: 3 steps moved the EMA shadow by {moved}, too little to check it")
+    require(formula <= MMIN_EMA_TOL, f"{name}: the EMA shadow differs from its formula by {formula} > {MMIN_EMA_TOL}")
+    require(ema <= MMIN_EMA_TOL, f"{name} card vs CPU EMA shadow differs by {ema} > {MMIN_EMA_TOL}")
+
+
+def _same_weights(module, state) -> bool:
+    import torch
+
+    got = module.state_dict()
+    return got.keys() == state.keys() and all(torch.equal(got[k].cpu(), state[k].cpu()) for k in state)
+
+
+def drive_mmin_training(card: str):
+    """The MMIN family at full width through its three trainers, cuDNN's TF32 flag on: for each, the parameter
+    count against the JAX tree's, card ≡ CPU at dropout 0 (gradients, 3 steps' losses, the EMA shadow, see
+    _mmin_card_vs_cpu), then an
+    epoch with the val stage and --select_on=val and test() as the main path (no hand-written kernel launched; Acc2
+    finite in the val row and the test result; model.best_val.ckpt loaded into a fresh trainer gives its raw and
+    EMA eval logits bit for bit), utterances/s and a profile of one step.  mmin_miss and mmin_miss2 take
+    mmin_base's model.best_val.ckpt as --pretrain_path: the frozen encoder equals it and does not move; netB and
+    its EMA shadow equal it and net does not."""
+    import tempfile
+
+    import torch
+    from erc_tpu_torch.data.loader import to_device
+
+    with tempfile.TemporaryDirectory() as tmp:
+        pretrain = Path(tmp) / "mmin_base" / "model.best_val.ckpt"
+        for module in ("mmin_base", "mmin_miss", "mmin_miss2"):
+            extra = () if module == "mmin_base" else (f"--pretrain_path={pretrain}",)
+            run = _mmin_trainer(module, "--select_on=val", f"--save_dir={Path(tmp) / module}", *extra)
+            p = run.params
+            n_params = sum(t.numel() for t in run.model.parameters())
+            require(n_params == MMIN_PARAMS[module], f"{module} has {n_params} parameters, want {MMIN_PARAMS[module]}")
+            require(run.ema_model is not None and run.plateau_source == "val" and run.lr_sche is not None,
+                    f"{module}: want the EMA shadow and the plateau controller on the val loss")
+            frozen = ""
+            if module == "mmin_miss":
+                n_frozen = sum(t.numel() for t in run.pretrained_model.parameters())
+                require(n_frozen == MMIN_PARAMS["mmin_base"], f"the frozen encoder has {n_frozen} parameters")
+                frozen = f" (+ a frozen MMINBaseModule of {n_frozen})"
+            log(f"trainer: {module} audio {p.hidden_audio} x {p.max_audio_len} frames, visual {p.hidden_visual}, "
+                f"text {p.hidden_text} -> LSTMs 128, TextCNN 3 x 128 -> 128, classifier 128/128 -> {p.n_classes}, "
+                f"batch {p.train.batch_size}, {p.optim.name} lr {p.optim.lr}, EMA {p.ema_alpha}, select_on "
+                f"{p.select_on}, {n_params} params{frozen}, on {torch.cuda.get_device_name(0)}")
+            if module != "mmin_base":
+                want = torch.load(pretrain, map_location="cpu", weights_only=True)["model"]
+                if module == "mmin_miss":
+                    require(_same_weights(run.pretrained_model, want), "the frozen encoder is not the pretrained file")
+                    before = {k: v.clone() for k, v in run.pretrained_model.state_dict().items()}
+                else:
+                    require(_same_weights(run.model.netB, want) and _same_weights(run.ema_model.netB, want),
+                            "mmin_miss2's netB or its EMA shadow is not the pretrained file")
+                    require(not _same_weights(run.model.net, want), "mmin_miss2's net took the pretrained file")
+            host = list(run.make_loader("train"))  # epoch 0: the batches train() will take
+            require(("text_feature_reverse" in host[0]) == (module != "mmin_base"), "Missing patterns on the wrong path")
+            check = (*extra, f"--ema_alpha={MMIN_EMA_CHECK_ALPHA}")
+            _mmin_card_vs_cpu(module, _mmin_trainer(module, *check, dropout_off=True),
+                              _mmin_trainer(module, *check, device="cpu", dropout_off=True), host, float(p.ema_alpha))
+
+            def check_first(rec, module=module, run=run):
+                val, res = rec.get("val"), rec["test"]
+                require(val is not None and all(math.isfinite(val[k]) for k in ("Lall", "f1", "Acc2")),
+                        f"{module}'s epoch record has no finite val stage with Acc2: {val}")
+                require(math.isfinite(res.get("Acc2", math.nan)), f"{module}'s test result has no finite Acc2: {res}")
+                path = Path(run.params.save_dir) / "model.best_val.ckpt"
+                require(path.exists(), f"--select_on=val saved no {path.name}")
+                fresh = _mmin_trainer(module, *extra)
+                fresh.load_state_tree(torch.load(path, map_location="cpu", weights_only=True))
+                batch = to_device(next(iter(run.make_loader("test"))), run.device)
+                run.model.eval()
+                fresh.model.eval()
+                with torch.inference_mode():
+                    pairs = list(zip(run.to_logits(batch), fresh.to_logits(batch), strict=True))
+                diff = max(float((a - b).abs().max()) for a, b in pairs)
+                log(f"{module} epoch 0: val Lall {val['Lall']:.5f}, F1 {val['f1']:.5f}, Acc2 {val['Acc2']:.5f}; test "
+                    f"Acc2 {res['Acc2']:.5f}; {path.name} in a fresh trainer vs the trainer's raw and EMA eval "
+                    f"logits max abs diff {diff:.3e}")
+                require(diff == 0.0, f"{module}: best_val in a fresh trainer differs from the trainer by {diff}")
+
+            desc = (f"batch {p.train.batch_size}, audio {p.max_audio_len} x {p.hidden_audio}, visual 50 x "
+                    f"{p.hidden_visual}, text 22 x {p.hidden_text}")
+            _epoch_and_step(module, run, host, desc, check_first=check_first, unit="utterances",
+                            show=("RNN", "rnn", "conv", "fft", "Conv"))
+            if module == "mmin_miss":
+                require(_same_weights(run.pretrained_model, before), "the frozen encoder moved in training")
+                log("mmin_miss: the frozen encoder equals the pretrained file before and after the epochs")
+
+
 def _stamp(phase: str) -> None:
     log(f"phase {phase} done at {time.perf_counter() - T_START:.1f} s")
 
@@ -2319,6 +2501,10 @@ def main() -> int:
         drive_cim_training(card)
         _stamp("CIM training")
         log(f"CIM phases: {time.perf_counter() - t_cim:.1f} s")
+        t_mmin = time.perf_counter()
+        drive_mmin_training(card)
+        _stamp("MMIN training")
+        log(f"MMIN phases: {time.perf_counter() - t_mmin:.1f} s")
     # the DialogueGCN-shape records: their instantiation's launches on DialogueGCN's serving and training paths
     for rec in dgcn_records.values():
         rec["launches"] = dgcn_serve_taps[rec["tap_key"]] + dgcn_train_taps[rec["tap_key"]]

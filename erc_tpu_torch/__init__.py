@@ -2,11 +2,12 @@
 
 Mirrors the layout of ``erc_tpu``: ``core`` (config), ``data`` (synthetic
 dialogues, the IEMOCAP-COGMEN, MELD-MMGCN, MOSEI and DailyDialog readers,
-batching), ``ops`` (graphs, attention, norm, dense and banded graph layers,
-GCNII, recurrent layers), ``ops/kernels`` (wrappers of the hand-written CUDA
+MMIN's utterances and reader, batching), ``ops`` (graphs, attention, norm,
+dense and banded graph layers, GCNII, recurrent layers), ``ops/kernels`` (wrappers of the hand-written CUDA
 kernels in ``csrc/``), ``models`` (COGMEN and its MOSEI alias
 ``cogmen_mosei``, DAG-ERC, DialogueGCN, MMGCN, DialogueGCN v2 and its
-DailyDialog token track, CIM), ``train`` (the train loop with its val and
+DailyDialog token track, CIM, and the MMIN family ``mmin_base``,
+``mmin_miss``, ``mmin_miss2``, which trains only), ``train`` (the train loop with its val and
 test stages, the metrics and checkpoints) and ``serve``.
 The package imports torch, numpy and the standard library only; the JAX
 package is its reference in the tests, never a dependency.

@@ -17,7 +17,9 @@ and nodal attention; a flax ``Conv`` kernel is [K, in, out] and a torch
 
 writes the state dict of module NAME (``cogmen``, the default, ``dagerc``,
 ``dgcn``, ``mmgcn``, ``dgcnv2``, ``dgcnv2_daily``, ``cim`` or
-``cogmen_mosei``) that ``serve.InferenceEngine`` loads.
+``cogmen_mosei``) that ``serve.InferenceEngine`` loads, or of ``mmin_base``,
+``mmin_miss`` or ``mmin_miss2``, which the MMIN trainers load (MMIN has no
+serving engine).
 """
 
 from __future__ import annotations
@@ -221,6 +223,50 @@ def cim_state(params: Tree) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def mmin_encoder_state(p: Tree) -> Dict[str, torch.Tensor]:
+    """models.mmin_models' ``netA``/``netV`` (``LSTMEncoder``: ``rnn`` as
+    ``birnn_state``, and the ``attention`` readout's ``attention_layer`` and
+    ``attention_vector_weight`` where the tree has them) and ``netL``
+    (``TextCNN``: ``conv{3,4,5}``, ``embd``)."""
+    sd = {}
+    for net in ("netA", "netV"):
+        enc = p[net]
+        sd.update(_prefixed(f"{net}.rnn", birnn_state(enc["rnn"])))
+        if "attention_layer" in enc:
+            sd.update(_prefixed(f"{net}.attention_layer", linear_state(enc["attention_layer"])))
+            sd[f"{net}.attention_vector_weight"] = _t(enc["attention_vector_weight"])
+    for name, leaf in p["netL"].items():
+        sd.update(_prefixed(f"netL.{name}", (conv1d_state if name.startswith("conv") else linear_state)(leaf)))
+    return sd
+
+
+def dense_tree_state(p: Tree) -> Dict[str, torch.Tensor]:
+    """A tree of Dense layers only (``Classifier``, ``ResidualAE``): each → Linear."""
+    sd = {}
+    for name, leaf in p.items():
+        sd.update(_prefixed(name, linear_state(leaf)))
+    return sd
+
+
+def mmin_base_state(params: Tree) -> Dict[str, torch.Tensor]:
+    """The state dict of ``models.mmin_models.MMINBaseModule`` from its flax tree."""
+    return {**mmin_encoder_state(params), **_prefixed("netC", dense_tree_state(params["netC"]))}
+
+
+def mmin_miss_state(params: Tree) -> Dict[str, torch.Tensor]:
+    """The state dict of ``models.mmin_models.MMINMissModule``: the encoders,
+    ``netAE``, ``netAE_cycle`` and ``netC``."""
+    sd = mmin_encoder_state(params)
+    for name in ("netAE", "netAE_cycle", "netC"):
+        sd.update(_prefixed(name, dense_tree_state(params[name])))
+    return sd
+
+
+def mmin_miss2_state(params: Tree) -> Dict[str, torch.Tensor]:
+    """The state dict of ``models.mmin_models.MMINMiss2Module``: ``net`` and ``netB``."""
+    return {**_prefixed("net", mmin_base_state(params["net"])), **_prefixed("netB", mmin_base_state(params["netB"]))}
+
+
 STATES = {
     "cogmen": lambda trees: cogmen_state(trees["params"], trees["batch_stats"]),
     "dagerc": lambda trees: dagerc_state(trees["params"]),
@@ -230,9 +276,12 @@ STATES = {
     "dgcnv2_daily": lambda trees: dgcnv2_state(trees["params"]),
     "cim": lambda trees: cim_state(trees["params"]),
     "cogmen_mosei": lambda trees: cogmen_state(trees["params"], trees["batch_stats"]),
+    "mmin_base": lambda trees: mmin_base_state(trees["params"]),
+    "mmin_miss": lambda trees: mmin_miss_state(trees["params"]),
+    "mmin_miss2": lambda trees: mmin_miss2_state(trees["params"]),
 }
 USAGE = ("usage: python -m erc_tpu_torch.convert [--module=cogmen|dagerc|dgcn|mmgcn|dgcnv2|dgcnv2_daily|cim|"
-         "cogmen_mosei] variables.npz state_dict.pt")
+         "cogmen_mosei|mmin_base|mmin_miss|mmin_miss2] variables.npz state_dict.pt")
 
 
 def read_npz(path: str) -> Dict[str, dict]:

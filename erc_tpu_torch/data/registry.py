@@ -5,15 +5,16 @@ in memory with the geometry of the corpus they name (``synthetic-iemocap-6``
 and ``synthetic-cogmen-6``: IEMOCAP-COGMEN, ``synthetic-meld-7``:
 MELD-MMGCN, ``synthetic-mosei-N``: MOSEI with its multitask labels,
 ``synthetic-daily-token-7``: DailyDialog token dialogues, with
-``vocab_size`` and ``n_train`` keywords); the ``iemocap-cogmen-*`` names read
+``vocab_size`` and ``n_train`` keywords, ``synthetic-mmin-N``: MMIN's
+utterances); the ``iemocap-cogmen-*`` names read
 the COGMEN feature dump, ``meld-mmgcn-7`` / ``meld-mmgcn-sbert-7`` the MMGCN
 MELD dump, ``mosei-cim-2`` the CIM npz dumps, the ``mosei-*-sbert*`` names
-the adapted MOSEI pickle and ``dailydialog-token-7`` the DailyDialog text
+the adapted MOSEI pickle, ``dailydialog-token-7`` the DailyDialog text and
+``iemocap-mmin-4`` the MMIN2021 h5 dump (with ``h5py``)
 under the dataset's root (``get_root``: ``ERC_TPU_DATA_ROOT``, else
 ``data_root`` in ``.erc_tpurc.json``, else ``~/erc_data``; then
 ``iemocap/``, ``meld/``, ``mosei/`` or ``dailydialog/``).  The other real
-names (the MMIN dump, the raw corpus and the extraction views) are not read
-yet.
+names (the raw corpus and the extraction views) are not read yet.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ import subprocess
 from functools import partial
 from typing import Callable, Dict, Optional
 
-from erc_tpu_torch.data import dailydialog, readers
+from erc_tpu_torch.data import dailydialog, mmin, readers
 from erc_tpu_torch.data.synthetic import synthetic_daily, synthetic_erc, synthetic_mosei
 
 
@@ -98,6 +99,7 @@ regist_data: Dict[str, Callable] = {
     "meld-mmgcn-7": partial(readers.meld_mmgcn_7, text=None),
     "meld-mmgcn-sbert-7": partial(readers.meld_mmgcn_7, text="sbert"),
     "dailydialog-token-7": dailydialog.dailydialog_token,
+    "iemocap-mmin-4": lambda root, split="train", **kw: mmin.iemocap_mmin_4(root, split),
     "mosei-cim-2": readers.mosei_cim,
     "mosei-emo-sbert-6": partial(readers.mosei_adapted, text="sbert"),
     "mosei-sent-sbert-7": partial(readers.mosei_adapted, text="sbert", label_type="sent_7"),
@@ -126,7 +128,7 @@ def _synthetic_loader(name: str):
         return lambda root, split="train", vocab_size=400, n_train=24, **kw: synthetic_daily(
             n_cls, split, vocab=int(vocab_size), n_train=int(n_train))
     if "mmin" in name:
-        raise NotImplementedError(f"synthetic dataset {name!r}: its generator is not ported yet")
+        return lambda root, split="train", **kw: mmin.synthetic_mmin(n_cls, split)
     if "mosei" in name:
         return lambda root, split="train", **kw: synthetic_mosei(n_cls, split)
     # the corpus token picks the generated dims, which must agree with the
@@ -138,7 +140,7 @@ def _synthetic_loader(name: str):
     else:
         raise ValueError(
             f"unrecognized synthetic dataset {name!r}: use synthetic-cogmen-N, "
-            "synthetic-iemocap-N, synthetic-meld-N, synthetic-mosei-N or synthetic-daily-token-N"
+            "synthetic-iemocap-N, synthetic-meld-N, synthetic-mosei-N, synthetic-mmin-N or synthetic-daily-token-N"
         )
     return lambda root, split="train", **kw: synthetic_erc(prefix, n_cls, split)
 
@@ -167,6 +169,6 @@ def pick_datas(root, dataset_name: str, split: str = "train", **kw):
         raise NotImplementedError(
             f"dataset {dataset_name!r}: its reader is not ported yet; the port reads "
             "iemocap-cogmen-*, meld-mmgcn-* and mosei-* dumps (mosei-cim-2 and the mosei-*-sbert* names), "
-            "dailydialog-token-7 and synthetic-* names"
+            "dailydialog-token-7, iemocap-mmin-4 and synthetic-* names"
         )
     return fn(root, split=split, **kw)

@@ -293,8 +293,7 @@ class DGCNV2Module(nn.Module):
             if self.lstm_mode == "packed":
                 # the RNN packs by the host batch's lengths where the batch carries them
                 return self.rnn(x, mask, batch.get("text_length_host", batch["text_length"]))
-            B, L = mask.shape
-            return self.rnn(x, torch.ones_like(mask), torch.full((B,), L))
+            return self.rnn(x)  # every padded step, unpacked
         return self.base_linear(x)
 
     def forward(self, batch) -> torch.Tensor:

@@ -15,3 +15,4 @@ from erc_tpu_torch.models.dgcnv2 import (  # noqa: F401
 )
 
 ParamsType = DGCNV2DailyParams
+SERVED = False  # the token track's batches are of word ids, not the features the engine packs

@@ -117,8 +117,7 @@ class MMGCNModule(nn.Module):
             # the LSTM packs by the host batch's lengths where the batch carries them
             t = self.lstm_l(t, mask, batch.get("text_length_host", batch["text_length"]))
         else:
-            B, L = mask.shape
-            t = self.lstm_l(t, torch.ones_like(mask), torch.full((B,), L))
+            t = self.lstm_l(t)  # every padded step, unpacked
         # the speaker embedding on the text nodes only, as the reference has it
         return t + self.speaker_embeddings(batch["speaker_ids"]) * mask[..., None]
 

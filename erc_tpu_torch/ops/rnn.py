@@ -5,11 +5,15 @@ Port of ``erc_tpu.ops.rnn``:
 - ``gru_cell, gru_cell_proj``: gates stacked r, z, n along the last axis,
   with separate input and hidden biases, as ``torch.nn.GRUCell`` has them;
 - ``BiRNN``: a multi-layer bidirectional LSTM (DialogueGCN, MMGCN,
-  DialogueGCN v2) or GRU (DialogueGCN v2) over a right-padded [B, L, D]
+  DialogueGCN v2) or GRU (DialogueGCN v2), or a one-direction LSTM (MMIN's
+  ``LSTMEncoder``, ``bidirectional=False``), over a right-padded [B, L, D]
   batch, with packed-sequence semantics (padded steps neither update the
-  state nor produce output).  The JAX package runs a masked ``lax.scan``;
-  here each layer is one ``nn.LSTM`` or ``nn.GRU`` call on a
-  ``PackedSequence`` (one cuDNN call a layer on the card), whose gate order
+  state nor produce output), or over every step where no lengths are given
+  (the JAX package's mask of ones: MMIN's encoders, and ``lstm_mode='unpacked'``
+  of MMGCN and DialogueGCN v2).  The JAX package runs a masked
+  ``lax.scan``; here each layer is one ``nn.LSTM`` or ``nn.GRU`` call on a
+  ``PackedSequence``, or on the padded tensor itself (one cuDNN call a layer
+  on the card), whose gate order
   (i, f, g, o for the LSTM; r, z, n for the GRU, with ``b_hn`` inside
   ``r·(…)``) and dual biases are the JAX cells'.
 
@@ -20,6 +24,7 @@ from __future__ import annotations
 
 import contextlib
 import math
+from typing import Optional
 
 import torch
 from torch import nn
@@ -96,7 +101,8 @@ def _backward_in_full_fp32(t: torch.Tensor, backend=torch.backends.cudnn.rnn,
 
 
 class BiRNN(nn.Module):
-    """``num_layers`` single-layer bidirectional ``nn.LSTM`` (``cell='lstm'``)
+    """``num_layers`` single-layer bidirectional (or, with
+    ``bidirectional=False``, one-direction) ``nn.LSTM`` (``cell='lstm'``)
     or ``nn.GRU`` (``cell='gru'``), batch first, with dropout between layers
     and not after the last, as the JAX module has it.
 
@@ -108,7 +114,7 @@ class BiRNN(nn.Module):
     """
 
     def __init__(self, input_size: int, hidden_size: int, num_layers: int = 1, dropout: float = 0.0,
-                 cell: str = "lstm", *, generator=None, device=None):
+                 cell: str = "lstm", bidirectional: bool = True, *, generator=None, device=None):
         super().__init__()
         rnn = {"lstm": nn.LSTM, "gru": nn.GRU}.get(cell)
         if rnn is None:
@@ -117,20 +123,23 @@ class BiRNN(nn.Module):
         self.layers = nn.ModuleList()
         d_in = input_size
         for _ in range(num_layers):
-            layer = rnn(d_in, hidden_size, batch_first=True, bidirectional=True, device=device)
+            layer = rnn(d_in, hidden_size, batch_first=True, bidirectional=bidirectional, device=device)
             with torch.no_grad():
                 for t in layer.parameters():
                     uniform_(t, scale, generator=generator)
             self.layers.append(layer)
-            d_in = 2 * hidden_size
+            d_in = (2 if bidirectional else 1) * hidden_size
         self.dropout = Dropout(dropout)
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
         """x: [B, L, D]; mask: [B, L], 1 on each row's first ``lengths[b]``
         positions; lengths: [B] ints, best a CPU tensor taken from the host
         batch (packing needs them on the host, and a device tensor costs a
-        copy that waits for the device).  Returns [B, L, 2H], 0 at padded
-        positions and on rows of length 0.
+        copy that waits for the device).  Returns [B, L, 2H] ([B, L, H] in one
+        direction), 0 at padded positions and on rows of length 0.  Without
+        ``lengths`` every row runs all L steps, padding included, unpacked and
+        unmasked: one cuDNN call a layer over the tensor as it is.
 
         cuDNN runs each layer, forward and backward, in full float32
         (``cudnn_rnn_full_fp32``).  Rows are sorted by length on the host
@@ -140,6 +149,8 @@ class BiRNN(nn.Module):
         dialogue) is packed with length 1 and its output zeroed by the mask:
         packing refuses length 0.
         """
+        if lengths is None:
+            return self._unpacked(x)
         L = x.shape[1]
         n = lengths.to("cpu", torch.int64).clamp(min=1)
         order = torch.argsort(n, descending=True, stable=True)
@@ -156,3 +167,14 @@ class BiRNN(nn.Module):
                 _backward_in_full_fp32(packed.data)
         out, _ = pad_packed_sequence(packed, batch_first=True, total_length=L)
         return out.index_select(0, inverse) * mask[..., None].to(out.dtype)
+
+    def _unpacked(self, x: torch.Tensor) -> torch.Tensor:
+        out = x
+        for i, layer in enumerate(self.layers):
+            if i:
+                out = self.dropout(out)
+            with cudnn_rnn_full_fp32():
+                out, _ = layer(out)
+            if out.requires_grad and out.is_cuda:
+                _backward_in_full_fp32(out)
+        return out

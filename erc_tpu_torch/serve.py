@@ -17,9 +17,11 @@ programmatically (``InferenceEngine.predict``) or over HTTP::
 ``model.*.ckpt``, or the JAX package's flax-msgpack file, converted on
 load with no JAX installed) or a state dict from ``erc_tpu_torch.convert``.
 DialogueGCN v2 serves its feature track (``--base_model=DialogRNN|LSTM|GRU|None``);
-its DailyDialog token track (``dgcnv2_daily``) has no serving engine, as in
-the JAX package.  CIM's forward returns two heads: the engine serves the
-first, ``cls2``, as the JAX engine does.
+its DailyDialog token track (``dgcnv2_daily``) and the MMIN family
+(``mmin_base``, ``mmin_miss``, ``mmin_miss2``) train but have no serving
+path, as in the JAX package: their modules declare ``SERVED = False`` and
+``from_module`` refuses them.  CIM's forward returns two heads: the engine
+serves the first, ``cls2``, as the JAX engine does.
 
 Requests are micro-batched: every chunk of up to ``batch_size`` dialogues
 is padded to ``batch_size`` dialogues and a bucketed length.  The engine
@@ -74,8 +76,12 @@ class InferenceEngine:
         ``dgcn``, ``mmgcn``, ``dgcnv2``, ``cim``, ``cogmen_mosei``).
         Overrides set params (e.g. ``graph_impl='banded'``, ``dag_impl='eager'``,
         ``adj_impl='structured'``, ``base_model='DialogRNN'``, ``device='cpu'``); weights come from
-        ``checkpoint_path`` or else from a generator seeded with ``seed``."""
+        ``checkpoint_path`` or else from a generator seeded with ``seed``.
+        A module that declares ``SERVED = False`` (a family that trains only)
+        raises ``ValueError``."""
         mod = importlib.import_module(f"erc_tpu_torch.models.{module}")
+        if not getattr(mod, "SERVED", True):
+            raise ValueError(f"{module!r} trains only: it has no serving path, in either package")
         p = mod.ParamsType()
         p.module = module
         if dataset:

@@ -14,23 +14,28 @@
     python -m erc_tpu_torch.train --module=dgcnv2_daily --dataset=synthetic-daily-token-7
     python -m erc_tpu_torch.train --module=cim --dataset=synthetic-mosei-2 [--select_on=val]
     python -m erc_tpu_torch.train --module=cogmen_mosei --dataset=mosei-emo-sbert-6
+    python -m erc_tpu_torch.train --module=mmin_base --dataset=synthetic-mmin-4 [--ema=False]
+    python -m erc_tpu_torch.train --module=mmin_miss --dataset=synthetic-mmin-4 [--pretrain_path=FILE]
+    python -m erc_tpu_torch.train --module=mmin_miss2 --dataset=synthetic-mmin-4 [--pretrain_path=FILE]
 
 Every module under ``erc_tpu_torch/models`` that exports ``main`` trains
 (COGMEN, DAG-ERC, DialogueGCN, MMGCN, DialogueGCN v2 with its DailyDialog
-token track, CIM and COGMEN on MOSEI so far).  On a dataset with a real val
-split (MOSEI, DailyDialog) each eval epoch runs the val stage before the
-test stage; ``--select_on=val`` then keeps ``model.best_val.ckpt``.  It runs on the card unless ``--device=cpu`` is given;
+token track, CIM, COGMEN on MOSEI and the MMIN family: all seven families).
+On a dataset with a real val split (MOSEI, DailyDialog, MMIN's) each eval
+epoch runs the val stage before the test stage; ``--select_on=val`` then
+keeps ``model.best_val.ckpt``.  It runs on the card unless ``--device=cpu`` is given;
 without CUDA and without ``--device=cpu`` it raises.  Every ``main`` but
 DAG-ERC's saves the model at the end
 (``model.last.ckpt`` under ``--save_dir``, default
 ``~/.erc_tpu_torch/saver/<module>/<dataset>``), which ``python -m
-erc_tpu_torch.serve --module=<module> --checkpoint=...`` serves.
+erc_tpu_torch.serve --module=<module> --checkpoint=...`` serves (but for
+the token track and MMIN, which have no serving path).
 ``--checkpoint_per_epoch=N``, ``--keypoint_per_epoch=N`` and ``--resume``
 write and read the rotating checkpoints and keypoints there.
 Real datasets (``iemocap-cogmen-*``, ``meld-mmgcn-7``,
 ``meld-mmgcn-sbert-7``, ``mosei-cim-2``, the ``mosei-*-sbert*`` names,
-``dailydialog-token-7``) are read under ``--data_root`` or
-``ERC_TPU_DATA_ROOT``.
+``dailydialog-token-7``, ``iemocap-mmin-4``, which needs ``h5py``) are read
+under ``--data_root`` or ``ERC_TPU_DATA_ROOT``.
 """
 
 from __future__ import annotations

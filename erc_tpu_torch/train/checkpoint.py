@@ -210,9 +210,12 @@ def load_flax_msgpack(path: str) -> Dict[str, Any]:
 
 def load_model_state(path: str, module: Optional[str] = None) -> Dict[str, torch.Tensor]:
     """The torch state dict of `module` ("cogmen", "dagerc", "dgcn", "mmgcn", "dgcnv2",
-    "dgcnv2_daily", "cim", "cogmen_mosei") from `path`: a
+    "dgcnv2_daily", "cim", "cogmen_mosei", "mmin_base", "mmin_miss",
+    "mmin_miss2") from `path`: a
     file of the port's Saver (its ``model`` entry), a bare state dict, or a
-    file of the JAX package's Saver (converted by ``convert.STATES``)."""
+    file of the JAX package's Saver (its ``params``, converted by
+    ``convert.STATES``): the model weights alone, as the JAX Saver's
+    ``load_params`` extracts them for MMIN's ``--pretrain_path``."""
     if zipfile.is_zipfile(path):  # torch.save's format
         state = torch.load(path, map_location="cpu", weights_only=True)
         if isinstance(state, dict) and {"model", "step"} <= set(state):

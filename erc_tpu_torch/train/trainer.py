@@ -18,8 +18,12 @@ rotating checkpoint, as the JAX package's callbacks of those names do.  A
 subclass sets ``model``, ``optimizer`` and, where it wants them,
 ``grad_clip_norm`` and ``lr_sche``; it may override ``to_logits`` (the eval
 forward; a tuple of outputs is fine, ``test_step_collect`` then gets a
-tuple of arrays) and the hooks ``on_eval_begin``, ``on_test_begin`` and
-``on_test_end(res)``, called where the JAX trainer fires them.
+tuple of arrays), the hooks ``on_eval_begin``, ``on_eval_end(res)``,
+``on_test_begin`` and ``on_test_end(res)``, called where the JAX trainer
+fires them, and ``state_tree``/``load_state_tree`` to carry state of its
+own (MMIN's EMA shadow) in checkpoints.  Batches are of dialogues
+(``text_length``) or of utterances (``sample_mask``, MMIN): a record's
+``dialogues`` counts the rows that are not padding either way.
 
 The trainer runs in float32 on ``params.device`` (the card unless it is
 ``"cpu"``).  Dropout draws from a generator on that device seeded from
@@ -208,7 +212,7 @@ class Trainer:
                 for k, v in mets.items():
                     sums[k] = sums[k] + v if k in sums else v
                 n_steps += 1
-                n_dialogues += int((host_batch["text_length"] > 0).sum())
+                n_dialogues += _rows(host_batch)
                 if bidx % log_every == 0:  # reads the metrics back: keep it sparse
                     self.log(f"e{eidx} b{bidx} " + _fmt({k: v.item() for k, v in mets.items()}))
             means = {k: v.item() / max(n_steps, 1) for k, v in sums.items()}  # waits for the device
@@ -278,6 +282,9 @@ class Trainer:
     def on_eval_begin(self) -> None:
         pass
 
+    def on_eval_end(self, res: Dict[str, Any]) -> None:
+        pass
+
     def on_test_begin(self) -> None:
         pass
 
@@ -322,6 +329,7 @@ class Trainer:
             self.save_model("best_val")
         if self.plateau_source == "val":
             self._plateau_step(val_loss if self._nll_n else None)
+        self.on_eval_end(res)
         return res
 
     def test(self) -> Dict[str, Any]:
@@ -362,7 +370,8 @@ class Trainer:
         """What a checkpoint holds: the state dicts of the model, the
         optimizer and the plateau controller (where there is one), the
         dropout generator's state, the step, the epoch and the best test and
-        val F1."""
+        val F1.  A subclass with state of its own adds it here and restores it
+        in ``load_state_tree``."""
         tree = {"model": self.model.state_dict(), "optimizer": self.optimizer.state_dict(),
                 "rng": self._dropout_rng.get_state(), "step": self.global_steps, "eidx": self.eidx,
                 "best_f1": self.best_f1, "best_val_f1": self.best_val_f1}
@@ -394,16 +403,29 @@ class Trainer:
             except (OSError, RuntimeError) as e:
                 self.log(f"unreadable checkpoint {path}: {e!r}")
                 continue
-            self.model.load_state_dict(tree["model"])
-            self.optimizer.load_state_dict(tree["optimizer"])
-            if self.lr_sche is not None:
-                self.lr_sche.load_state_dict(tree["lr_sche"])
-            self._dropout_rng.set_state(tree["rng"])
-            self.global_steps, self.eidx, self.best_f1 = tree["step"], tree["eidx"] + 1, tree["best_f1"]
-            self.best_val_f1 = tree.get("best_val_f1", float("-inf"))  # older checkpoints lack it
+            self.load_state_tree(tree)
+            self.eidx += 1
             self.log(f"resumed from {path} (eidx={self.eidx}, global_steps={self.global_steps})")
             return path
         return None
+
+    def load_state_tree(self, tree: Dict[str, Any]) -> None:
+        """Restore what ``state_tree`` saved (the epoch is the saved one's)."""
+        self.model.load_state_dict(tree["model"])
+        self.optimizer.load_state_dict(tree["optimizer"])
+        if self.lr_sche is not None:
+            self.lr_sche.load_state_dict(tree["lr_sche"])
+        self._dropout_rng.set_state(tree["rng"])
+        self.global_steps, self.eidx, self.best_f1 = tree["step"], tree["eidx"], tree["best_f1"]
+        self.best_val_f1 = tree.get("best_val_f1", float("-inf"))  # older checkpoints lack it
+
+
+def _rows(host_batch: Dict[str, np.ndarray]) -> int:
+    """Rows of a host batch that are not padding: dialogues of length > 0, or
+    utterances with ``sample_mask`` > 0 where the batch has no ``text_length``."""
+    if host_batch.get("text_length") is not None:
+        return int((host_batch["text_length"] > 0).sum())
+    return int((host_batch["sample_mask"] > 0).sum())
 
 
 def _to_host(out):

@@ -22,6 +22,8 @@ DialogueGCN v2's card vs CPU logits 1e-4 for every base encoder, and its
 gradients (the GRU base, the DialogueRNN base, the token track's TextCNN)
 1e-4 relative, with cuDNN's TF32 flag on.  CIM's card vs CPU logits of both
 heads 1e-4, and its gradients of Lce + Lmulti 1e-4 relative, TF32 flag on.
+MMIN's card vs CPU raw and EMA logits 1e-4 and its gradients 1e-4 relative
+for each of its three trainers, TF32 flag on.
 """
 
 import numpy as np
@@ -870,6 +872,55 @@ def test_cim_card_equals_cpu_with_cudnn_tf32_on(cuda, dataset):
         mets = card.compute_grads(to_device(host, card.device))
         assert not any(kb.launches.values()) and not any(kd.launches.values())
         assert ("Lmulti" in mets) == (dataset == "synthetic-mosei-2")
+        cpu.compute_grads(to_device(host, cpu.device))
+        worst = max(_grad_rel(card.model, cpu.model).items(), key=lambda kv: kv[1])
+        assert worst[1] <= 1e-4, worst
+        assert torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+
+
+@pytest.mark.parametrize("module,trainer", [("mmin_base", "MMINBaseTrainer"), ("mmin_miss", "MMINMissTrainer"),
+                                            ("mmin_miss2", "MMINMiss2Trainer")])
+def test_mmin_card_equals_cpu_with_cudnn_tf32_on(cuda, module, trainer):
+    """MMIN at full width (synthetic-mmin-4, batch 4) launches none of the
+    hand-written kernels, and with cuDNN's TF32 flag on the card's raw and EMA
+    eval logits equal the CPU's, and so do the gradients of each family's loss
+    at dropout 0 on a Missing-augmented batch (the LSTMs and the TextCNN's
+    convolutions run cuDNN in full float32 forward and backward)."""
+    import importlib
+
+    from erc_tpu_torch.data.loader import to_device
+    from erc_tpu_torch.ops.dropout import Dropout
+    from erc_tpu_torch.ops.kernels import dag_block as kd
+
+    mod = importlib.import_module(f"erc_tpu_torch.models.{module}")
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        trainers = []
+        for device in ("cuda", "cpu"):
+            p = mod.ParamsType()
+            p.finalize(["--dataset=synthetic-mmin-4", f"--device={device}", "--train.batch_size=4"])
+            t = getattr(mod, trainer)(p)
+            t.log = lambda msg: None
+            t.initialize()
+            for m in t.model.modules():
+                if isinstance(m, Dropout):
+                    m.p = 0.0
+            trainers.append(t)
+        card, cpu = trainers
+        host = next(iter(card.make_loader("train")))
+        assert ("audio_feature_reverse" in host) == (module != "mmin_base")
+        kb.reset_launches()
+        kd.reset_launches()
+        with torch.inference_mode():
+            got = card.to_logits(to_device(host, card.device))
+            want = cpu.to_logits(to_device(host, cpu.device))
+        for g, w in zip(got, want, strict=True):
+            np.testing.assert_allclose(g.float().cpu().numpy(), w.numpy(), rtol=0, atol=1e-4)
+        card.compute_grads(to_device(host, card.device))
+        assert not any(kb.launches.values()) and not any(kd.launches.values())
         cpu.compute_grads(to_device(host, cpu.device))
         worst = max(_grad_rel(card.model, cpu.model).items(), key=lambda kv: kv[1])
         assert worst[1] <= 1e-4, worst

@@ -206,8 +206,9 @@ def test_registry_daily_names_match_jax():
             None, "synthetic-daily-token-7", split)
     assert tregistry.regist_data["dailydialog-token-7"] is tdd.dailydialog_token
     assert tregistry.dataset_has_val("dailydialog-token-7") and tregistry.n_classes_of("dailydialog-token-7") == 7
-    with pytest.raises(NotImplementedError):  # MOSEI's generator is ported, MMIN's not yet
-        tregistry.pick_datas(None, "synthetic-mmin-4")
+    # MOSEI's generator is ported, and MMIN's: the same utterances as JAX's
+    got, want = (m.pick_datas(None, "synthetic-mmin-4", "test")[0] for m in (tregistry, jregistry))
+    assert got["name"] == want["name"] and (got["text_feature"] == want["text_feature"]).all()
 
 
 # ------------------------------------------------------------------ BiRNN, GRU form

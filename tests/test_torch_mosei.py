@@ -71,8 +71,9 @@ def test_registry_synthetic_mosei_matches_jax():
         assert len(got) == {"train": 120, "val": 31, "test": 31}[split]
         _assert_samples_equal(got[:3], jregistry.pick_datas(None, "synthetic-mosei-2", split)[:3])
     assert tregistry.dataset_has_val("synthetic-mosei-2") and tregistry.dataset_has_val("mosei-cim-2")
-    with pytest.raises(NotImplementedError):
-        tregistry.pick_datas(None, "synthetic-mmin-4")
+    # synthetic-mmin-N resolves to MMIN's generator (not MOSEI's), as in JAX
+    got, want = (m.pick_datas(None, "synthetic-mmin-4", "val")[0] for m in (tregistry, jregistry))
+    assert got["name"] == want["name"] == "utt_val_0" and (got["audio_feature"] == want["audio_feature"]).all()
 
 
 # ------------------------------------------------------------------ readers
