@@ -114,6 +114,30 @@ Phases (any failure raises, so the exit code is non-zero):
      JSON line {"ok": true, "device": {...}}.
 Each model path is driven with every launch count set to 0 just before it
 and read just after.
+
+The engines and the val and test stages replay the eval forward captured as
+one CUDA graph per shape bucket (erc_tpu_torch/core/cuda_graphs.py): a
+serving path is driven after a first predict has captured its buckets, and
+a training path's launch counts include the eager warm-up that precedes
+each capture.  A replay launches in no Python wrapper: CapturedForward adds
+what its capture recorded to the counts on every replay, so each replayed
+main-path predict (COGMEN, DAG-ERC, DialogueGCN) and each replayed test
+stage of the kernel families is run under a device trace, whose K1/K2/K3
+records (by kernel, load width and tap instantiation) must equal the Python
+counts; the kernels line reports the traced serving counts.  Within phases 3-16, for every served family (COGMEN banded
+and dense, DAG-ERC through K3, DialogueGCN banded and dense, MMGCN dense
+and structured, DialogueGCN v2 with DialogueRNN and with the biLSTM, CIM):
+replayed logits ≡ the eager forward's (cuda_graphs=False) bit for bit over
+64 dialogues in 4 length buckets, one replay a batch; for the RNN families
+the masked RNN form (no host lengths) within 1e-5 of the packed form, with
+cuDNN's TF32 flag on; K1/K2/K3 launch counts of a predict equal replayed and
+eager; predict wall time, device busy share (kernels, copies and memsets as
+the union of their intervals, never more than the call's own time between
+CUDA events), p50 of single requests and the host clock split, eager and
+replayed.  For every trained family (DAG-ERC, COGMEN, DialogueGCN, MMGCN,
+DialogueGCN v2 and its token track, CIM, the three MMIN modules): the test
+stage replayed (one replay a batch, parameters at the addresses the graphs
+read) gives the eager stage's record.
 """
 
 from __future__ import annotations
@@ -121,6 +145,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -849,8 +874,10 @@ def _worst_logit_diffs(engine, others, dialogues):
     return worst
 
 
-def _latency_throughput(engine, dialogues, card, name):
-    lat = engine.benchmark_latency(n=100, L=48)
+def _latency_throughput(engine, dialogues, card, name, n=100):
+    """p50/p95/p99 of single-dialogue requests and dialogues/s of `dialogues`;
+    returns (the mean predict seconds of `dialogues`, p50 ms)."""
+    lat = engine.benchmark_latency(n=n, L=48)
     log(f"{name} latency (1 dialogue, L 32..48, batch padded to 32): p50 {lat['p50_ms']:.3f} ms, "
         f"p95 {lat['p95_ms']:.3f} ms, p99 {lat['p99_ms']:.3f} ms on {card}")
     engine.predict(dialogues)
@@ -861,7 +888,7 @@ def _latency_throughput(engine, dialogues, card, name):
     dt = time.perf_counter() - t0
     log(f"{name} throughput: {reps * len(dialogues) / dt:.1f} dialogues/s "
         f"({len(dialogues)} dialogues, batch 32, predict end to end) on {card}")
-    return dt / reps
+    return dt / reps, lat["p50_ms"]
 
 
 def _dialogues():
@@ -870,6 +897,224 @@ def _dialogues():
     dialogues = synthetic_erc("iemocap-cogmen", 6, n_train=64)
     lens = [len(d["text"]) for d in dialogues]
     return dialogues, f"{len(dialogues)} dialogues (lengths {min(lens)}..{max(lens)})"
+
+
+# ------------------------------------------------------------------ the captured eval step
+RNN_FORM_TOL = 1e-5  # logits, the masked RNN form (lengths on the device) vs the packed one (host lengths)
+EAGER_LATENCY_N = 40  # single-dialogue requests timed on an eager engine (a replayed one: 100)
+
+
+def _bucket_batches(engine):
+    """64 dialogues in 4 length buckets: 16 dialogues of each of lengths 6..30, 36..60, 66..90 and 86..110,
+    a batch each, padded to the engine's 32 rows and to L 32, 64, 96 and 112."""
+    from erc_tpu_torch.data.synthetic import synthetic_erc
+
+    return [engine.batcher(synthetic_erc("iemocap-cogmen", 6, n_train=16, min_len=hi - 24, max_len=hi, seed=20 + i))
+            for i, hi in enumerate((30, 60, 90, 110))]
+
+
+def _replay_vs_eager(name, engine, eager, rnn=False):
+    """The engine's replayed logits against the eager forward's (the same weights, `cuda_graphs=False`), bit
+    for bit, over 64 dialogues in 4 length buckets, one replay a batch; with `rnn`, also the masked RNN form
+    that both run against the packed form (the eager model given the host lengths), within RNN_FORM_TOL."""
+    import numpy as np
+    import torch
+    from erc_tpu_torch.data.loader import to_device
+
+    batches = _bucket_batches(engine)
+    replays, captures = engine.captured.replays, engine.captured.captures
+    worst, worst_form = 0.0, 0.0
+    for b in batches:
+        replayed = engine.logits(b)
+        worst = max(worst, float(np.abs(replayed - eager.logits(b)).max()))
+        if rnn:
+            with torch.inference_mode():
+                out = eager.model(to_device(b, eager.device))  # carries text_length_host: packed
+                packed = (out[0] if isinstance(out, tuple) else out).float().cpu().numpy()
+            worst_form = max(worst_form, float(np.abs(replayed - packed).max()))
+    replays, captures = engine.captured.replays - replays, engine.captured.captures - captures
+    Ls = [b["attention_mask"].shape[1] for b in batches]
+    form = f"; masked RNN form vs packed {worst_form:.3e} (tolerance {RNN_FORM_TOL})" if rnn else ""
+    log(f"{name} replayed vs eager: {len(batches) * 16} dialogues in {len(batches)} batches of L {Ls}: max abs diff "
+        f"{worst:.3e} (want 0); {replays} replays ({captures} new captures; {engine.captured.captures} graphs, "
+        f"inputs {sorted(engine.captured.keys)}){form}")
+    require(replays == len(batches), f"{name}: {replays} replays for {len(batches)} batches")
+    require(worst == 0.0, f"{name}: replayed logits differ from the eager forward's by {worst}")
+    if rnn:
+        require(worst_form <= RNN_FORM_TOL, f"{name}: the masked RNN form differs from the packed by {worst_form}")
+
+
+def _all_launches():
+    from erc_tpu_torch.ops.kernels import banded as kb, dag_block as kd
+
+    return {**_read_launches(), **kb.variant_launches, **kb.tap_launches, **kd.variant_launches}
+
+
+# a hand-written kernel's record in a device trace, by its demangled name ("(anonymous namespace)::
+# banded_gather_sum_kernel<4, 11, false>(...)"): template arguments VEC, KT and, in K1, TR (K1ᵀ); K3 by variant
+_BAND_KERNEL = re.compile(r"(banded_gather_sum|banded_dot)_kernel<(\d+), (\d+)(?:, (true|false))?>")
+_DAG_KERNEL = re.compile(r"dag_block_(cluster|stream)_kernel")
+
+
+def _trace_counts(names) -> dict:
+    """Launches keyed as the kernel wrappers count them (K1/K2/K1ᵀ by kernel, load width and tap
+    instantiation; K3 by variant), from the names of the kernels a device trace recorded."""
+    out: dict = {}
+    for n in names:
+        keys = ()
+        m = _BAND_KERNEL.search(n)
+        if m:
+            vec, kt, tr = m.group(2, 3, 4)
+            name = m.group(1) + ("_t" if tr == "true" else "")
+            keys = (name, f"{name}/{'vec4' if vec == '4' else 'scalar'}", f"{name}/kt{kt}")
+        elif m := _DAG_KERNEL.search(n):
+            keys = ("dag_block", f"dag_block/{m.group(1)}")
+        for k in keys:
+            out[k] = out.get(k, 0) + 1
+    return out
+
+
+def _traced(what: str, fn):
+    """fn() under a device trace: the K1/K2/K1ᵀ/K3 records it holds must equal what the Python counts moved
+    (a replay adds its capture's record to them).  Returns fn's result and the traced counts."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    before = _all_launches()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    counted = {k: n - before[k] for k, n in _all_launches().items()
+               if n != before[k] and not k.startswith("dag_block_bwd")}
+    traced = _trace_counts(e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+    log(f"{what}: kernels in the device trace {traced}")
+    require(traced == counted, f"{what}: the device trace holds {traced}, the launch counts moved {counted}")
+    return out, traced
+
+
+def _launches_replayed_vs_eager(name, engine, eager, dialogues):
+    """Every launch count of a predict of `dialogues` (its buckets captured before), replayed and eager: equal."""
+    engine.predict(dialogues)
+    counts = []
+    for eng in (engine, eager):
+        _reset_launches()
+        eng.predict(dialogues)
+        counts.append(_all_launches())
+    log(f"{name} launches of a predict, replayed {_nonzero(counts[0])}, eager {_nonzero(counts[1])}")
+    require(counts[0] == counts[1], f"{name}: the replayed predict counts other launches than the eager one")
+
+
+def _host_breakdown(name, engine, dialogues, reps=5):
+    """Host clock of a predict of `dialogues`, split into batching (ERCBatcher), the forward with its copies
+    (`logits`, which ends on a stream sync) and the rest (softmax and lists on the host); for a replayed engine
+    also the staging copies into its pinned buffers, timed alone after each batch.  Medians over `reps` rounds,
+    each a predict and then the split."""
+    import torch
+    from erc_tpu_torch.core.cuda_graphs import host_array
+
+    bs = engine.batch_size
+    rounds = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        engine.predict(dialogues)
+        total = time.perf_counter() - t0
+        t_batch = t_logits = t_stage = 0.0
+        for s in range(0, len(dialogues), bs):
+            t0 = time.perf_counter()
+            batch = engine.batcher(dialogues[s : s + bs])
+            t1 = time.perf_counter()
+            engine.logits(batch)
+            t_batch, t_logits = t_batch + t1 - t0, t_logits + time.perf_counter() - t1
+            if engine.captured is not None:
+                arrays = {k: host_array(v) for k, v in batch.items() if v is not None}
+                bucket = engine.captured._buckets[engine.captured._bucket_key(arrays)]
+                t0 = time.perf_counter()
+                with torch.inference_mode():  # where the buffers were made
+                    for k, staged in bucket.staging.items():
+                        staged.copy_(torch.from_numpy(arrays[k]))
+                t_stage += time.perf_counter() - t0
+        rounds.append((total, t_batch, t_logits, t_stage))
+    total, t_batch, t_logits, t_stage = (statistics.median(r[i] for r in rounds) * 1e3 for i in range(4))
+    staging = f" (of which staging copies {t_stage:.3f} ms)" if engine.captured is not None else ""
+    log(f"{name} host clock of a predict of {len(dialogues)} dialogues, medians of {reps}: {total:.3f} ms; batching "
+        f"{t_batch:.3f} ms, logits {t_logits:.3f} ms{staging}, the rest {total - t_batch - t_logits:.3f} ms")
+
+
+def _eager_and_replayed(name, engine, eager, dialogues, card, show=()):
+    """Wall time and device busy share of a predict of `dialogues`, and p50 of single-dialogue requests, of the
+    eager engine and the replayed one; the host clock of each, split."""
+    n_batches = -(-len(dialogues) // engine.batch_size)
+    wall_e, p50_e = _latency_throughput(eager, dialogues, card, f"{name} eager", n=EAGER_LATENCY_N)
+    wall_r, p50_r = _latency_throughput(engine, dialogues, card, f"{name} replayed")
+    _host_breakdown(f"{name} eager", eager, dialogues)
+    _host_breakdown(f"{name} replayed", engine, dialogues)
+    busy_e = profile_predict(eager, dialogues, wall_e, n_batches, show)
+    busy_r = profile_predict(engine, dialogues, wall_r, n_batches, show)
+
+    def share(busy, wall):
+        return "not measured" if busy is None else f"{100 * busy / (wall * 1e3):.1f}% busy"
+
+    log(f"{name} predict of {len(dialogues)} dialogues, eager / replayed: {wall_e * 1e3:.3f} / {wall_r * 1e3:.3f} ms "
+        f"({share(busy_e, wall_e)} / {share(busy_r, wall_r)}), p50 {p50_e:.3f} / {p50_r:.3f} ms on {card}")
+    return wall_r
+
+
+def _eval_warmups(loader) -> list:
+    """The first batch of each length bucket of `loader`: the capture of its graph runs the eval forward
+    eagerly once first, and those launches count."""
+    seen, first = set(), []
+    for b in loader:
+        L = b["attention_mask"].shape[1] if "attention_mask" in b else 0
+        if L not in seen:
+            seen.add(L)
+            first.append(b)
+    return first
+
+
+def _same_record(a, b) -> bool:
+    """Equal test-stage records: floats, lists, arrays and nested dicts, NaN equal to NaN."""
+    import numpy as np
+
+    if isinstance(a, dict):
+        return isinstance(b, dict) and a.keys() == b.keys() and all(_same_record(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple, np.ndarray)):
+        return np.array_equal(np.asarray(a), np.asarray(b), equal_nan=np.asarray(a).dtype.kind == "f")
+    if isinstance(a, float) and math.isnan(a):
+        return isinstance(b, float) and math.isnan(b)
+    return a == b
+
+
+def _test_replayed_vs_eager(name, run, traced=False):
+    """The test stage replayed (one replay a batch, the addresses its graphs read unchanged since they were
+    captured) and eager: the same record, loss, acc, F1 and the per-class arrays.  With `traced`, a third,
+    replayed run under a device trace whose kernel records equal the launch counts."""
+    n_test = len(list(run.make_loader("test")))
+    captured = run.captured
+    require(captured.captures > 0, f"{name}: no graph was captured in the test stages so far")
+    require(captured.addresses_unchanged(), f"{name}: a parameter moved since the graphs were captured")
+    replays = captured.replays
+    t0 = time.perf_counter()
+    replayed = run.test()
+    t_replayed = time.perf_counter() - t0
+    replays = captured.replays - replays
+    run.eval_graphs = False
+    try:
+        t0 = time.perf_counter()
+        eager = run.test()
+        t_eager = time.perf_counter() - t0
+    finally:
+        run.eval_graphs = True
+    log(f"{name} test stage: {n_test} batches, {replays} replays, {captured.captures} graphs; replayed "
+        f"{t_replayed * 1e3:.3f} ms, eager {t_eager * 1e3:.3f} ms; records equal: {_same_record(replayed, eager)} "
+        f"(loss {replayed['Lall']:.7f} / {eager['Lall']:.7f}, F1 {replayed.get('f1', math.nan):.7f} / "
+        f"{eager.get('f1', math.nan):.7f})")
+    require(replays == n_test, f"{name}: {replays} replays for {n_test} test batches")
+    require(_same_record(replayed, eager), f"{name}: the replayed test record differs from the eager one: "
+            f"{replayed} vs {eager}")
+    if traced:
+        again, kernels = _traced(f"{name} test stage replayed", run.test)
+        require(_same_record(again, replayed) and any(kernels.values()),
+                f"{name}: the traced test stage differs from the first or launched no kernel: {kernels}")
 
 
 def drive_cogmen(card: str):
@@ -887,11 +1132,14 @@ def drive_cogmen(card: str):
 
     from erc_tpu_torch.ops.kernels import banded as kb
 
+    engine.predict(dialogues)  # the first batch of each length bucket is captured
     _reset_launches()
-    results = engine.predict(dialogues)
-    launches = _read_launches()
-    variants = dict(kb.variant_launches)
-    log(f"COGMEN path: {desc} in {n_batches} batches; launches {launches}; by variant {variants}")
+    results, traced = _traced("COGMEN predict, replayed", lambda: engine.predict(dialogues))
+    # the counts of the kernels line: the device trace's, which equal the Python counts
+    launches = {k: traced.get(k, 0) for k in _read_launches()}
+    variants = {k: traced.get(k, 0) for k in kb.variant_launches}
+    log(f"COGMEN path: {desc} in {n_batches} batches, replayed ({engine.captured.captures} graphs); launches "
+        f"{launches}; by variant {variants}")
     require(launches["banded_gather_sum"] == 5 * n_batches,
             f"banded_gather_sum launched {launches['banded_gather_sum']} times, want {5 * n_batches}")
     require(launches["banded_dot"] == n_batches,
@@ -911,6 +1159,15 @@ def drive_cogmen(card: str):
         f"card vs CPU {worst_cpu:.3e} (tolerance {PATH_TOL})")
     require(worst_dense <= PATH_TOL, f"banded vs dense {worst_dense} > {PATH_TOL}")
     require(worst_cpu <= PATH_TOL, f"card vs CPU {worst_cpu} > {PATH_TOL}")
+
+    # the captured forward ≡ the eager one, banded and dense, and the same launches
+    eager = InferenceEngine.from_module("cogmen", graph_impl="banded", cuda_graphs=False, **kw)
+    eager.model.load_state_dict(engine.model.state_dict())
+    dense_eager = InferenceEngine.from_module("cogmen", graph_impl="dense", cuda_graphs=False, **kw)
+    dense_eager.model.load_state_dict(engine.model.state_dict())
+    _replay_vs_eager("COGMEN banded", engine, eager)
+    _replay_vs_eager("COGMEN dense", dense, dense_eager)
+    _launches_replayed_vs_eager("COGMEN banded", engine, eager, dialogues)
 
     # one dialogue: the batch carries 31 all-padding dialogues
     one = engine.predict([dialogues[0]])[0]
@@ -936,8 +1193,7 @@ def drive_cogmen(card: str):
         thread.join(timeout=10)
     log("http: 2 requests answered")
 
-    wall = _latency_throughput(engine, dialogues, card, "COGMEN")
-    profile_predict(engine, dialogues, wall, n_batches, show=("banded_",))
+    _eager_and_replayed("COGMEN", engine, eager, dialogues, card, show=("banded_",))
     return launches, variants
 
 
@@ -964,12 +1220,13 @@ def drive_dagerc(card: str):
 
     from erc_tpu_torch.ops.kernels import dag_block as kd
 
+    engine.predict(dialogues)  # the first batch of each length bucket is captured
     _reset_launches()
-    results = engine.predict(dialogues)
-    launches = _read_launches()
-    variants = dict(kd.variant_launches)
-    log(f"DAG-ERC path: {desc} in {len(chunks)} batches, {blocks} blocks of {p.dag_chunk}; "
-        f"launches {launches}; by variant {variants}")
+    results, traced = _traced("DAG-ERC predict, replayed", lambda: engine.predict(dialogues))
+    launches = {k: traced.get(k, 0) for k in _read_launches()}
+    variants = {k: traced.get(k, 0) for k in kd.variant_launches}
+    log(f"DAG-ERC path: {desc} in {len(chunks)} batches, {blocks} blocks of {p.dag_chunk}, replayed "
+        f"({engine.captured.captures} graphs); launches {launches}; by variant {variants}")
     require(launches["dag_block"] == want, f"dag_block launched {launches['dag_block']} times, want {want}")
     require(variants == {"dag_block/cluster": want, "dag_block/stream": 0, "dag_block_bwd/cluster": 0,
                          "dag_block_bwd/stream": 0, "dag_block_bwd/global": 0},
@@ -987,45 +1244,81 @@ def drive_dagerc(card: str):
     require(worst_eager <= PATH_TOL, f"kernel vs eager {worst_eager} > {PATH_TOL}")
     require(worst_cpu <= PATH_TOL, f"card vs CPU {worst_cpu} > {PATH_TOL}")
 
+    # the captured forward (K3 in it) ≡ the eager forward through K3, and the same launches
+    plain = InferenceEngine.from_module("dagerc", cuda_graphs=False, **kw)
+    plain.model.load_state_dict(engine.model.state_dict())
+    _replay_vs_eager("DAG-ERC", engine, plain)
+    _launches_replayed_vs_eager("DAG-ERC", engine, plain, dialogues)
+
     # one dialogue: the batch carries 31 all-padding dialogues
     one = engine.predict([dialogues[0]])
     _check_results(dialogues[:1], one)
-    t_eager = _latency_throughput(eager, dialogues, card, "DAG-ERC eager form")
-    wall = _latency_throughput(engine, dialogues, card, "DAG-ERC")
-    log(f"DAG-ERC predict of {len(dialogues)} dialogues: {wall * 1e3:.3f} ms through K3, "
+    t_eager, _ = _latency_throughput(eager, dialogues, card, "DAG-ERC eager form (replayed)")
+    wall = _eager_and_replayed("DAG-ERC", engine, plain, dialogues, card, show=("dag_block",))
+    log(f"DAG-ERC predict of {len(dialogues)} dialogues, replayed: {wall * 1e3:.3f} ms through K3, "
         f"{t_eager * 1e3:.3f} ms in the eager form")
-    profile_predict(engine, dialogues, wall, len(chunks))
     return launches, variants
 
 
 def profile_predict(engine, dialogues, wall_s: float, n_batches: int, show=()):
-    """Device time by kernel over one predict of `dialogues`."""
-    _profile(lambda: engine.predict(dialogues),
-             f"predict of {len(dialogues)} dialogues ({n_batches} batches)", wall_s, show)
+    """Device time by kernel over one predict of `dialogues`; returns the busy ms."""
+    return _profile(lambda: engine.predict(dialogues),
+                    f"predict of {len(dialogues)} dialogues ({n_batches} batches)", wall_s, show)
+
+
+# the profiler's device activities that occupy the card; a range such as Optimizer.step#Adam.step is a
+# gpu_user_annotation over kernels already counted
+DEVICE_WORK = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
 def _profile(fn, what: str, wall_s: float, show=()):
-    """Device time by kernel over one call of `fn` (torch.profiler), against
-    the unprofiled wall time of the same call: the 12 largest, and any other
-    kernel whose name holds a string in `show`."""
+    """Device time over one call of `fn` (torch.profiler), against the
+    unprofiled wall time of the same call: busy is the union of the intervals
+    of its kernels, copies and memsets (device work only, no ranges), which
+    must not exceed the profiled call's own wall time between CUDA events.
+    Logs the 12 largest by name, and any other whose name holds a string in
+    `show`; returns the busy ms, or None where the profiler saw no device work."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start.record()
         fn()
+        end.record()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    if busy_ms <= 0:
-        log("profile: the profiler recorded no device time (not measured)")
-        return
-    n_kernels = sum(e.count for e in kernels)
-    log(f"profile: {what}: {n_kernels} kernel launches, device busy {busy_ms:.3f} ms of "
-        f"{wall_s * 1e3:.3f} ms unprofiled wall ({100 * busy_ms / (wall_s * 1e3):.1f}% busy)")
-    ranked = sorted(kernels, key=lambda e: -e.self_device_time_total)
-    for i, e in enumerate(ranked):
-        if i < 12 or any(t in e.key for t in show):
-            log(f"  {e.self_device_time_total / 1e3:9.4f} ms  x{e.count:<5d} {e.key[:100]}")
+    event_ms = start.elapsed_time(end)
+    cuda = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    work = [e for e in cuda if getattr(e, "activity_type", "kernel") in DEVICE_WORK and not e.is_user_annotation]
+    if not work:
+        log("profile: the profiler recorded no device work (not measured)")
+        return None
+    spans = sorted((e.time_range.start, e.time_range.end) for e in work)
+    busy_us, cur_s, cur_e = 0.0, *spans[0]
+    for a, b in spans[1:]:
+        if a > cur_e:
+            busy_us += cur_e - cur_s
+            cur_s, cur_e = a, b
+        else:
+            cur_e = max(cur_e, b)
+    busy_ms = (busy_us + cur_e - cur_s) / 1e3
+    summed_ms = sum(e.time_range.elapsed_us() for e in work) / 1e3
+    ranges_ms = sum(e.time_range.elapsed_us() for e in cuda) / 1e3 - summed_ms
+    by_name: dict = {}
+    for e in work:
+        t, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (t + e.time_range.elapsed_us(), n + 1)
+    n_kernels = sum(1 for e in work if not e.name.startswith(("Memcpy", "Memset")))
+    log(f"profile: {what}: {len(work)} device operations ({n_kernels} kernels), device busy {busy_ms:.3f} ms "
+        f"(their sum {summed_ms:.3f} ms; ranges left out {ranges_ms:.3f} ms) of {wall_s * 1e3:.3f} ms unprofiled wall ({100 * busy_ms / (wall_s * 1e3):.1f}% busy); "
+        f"the profiled call {event_ms:.3f} ms between CUDA events")
+    require(busy_ms <= event_ms * 1.001 + 0.005,
+            f"{what}: device busy {busy_ms:.3f} ms exceeds the call's {event_ms:.3f} ms between CUDA events")
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    for i, (name, (t, n)) in enumerate(ranked):
+        if i < 12 or any(x in name for x in show):
+            log(f"  {t / 1e3:9.4f} ms  x{n:<5d} {name[:100]}")
+    return busy_ms
 
 
 # ------------------------------------------------------------------ phase 5
@@ -1177,6 +1470,8 @@ def drive_training(card: str):
     run = _trainer()
     train_blocks = sum(_blocks(b, chunk) for b in host)
     test_blocks = sum(_blocks(b, chunk) for b in run.make_loader("test"))
+    # the test stage's captures run its forward eagerly first, once a length bucket
+    warmup_blocks = sum(_blocks(b, chunk) for b in _eval_warmups(run.make_loader("test")))
     _reset_launches()
     t0 = time.perf_counter()
     history = run.train()
@@ -1187,11 +1482,12 @@ def drive_training(card: str):
                          "dag_block_bwd/cluster": launches["dag_block_bwd"], "dag_block_bwd/stream": 0,
                          "dag_block_bwd/global": 0},
             f"dag_block/dag_block_bwd: not every launch on the training path took the cluster variant: {variants}")
-    want = {"dag_block": 2 * layers * train_blocks + layers * test_blocks, "dag_block_bwd": layers * train_blocks}
+    want = {"dag_block": 2 * layers * train_blocks + layers * (test_blocks + warmup_blocks),
+            "dag_block_bwd": layers * train_blocks}
     rec = history[0]
     log(f"DAG-ERC training path: {rec['steps']} steps over {rec['dialogues']} dialogues "
-        f"({train_blocks} blocks), then test() ({test_blocks} blocks) in {wall:.3f} s; launches {launches}; "
-        f"K3 and K4 by variant {variants}")
+        f"({train_blocks} blocks), then test() ({test_blocks} blocks replayed, {warmup_blocks} run before their "
+        f"capture) in {wall:.3f} s; launches {launches}; K3 and K4 by variant {variants}")
     for name, n in want.items():
         require(launches[name] == n, f"{name} launched {launches[name]} times on the training path, want {n}")
     res = rec["test"]
@@ -1210,6 +1506,7 @@ def drive_training(card: str):
     step_s = time.perf_counter() - t0
     _profile(lambda: run.train_step(batch), f"one train step of the longest batch (batch 16, L "
              f"{longest['input_tensor'].shape[1]}, {_blocks(longest, chunk)} blocks)", step_s)
+    _test_replayed_vs_eager("DAG-ERC", run, traced=True)
     return launches, variants
 
 
@@ -1312,15 +1609,18 @@ def drive_cogmen_training(card: str):
     # the main path: one epoch (120 dialogues) and test() through COGMENTrainer.train, banded
     run, other = _cogmen_trainer(), _cogmen_trainer("dense")
     n_test = len(list(run.make_loader("test")))
+    # the test stage's captures run its forward eagerly first, once a length bucket
+    n_eval = n_test + len(_eval_warmups(run.make_loader("test")))
     _reset_launches()
     t0 = time.perf_counter()
     history = run.train()
     wall = time.perf_counter() - t0
     launches, variants = _read_launches(), dict(kb.variant_launches)
     rec = history[0]
-    want = {k: rec["steps"] * n + n_test * EVAL_LAUNCHES[k] for k, n in TRAIN_STEP_LAUNCHES.items()}
+    want = {k: rec["steps"] * n + n_eval * EVAL_LAUNCHES[k] for k, n in TRAIN_STEP_LAUNCHES.items()}
     log(f"COGMEN training path: {rec['steps']} steps over {rec['dialogues']} dialogues, then test() ({n_test} "
-        f"batches) in {wall:.3f} s; launches {launches}; by variant {variants}")
+        f"batches replayed, {n_eval - n_test} run before their capture) in {wall:.3f} s; launches {launches}; by "
+        f"variant {variants}")
     require({k: launches[k] for k in want} == want, f"COGMEN training path launches {launches}, want {want}")
     require(all(variants[f"{k}/scalar"] == 0 for k in want), f"a scalar launch on the COGMEN training path: {variants}")
     res = rec["test"]
@@ -1351,6 +1651,7 @@ def drive_cogmen_training(card: str):
     step_s = time.perf_counter() - t0
     _profile(lambda: run.train_step(batch), f"one COGMEN train step (batch 32, L "
              f"{host[2]['input_tensor'].shape[1]}, banded)", step_s, show=("banded_",))
+    _test_replayed_vs_eager("COGMEN", run, traced=True)
 
     # train, save, serve: main() with two steps; the saved model serves the trainer's eval logits
     from erc_tpu_torch.models import cogmen
@@ -1369,7 +1670,8 @@ def drive_cogmen_training(card: str):
         test_batch = next(iter(trainer.make_loader("test")))
         trainer.model.eval()
         with torch.inference_mode():
-            want_logits = trainer.model(to_device(test_batch, trainer.device)).float().cpu().numpy()
+            eval_batch = to_device(test_batch, trainer.device, host_lengths=False)  # as the test stage has it
+            want_logits = trainer.model(eval_batch).float().cpu().numpy()
         got = engine.logits(test_batch)
         diff = float(np.abs(got - want_logits).max())
         log(f"train -> save -> serve: {trainer.global_steps} steps, saved {path.name}; InferenceEngine logits vs "
@@ -1520,11 +1822,14 @@ def drive_dgcn(card: str):
     dialogues, desc = _dialogues()
     n_batches = -(-len(dialogues) // engine.batch_size)
 
+    engine.predict(dialogues)  # the first batch of each length bucket is captured
     _reset_launches()
-    results = engine.predict(dialogues)
-    launches, variants, taps = _read_launches(), dict(kb.variant_launches), dict(kb.tap_launches)
-    log(f"DialogueGCN path: {desc} in {n_batches} batches; launches {launches}; by width {_nonzero(variants)}; "
-        f"by instantiation {_nonzero(taps)}")
+    results, traced = _traced("DialogueGCN predict, replayed", lambda: engine.predict(dialogues))
+    launches = {k: traced.get(k, 0) for k in _read_launches()}
+    variants = {k: traced.get(k, 0) for k in kb.variant_launches}
+    taps = {k: traced.get(k, 0) for k in kb.tap_launches}
+    log(f"DialogueGCN path: {desc} in {n_batches} batches, replayed ({engine.captured.captures} graphs); launches "
+        f"{launches}; by width {_nonzero(variants)}; by instantiation {_nonzero(taps)}")
     want = _scaled(DGCN_FORWARD_TAPS, n_batches)
     require(_nonzero(taps) == want, f"DialogueGCN serving launches by instantiation {_nonzero(taps)}, want {want}")
     require({k: launches[k] for k in DGCN_EVAL_LAUNCHES} == _scaled(DGCN_EVAL_LAUNCHES, n_batches),
@@ -1538,11 +1843,13 @@ def drive_dgcn(card: str):
     dense.model.load_state_dict(engine.model.state_dict())
     cpu = InferenceEngine.from_module("dgcn", graph_impl="banded", device="cpu", **kw)
     cpu.model.load_state_dict(engine.model.state_dict())
+    eager = InferenceEngine.from_module("dgcn", graph_impl="banded", cuda_graphs=False, **kw)
+    eager.model.load_state_dict(engine.model.state_dict())
     worst_dense, worst_cpu = _worst_logit_diffs(engine, [dense, cpu], dialogues)
     guard = rnn_ops.cudnn_rnn_full_fp32
     rnn_ops.cudnn_rnn_full_fp32 = contextlib.nullcontext
     try:
-        (unguarded,) = _worst_logit_diffs(engine, [cpu], dialogues)
+        (unguarded,) = _worst_logit_diffs(eager, [cpu], dialogues)
     finally:
         rnn_ops.cudnn_rnn_full_fp32 = guard
     log(f"DialogueGCN logits: banded vs dense on the card max abs diff {worst_dense:.3e}; card vs CPU "
@@ -1551,12 +1858,18 @@ def drive_dgcn(card: str):
     require(worst_dense <= PATH_TOL, f"DialogueGCN banded vs dense {worst_dense} > {PATH_TOL}")
     require(worst_cpu <= PATH_TOL, f"DialogueGCN card vs CPU {worst_cpu} > {PATH_TOL}")
 
+    # the captured forward ≡ the eager one, banded and dense, with the masked LSTM ≡ the packed one
+    dense_eager = InferenceEngine.from_module("dgcn", graph_impl="dense", cuda_graphs=False, **kw)
+    dense_eager.model.load_state_dict(engine.model.state_dict())
+    _replay_vs_eager("DialogueGCN banded", engine, eager, rnn=True)
+    _replay_vs_eager("DialogueGCN dense", dense, dense_eager, rnn=True)
+    _launches_replayed_vs_eager("DialogueGCN banded", engine, eager, dialogues)
+
     # one dialogue: the batch carries 31 all-padding dialogues (LSTM rows of length 0)
     one = engine.predict([dialogues[0]])
     _check_results(dialogues[:1], one)
-    for name, eng in (("DialogueGCN dense", dense), ("DialogueGCN banded", engine)):
-        wall = _latency_throughput(eng, dialogues, card, name)
-        profile_predict(eng, dialogues, wall, n_batches, show=("banded_", "RNN", "rnn"))
+    for name, eng, eag in (("DialogueGCN dense", dense, dense_eager), ("DialogueGCN banded", engine, eager)):
+        _eager_and_replayed(name, eng, eag, dialogues, card, show=("banded_", "RNN", "rnn"))
     return launches, variants, taps
 
 
@@ -1643,16 +1956,19 @@ def drive_dgcn_training(card: str):
     # the main path: one epoch (120 dialogues) and test() through DGCNTrainer.train, banded
     run, other = _dgcn_trainer(), _dgcn_trainer("dense")
     n_test = len(list(run.make_loader("test")))
+    # the test stage's captures run its forward eagerly first, once a length bucket
+    n_eval = n_test + len(_eval_warmups(run.make_loader("test")))
     _reset_launches()
     t0 = time.perf_counter()
     history = run.train()
     wall = time.perf_counter() - t0
     launches, variants, taps = _read_launches(), dict(kb.variant_launches), dict(kb.tap_launches)
     rec = history[0]
-    want = {k: rec["steps"] * DGCN_STEP_TAPS.get(k, 0) + n_test * DGCN_FORWARD_TAPS.get(k, 0)
+    want = {k: rec["steps"] * DGCN_STEP_TAPS.get(k, 0) + n_eval * DGCN_FORWARD_TAPS.get(k, 0)
             for k in set(DGCN_STEP_TAPS) | set(DGCN_FORWARD_TAPS)}
     log(f"DialogueGCN training path: {rec['steps']} steps over {rec['dialogues']} dialogues, then test() "
-        f"({n_test} batches) in {wall:.3f} s; launches {launches}; by instantiation {_nonzero(taps)}")
+        f"({n_test} batches replayed, {n_eval - n_test} run before their capture) in {wall:.3f} s; launches "
+        f"{launches}; by instantiation {_nonzero(taps)}")
     require(_nonzero(taps) == want, f"DialogueGCN training path by instantiation {_nonzero(taps)}, want {want}")
     require({k: launches[k] for k in DGCN_STEP_LAUNCHES} == _by_kernel(want), f"DialogueGCN training launches {launches}")
     require(all(variants[f"{k}/scalar"] == 0 for k in DGCN_STEP_LAUNCHES), f"a 4-byte launch: {variants}")
@@ -1682,6 +1998,7 @@ def drive_dgcn_training(card: str):
     step_s = time.perf_counter() - t0
     _profile(lambda: run.train_step(batch), f"one DialogueGCN train step (batch 32, L "
              f"{host[2]['input_tensor'].shape[1]}, banded)", step_s, show=("banded_", "RNN", "rnn"))
+    _test_replayed_vs_eager("DialogueGCN", run, traced=True)
 
     from erc_tpu_torch.models import dgcn
     from erc_tpu_torch.serve import InferenceEngine
@@ -1698,7 +2015,8 @@ def drive_dgcn_training(card: str):
         test_batch = next(iter(trainer.make_loader("test")))
         trainer.model.eval()
         with torch.inference_mode():
-            want_logits = trainer.model(to_device(test_batch, trainer.device)).float().cpu().numpy()
+            eval_batch = to_device(test_batch, trainer.device, host_lengths=False)  # as the test stage has it
+            want_logits = trainer.model(eval_batch).float().cpu().numpy()
         got = engine.logits(test_batch)
         diff = float(np.abs(got - want_logits).max())
         log(f"DialogueGCN train -> save -> serve: {trainer.global_steps} steps, saved {path.name}; InferenceEngine "
@@ -1739,10 +2057,12 @@ def drive_mmgcn(card: str):
     dialogues, desc = _dialogues()
     n_batches = -(-len(dialogues) // engine.batch_size)
 
+    engine.predict(dialogues)  # the first batch of each length bucket is captured
     _reset_launches()
     results = engine.predict(dialogues)
     launches = _no_kernel_launches("MMGCN serving")
-    log(f"MMGCN path: {desc} in {n_batches} batches; launches {launches}")
+    log(f"MMGCN path: {desc} in {n_batches} batches, replayed ({engine.captured.captures} graphs); launches "
+        f"{launches}")
     _check_results(dialogues, results)
 
     # structured ≡ dense on the card, and ≡ the CPU run of the same weights
@@ -1757,12 +2077,20 @@ def drive_mmgcn(card: str):
     require(worst_struct <= PATH_TOL, f"MMGCN structured vs dense {worst_struct} > {PATH_TOL}")
     require(worst_cpu <= PATH_TOL, f"MMGCN card vs CPU {worst_cpu} > {PATH_TOL}")
 
+    # the captured forward ≡ the eager one in both forms, with the masked LSTM ≡ the packed one
+    eagers = {}
+    for adj in ("dense", "structured"):
+        eagers[adj] = InferenceEngine.from_module("mmgcn", adj_impl=adj, cuda_graphs=False, **kw)
+        eagers[adj].model.load_state_dict(engine.model.state_dict())
+    _replay_vs_eager("MMGCN dense", engine, eagers["dense"], rnn=True)
+    _replay_vs_eager("MMGCN structured", structured, eagers["structured"], rnn=True)
+
     # one dialogue: the batch carries 31 all-padding dialogues (LSTM rows of length 0)
     one = engine.predict([dialogues[0]])
     _check_results(dialogues[:1], one)
-    for name, eng in (("MMGCN dense", engine), ("MMGCN structured", structured)):
-        wall = _latency_throughput(eng, dialogues, card, name)
-        profile_predict(eng, dialogues, wall, n_batches, show=("RNN", "rnn"))
+    for name, eng, eag in (("MMGCN dense", engine, eagers["dense"]),
+                           ("MMGCN structured", structured, eagers["structured"])):
+        _eager_and_replayed(name, eng, eag, dialogues, card, show=("RNN", "rnn"))
     return launches
 
 
@@ -1891,6 +2219,7 @@ def drive_mmgcn_training(card: str):
         step_s = time.perf_counter() - t0
         _profile(lambda: t.train_step(batch), f"one MMGCN train step (batch {p.train.batch_size}, L "
                  f"{host[2]['input_tensor'].shape[1]}, {label}, gcn_remat full)", step_s, show=("RNN", "rnn"))
+    _test_replayed_vs_eager("MMGCN", run)
 
     from erc_tpu_torch.models import mmgcn
     from erc_tpu_torch.serve import InferenceEngine
@@ -1907,7 +2236,8 @@ def drive_mmgcn_training(card: str):
         test_batch = next(iter(trainer.make_loader("test")))
         trainer.model.eval()
         with torch.inference_mode():
-            want_logits = trainer.model(to_device(test_batch, trainer.device)).float().cpu().numpy()
+            eval_batch = to_device(test_batch, trainer.device, host_lengths=False)  # as the test stage has it
+            want_logits = trainer.model(eval_batch).float().cpu().numpy()
         got = engine.logits(test_batch)
         diff = float(np.abs(got - want_logits).max())
         log(f"MMGCN train -> save -> serve: {trainer.global_steps} steps, saved {path.name}; InferenceEngine "
@@ -1945,6 +2275,7 @@ def drive_dgcnv2(card: str):
         name = f"DialogueGCN v2 ({base})"
         if base in ("GRU", "None"):
             batch = engine.batcher(dialogues[:32])
+            engine.logits(batch)  # captured
             _reset_launches()
             diff = float(np.abs(engine.logits(batch) - cpu.logits(batch)).max())
             _no_kernel_launches(f"{name} serving")
@@ -1955,10 +2286,12 @@ def drive_dgcnv2(card: str):
         log(f"engine: {name} {p.hidden_all} -> base {base} of {p.hidden_size} a direction (D_g {p.get('d_g', 150)}), "
             f"wp {p.wp} wf {p.wf}, RGCN (30 bases, add) + GraphConv, nodal attention, {n_params} params, batch 32, "
             f"cudnn.allow_tf32 {torch.backends.cudnn.allow_tf32}, on {torch.cuda.get_device_name(0)}")
+        engine.predict(dialogues)  # the first batch of each length bucket is captured
         _reset_launches()
         results = engine.predict(dialogues)
         launches = _no_kernel_launches(f"{name} serving")
-        log(f"{name} path: {desc} in {n_batches} batches; launches {launches}")
+        log(f"{name} path: {desc} in {n_batches} batches, replayed ({engine.captured.captures} graphs); launches "
+            f"{launches}")
         _check_results(dialogues, results)
         t0 = time.perf_counter()
         (worst_cpu,) = _worst_logit_diffs(engine, [cpu], dialogues)
@@ -1967,8 +2300,11 @@ def drive_dgcnv2(card: str):
         require(worst_cpu <= PATH_TOL, f"{name} card vs CPU {worst_cpu} > {PATH_TOL}")
         # one dialogue: the batch carries 31 all-padding dialogues
         _check_results(dialogues[:1], engine.predict([dialogues[0]]))
-        wall = _latency_throughput(engine, dialogues, card, name)
-        profile_predict(engine, dialogues, wall, n_batches, show=("RNN", "rnn"))
+        # the captured forward ≡ the eager one; the biLSTM's masked form ≡ its packed one
+        eager = InferenceEngine.from_module("dgcnv2", base_model=base, cuda_graphs=False, **kw)
+        eager.model.load_state_dict(engine.model.state_dict())
+        _replay_vs_eager(name, engine, eager, rnn=base == "LSTM")
+        _eager_and_replayed(name, engine, eager, dialogues, card, show=("RNN", "rnn"))
 
 
 DGCNV2_TRAIN_ARGS = ["--dataset=synthetic-cogmen-6", "--base_model=DialogRNN", "--max_seq_len=96",
@@ -2056,6 +2392,7 @@ def _epoch_and_step(name, run, host, batch_desc, check_first=None, unit="dialogu
     torch.cuda.synchronize()
     step_s = time.perf_counter() - t0
     _profile(lambda: run.train_step(batch), f"one {name} train step ({batch_desc})", step_s, show=show)
+    _test_replayed_vs_eager(name, run)
 
 
 def drive_dgcnv2_training(card: str):
@@ -2100,7 +2437,8 @@ def drive_dgcnv2_training(card: str):
         test_batch = next(iter(trainer.make_loader("test")))
         trainer.model.eval()
         with torch.inference_mode():
-            want_logits = trainer.model(to_device(test_batch, trainer.device)).float().cpu().numpy()
+            eval_batch = to_device(test_batch, trainer.device, host_lengths=False)  # as the test stage has it
+            want_logits = trainer.model(eval_batch).float().cpu().numpy()
         diff = float(np.abs(engine.logits(test_batch) - want_logits).max())
         log(f"DialogueGCN v2 train -> save -> serve: {trainer.global_steps} steps, saved {path.name}; "
             f"InferenceEngine logits vs the trainer's eval logits max abs diff {diff:.3e}")
@@ -2171,10 +2509,12 @@ def drive_cim(card: str):
     dialogues, desc = _dialogues()
     n_batches = -(-len(dialogues) // engine.batch_size)
 
+    engine.predict(dialogues)  # the first batch of each length bucket is captured
     _reset_launches()
     results = engine.predict(dialogues)
     launches = _no_kernel_launches("CIM serving")
-    log(f"CIM path: {desc} in {n_batches} batches; launches {launches}")
+    log(f"CIM path: {desc} in {n_batches} batches, replayed ({engine.captured.captures} graphs); launches "
+        f"{launches}")
     _check_results(dialogues, results)
 
     cpu = InferenceEngine.from_module("cim", device="cpu", **kw)
@@ -2191,8 +2531,11 @@ def drive_cim(card: str):
     require(worst_cpu <= PATH_TOL and worst7 <= PATH_TOL, f"CIM card vs CPU {worst_cpu}, {worst7} > {PATH_TOL}")
     # one dialogue: the batch carries 31 all-padding dialogues (uniform attention, finite logits)
     _check_results(dialogues[:1], engine.predict([dialogues[0]]))
-    wall = _latency_throughput(engine, dialogues, card, "CIM")
-    profile_predict(engine, dialogues, wall, n_batches, show=("RNN", "rnn", "gemm"))
+    # the captured forward ≡ the eager one; the biGRUs' masked form ≡ their packed one
+    eager = InferenceEngine.from_module("cim", cuda_graphs=False, **kw)
+    eager.model.load_state_dict(engine.model.state_dict())
+    _replay_vs_eager("CIM", engine, eager, rnn=True)
+    _eager_and_replayed("CIM", engine, eager, dialogues, card, show=("RNN", "rnn", "gemm"))
 
 
 CIM_TRAIN_ARGS = ["--dataset=synthetic-mosei-2", "--confusion_matrix=false"]
@@ -2260,7 +2603,7 @@ def drive_cim_training(card: str):
             test_batch = next(iter(run.make_loader("test")))
             run.model.eval()
             with torch.inference_mode():
-                want = run.model(to_device(test_batch, run.device))[0].float().cpu().numpy()
+                want = run.model(to_device(test_batch, run.device, host_lengths=False))[0].float().cpu().numpy()
             diff = float(np.abs(engine.logits(test_batch) - want).max())
             log(f"CIM epoch 0: val Lall {val['Lall']:.5f}, F1 {val['f1']:.5f}, acc {val['acc']:.5f}; test multilabel "
                 f"emo_acc {multi['emo_acc']:.5f}, emo_f1 {multi['emo_f1']:.5f}, emo_wa {multi['emo_wa']:.5f}; "

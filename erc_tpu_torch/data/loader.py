@@ -99,11 +99,14 @@ class DialogueLoader:
         self.epoch += 1
 
 
-def to_device(batch: Dict[str, np.ndarray], device: torch.device) -> Dict[str, torch.Tensor]:
+def to_device(batch: Dict[str, np.ndarray], device: torch.device,
+              host_lengths: bool = True) -> Dict[str, torch.Tensor]:
     """A packed batch as tensors on `device`; to a card from pinned memory,
-    without blocking the host.  Arrays that are None are left out.  The
-    lengths are also kept on the host as ``text_length_host`` (an RNN packs
-    by them), so that no forward copies them back from the device."""
+    without blocking the host.  Arrays that are None are left out.  With
+    ``host_lengths`` the lengths are also kept on the host as
+    ``text_length_host``, so that an RNN packs by them and no forward copies
+    them back from the device; without (the val and test stages), the RNNs
+    take their masked form."""
     out = {}
     for k, v in batch.items():
         if v is None:
@@ -112,6 +115,6 @@ def to_device(batch: Dict[str, np.ndarray], device: torch.device) -> Dict[str, t
         if device.type == "cuda":
             t = t.pin_memory().to(device, non_blocking=True)
         out[k] = t
-    if batch.get("text_length") is not None:
+    if host_lengths and batch.get("text_length") is not None:
         out["text_length_host"] = torch.from_numpy(batch["text_length"])
     return out

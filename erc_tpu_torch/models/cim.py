@@ -1,12 +1,12 @@
 """CIM: contextual inter-modal attention with two heads.
 
 Port of ``erc_tpu.models.cim``: a one-layer biGRU per modality (audio,
-visual, text; ``ops.rnn.BiRNN``, one packed cuDNN call each on the card, in
-full float32) → dropout → an adapter ``Linear(2H → 100)`` + ReLU → dropout →
-the six pairwise cross-modal attentions (``softmax(x·yᵀ + mask)·y ⊙ x``) →
-their concatenation with the three adapted modalities (9 × 100) → a
-sentiment head ``cls2`` and a 7-way multi-label emotion head ``cls7``.
-The forward returns ``(logits2, logits7)``.
+visual, text; ``ops.rnn.BiRNN``, one cuDNN call each on the card, in full
+float32, packed in the training steps and masked elsewhere) → dropout → an
+adapter ``Linear(2H → 100)`` + ReLU → dropout → the six pairwise cross-modal
+attentions (``softmax(x·yᵀ + mask)·y ⊙ x``) → their concatenation with the
+three adapted modalities (9 × 100) → a sentiment head ``cls2`` and a 7-way
+multi-label emotion head ``cls7``.  The forward returns ``(logits2, logits7)``.
 
 - The attention's mask is additive, ``(1 − mask) · −10000`` over the keys,
   as the reference writes it: a dialogue of padding only gets a uniform
@@ -111,8 +111,8 @@ class CIMModule(nn.Module):
 
     def forward(self, batch):
         mask = batch["attention_mask"]
-        # the RNNs pack by the host batch's lengths where the batch carries them
-        lengths = batch.get("text_length_host", batch["text_length"])
+        # packed by the host batch's lengths where the batch carries them, else masked
+        lengths = batch.get("text_length_host")
         dense = {}
         for m, key in MODALITIES:
             h = self.drop0(getattr(self, f"rnn_{m}")(batch[key], mask, lengths))

@@ -9,7 +9,9 @@ Port of ``erc_tpu.models.dgcn``.
   [B, L, L] masked layers, the oracle; ``'auto'`` picks banded only for
   L > 256, as the JAX module does.  All three share one set of weights.
 - The context encoder is a 2-layer bidirectional LSTM (``ops.rnn.BiRNN``)
-  with packed-sequence semantics, run by cuDNN in full float32 on the card.
+  with packed-sequence semantics, run by cuDNN in full float32 on the card:
+  packed in the training steps, masked where the batch carries no host
+  lengths (serving, the val and test stages).
 
 ``DGCNTrainer`` trains it as the JAX ``DGCNTrainer`` does: Adam (lr 3e-4,
 no weight decay), no clip, no plateau controller, and the IEMOCAP-6 class
@@ -136,8 +138,8 @@ class DGCNModule(nn.Module):
         speakers = batch["speaker_ids"]
         lengths = batch["text_length"]
         L = x.shape[1]
-        # the LSTM packs by the host batch's lengths where the batch carries them
-        feats = self.rnn(x, mask, batch.get("text_length_host", lengths))
+        # packed by the host batch's lengths where the batch carries them, else masked
+        feats = self.rnn(x, mask, batch.get("text_length_host"))
         impl = self.graph_impl
         if impl == "auto":
             impl = "banded" if L > 256 else "dense"

@@ -15,7 +15,8 @@ Port of ``erc_tpu.models.dgcnv2``.
   history of global states grows by one ``torch.cat`` a step (an in-place
   write would break the backward of the earlier steps' attention).
 - ``base_model='LSTM'`` / ``'GRU'``: ``ops.rnn.BiRNN`` (cuDNN in full float32
-  on the card), packed by the dialogue lengths, or over every padded step
+  on the card), packed by the dialogue lengths in the training steps and
+  masked elsewhere, or over every padded step
   with ``lstm_mode='unpacked'``.
 - The graph is dense ([B, L, L], ``ops.gnn.DenseRGCN`` and
   ``DenseGraphConv``), as in the JAX module: this family launches none of
@@ -55,7 +56,7 @@ from erc_tpu_torch.ops.attention import Linear, masked_softmax
 from erc_tpu_torch.ops.dropout import Dropout
 from erc_tpu_torch.ops.gnn import DenseGraphConv, DenseRGCN
 from erc_tpu_torch.ops.init import lecun_normal_, normal_, uniform_
-from erc_tpu_torch.ops.rnn import BiRNN, _backward_in_full_fp32, cudnn_full_fp32, gru_cell
+from erc_tpu_torch.ops.rnn import BiRNN, _backward_in_full_fp32, cudnn_full_fp32, gru_cell, reverse_padded
 from erc_tpu_torch.train import optim as optim_factory
 from erc_tpu_torch.train.trainer import Trainer
 
@@ -174,15 +175,6 @@ class DialogueRNNScan(nn.Module):
         return torch.stack(es, 1)
 
 
-def reverse_padded(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """Each row's valid prefix reversed, padding left at 0 (the reference's
-    dgcnv2.py:119-133).  x: [B, L, D]; mask: [B, L]."""
-    L = x.shape[1]
-    lengths = mask.sum(-1).to(torch.int64)
-    rev = (lengths[:, None] - 1 - torch.arange(L, device=x.device)[None]).clamp(0, L - 1)
-    return x.gather(1, rev[..., None].expand(-1, -1, x.shape[-1])) * mask[..., None]
-
-
 class MaskedEdgeAttentionDense(nn.Module):
     """'attn1' edge weights (dgcnv2_models.py:541-562) in dense form:
     α[b, u, v] = softmax over v in window(u) of W[u]·x_v."""
@@ -291,8 +283,8 @@ class DGCNV2Module(nn.Module):
             return torch.cat([f, reverse_padded(b, mask)], -1)
         if self.base_model in ("LSTM", "GRU"):
             if self.lstm_mode == "packed":
-                # the RNN packs by the host batch's lengths where the batch carries them
-                return self.rnn(x, mask, batch.get("text_length_host", batch["text_length"]))
+                # packed by the host batch's lengths where the batch carries them, else masked
+                return self.rnn(x, mask, batch.get("text_length_host"))
             return self.rnn(x)  # every padded step, unpacked
         return self.base_linear(x)
 

@@ -7,7 +7,8 @@ Port of ``erc_tpu.models.mmgcn``.
 - Encoders: ``linear_a``, ``linear_v``, ``linear_l`` to 200, then on text
   a 2-layer bidirectional LSTM of 100 a direction (``ops.rnn.BiRNN``,
   cuDNN in full float32 on the card).  ``lstm_mode='packed'`` packs by the
-  dialogue lengths; ``'unpacked'`` runs every padded step, as the reference's
+  dialogue lengths in the training steps and masks elsewhere (the same
+  numbers); ``'unpacked'`` runs every padded step, as the reference's
   ``lstm_l`` does (its backward direction consumes the padding).
 - ``adj_impl='dense'`` builds the [B, M·L, M·L] adjacency and runs
   ``GCNIIStack``; ``'structured'`` builds its block-sparse form (M dense
@@ -114,8 +115,8 @@ class MMGCNModule(nn.Module):
     def _text(self, batch, mask):
         t = self.linear_l(batch["text_feature"])
         if self.lstm_mode == "packed":
-            # the LSTM packs by the host batch's lengths where the batch carries them
-            t = self.lstm_l(t, mask, batch.get("text_length_host", batch["text_length"]))
+            # packed by the host batch's lengths where the batch carries them, else masked
+            t = self.lstm_l(t, mask, batch.get("text_length_host"))
         else:
             t = self.lstm_l(t)  # every padded step, unpacked
         # the speaker embedding on the text nodes only, as the reference has it

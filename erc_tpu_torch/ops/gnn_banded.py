@@ -24,15 +24,19 @@ from erc_tpu_torch.ops.kernels.banded import band_offsets, banded_dot, banded_ga
 
 
 def _tap_valid(mask: torch.Tensor, offsets) -> torch.Tensor:
-    """valid[b, v, k] = target v valid AND source v+off_k valid."""
+    """valid[b, v, k] = target v valid AND source v+off_k valid.
+
+    One window of the zero-padded mask per target (a view), so a band of
+    consecutive offsets costs a pad and a product whatever its width; other
+    offsets add one stack of the window's columns."""
     B, L = mask.shape
-    v = torch.arange(L, device=mask.device)
-    cols = []
-    for off in offsets:
-        rolled = torch.roll(mask, -off, dims=1)
-        inrange = ((v + off) >= 0) & ((v + off) < L)
-        cols.append(rolled * inrange[None, :])
-    return torch.stack(cols, -1) * mask[..., None]
+    lo, hi = min(offsets), max(offsets)
+    pad_l = max(0, -lo)
+    padded = F.pad(mask, (pad_l, max(0, hi)))  # source u at column u + pad_l
+    win = padded[:, lo + pad_l:].unfold(1, hi - lo + 1, 1)[:, :L]  # [B, L, ·]: sources v + lo .. v + hi
+    if tuple(offsets) != tuple(range(lo, hi + 1)):
+        win = torch.stack([win[..., o - lo] for o in offsets], -1)
+    return win * mask[..., None]
 
 
 def banded_relational_messages(x, speakers, mask, weights, wp: int, wf: int, n_speakers: int,

@@ -5,17 +5,26 @@ Port of ``erc_tpu.ops.rnn``:
 - ``gru_cell, gru_cell_proj``: gates stacked r, z, n along the last axis,
   with separate input and hidden biases, as ``torch.nn.GRUCell`` has them;
 - ``BiRNN``: a multi-layer bidirectional LSTM (DialogueGCN, MMGCN,
-  DialogueGCN v2) or GRU (DialogueGCN v2), or a one-direction LSTM (MMIN's
-  ``LSTMEncoder``, ``bidirectional=False``), over a right-padded [B, L, D]
-  batch, with packed-sequence semantics (padded steps neither update the
-  state nor produce output), or over every step where no lengths are given
-  (the JAX package's mask of ones: MMIN's encoders, and ``lstm_mode='unpacked'``
-  of MMGCN and DialogueGCN v2).  The JAX package runs a masked
-  ``lax.scan``; here each layer is one ``nn.LSTM`` or ``nn.GRU`` call on a
-  ``PackedSequence``, or on the padded tensor itself (one cuDNN call a layer
-  on the card), whose gate order
-  (i, f, g, o for the LSTM; r, z, n for the GRU, with ``b_hn`` inside
-  ``r·(…)``) and dual biases are the JAX cells'.
+  DialogueGCN v2) or GRU (DialogueGCN v2, CIM), or a one-direction LSTM
+  (MMIN's ``LSTMEncoder``, ``bidirectional=False``), over a right-padded
+  [B, L, D] batch, in one of three forms:
+  - packed, by lengths on the host (the training steps): padded steps
+    neither update the state nor produce output; each layer is one
+    ``nn.LSTM`` or ``nn.GRU`` call on a ``PackedSequence``;
+  - masked, by the mask alone (serving and the val and test stages): the
+    JAX package's masked scan
+    (``_scan_bidirectional``), with no host sync, so it can be captured in
+    a CUDA graph.  The forward direction runs over the padded tensor (a
+    valid step reads no later step), the reverse one over each row's valid
+    prefix, and padded outputs are 0;
+  - every step, padding included, where neither is given (the JAX
+    package's mask of ones: MMIN's encoders, and ``lstm_mode='unpacked'``
+    of MMGCN and DialogueGCN v2).
+  The layers' gate order (i, f, g, o for the LSTM; r, z, n for the GRU,
+  with ``b_hn`` inside ``r·(…)``) and dual biases are the JAX cells'; on the
+  card each layer is one cuDNN call.
+- ``reverse_padded``: each row's valid prefix reversed (DialogueRNN's
+  reverse direction).
 
 The recurrent layers' initialiser (``_uniform_init``) is ``ops.init.uniform_``.
 """
@@ -28,7 +37,7 @@ from typing import Optional
 
 import torch
 from torch import nn
-from torch.nn.utils.rnn import pack_padded_sequence, pad_packed_sequence
+from torch.nn.utils.rnn import PackedSequence, pack_padded_sequence, pad_packed_sequence
 
 from erc_tpu_torch.ops.dropout import Dropout
 from erc_tpu_torch.ops.init import uniform_
@@ -134,23 +143,29 @@ class BiRNN(nn.Module):
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
                 lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
         """x: [B, L, D]; mask: [B, L], 1 on each row's first ``lengths[b]``
-        positions; lengths: [B] ints, best a CPU tensor taken from the host
-        batch (packing needs them on the host, and a device tensor costs a
-        copy that waits for the device).  Returns [B, L, 2H] ([B, L, H] in one
-        direction), 0 at padded positions and on rows of length 0.  Without
-        ``lengths`` every row runs all L steps, padding included, unpacked and
-        unmasked: one cuDNN call a layer over the tensor as it is.
+        positions; lengths: [B] ints.  Returns [B, L, 2H] ([B, L, H] in one
+        direction).
+
+        - ``lengths`` on the host (a CPU tensor, taken from the host batch:
+          packing needs them there, and a device tensor costs a copy that
+          waits for the device): the packed form.
+        - ``mask`` alone: the masked form (``_masked``), which reads the
+          lengths from the mask on the device.
+        - neither: every row runs all L steps, padding included, unpacked
+          and unmasked: one cuDNN call a layer over the tensor as it is.
+        The packed and masked forms give 0 at padded positions and on rows
+        of length 0.
 
         cuDNN runs each layer, forward and backward, in full float32
-        (``cudnn_rnn_full_fp32``).  Rows are sorted by length on the host
-        and the permutations go to the device without blocking, so packing
-        waits for nothing (``enforce_sorted=False`` would copy its
+        (``cudnn_rnn_full_fp32``).  Packed rows are sorted by length on the
+        host and the permutations go to the device without blocking, so
+        packing waits for nothing (``enforce_sorted=False`` would copy its
         permutation with a blocking copy).  A row of length 0 (a padding
         dialogue) is packed with length 1 and its output zeroed by the mask:
         packing refuses length 0.
         """
         if lengths is None:
-            return self._unpacked(x)
+            return self._unpacked(x) if mask is None else self._masked(x, mask)
         L = x.shape[1]
         n = lengths.to("cpu", torch.int64).clamp(min=1)
         order = torch.argsort(n, descending=True, stable=True)
@@ -161,20 +176,68 @@ class BiRNN(nn.Module):
         for i, layer in enumerate(self.layers):
             if i:
                 packed = packed._replace(data=self.dropout(packed.data))
-            with cudnn_rnn_full_fp32():
-                packed, _ = layer(packed)
-            if packed.data.requires_grad and packed.data.is_cuda:
-                _backward_in_full_fp32(packed.data)
+            packed, _ = self._run(layer, packed)
         out, _ = pad_packed_sequence(packed, batch_first=True, total_length=L)
         return out.index_select(0, inverse) * mask[..., None].to(out.dtype)
+
+    @staticmethod
+    def _run(layer, inp):
+        """One layer's cuDNN call in full float32, forward and backward."""
+        with cudnn_rnn_full_fp32():
+            out, state = layer(inp)
+        data = out.data if isinstance(out, PackedSequence) else out
+        if data.requires_grad and data.is_cuda:
+            _backward_in_full_fp32(data)
+        return out, state
 
     def _unpacked(self, x: torch.Tensor) -> torch.Tensor:
         out = x
         for i, layer in enumerate(self.layers):
             if i:
                 out = self.dropout(out)
-            with cudnn_rnn_full_fp32():
-                out, _ = layer(out)
-            if out.requires_grad and out.is_cuda:
-                _backward_in_full_fp32(out)
+            out, _ = self._run(layer, out)
         return out
+
+    def _masked(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        """The masked form: shapes depend on (B, L) alone and nothing waits
+        for the host.  A bidirectional layer is one call over 2B rows: the B
+        rows as they are, whose forward half is taken, and the B rows
+        right-aligned (each valid prefix moved to the end of its row), whose
+        reverse half is taken and moved back.  Run from the end, a
+        right-aligned row meets its valid steps first, from a zero state, as
+        the reverse direction of the masked scan does; the steps it meets
+        after them are copies of its first and change nothing it returns."""
+        B, L = mask.shape
+        m = mask[..., None].to(x.dtype)
+        out = x
+        bidirectional = self.layers[0].bidirectional
+        if bidirectional:
+            n = mask.sum(-1, dtype=torch.int64)[:, None]
+            pos = torch.arange(L, device=x.device)[None]
+            to_right = (pos - (L - n)).clamp(min=0)  # [B, L]: source of each right-aligned step
+            to_left = (pos + (L - n)).clamp(max=L - 1)  # and back
+        for i, layer in enumerate(self.layers):
+            if i:
+                out = self.dropout(out)
+            if bidirectional:
+                y, _ = self._run(layer, torch.cat([out, _take_steps(out, to_right)]))
+                H = y.shape[-1] // 2
+                y = torch.cat([y[:B, :, :H], _take_steps(y[B:, :, H:], to_left)], -1)
+            else:
+                y, _ = self._run(layer, out)
+            out = y * m
+        return out
+
+
+def _take_steps(x: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+    """out[b, t] = x[b, index[b, t]]; x: [B, L, D], index: [B, L]."""
+    return x.gather(1, index[..., None].expand(-1, -1, x.shape[-1]))
+
+
+def reverse_padded(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Each row's valid prefix reversed, padding left at 0 (the reference's
+    dgcnv2.py:119-133).  x: [B, L, D]; mask: [B, L]."""
+    L = x.shape[1]
+    lengths = mask.sum(-1).to(torch.int64)
+    rev = (lengths[:, None] - 1 - torch.arange(L, device=x.device)[None]).clamp(0, L - 1)
+    return _take_steps(x, rev) * mask[..., None]

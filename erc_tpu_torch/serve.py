@@ -26,6 +26,13 @@ serves the first, ``cls2``, as the JAX engine does.
 Requests are micro-batched: every chunk of up to ``batch_size`` dialogues
 is padded to ``batch_size`` dialogues and a bucketed length.  The engine
 runs on the card unless ``device='cpu'`` is given, and always in float32.
+On the card each batch is one replay of the eval forward captured as a CUDA
+graph for its (batch size, bucketed length), at most ``max_seq_len /
+length_bucket`` graphs (``core.cuda_graphs.CapturedForward``, the JAX
+engine's jit once per shape bucket): only the inputs the model reads are
+copied, through pinned buffers, and the logits come back through one.
+``cuda_graphs=False`` runs the eager forward instead, to hold the replay
+against it.  On the CPU the forward is eager.
 """
 
 from __future__ import annotations
@@ -39,17 +46,19 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from erc_tpu_torch.core.cuda_graphs import CapturedForward, host_array
 from erc_tpu_torch.core.device import resolve_device
-from erc_tpu_torch.data.collate import ERCBatcher
+from erc_tpu_torch.data.collate import ERCBatcher, bucket_length
 from erc_tpu_torch.data.synthetic import synthetic_erc
 from erc_tpu_torch.train.checkpoint import load_model_state
 
 
 class InferenceEngine:
     def __init__(self, model: torch.nn.Module, params, device: torch.device,
-                 checkpoint_path: Optional[str] = None, batch_size: int = 8):
+                 checkpoint_path: Optional[str] = None, batch_size: int = 8, cuda_graphs: bool = True):
         """``checkpoint_path``: see ``train.checkpoint.load_model_state``; a
-        flax file is converted for ``params.module``."""
+        flax file is converted for ``params.module``.  ``cuda_graphs``: on
+        the card, replay the captured forward (the default) or run it eagerly."""
         self.params = params
         self.device = device
         if checkpoint_path:
@@ -66,17 +75,23 @@ class InferenceEngine:
             pad_batch_to=batch_size,
         )
         self.class_names = list(params.get("class_names", []) or [])
+        self.captured: Optional[CapturedForward] = None
+        if device.type == "cuda" and cuda_graphs:
+            model = self.model
+            self.captured = CapturedForward(
+                self._forward, device, watch=lambda: [*model.parameters(), *model.buffers()])
 
     @classmethod
     def from_module(
         cls, module: str, checkpoint_path: Optional[str] = None,
-        dataset: Optional[str] = None, batch_size: int = 8, **param_overrides,
+        dataset: Optional[str] = None, batch_size: int = 8, cuda_graphs: bool = True, **param_overrides,
     ) -> "InferenceEngine":
         """Engine for ``erc_tpu_torch.models.<module>`` (``cogmen``, ``dagerc``,
         ``dgcn``, ``mmgcn``, ``dgcnv2``, ``cim``, ``cogmen_mosei``).
         Overrides set params (e.g. ``graph_impl='banded'``, ``dag_impl='eager'``,
         ``adj_impl='structured'``, ``base_model='DialogRNN'``, ``device='cpu'``); weights come from
-        ``checkpoint_path`` or else from a generator seeded with ``seed``.
+        ``checkpoint_path`` or else from a generator seeded with ``seed``;
+        ``cuda_graphs`` as in ``__init__``.
         A module that declares ``SERVED = False`` (a family that trains only)
         raises ``ValueError``."""
         mod = importlib.import_module(f"erc_tpu_torch.models.{module}")
@@ -92,29 +107,27 @@ class InferenceEngine:
         device = resolve_device(p.device)
         generator = torch.Generator().manual_seed(int(p.seed))
         model = mod.build(p, generator=generator)
-        return cls(model, p, device, checkpoint_path, batch_size)
+        return cls(model, p, device, checkpoint_path, batch_size, cuda_graphs)
+
+    def _forward(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """The model's logits; the first head's where it returns several (CIM)."""
+        out = self.model(batch)
+        return out[0] if isinstance(out, tuple) else out
 
     def _to_device(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-        out = {}
-        for k, v in batch.items():
-            if v is None:
-                continue
-            t = torch.from_numpy(v)
-            if t.is_floating_point():
-                t = t.to(torch.float32)
-            out[k] = t.to(self.device, non_blocking=True)
-        # the lengths on the host too, as data.loader.to_device keeps them
-        out["text_length_host"] = torch.from_numpy(batch["text_length"])
-        return out
+        """Every array of the batch on the device (the eager route)."""
+        return {k: torch.from_numpy(host_array(v)).to(self.device, non_blocking=True)
+                for k, v in batch.items() if v is not None}
 
-    @torch.inference_mode()
     def logits(self, batch: Dict[str, np.ndarray]) -> np.ndarray:
         """float32 logits [B, L, C] of one packed batch, on the host; of the
-        first head where the model returns several (CIM)."""
-        out = self.model(self._to_device(batch))
-        if isinstance(out, tuple):
-            out = out[0]
-        return out.float().cpu().numpy()
+        first head where the model returns several (CIM).  A replay of the
+        batch's graph on the card, unless the engine was built with
+        ``cuda_graphs=False``."""
+        if self.captured is not None:
+            return self.captured(batch)
+        with torch.inference_mode():
+            return self._forward(self._to_device(batch)).float().cpu().numpy()
 
     def predict(self, dialogues: List[dict]) -> List[dict]:
         """dialogues: sample dicts (text/audio/visual [L, D], speakers).
@@ -147,7 +160,13 @@ class InferenceEngine:
             max_len=L, text_dim=p.hidden_text, audio_dim=p.hidden_audio,
             visual_dim=p.hidden_visual,
         )
-        self.predict(dialogues[:2])  # warm up
+        # warm up every length bucket that the timed requests reach (on the
+        # card, the first batch of a bucket is captured)
+        seen = {}
+        for d in dialogues:
+            seen.setdefault(bucket_length(len(d["text"]), self.batcher.bucket, self.batcher.max_len), d)
+        for d in seen.values():
+            self.predict([d])
         lat = []
         for d in dialogues:
             t0 = time.perf_counter()

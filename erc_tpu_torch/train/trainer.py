@@ -25,6 +25,14 @@ own (MMIN's EMA shadow) in checkpoints.  Batches are of dialogues
 (``text_length``) or of utterances (``sample_mask``, MMIN): a record's
 ``dialogues`` counts the rows that are not padding either way.
 
+The val and test stages run the eval forward (``to_logits``) on the card as
+one replay of a CUDA graph per batch shape (``core.cuda_graphs``: the JAX
+trainer's eval step, jitted once per shape bucket), which ``eval_graphs =
+False`` turns into the eager forward; the RNNs take their masked form there
+(the batch carries no host lengths), the train steps their packed form.
+``load_state_tree`` drops the graphs, and a replay raises where a parameter
+was replaced rather than written in place.
+
 The trainer runs in float32 on ``params.device`` (the card unless it is
 ``"cpu"``).  Dropout draws from a generator on that device seeded from
 ``params.seed``.  Left out, for later slices: callbacks, experiment
@@ -42,6 +50,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from erc_tpu_torch.core.cuda_graphs import CapturedForward
 from erc_tpu_torch.core.device import resolve_device
 from erc_tpu_torch.core.seed import RngPool
 from erc_tpu_torch.data.collate import ERCBatcher
@@ -76,6 +85,7 @@ class Trainer:
     """Generic ERC trainer; one subclass per model family."""
 
     plateau_source = "test"  # which stage's loss steps lr_sche ("val": MMIN)
+    eval_graphs = True  # on the card, replay the captured eval forward (False: eager)
 
     def __init__(self, params):
         self.params = params
@@ -94,6 +104,7 @@ class Trainer:
         self._test_loader = None
         self._val_loader = None
         self._saver: Optional[Saver] = None
+        self._captured: Optional[CapturedForward] = None
 
     # ------------------------------------------------------------------ setup
     def imodels(self, params) -> None:
@@ -271,12 +282,27 @@ class Trainer:
         """The eval forward: logits [B, L, C], or a tuple of outputs."""
         return self.model(batch)
 
+    def _eval_tensors(self) -> List[torch.Tensor]:
+        """The parameters and buffers of every module the trainer holds."""
+        mods = [m for m in vars(self).values() if isinstance(m, torch.nn.Module)]
+        return [t for m in mods for t in (*m.parameters(), *m.buffers())]
+
+    @property
+    def captured(self) -> CapturedForward:
+        """The eval forward captured per batch shape (the card only)."""
+        if self._captured is None:
+            self._captured = CapturedForward(self.to_logits, self.device, watch=self._eval_tensors)
+        return self._captured
+
     def _eval_loop(self, loader) -> None:
         self.model.eval()
         with torch.inference_mode():
             for host_batch in loader:
-                out = self.to_logits(to_device(host_batch, self.device))
-                self.test_step_collect(host_batch, _to_host(out))
+                if self.device.type == "cuda" and self.eval_graphs:
+                    out = self.captured(host_batch)
+                else:
+                    out = _to_host(self.to_logits(to_device(host_batch, self.device, host_lengths=False)))
+                self.test_step_collect(host_batch, out)
 
     # hooks where the JAX trainer fires them; a subclass overrides what it needs
     def on_eval_begin(self) -> None:
@@ -410,7 +436,10 @@ class Trainer:
         return None
 
     def load_state_tree(self, tree: Dict[str, Any]) -> None:
-        """Restore what ``state_tree`` saved (the epoch is the saved one's)."""
+        """Restore what ``state_tree`` saved (the epoch is the saved one's);
+        the captured eval graphs are dropped."""
+        if self._captured is not None:
+            self._captured.invalidate()
         self.model.load_state_dict(tree["model"])
         self.optimizer.load_state_dict(tree["optimizer"])
         if self.lr_sche is not None:

@@ -171,7 +171,7 @@ def test_engine_banded_equals_dense_and_counts_launches(cuda):
     from erc_tpu_torch.serve import InferenceEngine
 
     kw = dict(dataset="synthetic-cogmen-6", encoder_mode="chained", batch_size=4)
-    banded = InferenceEngine.from_module("cogmen", graph_impl="banded", **kw)
+    banded = InferenceEngine.from_module("cogmen", graph_impl="banded", cuda_graphs=False, **kw)
     dense = InferenceEngine.from_module("cogmen", graph_impl="dense", **kw)
     dense.model.load_state_dict(banded.model.state_dict())
     batch = banded.batcher(synthetic_erc("iemocap-cogmen", 6, n_train=4, max_len=40))
@@ -347,7 +347,7 @@ def test_dagerc_engine_kernel_equals_eager_and_counts_launches(cuda):
     from erc_tpu_torch.serve import InferenceEngine
 
     kw = dict(dataset="synthetic-cogmen-6", batch_size=4)
-    kernel = InferenceEngine.from_module("dagerc", **kw)  # dag_impl=auto: K3 in eval
+    kernel = InferenceEngine.from_module("dagerc", cuda_graphs=False, **kw)  # dag_impl=auto: K3 in eval
     eager = InferenceEngine.from_module("dagerc", dag_impl="eager", **kw)
     eager.model.load_state_dict(kernel.model.state_dict())
     batch = kernel.batcher(synthetic_erc("iemocap-cogmen", 6, n_train=3, max_len=40))
@@ -618,7 +618,7 @@ def test_dgcn_engine_banded_equals_dense_and_counts_launches(cuda):
     from erc_tpu_torch.serve import InferenceEngine
 
     kw = dict(dataset="synthetic-cogmen-6", batch_size=4)
-    banded = InferenceEngine.from_module("dgcn", graph_impl="banded", **kw)
+    banded = InferenceEngine.from_module("dgcn", graph_impl="banded", cuda_graphs=False, **kw)
     dense = InferenceEngine.from_module("dgcn", graph_impl="dense", **kw)
     dense.model.load_state_dict(banded.model.state_dict())
     batch = banded.batcher(synthetic_erc("iemocap-cogmen", 6, n_train=3, max_len=60))  # and a padding row
@@ -927,3 +927,132 @@ def test_mmin_card_equals_cpu_with_cudnn_tf32_on(cuda, module, trainer):
         assert torch.backends.cudnn.allow_tf32
     finally:
         torch.backends.cudnn.allow_tf32 = prev
+
+
+# ------------------------------------------------------------------ the captured eval step
+def _bucketed_batches(engine):
+    """Batches of 3 dialogues (and a padding row) in three length buckets."""
+    from erc_tpu_torch.data.synthetic import synthetic_erc
+
+    return [engine.batcher(synthetic_erc("iemocap-cogmen", 6, n_train=3, min_len=hi - 10, max_len=hi, seed=i))
+            for i, hi in enumerate((14, 40, 100))]
+
+
+def _counted(fn, *args):
+    """fn(*args), and the launch counts of the kernel wrappers it moved."""
+    from erc_tpu_torch.ops.kernels import dag_block as kd
+
+    kb.reset_launches()
+    kd.reset_launches()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    return out, {**kb.launches, **kb.tap_launches, **kd.launches}
+
+
+def _traced_kernels(fn) -> dict:
+    """K1, K2 and K3 as a device trace of fn() counts their executions."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return {name: sum(kernel in n for n in names) for name, kernel in (
+        ("banded_gather_sum", "banded_gather_sum_kernel"), ("banded_dot", "banded_dot_kernel"),
+        ("dag_block", "dag_block_cluster_kernel"))}
+
+
+@pytest.mark.parametrize("module,kw", [("cogmen", dict(graph_impl="banded", encoder_mode="chained")),
+                                       ("dagerc", {}), ("dgcn", dict(graph_impl="banded")), ("cim", {})],
+                         ids=["cogmen", "dagerc", "dgcn", "cim"])
+def test_engine_replay_equals_eager_and_counts_the_same_launches(cuda, module, kw):
+    """The engine's captured forward ≡ the eager one (``cuda_graphs=False``)
+    bit for bit in three length buckets, one graph and one replay each; a
+    bucket's first batch counts its eager warm-up and its replay, and a
+    replayed forward counts the launches the eager one makes, which a device
+    trace of the replay finds; the graphs' static inputs are the keys the
+    model reads, without the raw modality features, the labels or the
+    speaker tensor (for COGMEN, DAG-ERC and DialogueGCN)."""
+    from erc_tpu_torch.serve import InferenceEngine
+
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        graphs = InferenceEngine.from_module(module, dataset="synthetic-cogmen-6", batch_size=4, **kw)
+        eager = InferenceEngine.from_module(module, dataset="synthetic-cogmen-6", batch_size=4, cuda_graphs=False,
+                                            **kw)
+        eager.model.load_state_dict(graphs.model.state_dict())
+        batches = _bucketed_batches(graphs)
+        for batch in batches:
+            _, first = _counted(graphs.logits, batch)
+            _, once = _counted(eager.logits, batch)
+            assert first == {k: 2 * n for k, n in once.items()}
+        assert graphs.captured.captures == 3 and graphs.captured.replays == 3
+        for batch in batches:
+            replayed, counts = _counted(graphs.logits, batch)
+            out, eager_counts = _counted(eager.logits, batch)
+            assert counts == eager_counts
+            assert np.array_equal(replayed, out)
+        traced = _traced_kernels(lambda: graphs.logits(batches[-1]))
+        assert traced == {k: counts[k] for k in traced}
+        assert graphs.captured.captures == 3 and graphs.captured.replays == 7
+        if module != "cim":
+            read = {"input_tensor", "text_length", "speaker_ids"}
+            assert read <= graphs.captured.keys <= read | {"attention_mask"}
+            assert any(traced.values())
+        staged = {k for bucket in graphs.captured._buckets.values() for k in bucket.staging}
+        assert staged == graphs.captured.keys
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+
+
+def test_masked_rnn_form_equals_packed_on_the_card(cuda):
+    """BiRNN's masked form (no host lengths) against its packed form on the
+    card, with cuDNN's TF32 flag on, and captured ≡ eager bit for bit."""
+    from erc_tpu_torch.core.cuda_graphs import CapturedForward
+    from erc_tpu_torch.ops.rnn import BiRNN
+
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        for cell in ("lstm", "gru"):
+            g = torch.Generator().manual_seed(5)
+            rnn = BiRNN(200, 100, num_layers=2, cell=cell, generator=g).to("cuda").eval()
+            lengths = torch.tensor([112, 0, 1, 57, 111])
+            mask = (torch.arange(112)[None] < lengths[:, None]).float()
+            x = torch.randn(5, 112, 200, generator=g) * mask[..., None]
+            with torch.inference_mode():
+                packed = rnn(x.cuda(), mask.cuda(), lengths).cpu()
+                masked = rnn(x.cuda(), mask.cuda()).cpu()
+            captured = CapturedForward(lambda b: rnn(b["x"], b["mask"]), torch.device("cuda"))
+            replayed = captured({"x": x.numpy(), "mask": mask.numpy(), "unread": np.zeros(3)})
+            torch.testing.assert_close(masked, packed, rtol=0, atol=1e-5)
+            assert np.array_equal(replayed, masked.numpy())
+            assert captured.keys == {"x", "mask"}
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+
+
+def test_trainer_test_stage_replays_and_load_state_tree_drops_the_graphs(cuda):
+    """DialogueGCN's test stage replays one graph a batch and gives the eager
+    stage's record; ``load_state_tree`` drops the graphs, and a parameter
+    replaced behind the trainer's back makes the next replay raise."""
+    t = _dgcn_trainer("banded")
+    t.params.batch_count = 1
+    n_test = len(list(t.make_loader("test")))
+    replayed = t.test()
+    assert t.captured.replays == n_test and t.captured.captures >= 1
+    t.eval_graphs = False
+    eager = t.test()
+    t.eval_graphs = True
+    assert replayed.keys() == eager.keys()
+    for k in replayed:
+        assert np.array_equal(np.asarray(replayed[k]), np.asarray(eager[k])), k
+    t.load_state_tree(t.state_tree())
+    assert not t.captured._buckets
+    t.test()
+    assert t.captured.replays == 2 * n_test
+    with torch.no_grad():
+        t.model.clf_lin2.weight = torch.nn.Parameter(t.model.clf_lin2.weight.clone())
+    with pytest.raises(RuntimeError, match="replaced"):
+        t.test()
