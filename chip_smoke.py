@@ -128,9 +128,8 @@ counts; the kernels line reports the traced serving counts.  Within phases 3-16,
 and dense, DAG-ERC through K3, DialogueGCN banded and dense, MMGCN dense
 and structured, DialogueGCN v2 with DialogueRNN and with the biLSTM, CIM):
 replayed logits ≡ the eager forward's (cuda_graphs=False) bit for bit over
-64 dialogues in 4 length buckets, one replay a batch; for the RNN families
-the masked RNN form (no host lengths) within 1e-5 of the packed form, with
-cuDNN's TF32 flag on; K1/K2/K3 launch counts of a predict equal replayed and
+64 dialogues in 4 length buckets, one replay a batch, cuDNN's TF32 flag on
+for the RNN families; K1/K2/K3 launch counts of a predict equal replayed and
 eager; predict wall time, device busy share (kernels, copies and memsets as
 the union of their intervals, never more than the call's own time between
 CUDA events), p50 of single requests and the host clock split, eager and
@@ -138,6 +137,25 @@ replayed.  For every trained family (DAG-ERC, COGMEN, DialogueGCN, MMGCN,
 DialogueGCN v2 and its token track, CIM, the three MMIN modules): the test
 stage replayed (one replay a batch, parameters at the addresses the graphs
 read) gives the eager stage's record.
+
+Training replays the train step captured as one CUDA graph per shape bucket
+(CapturedStep: forward, backward, the clip, the optimizer step with the LR a
+tensor on the card, MMIN's EMA shadow), the first batch of each bucket
+trained eagerly before its capture: every training phase's epoch runs on it
+(one capture a bucket, one replay every other batch), its card vs CPU steps
+at dropout 0 replay on the card, and for each trained configuration (COGMEN
+banded and dense, DAG-ERC kernel and eager forms, DialogueGCN banded and
+dense, MMGCN dense and structured, DialogueGCN v2 with DialogueRNN and with
+the biLSTM, the token track, CIM, mmin_base, mmin_miss, mmin_miss2;
+check_train_graphs): no host sync in an eager step; 3 replayed steps ≡ 3
+eager steps from one state over two shape buckets with a plateau LR change
+between (losses, gnorm, parameters, gradients, buffers, optimizer state,
+LR, generator state, EMA shadow: bit for bit where two eager runs agree,
+else within their spread and 1e-6 relative); a device trace of a replayed
+step whose K1/K2/K1ᵀ/K3/K4 records equal the Python counts; wall, busy and
+device operations of an eager and a replayed step, capture seconds per
+bucket, the graph pool's bytes, and an epoch's dialogues/s eager and
+replayed.
 """
 
 from __future__ import annotations
@@ -900,7 +918,6 @@ def _dialogues():
 
 
 # ------------------------------------------------------------------ the captured eval step
-RNN_FORM_TOL = 1e-5  # logits, the masked RNN form (lengths on the device) vs the packed one (host lengths)
 EAGER_LATENCY_N = 40  # single-dialogue requests timed on an eager engine (a replayed one: 100)
 
 
@@ -913,35 +930,23 @@ def _bucket_batches(engine):
             for i, hi in enumerate((30, 60, 90, 110))]
 
 
-def _replay_vs_eager(name, engine, eager, rnn=False):
+def _replay_vs_eager(name, engine, eager):
     """The engine's replayed logits against the eager forward's (the same weights, `cuda_graphs=False`), bit
-    for bit, over 64 dialogues in 4 length buckets, one replay a batch; with `rnn`, also the masked RNN form
-    that both run against the packed form (the eager model given the host lengths), within RNN_FORM_TOL."""
+    for bit, over 64 dialogues in 4 length buckets, one replay a batch."""
     import numpy as np
-    import torch
-    from erc_tpu_torch.data.loader import to_device
 
     batches = _bucket_batches(engine)
     replays, captures = engine.captured.replays, engine.captured.captures
-    worst, worst_form = 0.0, 0.0
+    worst = 0.0
     for b in batches:
-        replayed = engine.logits(b)
-        worst = max(worst, float(np.abs(replayed - eager.logits(b)).max()))
-        if rnn:
-            with torch.inference_mode():
-                out = eager.model(to_device(b, eager.device))  # carries text_length_host: packed
-                packed = (out[0] if isinstance(out, tuple) else out).float().cpu().numpy()
-            worst_form = max(worst_form, float(np.abs(replayed - packed).max()))
+        worst = max(worst, float(np.abs(engine.logits(b) - eager.logits(b)).max()))
     replays, captures = engine.captured.replays - replays, engine.captured.captures - captures
     Ls = [b["attention_mask"].shape[1] for b in batches]
-    form = f"; masked RNN form vs packed {worst_form:.3e} (tolerance {RNN_FORM_TOL})" if rnn else ""
     log(f"{name} replayed vs eager: {len(batches) * 16} dialogues in {len(batches)} batches of L {Ls}: max abs diff "
         f"{worst:.3e} (want 0); {replays} replays ({captures} new captures; {engine.captured.captures} graphs, "
-        f"inputs {sorted(engine.captured.keys)}){form}")
+        f"inputs {sorted(engine.captured.keys)})")
     require(replays == len(batches), f"{name}: {replays} replays for {len(batches)} batches")
     require(worst == 0.0, f"{name}: replayed logits differ from the eager forward's by {worst}")
-    if rnn:
-        require(worst_form <= RNN_FORM_TOL, f"{name}: the masked RNN form differs from the packed by {worst_form}")
 
 
 def _all_launches():
@@ -954,6 +959,7 @@ def _all_launches():
 # banded_gather_sum_kernel<4, 11, false>(...)"): template arguments VEC, KT and, in K1, TR (K1ᵀ); K3 by variant
 _BAND_KERNEL = re.compile(r"(banded_gather_sum|banded_dot)_kernel<(\d+), (\d+)(?:, (true|false))?>")
 _DAG_KERNEL = re.compile(r"dag_block_(cluster|stream)_kernel")
+_DAG_BWD_KERNEL = re.compile(r"dag_block_bwd_(cluster|stream)_kernel")  # K4's sweep (its wgrad kernel beside it)
 
 
 def _trace_counts(names) -> dict:
@@ -969,27 +975,40 @@ def _trace_counts(names) -> dict:
             keys = (name, f"{name}/{'vec4' if vec == '4' else 'scalar'}", f"{name}/kt{kt}")
         elif m := _DAG_KERNEL.search(n):
             keys = ("dag_block", f"dag_block/{m.group(1)}")
+        elif m := _DAG_BWD_KERNEL.search(n):
+            keys = ("dag_block_bwd", f"dag_block_bwd/{m.group(1)}")
         for k in keys:
             out[k] = out.get(k, 0) + 1
     return out
 
 
+def _trace_check(what: str, before: dict, names) -> dict:
+    """The K1/K2/K1ᵀ/K3/K4 records of a device trace (`names`: its kernels' names) must equal what the Python
+    counts moved since `before` (_all_launches()): a replay adds its capture's record to them; K4's global
+    variant runs its stream kernel, so it reads as stream.  Returns the traced counts."""
+    counted: dict = {}
+    for k, n in _all_launches().items():
+        if n != before[k]:
+            k = "dag_block_bwd/stream" if k == "dag_block_bwd/global" else k
+            counted[k] = counted.get(k, 0) + n - before[k]
+    traced = _trace_counts(names)
+    log(f"{what}: kernels in the device trace {traced}")
+    require(traced == counted, f"{what}: the device trace holds {traced}, the launch counts moved {counted}")
+    return traced
+
+
 def _traced(what: str, fn):
-    """fn() under a device trace: the K1/K2/K1ᵀ/K3 records it holds must equal what the Python counts moved
-    (a replay adds its capture's record to them).  Returns fn's result and the traced counts."""
+    """fn() under a device trace, held against the launch counts (`_trace_check`).  Returns fn's result and the
+    traced counts."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     before = _all_launches()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:  # the card's activity alone: no host ops
         out = fn()
         torch.cuda.synchronize()
-    counted = {k: n - before[k] for k, n in _all_launches().items()
-               if n != before[k] and not k.startswith("dag_block_bwd")}
-    traced = _trace_counts(e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
-    log(f"{what}: kernels in the device trace {traced}")
-    require(traced == counted, f"{what}: the device trace holds {traced}, the launch counts moved {counted}")
-    return out, traced
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return out, _trace_check(what, before, names)
 
 
 def _launches_replayed_vs_eager(name, engine, eager, dialogues):
@@ -1115,6 +1134,276 @@ def _test_replayed_vs_eager(name, run, traced=False):
         again, kernels = _traced(f"{name} test stage replayed", run.test)
         require(_same_record(again, replayed) and any(kernels.values()),
                 f"{name}: the traced test stage differs from the first or launched no kernel: {kernels}")
+
+
+# ------------------------------------------------------------------ the captured train step
+STEP_REL_TOL = 1e-6  # replayed vs eager, where two eager runs already differ: relative to the largest |value|
+
+
+def _host_buckets(host) -> list:
+    """The host batches grouped by shape bucket, smallest arrays first: a list of lists of batches."""
+    from erc_tpu_torch.core.cuda_graphs import CapturedStep, host_array
+
+    groups: dict = {}
+    for b in host:
+        key = CapturedStep._bucket_key({k: host_array(v) for k, v in b.items() if v is not None})
+        groups.setdefault(key, []).append(b)
+    return sorted(groups.values(), key=lambda g: sum(v.size for v in g[0].values() if v is not None))
+
+
+def _state_names(run) -> list:
+    """A name for each tensor of run._step_tensors(), in its order."""
+    import torch
+
+    names = {}
+    for mname, m in vars(run).items():
+        if isinstance(m, torch.nn.Module):
+            for n, t in (*m.named_parameters(), *m.named_buffers()):
+                names[id(t)] = f"{mname}.{n}"
+    for n, p in run.model.named_parameters():
+        if p.grad is not None:
+            names[id(p.grad)] = f"grad model.{n}"
+        for k, v in run.optimizer.state.get(p, {}).items():
+            names[id(v)] = f"optimizer {k} model.{n}"
+    return [names.get(id(t), f"hyperparameter {i}") for i, t in enumerate(run._step_tensors())]
+
+
+def _snapshot(run):
+    """What a train step changes, copied: every tensor the captured step reads or writes, the dropout
+    generator's state and the step count."""
+    import torch
+
+    torch.cuda.synchronize()
+    return [t.detach().clone() for t in run._step_tensors()], run._dropout_rng.get_state(), run.global_steps
+
+
+def _restore(run, snap) -> None:
+    """`run` back to a snapshot, written in place (the captured graphs read these tensors by address)."""
+    import torch
+
+    tensors, rng, steps = snap
+    live = run._step_tensors()
+    require(len(live) == len(tensors), "the trainer's state changed shape since the snapshot")
+    with torch.no_grad():
+        torch._foreach_copy_(live, tensors)
+    run._dropout_rng.set_state(rng)
+    run.global_steps = steps
+
+
+def _plateau_change(run) -> None:
+    """One LR change by the plateau controller (torch's, patience 0, stepped twice on the same loss), which
+    writes the LR tensor in place."""
+    import torch
+
+    group = run.optimizer.param_groups[0]
+    lr, before = group["lr"], float(group["lr"])
+    sche = torch.optim.lr_scheduler.ReduceLROnPlateau(run.optimizer, "min", patience=0)
+    sche.step(1.0)
+    sche.step(1.0)
+    require(group["lr"] is lr and float(lr) < before,
+            f"the plateau controller did not reduce the LR tensor in place ({before} -> {float(group['lr'])})")
+
+
+def _three_steps(run, batches, replayed: bool, sync_check: bool = False) -> dict:
+    """Steps on `batches` (host batches), replayed or eager, with one plateau LR change after the first; the
+    metrics of each step, every state tensor after them and the dropout generator's state.  With `sync_check`
+    each step runs under torch.cuda.set_sync_debug_mode("error"): a host sync in it raises."""
+    import torch
+
+    run.train_graphs = replayed
+    try:
+        mets = []
+        for i, b in enumerate(batches):
+            if i == 1:
+                _plateau_change(run)  # reads the LR back: a sync outside the step
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error" if sync_check else "default")
+            try:
+                mets.append(run.train_batch(b))
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+    finally:
+        run.train_graphs = True
+    out = {f"step {i} {k}": v.detach().clone() for i, m in enumerate(mets) for k, v in m.items()}
+    out.update(zip(_state_names(run), (t.detach().clone() for t in run._step_tensors())))
+    out["dropout generator state"] = run._dropout_rng.get_state()
+    return out
+
+
+def _rel(x, ref) -> float:
+    """||x - ref|| / ||ref|| in float64 (the absolute norm where ref is 0)."""
+    d = float((x.double() - ref.double()).norm())
+    return d / max(float(ref.double().norm()), 1e-30) if d else 0.0
+
+
+def _compare_steps(name, eager_a, eager_b, replayed):
+    """Replayed ≡ eager bit for bit where two eager runs agree bit for bit in every quantity.  Where they
+    differ in some (a backward that adds with atomics, as a gather's or cuDNN's convolution's does), every
+    quantity's replayed relative difference from the first eager run (`_rel`) is within twice the worst of the
+    second eager run's and within STEP_REL_TOL, and the generator state is equal.  Returns the quantities where
+    the eager runs differ and the worst relative differences, eager and replayed."""
+    import torch
+
+    require(eager_a.keys() == replayed.keys() == eager_b.keys(), f"{name}: the runs give other quantities")
+    spread = [k for k, a in eager_a.items() if not torch.equal(a, eager_b[k])]
+    if not spread:
+        for k, a in eager_a.items():
+            require(torch.equal(replayed[k], a), f"{name}: replayed {k} differs from the eager steps', which agree "
+                    f"bit for bit (max abs diff {float((replayed[k].double() - a.double()).abs().max())})")
+        return spread, 0.0, 0.0
+    key = "dropout generator state"
+    require(torch.equal(replayed[key], eager_a[key]) and key not in spread, f"{name}: the generator states differ")
+    ee = max((_rel(eager_b[k], a), k) for k, a in eager_a.items())
+    re = max((_rel(replayed[k], a), k) for k, a in eager_a.items())
+    log(f"{name}: worst relative differences from the first eager run: eager {ee}, replayed {re}")
+    ee, re = ee[0], re[0]
+    require(re <= 2 * ee and re <= STEP_REL_TOL, f"{name}: replayed steps differ from eager by {re:.3e} relative, "
+            f"two eager runs by {ee:.3e} (tolerance {STEP_REL_TOL}, and twice the eager spread)")
+    return spread, ee, re
+
+
+def _pool_bytes(graphs) -> str:
+    """The bytes of the segments in the graphs' memory pool (torch.cuda.memory_snapshot), or 'not measured'."""
+    import torch
+
+    if graphs.pool is None:
+        return "not measured"
+    segments = [s for s in torch.cuda.memory_snapshot() if "segment_pool_id" in s]
+    if not segments:
+        return "not measured"
+    pool = tuple(graphs.pool)
+    return str(sum(s["total_size"] for s in segments if tuple(s["segment_pool_id"]) == pool))
+
+
+def _step_time(fn) -> float:
+    """Host seconds of one call of `fn` (warm: it ran before), ending on the device."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def check_train_graphs(name, run, host, card, extra=(), show=(), timed=None):
+    """The captured train step of `run` (a trainer on the card at its family's dropout):
+    - no host sync in an eager step (torch.cuda.set_sync_debug_mode("error"));
+    - 3 replayed steps ≡ 3 eager steps from one state (weights, optimizer state, LR, generator, EMA shadow),
+      over two shape buckets with one plateau LR change between: bit for bit, or, where they differ, held to
+      the spread of a second eager run (`_compare_steps`);
+    - one capture a bucket and one replay a step;
+    - wall, busy and device operations of an eager and a replayed step of `timed` (a host batch; the first
+      step's by default), the replayed step's device trace holding the K1/K2/K1ᵀ/K3/K4 records that the Python
+      counts moved; capture seconds per bucket and the graph pool's bytes.
+    `host`: the train loader's batches; `extra`: batches of another shape where the loader has one bucket."""
+    import torch
+    from erc_tpu_torch.data.loader import to_device
+
+    t0 = time.perf_counter()
+    buckets = _host_buckets([*host, *extra])
+    require(len(buckets) >= 2, f"{name}: {len(buckets)} shape bucket(s) to step over, want 2")
+    a, b = buckets[0], buckets[1]
+    steps = [a[0], b[0], a[1] if len(a) > 1 else a[0]]
+    graphs = run.captured_step
+    for batch in (a[0], b[0]):  # the first batch of a bucket trains eagerly before its capture
+        run.train_batch(batch)
+    captures = graphs.captures
+    snap = _snapshot(run)
+    runs = {}
+
+    def three(label, replayed):
+        before = graphs.replays
+        runs[label] = _three_steps(run, steps, replayed, sync_check=label == "eager")
+        require(graphs.replays - before == (len(steps) if replayed else 0) and graphs.captures == captures,
+                f"{name} {label}: {graphs.replays - before} replays, {graphs.captures - captures} new captures")
+        _restore(run, snap)
+
+    three("eager", False)
+    three("replayed", True)
+    if not all(torch.equal(runs["replayed"][k], a) for k, a in runs["eager"].items()):
+        three("eager again", False)  # the spread of two eager runs decides (`_compare_steps`)
+    spread, ee, re = _compare_steps(name, runs["eager"], runs.get("eager again", runs["eager"]), runs["replayed"])
+    shapes = [tuple(x["attention_mask" if "attention_mask" in x else "sample_mask"].shape) for x in steps]
+    what = (f"losses, gnorm, parameters, gradients, buffers, optimizer state, LR, generator state"
+            f"{', EMA shadow' if getattr(run, 'ema_model', None) is not None else ''}")
+    if spread:
+        verdict = (f"two eager runs differ in {len(spread)} of {len(runs['eager'])} quantities ({what}; e.g. "
+                   f"{spread[:3]}): worst relative difference from the first eager run, eager {ee:.3e}, replayed "
+                   f"{re:.3e} (tolerance {STEP_REL_TOL} and twice the eager one)")
+    else:
+        verdict = f"all {len(runs['eager'])} quantities bit for bit ({what})"
+    log(f"{name} captured train step: 3 steps (shapes {shapes}, a plateau LR change after the first) replayed vs "
+        f"eager from one state: {verdict}; no host sync in an eager step; on {card}")
+
+    timed = a[0] if timed is None else timed
+    dev_t = to_device(timed, run.device)
+    eager_s = _step_time(lambda: run.train_step(dev_t))
+    replay_s = _step_time(lambda: run.train_batch(timed))
+    desc = f"{name} train step ({tuple(dev_t['attention_mask' if 'attention_mask' in dev_t else 'sample_mask'].shape)})"
+    busy_e = _profile(lambda: run.train_step(dev_t), f"one eager {desc}", eager_s, show=show)
+    busy_r = _profile(lambda: run.train_batch(timed), f"one replayed {desc}", replay_s, show=show,
+                      traced=f"{name} replayed train step")
+    log(f"{desc}, eager / replayed: wall {eager_s * 1e3:.3f} / {replay_s * 1e3:.3f} ms, busy {busy_e} / {busy_r} "
+        f"ms; {graphs.captures} captures ({graphs.replays} replays so far), capture seconds per bucket "
+        f"{[round(x, 4) for x in graphs.capture_seconds]}, graph pool {_pool_bytes(graphs)} bytes on {card}; "
+        f"these checks {time.perf_counter() - t0:.1f} s")
+
+
+def _other_shape(run, n, **change):
+    """A train batch of the first `n` training samples in another shape bucket, for a loader whose batches all
+    share one: its batcher with `change` (a shorter static length, or fewer padded rows)."""
+    import copy
+
+    loader = run.make_loader("train")
+    batcher = copy.copy(loader.batcher)
+    for k, v in change.items():
+        setattr(batcher, k, v)
+    return batcher(loader.samples[:n])
+
+
+def _epoch_rates(name, run, card, unit="dialogues", batch_count=None):
+    """The train steps of one epoch's batches (`batch_count` of them where given; no val or test stage), replayed
+    (one replay a batch: a first replayed pass that has to capture a bucket is run again) and eager: `unit`/s of
+    each."""
+    p = run.params
+    saved = p.get("eval_per_epoch", 1), p.get("batch_count")
+    p.eval_per_epoch, p.batch_count = 0, batch_count or saved[1]
+    e, graphs = run.eidx + 1, run.captured_step
+
+    def epoch(replayed):
+        run.train_graphs, run.eidx, p.epoch = replayed, e, e + 1  # the same batches each time
+        replays, captures = graphs.replays, graphs.captures
+        rec = run.train()[-1]
+        captured = graphs.captures - captures
+        require(graphs.replays - replays == (rec["steps"] - captured if replayed else 0),
+                f"{name}: {graphs.replays - replays} replays and {captured} captures for {rec['steps']} steps")
+        return rec, captured
+
+    try:
+        rec, new = epoch(True)
+        if new:
+            rec, again = epoch(True)
+            require(not again, f"{name}: the second replayed epoch captured {again} graphs")
+        replayed = rec["dialogues"] / rec["seconds"]
+        rec, _ = epoch(False)
+    finally:
+        run.train_graphs = True
+        p.eval_per_epoch, p.batch_count = saved
+    log(f"{name} training throughput, an epoch's train steps ({rec['steps']} steps, {rec['dialogues']} {unit}): "
+        f"eager {rec['dialogues'] / rec['seconds']:.1f}, replayed {replayed:.1f} {unit}/s ({new} buckets captured "
+        f"in a pass before) on {card}")
+
+
+def _check_epoch_graphs(name, run, host, captures_before=0, replays_before=0):
+    """The main path's epoch: one capture for each shape bucket of its batches, one replay for every other batch."""
+    graphs = run.captured_step
+    n_buckets = len(_host_buckets(host))
+    captures, replays = graphs.captures - captures_before, graphs.replays - replays_before
+    log(f"{name} epoch on the captured step: {len(host)} batches in {n_buckets} shape buckets, {captures} captures, "
+        f"{replays} replays")
+    require(captures == n_buckets and replays == len(host) - n_buckets,
+            f"{name}: {captures} captures and {replays} replays for {len(host)} batches in {n_buckets} buckets")
 
 
 def drive_cogmen(card: str):
@@ -1271,24 +1560,29 @@ def profile_predict(engine, dialogues, wall_s: float, n_batches: int, show=()):
 DEVICE_WORK = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
-def _profile(fn, what: str, wall_s: float, show=()):
+def _profile(fn, what: str, wall_s: float, show=(), traced=None):
     """Device time over one call of `fn` (torch.profiler), against the
     unprofiled wall time of the same call: busy is the union of the intervals
     of its kernels, copies and memsets (device work only, no ranges), which
     must not exceed the profiled call's own wall time between CUDA events.
     Logs the 12 largest by name, and any other whose name holds a string in
-    `show`; returns the busy ms, or None where the profiler saw no device work."""
+    `show`; returns the busy ms, or None where the profiler saw no device work.
+    With `traced` (a description) the same trace is also held against the
+    launch counts (`_trace_check`)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    before = _all_launches()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:  # the card's activity alone: no host ops
         start.record()
         fn()
         end.record()
         torch.cuda.synchronize()
     event_ms = start.elapsed_time(end)
     cuda = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if traced is not None:
+        _trace_check(traced, before, [e.name for e in cuda])
     work = [e for e in cuda if getattr(e, "activity_type", "kernel") in DEVICE_WORK and not e.is_user_annotation]
     if not work:
         log("profile: the profiler recorded no device work (not measured)")
@@ -1452,19 +1746,16 @@ def drive_training(card: str):
         f"({n3 / secs['kernel']:.1f} dialogues/s), eager form {secs['eager'] * 1e3:.3f} ms "
         f"({n3 / secs['eager']:.1f} dialogues/s) on {card}")
     del eager
+    # the eager form's captured step on dialogues cut to 32 utterances (an eager step takes about 25 ms a
+    # position): buckets of L 16 and 32, its epoch rates over 1 batch
+    short = _trainer("--dag_impl=eager", "--max_seq_len=32")
+    check_train_graphs("DAG-ERC eager form", short, list(short.make_loader("train")), card,
+                       extra=[_other_shape(short, 16, max_len=16)])
+    _epoch_rates("DAG-ERC eager form", short, card, batch_count=1)
+    del short
 
-    # the card against a CPU run of the same weights, without dropout
-    card0, cpu0 = _trainer(dropout=0.0), _trainer(device="cpu", dropout=0.0)
-    loss_card = card0.compute_grads(batches[0])["Lall"].item()
-    t0 = time.perf_counter()
-    loss_cpu = cpu0.compute_grads(to_device(host[0], torch.device("cpu")))["Lall"].item()
-    t_cpu = time.perf_counter() - t0
-    rel = abs(loss_card - loss_cpu) / abs(loss_cpu)
-    worst, name = _worst_grad_diff(card0.model, cpu0.model)
-    log(f"card vs CPU, first batch: loss {loss_card:.7f} vs {loss_cpu:.7f} (relative {rel:.3e}), "
-        f"gradients worst {worst:.3e} ({name}); tolerance {TRAIN_TOL}; CPU step {t_cpu:.2f} s")
-    require(rel <= TRAIN_TOL and worst <= TRAIN_TOL, f"card vs CPU: loss {rel}, gradients {worst} ({name})")
-    del card0, cpu0
+    # the card, through the captured step, against a CPU run of the same weights, without dropout
+    _card_vs_cpu_steps("DAG-ERC", _trainer(dropout=0.0), _trainer(device="cpu", dropout=0.0), host)
 
     # the main path: one epoch (120 dialogues) and test() through DAGERCTrainer.train
     run = _trainer()
@@ -1478,6 +1769,7 @@ def drive_training(card: str):
     wall = time.perf_counter() - t0
     launches = _read_launches()
     variants = dict(kd.variant_launches)
+    _check_epoch_graphs("DAG-ERC", run, host)
     require(variants == {"dag_block/cluster": launches["dag_block"], "dag_block/stream": 0,
                          "dag_block_bwd/cluster": launches["dag_block_bwd"], "dag_block_bwd/stream": 0,
                          "dag_block_bwd/global": 0},
@@ -1498,14 +1790,8 @@ def drive_training(card: str):
     log(f"DAG-ERC training throughput, kernel form: {rec['dialogues'] / rec['seconds']:.1f} dialogues/s "
         f"({rec['steps']} steps, batch {p.train.batch_size}, {rec['seconds'] * 1e3:.3f} ms) on {card}")
 
-    run.train_step(batch)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    run.train_step(batch)
-    torch.cuda.synchronize()
-    step_s = time.perf_counter() - t0
-    _profile(lambda: run.train_step(batch), f"one train step of the longest batch (batch 16, L "
-             f"{longest['input_tensor'].shape[1]}, {_blocks(longest, chunk)} blocks)", step_s)
+    check_train_graphs("DAG-ERC kernel form", run, host, card, timed=longest, show=("dag_block",))
+    _epoch_rates("DAG-ERC kernel form", run, card)
     _test_replayed_vs_eager("DAG-ERC", run, traced=True)
     return launches, variants
 
@@ -1593,18 +1879,8 @@ def drive_cogmen_training(card: str):
     require(rel <= TRAIN_TOL, f"banded vs dense losses differ by {rel} > {TRAIN_TOL}")
     del band, dense
 
-    # the card against a CPU run of the same weights, without dropout
-    card0, cpu0 = _cogmen_trainer(dropout=0.0), _cogmen_trainer(device="cpu", dropout=0.0)
-    loss_card = card0.compute_grads(batches[0])["Lall"].item()
-    t0 = time.perf_counter()
-    loss_cpu = cpu0.compute_grads(to_device(host[0], torch.device("cpu")))["Lall"].item()
-    t_cpu = time.perf_counter() - t0
-    rel = abs(loss_card - loss_cpu) / abs(loss_cpu)
-    worst, name = _worst_grad_diff(card0.model, cpu0.model)
-    log(f"COGMEN card vs CPU, first batch: loss {loss_card:.7f} vs {loss_cpu:.7f} (relative {rel:.3e}), "
-        f"gradients worst {worst:.3e} ({name}); tolerance {TRAIN_TOL}; CPU step {t_cpu:.2f} s")
-    require(rel <= TRAIN_TOL and worst <= TRAIN_TOL, f"COGMEN card vs CPU: loss {rel}, gradients {worst} ({name})")
-    del card0, cpu0
+    # the card, through the captured step, against a CPU run of the same weights, without dropout
+    _card_vs_cpu_steps("COGMEN", _cogmen_trainer(dropout=0.0), _cogmen_trainer(device="cpu", dropout=0.0), host)
 
     # the main path: one epoch (120 dialogues) and test() through COGMENTrainer.train, banded
     run, other = _cogmen_trainer(), _cogmen_trainer("dense")
@@ -1616,6 +1892,7 @@ def drive_cogmen_training(card: str):
     history = run.train()
     wall = time.perf_counter() - t0
     launches, variants = _read_launches(), dict(kb.variant_launches)
+    _check_epoch_graphs("COGMEN", run, host)
     rec = history[0]
     want = {k: rec["steps"] * n + n_eval * EVAL_LAUNCHES[k] for k, n in TRAIN_STEP_LAUNCHES.items()}
     log(f"COGMEN training path: {rec['steps']} steps over {rec['dialogues']} dialogues, then test() ({n_test} "
@@ -1642,15 +1919,10 @@ def drive_cogmen_training(card: str):
         f"{', '.join(f'{x:.1f}' for x in rates['banded'])} dialogues/s (first epoch first), dense "
         f"{', '.join(f'{x:.1f}' for x in rates['dense'])} dialogues/s on {card}")
 
-    batch = batches[-1]
-    run.train_step(batch)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    run.train_step(batch)
-    torch.cuda.synchronize()
-    step_s = time.perf_counter() - t0
-    _profile(lambda: run.train_step(batch), f"one COGMEN train step (batch 32, L "
-             f"{host[2]['input_tensor'].shape[1]}, banded)", step_s, show=("banded_",))
+    check_train_graphs("COGMEN banded", run, host, card, timed=host[2], show=("banded_",))
+    _epoch_rates("COGMEN banded", run, card)
+    check_train_graphs("COGMEN dense", other, host, card, timed=host[2])
+    _epoch_rates("COGMEN dense", other, card)
     _test_replayed_vs_eager("COGMEN", run, traced=True)
 
     # train, save, serve: main() with two steps; the saved model serves the trainer's eval logits
@@ -1670,7 +1942,7 @@ def drive_cogmen_training(card: str):
         test_batch = next(iter(trainer.make_loader("test")))
         trainer.model.eval()
         with torch.inference_mode():
-            eval_batch = to_device(test_batch, trainer.device, host_lengths=False)  # as the test stage has it
+            eval_batch = to_device(test_batch, trainer.device)
             want_logits = trainer.model(eval_batch).float().cpu().numpy()
         got = engine.logits(test_batch)
         diff = float(np.abs(got - want_logits).max())
@@ -1858,11 +2130,11 @@ def drive_dgcn(card: str):
     require(worst_dense <= PATH_TOL, f"DialogueGCN banded vs dense {worst_dense} > {PATH_TOL}")
     require(worst_cpu <= PATH_TOL, f"DialogueGCN card vs CPU {worst_cpu} > {PATH_TOL}")
 
-    # the captured forward ≡ the eager one, banded and dense, with the masked LSTM ≡ the packed one
+    # the captured forward ≡ the eager one, banded and dense
     dense_eager = InferenceEngine.from_module("dgcn", graph_impl="dense", cuda_graphs=False, **kw)
     dense_eager.model.load_state_dict(engine.model.state_dict())
-    _replay_vs_eager("DialogueGCN banded", engine, eager, rnn=True)
-    _replay_vs_eager("DialogueGCN dense", dense, dense_eager, rnn=True)
+    _replay_vs_eager("DialogueGCN banded", engine, eager)
+    _replay_vs_eager("DialogueGCN dense", dense, dense_eager)
     _launches_replayed_vs_eager("DialogueGCN banded", engine, eager, dialogues)
 
     # one dialogue: the batch carries 31 all-padding dialogues (LSTM rows of length 0)
@@ -1941,17 +2213,7 @@ def drive_dgcn_training(card: str):
     require(rel <= TRAIN_TOL, f"DialogueGCN banded vs dense losses differ by {rel} > {TRAIN_TOL}")
     del band, dense
 
-    card0, cpu0 = _dgcn_trainer(dropout=0.0), _dgcn_trainer(device="cpu", dropout=0.0)
-    loss_card = card0.compute_grads(batches[0])["Lall"].item()
-    t0 = time.perf_counter()
-    loss_cpu = cpu0.compute_grads(to_device(host[0], torch.device("cpu")))["Lall"].item()
-    t_cpu = time.perf_counter() - t0
-    rel = abs(loss_card - loss_cpu) / abs(loss_cpu)
-    worst, name = _worst_grad_diff(card0.model, cpu0.model)
-    log(f"DialogueGCN card vs CPU, first batch (cudnn.allow_tf32 on): loss {loss_card:.7f} vs {loss_cpu:.7f} "
-        f"(relative {rel:.3e}), gradients worst {worst:.3e} ({name}); tolerance {TRAIN_TOL}; CPU step {t_cpu:.2f} s")
-    require(rel <= TRAIN_TOL and worst <= TRAIN_TOL, f"DialogueGCN card vs CPU: loss {rel}, gradients {worst} ({name})")
-    del card0, cpu0
+    _card_vs_cpu_steps("DialogueGCN", _dgcn_trainer(dropout=0.0), _dgcn_trainer(device="cpu", dropout=0.0), host)
 
     # the main path: one epoch (120 dialogues) and test() through DGCNTrainer.train, banded
     run, other = _dgcn_trainer(), _dgcn_trainer("dense")
@@ -1963,6 +2225,7 @@ def drive_dgcn_training(card: str):
     history = run.train()
     wall = time.perf_counter() - t0
     launches, variants, taps = _read_launches(), dict(kb.variant_launches), dict(kb.tap_launches)
+    _check_epoch_graphs("DialogueGCN", run, host)
     rec = history[0]
     want = {k: rec["steps"] * DGCN_STEP_TAPS.get(k, 0) + n_eval * DGCN_FORWARD_TAPS.get(k, 0)
             for k in set(DGCN_STEP_TAPS) | set(DGCN_FORWARD_TAPS)}
@@ -1989,15 +2252,10 @@ def drive_dgcn_training(card: str):
         f"{p.train.batch_size}): banded {', '.join(f'{x:.1f}' for x in rates['banded'])} dialogues/s (first epoch "
         f"first), dense {', '.join(f'{x:.1f}' for x in rates['dense'])} dialogues/s on {card}")
 
-    batch = batches[-1]
-    run.train_step(batch)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    run.train_step(batch)
-    torch.cuda.synchronize()
-    step_s = time.perf_counter() - t0
-    _profile(lambda: run.train_step(batch), f"one DialogueGCN train step (batch 32, L "
-             f"{host[2]['input_tensor'].shape[1]}, banded)", step_s, show=("banded_", "RNN", "rnn"))
+    check_train_graphs("DialogueGCN banded", run, host, card, timed=host[2], show=("banded_", "RNN", "rnn"))
+    _epoch_rates("DialogueGCN banded", run, card)
+    check_train_graphs("DialogueGCN dense", other, host, card, timed=host[2], show=("RNN", "rnn"))
+    _epoch_rates("DialogueGCN dense", other, card)
     _test_replayed_vs_eager("DialogueGCN", run, traced=True)
 
     from erc_tpu_torch.models import dgcn
@@ -2015,7 +2273,7 @@ def drive_dgcn_training(card: str):
         test_batch = next(iter(trainer.make_loader("test")))
         trainer.model.eval()
         with torch.inference_mode():
-            eval_batch = to_device(test_batch, trainer.device, host_lengths=False)  # as the test stage has it
+            eval_batch = to_device(test_batch, trainer.device)
             want_logits = trainer.model(eval_batch).float().cpu().numpy()
         got = engine.logits(test_batch)
         diff = float(np.abs(got - want_logits).max())
@@ -2077,13 +2335,13 @@ def drive_mmgcn(card: str):
     require(worst_struct <= PATH_TOL, f"MMGCN structured vs dense {worst_struct} > {PATH_TOL}")
     require(worst_cpu <= PATH_TOL, f"MMGCN card vs CPU {worst_cpu} > {PATH_TOL}")
 
-    # the captured forward ≡ the eager one in both forms, with the masked LSTM ≡ the packed one
+    # the captured forward ≡ the eager one in both forms
     eagers = {}
     for adj in ("dense", "structured"):
         eagers[adj] = InferenceEngine.from_module("mmgcn", adj_impl=adj, cuda_graphs=False, **kw)
         eagers[adj].model.load_state_dict(engine.model.state_dict())
-    _replay_vs_eager("MMGCN dense", engine, eagers["dense"], rnn=True)
-    _replay_vs_eager("MMGCN structured", structured, eagers["structured"], rnn=True)
+    _replay_vs_eager("MMGCN dense", engine, eagers["dense"])
+    _replay_vs_eager("MMGCN structured", structured, eagers["structured"])
 
     # one dialogue: the batch carries 31 all-padding dialogues (LSTM rows of length 0)
     one = engine.predict([dialogues[0]])
@@ -2169,17 +2427,7 @@ def drive_mmgcn_training(card: str):
     require(rel <= TRAIN_TOL, f"MMGCN structured vs dense losses differ by {rel} > {TRAIN_TOL}")
     del struct, dense
 
-    card0, cpu0 = _mmgcn_trainer(dropout=0.0), _mmgcn_trainer(device="cpu", dropout=0.0)
-    loss_card = card0.compute_grads(batches[0])["Lall"].item()
-    t0 = time.perf_counter()
-    loss_cpu = cpu0.compute_grads(to_device(host[0], torch.device("cpu")))["Lall"].item()
-    t_cpu = time.perf_counter() - t0
-    rel = abs(loss_card - loss_cpu) / abs(loss_cpu)
-    worst, name = _worst_grad_diff(card0.model, cpu0.model)
-    log(f"MMGCN card vs CPU, first batch (cudnn.allow_tf32 on): loss {loss_card:.7f} vs {loss_cpu:.7f} "
-        f"(relative {rel:.3e}), gradients worst {worst:.3e} ({name}); tolerance {TRAIN_TOL}; CPU step {t_cpu:.2f} s")
-    require(rel <= TRAIN_TOL and worst <= TRAIN_TOL, f"MMGCN card vs CPU: loss {rel}, gradients {worst} ({name})")
-    del card0, cpu0
+    _card_vs_cpu_steps("MMGCN", _mmgcn_trainer(dropout=0.0), _mmgcn_trainer(device="cpu", dropout=0.0), host)
 
     # the main path: one epoch (120 dialogues) and test() through MMGCNTrainer.train, dense
     run, other = _mmgcn_trainer(), _mmgcn_trainer("structured")
@@ -2189,6 +2437,7 @@ def drive_mmgcn_training(card: str):
     history = run.train()
     wall = time.perf_counter() - t0
     launches = _no_kernel_launches("MMGCN training path")
+    _check_epoch_graphs("MMGCN", run, host)
     rec = history[0]
     log(f"MMGCN training path: {rec['steps']} steps over {rec['dialogues']} dialogues, then test() ({n_test} "
         f"batches) in {wall:.3f} s; launches {launches}")
@@ -2209,16 +2458,9 @@ def drive_mmgcn_training(card: str):
         f"{p.train.batch_size}): dense {', '.join(f'{x:.1f}' for x in rates['dense'])} dialogues/s (first epoch "
         f"first), structured {', '.join(f'{x:.1f}' for x in rates['structured'])} dialogues/s on {card}")
 
-    batch = batches[-1]
     for label, t in (("dense", run), ("structured", other)):
-        t.train_step(batch)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        t.train_step(batch)
-        torch.cuda.synchronize()
-        step_s = time.perf_counter() - t0
-        _profile(lambda: t.train_step(batch), f"one MMGCN train step (batch {p.train.batch_size}, L "
-                 f"{host[2]['input_tensor'].shape[1]}, {label}, gcn_remat full)", step_s, show=("RNN", "rnn"))
+        check_train_graphs(f"MMGCN {label}", t, host, card, timed=host[2], show=("RNN", "rnn"))
+        _epoch_rates(f"MMGCN {label}", t, card)
     _test_replayed_vs_eager("MMGCN", run)
 
     from erc_tpu_torch.models import mmgcn
@@ -2236,7 +2478,7 @@ def drive_mmgcn_training(card: str):
         test_batch = next(iter(trainer.make_loader("test")))
         trainer.model.eval()
         with torch.inference_mode():
-            eval_batch = to_device(test_batch, trainer.device, host_lengths=False)  # as the test stage has it
+            eval_batch = to_device(test_batch, trainer.device)
             want_logits = trainer.model(eval_batch).float().cpu().numpy()
         got = engine.logits(test_batch)
         diff = float(np.abs(got - want_logits).max())
@@ -2300,10 +2542,10 @@ def drive_dgcnv2(card: str):
         require(worst_cpu <= PATH_TOL, f"{name} card vs CPU {worst_cpu} > {PATH_TOL}")
         # one dialogue: the batch carries 31 all-padding dialogues
         _check_results(dialogues[:1], engine.predict([dialogues[0]]))
-        # the captured forward ≡ the eager one; the biLSTM's masked form ≡ its packed one
+        # the captured forward ≡ the eager one
         eager = InferenceEngine.from_module("dgcnv2", base_model=base, cuda_graphs=False, **kw)
         eager.model.load_state_dict(engine.model.state_dict())
-        _replay_vs_eager(name, engine, eager, rnn=base == "LSTM")
+        _replay_vs_eager(name, engine, eager)
         _eager_and_replayed(name, engine, eager, dialogues, card, show=("RNN", "rnn"))
 
 
@@ -2335,33 +2577,53 @@ def _dgcnv2_trainer(daily=False, *extra, device="cuda", dropout_off=False):
     return trainer
 
 
+def _replayed_batches(host) -> list:
+    """Four steps' host batches of which the last two replay a captured step: the first two batches of the two
+    smallest shape buckets in turns (of the one bucket, its first four, where all share one)."""
+    buckets = _host_buckets(host)
+    if len(buckets) == 1:
+        return buckets[0][:4]
+    a, b = buckets[0], buckets[1]
+    return [a[0], b[0], a[-1], b[-1]]
+
+
 def _card_vs_cpu_steps(name, card0, cpu0, host):
-    """At dropout 0: the first batch's gradients, then 3 steps' losses, the card against the CPU."""
+    """At dropout 0: the first batch's gradients (eager on both), then 4 steps' losses and gnorm, the card's
+    through the captured step (its last two replays) against the CPU's eager steps."""
     import torch
     from erc_tpu_torch.data.loader import to_device
 
     cuda, cpu = card0.device, torch.device("cpu")
-    card0.compute_grads(to_device(host[0], cuda))
+    batches = _replayed_batches(host)
+    card0.compute_grads(to_device(batches[0], cuda))
     t0 = time.perf_counter()
-    cpu0.compute_grads(to_device(host[0], cpu))
+    cpu0.compute_grads(to_device(batches[0], cpu))
     t_cpu = time.perf_counter() - t0
     worst, pname = _worst_grad_diff(card0.model, cpu0.model)
-    losses = [(card0.train_step(to_device(b, cuda))["Lall"].item(), cpu0.train_step(to_device(b, cpu))["Lall"].item())
-              for b in host[:3]]
-    rel = max(abs(a - b) / abs(b) for a, b in losses)
-    log(f"{name} card vs CPU at dropout 0 (cudnn.allow_tf32 on): first-batch gradients worst {worst:.3e} ({pname}); "
-        f"{len(losses)} steps' losses {losses}, worst relative {rel:.3e}; tolerance {TRAIN_TOL}; CPU forward and "
-        f"backward {t_cpu:.2f} s")
+    losses = []
+    for b in batches:
+        mc, mp = card0.train_batch(b), cpu0.train_step(to_device(b, cpu))
+        losses.append((mc["Lall"].item(), mp["Lall"].item(), mc["gnorm"].item(), mp["gnorm"].item()))
+    replays = card0.captured_step.replays
+    rel = max(abs(a - b) / abs(b) for a, b, _, _ in losses)
+    rel_g = max(abs(c - d) / abs(d) for _, _, c, d in losses)
+    log(f"{name} card (captured step, {replays} of {len(batches)} steps replayed) vs CPU at dropout 0 "
+        f"(cudnn.allow_tf32 on): first-batch gradients worst {worst:.3e} ({pname}); {len(losses)} steps' (loss, loss, "
+        f"gnorm, gnorm) {losses}, losses worst relative {rel:.3e}, tolerance {TRAIN_TOL} (gnorm {rel_g:.3e}, logged "
+        f"only: Adam's steps on near-zero gradients move the weights apart); CPU forward and backward {t_cpu:.2f} s")
+    require(replays >= 2, f"{name}: {replays} of the card's steps replayed, want 2")
     require(worst <= TRAIN_TOL, f"{name} card vs CPU gradients {worst} ({pname}) > {TRAIN_TOL}")
     require(rel <= TRAIN_TOL, f"{name} card vs CPU losses differ by {rel} > {TRAIN_TOL}")
 
 
-def _epoch_and_step(name, run, host, batch_desc, check_first=None, unit="dialogues", show=("RNN", "rnn")):
-    """The main path: one epoch and test() with every launch count at 0 before it and none launched, a second
-    epoch's `unit`/s (dialogues, or MMIN's utterances), and a profile of one train step.  `check_first(rec)` runs
-    on the first epoch's record before the second epoch."""
+def _epoch_and_step(name, run, host, card, check_first=None, unit="dialogues", show=("RNN", "rnn"), extra=(),
+                    timed=None):
+    """The main path: one epoch and test() on the captured step, with every launch count at 0 before it and none
+    launched, one capture a shape bucket and one replay every other batch; then the captured step's checks
+    (`check_train_graphs`, timing `timed` or the epoch's last batch), an epoch's `unit`/s (dialogues, or MMIN's
+    utterances) eager and replayed, and the test stage replayed vs eager.  `check_first(rec)` runs on the first
+    epoch's record."""
     import torch
-    from erc_tpu_torch.data.loader import to_device
 
     n_test = len(list(run.make_loader("test")))
     _reset_launches()
@@ -2372,26 +2634,17 @@ def _epoch_and_step(name, run, host, batch_desc, check_first=None, unit="dialogu
     res = rec["test"]
     log(f"{name} training path: {rec['steps']} steps over {rec['dialogues']} {unit}, then test() ({n_test} "
         f"batches) in {wall:.3f} s; launches {launches}")
+    _check_epoch_graphs(name, run, host)
     require(all(math.isfinite(x) for x in (rec["Lall"], rec["gnorm"], res["Lall"], res["f1"])),
             f"non-finite {name} training results {rec}")
+    log(f"{name} epoch 0: loss {rec['Lall']:.5f}, gnorm {rec['gnorm']:.5f}; test loss {res['Lall']:.5f}, weighted "
+        f"F1 {res['f1']:.5f}, acc {res['acc']:.5f}; training throughput (train steps of the first epoch, "
+        f"{rec['dialogues']} {unit}, batch {run.params.train.batch_size}, captures included): "
+        f"{rec['dialogues'] / rec['seconds']:.1f} {unit}/s on {torch.cuda.get_device_name(0)}")
     if check_first is not None:
         check_first(rec)
-    run.eidx += 1
-    run.params.epoch = run.eidx + 1
-    rec2 = run.train()[-1]
-    log(f"{name} epoch 0: loss {rec['Lall']:.5f}, gnorm {rec['gnorm']:.5f}; test loss {res['Lall']:.5f}, weighted "
-        f"F1 {res['f1']:.5f}, acc {res['acc']:.5f}; training throughput (train steps of an epoch, "
-        f"{rec['dialogues']} {unit}, batch {run.params.train.batch_size}): "
-        f"{rec['dialogues'] / rec['seconds']:.1f} (first epoch), {rec2['dialogues'] / rec2['seconds']:.1f} "
-        f"{unit}/s on {torch.cuda.get_device_name(0)}")
-    batch = to_device(host[-1], run.device)
-    run.train_step(batch)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    run.train_step(batch)
-    torch.cuda.synchronize()
-    step_s = time.perf_counter() - t0
-    _profile(lambda: run.train_step(batch), f"one {name} train step ({batch_desc})", step_s, show=show)
+    check_train_graphs(name, run, host, card, extra, show=show, timed=host[-1] if timed is None else timed)
+    _epoch_rates(name, run, card, unit)
     _test_replayed_vs_eager(name, run)
 
 
@@ -2420,8 +2673,14 @@ def drive_dgcnv2_training(card: str):
     host = list(run.make_loader("train"))  # epoch 0: the batches train() will take
     _card_vs_cpu_steps("DialogueGCN v2", _dgcnv2_trainer(dropout_off=True),
                        _dgcnv2_trainer(device="cpu", dropout_off=True), host)
-    _epoch_and_step("DialogueGCN v2", run, host,
-                    f"batch {p.train.batch_size}, L {host[-1]['input_tensor'].shape[1]}, DialogRNN")
+    _epoch_and_step("DialogueGCN v2", run, host, card)
+    lstm = _dgcnv2_trainer(False, "--base_model=LSTM")
+    lhost = list(lstm.make_loader("train"))
+    _card_vs_cpu_steps("DialogueGCN v2 biLSTM", _dgcnv2_trainer(False, "--base_model=LSTM", dropout_off=True),
+                       _dgcnv2_trainer(False, "--base_model=LSTM", device="cpu", dropout_off=True), lhost)
+    check_train_graphs("DialogueGCN v2 biLSTM", lstm, lhost, card, timed=lhost[-1])
+    _epoch_rates("DialogueGCN v2 biLSTM", lstm, card)
+    del lstm
 
     from erc_tpu_torch.models import dgcnv2
     from erc_tpu_torch.serve import InferenceEngine
@@ -2437,7 +2696,7 @@ def drive_dgcnv2_training(card: str):
         test_batch = next(iter(trainer.make_loader("test")))
         trainer.model.eval()
         with torch.inference_mode():
-            eval_batch = to_device(test_batch, trainer.device, host_lengths=False)  # as the test stage has it
+            eval_batch = to_device(test_batch, trainer.device)
             want_logits = trainer.model(eval_batch).float().cpu().numpy()
         diff = float(np.abs(engine.logits(test_batch) - want_logits).max())
         log(f"DialogueGCN v2 train -> save -> serve: {trainer.global_steps} steps, saved {path.name}; "
@@ -2447,14 +2706,12 @@ def drive_dgcnv2_training(card: str):
 
 def drive_dgcnv2_daily_training(card: str):
     """DialogueGCN v2's DailyDialog token track at full width through
-    DGCNV2DailyTrainer, cuDNN's TF32 flag on: the card ≡ the CPU at dropout 0
-    (gradients, the embedding's included, and 3 steps' losses; and what the
-    card gives without the convolutions' full-float32 guard, logged only), an
-    epoch and test() as the main path (no hand-written kernel launched),
-    dialogues/s and a profile of one step."""
+    DGCNV2DailyTrainer, cuDNN's TF32 flag on: the card (through the captured
+    step) ≡ the CPU at dropout 0 (gradients, the embedding's included, and
+    the steps' losses), an epoch and test() as the main path (no hand-written
+    kernel launched), the captured step's checks, dialogues/s and a profile
+    of an eager and a replayed step."""
     import torch
-    from erc_tpu_torch.data.loader import to_device
-    from erc_tpu_torch.models import dgcnv2
 
     run = _dgcnv2_trainer(True)
     p = run.params
@@ -2464,22 +2721,11 @@ def drive_dgcnv2_daily_training(card: str):
         f"TextCNN 3/4/5 x 50 -> 100, base {p.base_model} of {p.hidden_size} a direction, L {p.max_seq_len}, batch "
         f"{p.train.batch_size}, {p.optim.name} lr {p.optim.lr}, {n_params} params, on {torch.cuda.get_device_name(0)}")
     host = list(run.make_loader("train"))
-    card0, cpu0 = _dgcnv2_trainer(True, dropout_off=True), _dgcnv2_trainer(True, device="cpu", dropout_off=True)
-    guard, hook = dgcnv2.cudnn_full_fp32, dgcnv2._backward_in_full_fp32
-    dgcnv2.cudnn_full_fp32, dgcnv2._backward_in_full_fp32 = (lambda backend: contextlib.nullcontext()), (
-        lambda *a: None)
-    try:
-        card0.compute_grads(to_device(host[0], card0.device))
-    finally:
-        dgcnv2.cudnn_full_fp32, dgcnv2._backward_in_full_fp32 = guard, hook
-    cpu0.compute_grads(to_device(host[0], torch.device("cpu")))
-    unguarded, uname = _worst_grad_diff(card0.model, cpu0.model)
-    log(f"DialogueGCN v2 daily without the convolutions' full-float32 guard: card vs CPU gradients worst "
-        f"{unguarded:.3e} ({uname}) (logged only)")
-    _card_vs_cpu_steps("DialogueGCN v2 daily", card0, cpu0, host)
-    del card0, cpu0
-    _epoch_and_step("DialogueGCN v2 daily", run, host, f"batch {p.train.batch_size}, L {p.max_seq_len}, "
-                    f"{p.n_words} words")
+    _card_vs_cpu_steps("DialogueGCN v2 daily", _dgcnv2_trainer(True, dropout_off=True),
+                       _dgcnv2_trainer(True, device="cpu", dropout_off=True), host)
+    # every batch of the track has the static length; a shorter one gives the captured step a second bucket
+    _epoch_and_step("DialogueGCN v2 daily", run, host, card,
+                    extra=[_other_shape(run, 32, max_len=int(p.max_seq_len) // 2)])
 
 
 # ------------------------------------------------------------------ phases 14 and 15
@@ -2531,10 +2777,10 @@ def drive_cim(card: str):
     require(worst_cpu <= PATH_TOL and worst7 <= PATH_TOL, f"CIM card vs CPU {worst_cpu}, {worst7} > {PATH_TOL}")
     # one dialogue: the batch carries 31 all-padding dialogues (uniform attention, finite logits)
     _check_results(dialogues[:1], engine.predict([dialogues[0]]))
-    # the captured forward ≡ the eager one; the biGRUs' masked form ≡ their packed one
+    # the captured forward ≡ the eager one
     eager = InferenceEngine.from_module("cim", cuda_graphs=False, **kw)
     eager.model.load_state_dict(engine.model.state_dict())
-    _replay_vs_eager("CIM", engine, eager, rnn=True)
+    _replay_vs_eager("CIM", engine, eager)
     _eager_and_replayed("CIM", engine, eager, dialogues, card, show=("RNN", "rnn", "gemm"))
 
 
@@ -2603,16 +2849,15 @@ def drive_cim_training(card: str):
             test_batch = next(iter(run.make_loader("test")))
             run.model.eval()
             with torch.inference_mode():
-                want = run.model(to_device(test_batch, run.device, host_lengths=False))[0].float().cpu().numpy()
+                want = run.model(to_device(test_batch, run.device))[0].float().cpu().numpy()
             diff = float(np.abs(engine.logits(test_batch) - want).max())
             log(f"CIM epoch 0: val Lall {val['Lall']:.5f}, F1 {val['f1']:.5f}, acc {val['acc']:.5f}; test multilabel "
                 f"emo_acc {multi['emo_acc']:.5f}, emo_f1 {multi['emo_f1']:.5f}, emo_wa {multi['emo_wa']:.5f}; "
                 f"{path.name} served vs the trainer's eval logits max abs diff {diff:.3e}")
             require(diff == 0.0, f"served best_val logits differ from the trainer's by {diff}")
 
-        longest = max(host, key=lambda b: b["text_feature"].shape[1])  # the step profiled: host[-1]
-        _epoch_and_step("CIM", run, [longest], f"batch {p.train.batch_size}, L {longest['text_feature'].shape[1]}",
-                        check_first=check_first)
+        longest = max(host, key=lambda b: b["text_feature"].shape[1])  # the step profiled
+        _epoch_and_step("CIM", run, host, card, check_first=check_first, timed=longest)
 
 
 # ------------------------------------------------------------------ phase 16
@@ -2647,8 +2892,9 @@ def _mmin_trainer(module, *extra, device="cuda", dropout_off=False):
 
 
 def _mmin_card_vs_cpu(name, card0, cpu0, host, published):
-    """At dropout 0 on the same host batches (the same Missing patterns): the first batch's gradients, 3 steps'
-    losses (each of Lall, Lce, Lmse, Lcycle, Lrce the trainer has) and the EMA shadow after them.  The trainers run at
+    """At dropout 0 on the same host batches (the same Missing patterns): the first batch's gradients, 4 steps'
+    losses (each of Lall, Lce, Lmse, Lcycle, Lrce the trainer has; the card's through the captured step, the
+    last three replayed) and the EMA shadow after them.  The trainers run at
     alpha MMIN_EMA_CHECK_ALPHA, where 3 steps move the shadow by more than 10 x MMIN_EMA_TOL: each device's shadow
     is held against the EMA formula replayed in float32 on the host over that device's weights after each step, so
     a shadow that is not updated, or is updated with another alpha, fails.  Card vs CPU, the shadow that the
@@ -2660,9 +2906,10 @@ def _mmin_card_vs_cpu(name, card0, cpu0, host, published):
     cuda, cpu = card0.device, torch.device("cpu")
     alpha = float(card0.params.ema_alpha)
     require(alpha == MMIN_EMA_CHECK_ALPHA == float(cpu0.params.ema_alpha), f"{name}: EMA check alpha {alpha}")
-    card0.compute_grads(to_device(host[0], cuda))
+    batches = _replayed_batches(host)
+    card0.compute_grads(to_device(batches[0], cuda))
     t0 = time.perf_counter()
-    cpu0.compute_grads(to_device(host[0], cpu))
+    cpu0.compute_grads(to_device(batches[0], cpu))
     t_cpu = time.perf_counter() - t0
     worst, pname = _worst_grad_diff(card0.model, cpu0.model)
 
@@ -2679,8 +2926,8 @@ def _mmin_card_vs_cpu(name, card0, cpu0, host, published):
         return max(float((x.cpu() - y.cpu()).abs().max()) for x, y in zip(xs, ys, strict=True))
 
     losses, traj = [], {"card": [weights(card0)], "cpu": [weights(cpu0)]}
-    for b in host[:3]:
-        mc, mp = card0.train_step(to_device(b, cuda)), cpu0.train_step(to_device(b, cpu))
+    for b in batches:
+        mc, mp = card0.train_batch(b), cpu0.train_step(to_device(b, cpu))
         losses.append({k: (mc[k].item(), mp[k].item()) for k in ("Lall", "Lce", "Lmse", "Lcycle", "Lrce") if k in mp})
         traj["card"].append(weights(card0))
         traj["cpu"].append(weights(cpu0))
@@ -2689,13 +2936,15 @@ def _mmin_card_vs_cpu(name, card0, cpu0, host, published):
                   for k, t in (("card", card0), ("cpu", cpu0)))
     moved = max_abs(replay(traj["card"], alpha), traj["card"][0])
     ema = max_abs(replay(traj["card"], published), replay(traj["cpu"], published))
-    log(f"{name} card vs CPU at dropout 0 (cudnn.allow_tf32 on): first-batch gradients worst {worst:.3e} ({pname}); "
-        f"3 steps' losses {losses}, worst relative {rel:.3e}; tolerance {TRAIN_TOL}; EMA shadow at alpha {alpha} vs "
-        f"its formula over each device's weights max abs {formula:.3e}, moved {moved:.3e}; card vs CPU shadow at "
+    replays = card0.captured_step.replays
+    require(replays >= 2, f"{name}: {replays} of the card's steps replayed, want 2")
+    log(f"{name} card (captured step, {replays} of {len(batches)} steps replayed) vs CPU at dropout 0 (cudnn."
+        f"allow_tf32 on): first-batch gradients worst {worst:.3e} ({pname}); {len(losses)} steps' losses {losses}, worst relative {rel:.3e}; tolerance "
+        f"{TRAIN_TOL}; EMA shadow at alpha {alpha} vs its formula over each device's weights max abs {formula:.3e}, moved {moved:.3e}; card vs CPU shadow at "
         f"alpha {published} max abs diff {ema:.3e} (tolerance {MMIN_EMA_TOL}); CPU forward and backward {t_cpu:.2f} s")
     require(worst <= TRAIN_TOL, f"{name} card vs CPU gradients {worst} ({pname}) > {TRAIN_TOL}")
     require(rel <= TRAIN_TOL, f"{name} card vs CPU losses differ by {rel} > {TRAIN_TOL}")
-    require(moved > 10 * MMIN_EMA_TOL, f"{name}: 3 steps moved the EMA shadow by {moved}, too little to check it")
+    require(moved > 10 * MMIN_EMA_TOL, f"{name}: {len(losses)} steps moved the EMA shadow by {moved}, too little")
     require(formula <= MMIN_EMA_TOL, f"{name}: the EMA shadow differs from its formula by {formula} > {MMIN_EMA_TOL}")
     require(ema <= MMIN_EMA_TOL, f"{name} card vs CPU EMA shadow differs by {ema} > {MMIN_EMA_TOL}")
 
@@ -2775,10 +3024,9 @@ def drive_mmin_training(card: str):
                     f"logits max abs diff {diff:.3e}")
                 require(diff == 0.0, f"{module}: best_val in a fresh trainer differs from the trainer by {diff}")
 
-            desc = (f"batch {p.train.batch_size}, audio {p.max_audio_len} x {p.hidden_audio}, visual 50 x "
-                    f"{p.hidden_visual}, text 22 x {p.hidden_text}")
-            _epoch_and_step(module, run, host, desc, check_first=check_first, unit="utterances",
-                            show=("RNN", "rnn", "conv", "fft", "Conv"))
+            # every batch is padded to 32 utterances; one of 16 gives the captured step a second bucket
+            _epoch_and_step(module, run, host, card, check_first=check_first, unit="utterances",
+                            show=("RNN", "rnn", "conv", "fft", "Conv"), extra=[_other_shape(run, 16, pad_batch_to=16)])
             if module == "mmin_miss":
                 require(_same_weights(run.pretrained_model, before), "the frozen encoder moved in training")
                 log("mmin_miss: the frozen encoder equals the pretrained file before and after the epochs")

@@ -1,45 +1,59 @@
-"""The eval forward captured on the card: one CUDA graph per shape bucket.
+"""The eval forward and the train step captured on the card: one CUDA graph
+per shape bucket.
 
-Port of the JAX package's compiled eval step: the JAX engine and the JAX
-trainer's val and test stages run ``jax.jit`` of the eval forward, compiled
-once per shape bucket (``erc_tpu/serve.py``, ``erc_tpu/train/trainer.py::
-_install_eval_step``).  ``CapturedForward(fn, device)`` runs ``fn(batch)``
-(a tensor, or a tuple of tensors) as one ``torch.cuda.CUDAGraph`` per
-bucket:
+Port of the JAX package's compiled steps: the JAX engine and the JAX
+trainer's val and test stages run ``jax.jit`` of the eval forward, and the
+JAX trainer ``jax.jit`` of its train step (forward, backward, optax's clip
+and update, the LR an injected hyperparameter), each compiled once per
+shape bucket (``erc_tpu/serve.py``, ``erc_tpu/train/trainer.py::
+_install_eval_step, _make_raw_train_step``).  ``CapturedForward(fn,
+device)`` runs ``fn(batch)`` (a tensor, or a tuple of tensors) and
+``CapturedStep(fn, device)`` runs ``fn(batch)`` (a dict of 0-d metrics,
+after updating state in place) as one ``torch.cuda.CUDAGraph`` per bucket.
+What they share:
 
 - The bucket is the (key, shape, dtype) of each array of the batch (the
-  engine's and the eval loaders' batches pad every array to the batch's
-  (B, L), so that is their shape bucket).  The first batch of a bucket runs
-  ``fn`` eagerly once on a side stream, as PyTorch's notes on CUDA graphs
-  ask (cuBLAS and cuDNN allocate workspaces and pick algorithms on a first
-  call; K3 sets its attributes and queries its occupancy), with a dict that
-  records which keys ``fn`` reads.  Then ``fn`` is captured from static
-  inputs of the keys that this bucket's warm-up read, and only those are
-  staged and copied.
-- A call fills pinned staging buffers of the bucket from the host batch,
-  copies them into the static inputs without blocking, replays the graph,
-  copies the static outputs into pinned buffers and waits for them: one
-  stream sync a call.  Every call ends on that sync, so no staging copy is
-  in flight when the next call refills the buffers.
-- All the graphs of one ``CapturedForward`` share one memory pool.  That is
-  safe because each call copies its outputs out before the next replay.
+  loaders' and the engine's batches pad every array to the batch's (B, L),
+  so that is their shape bucket).  The first batch of a bucket runs ``fn``
+  eagerly on a side stream, as PyTorch's notes on CUDA graphs ask (cuBLAS
+  and cuDNN allocate workspaces and pick algorithms on a first call, K3/K4
+  set their attributes and query their occupancy, the optimizer makes its
+  state), with a dict that records which keys ``fn`` reads.  Then ``fn`` is
+  captured from static inputs of the keys that this bucket's warm-up read;
+  only those are staged and copied.  Capture runs nothing.
+- A replay fills pinned staging buffers of the bucket from the host batch,
+  copies them into the static inputs without blocking and replays the
+  graph.  Before it refills a bucket's staging buffers the host waits for
+  the copy out of them that the bucket's previous replay queued, and for
+  nothing else.
+- All the graphs of one object share one memory pool.  That is safe because
+  nothing allocated in a capture outlives its graph's replay but the static
+  outputs, and each replay's outputs are copied out (to the host, or to new
+  device tensors on the same stream) before any later replay can run.
 - The kernel wrappers count launches in Python, where a replay does not
   pass: the counts that a capture made are taken back and added again on
-  every replay, so a replayed forward counts what an eager one does
+  every replay, so a replay counts what an eager call does
   (``chip_smoke.py`` holds them against a device trace of the replays).
-- Graphs read the parameters by address: ``watch`` gives the tensors to
+- Graphs read and write tensors by address: ``watch`` gives the tensors to
   check, and a call raises once one was replaced rather than written in
   place (``invalidate`` drops the graphs after a deliberate replacement).
 
-A capture that fails raises: nothing falls back to the eager forward.
-Everything runs under ``torch.inference_mode``, where the static buffers
-are made.  Only the card: the CPU route calls ``fn`` eagerly and never
-builds one of these.
+``CapturedForward`` runs under ``torch.inference_mode`` and returns numpy
+arrays, waiting for them: one stream sync a call.  ``CapturedStep``'s
+warm-up is the real step of its batch (no step is lost or repeated), and a
+replay returns the metrics as new device tensors without waiting; the
+generators in ``generators`` (the trainer's dropout generator) are
+registered with every graph, so that replays advance them as eager steps
+do.  A capture that fails raises: nothing falls back to the eager call.
+Only the card: the CPU route calls ``fn`` eagerly and never builds one of
+these.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterable, List, Optional, Tuple
+import gc
+import time
+from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -100,42 +114,73 @@ def host_array(v: np.ndarray) -> np.ndarray:
     return v.astype(np.float32) if v.dtype.kind == "f" and v.dtype != np.float32 else v
 
 
+class _Watch:
+    """The addresses of the tensors that captured graphs read or write,
+    taken when the first graph is captured."""
+
+    def __init__(self, tensors: Optional[Callable[[], Iterable[torch.Tensor]]]):
+        self.tensors = tensors
+        self.addresses: Optional[List[int]] = None
+
+    def now(self) -> Optional[List[int]]:
+        return None if self.tensors is None else [t.data_ptr() for t in self.tensors()]
+
+    def unchanged(self) -> bool:
+        return self.addresses is None or self.addresses == self.now()
+
+    def record(self) -> None:
+        if self.addresses is None:
+            self.addresses = self.now()
+
+    def check(self) -> None:
+        if not self.unchanged():
+            raise RuntimeError("a tensor that the captured graphs read was replaced, not written in place: "
+                               "call invalidate() after replacing parameters")
+
+
 class _Bucket:
     """One captured graph, its static and pinned buffers (of the keys its
-    warm-up read) and the launch counts its capture recorded."""
+    warm-up read), its static outputs and the launch counts its capture
+    recorded."""
 
-    def __init__(self, graph, inputs, outputs, is_tuple, counts):
+    def __init__(self, graph, inputs, outputs, counts):
         self.graph = graph
         self.inputs = inputs
         self.staging = {k: torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for k, t in inputs.items()}
+        self.copied = torch.cuda.Event()  # after the last copy out of `staging`
         self.outputs = outputs
-        self.host = tuple(torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in outputs)
-        self.is_tuple = is_tuple
         self.counts = counts
 
 
-class CapturedForward:
+class _Graphs:
+    """What ``CapturedForward`` and ``CapturedStep`` share: the buckets, the
+    warm-up, the capture, the staging copies and the launch counts."""
+
     def __init__(self, fn: Callable, device: torch.device,
-                 watch: Optional[Callable[[], Iterable[torch.Tensor]]] = None):
-        """fn(batch: Dict[str, Tensor]) -> Tensor or tuple of Tensors on
-        ``device`` (a CUDA device); ``watch()`` the tensors ``fn`` reads by
-        address (parameters, buffers)."""
+                 watch: Optional[Callable[[], Iterable[torch.Tensor]]] = None,
+                 generators: Sequence[torch.Generator] = ()):
         if device.type != "cuda":
-            raise ValueError(f"CapturedForward runs on a CUDA device, not {device}")
-        self.fn, self.device, self.watch = fn, device, watch
+            raise ValueError(f"{type(self).__name__} runs on a CUDA device, not {device}")
+        self.fn, self.device, self.generators = fn, device, tuple(generators)
         self.keys: set = set()  # the keys fn read, over every bucket's warm-up
         self.replays = 0
         self.captures = 0
+        self.capture_seconds: List[float] = []  # one per capture, warm-up excluded
         self._buckets: Dict[Tuple, _Bucket] = {}
         self._pool = None
         self._stream = None
-        self._addresses: Optional[List[int]] = None
+        self._watch = _Watch(watch)
 
     def invalidate(self) -> None:
-        """Drop every graph (after parameters were replaced, not written in place)."""
+        """Drop every graph (after tensors they read were replaced, not written in place)."""
         self._buckets.clear()
         self._pool = None
-        self._addresses = None
+        self._watch.addresses = None
+
+    @property
+    def pool(self):
+        """The memory pool the graphs share (None before the first capture)."""
+        return self._pool
 
     @staticmethod
     def _bucket_key(arrays: Dict[str, np.ndarray]) -> Tuple:
@@ -143,70 +188,133 @@ class CapturedForward:
 
     def addresses_unchanged(self) -> bool:
         """Whether every watched tensor is where it was when the first graph was captured."""
-        return self.watch is None or self._addresses in (None, [t.data_ptr() for t in self.watch()])
+        return self._watch.unchanged()
 
-    def _check_addresses(self) -> None:
-        if self.watch is None:
-            return
-        if self._addresses is None:
-            self._addresses = [t.data_ptr() for t in self.watch()]
-        elif not self.addresses_unchanged():
-            raise RuntimeError("a tensor that the captured graphs read was replaced, not written in place: "
-                               "call invalidate() after replacing parameters")
+    def _warm_up(self, arrays: Dict[str, np.ndarray]):
+        """``fn`` eagerly on the side stream that captures: (the batch on the
+        device, the keys fn read, fn's result)."""
+        dev = self.device
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(dev)
+        full = {k: torch.from_numpy(v).to(dev) for k, v in arrays.items()}
+        self._stream.wait_stream(torch.cuda.current_stream(dev))
+        log = _ReadLog(full)
+        with torch.cuda.stream(self._stream):
+            out = self.fn(log)
+        torch.cuda.current_stream(dev).wait_stream(self._stream)
+        self.keys |= log.read
+        return full, log.read, out
+
+    def _capture(self, key: Tuple, inputs: Dict[str, torch.Tensor], fn: Callable) -> _Bucket:
+        """``fn`` captured from the static ``inputs``; its result is the
+        bucket's outputs (a tensor or a tuple of tensors)."""
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        counters = _counters()
+        before = [dict(c) for c in counters]
+        graph = torch.cuda.CUDAGraph()
+        for g in self.generators:
+            graph.register_generator_state(g)
+        # a graph, event or stream that the collector frees during a capture
+        # (say, of a trainer dropped in a reference cycle) is destroyed while
+        # the stream captures, which CUDA refuses and which breaks the
+        # capture: the collector is off during it.  Nothing else frees such
+        # an object then, since the captured code drops no reference to one.
+        enabled = gc.isenabled()
+        gc.disable()
+        t0 = time.perf_counter()
+        try:
+            with torch.cuda.graph(graph, pool=self._pool, stream=self._stream):
+                out = fn(dict(inputs))
+        finally:
+            if enabled:
+                gc.enable()
+        self.capture_seconds.append(time.perf_counter() - t0)
+        counts = []
+        for c, b in zip(counters, before):
+            counts.append({k: c[k] - b[k] for k in c if c[k] != b[k]})
+            c.update(b)  # the capture launched nothing; each replay adds these
+        outputs = tuple(out) if isinstance(out, tuple) else (out,)
+        bucket = self._buckets[key] = _Bucket(graph, inputs, outputs, counts)
+        self.captures += 1
+        self._watch.record()
+        return bucket
+
+    def _replay(self, bucket: _Bucket, arrays: Dict[str, np.ndarray]) -> None:
+        bucket.copied.synchronize()
+        for k, staged in bucket.staging.items():
+            staged.copy_(torch.from_numpy(arrays[k]))  # torch's copy runs on the intra-op threads
+            bucket.inputs[k].copy_(staged, non_blocking=True)
+        bucket.copied.record()
+        bucket.graph.replay()
+        for c, delta in zip(_counters(), bucket.counts):
+            for k, n in delta.items():
+                c[k] += n
+        self.replays += 1
+
+
+class CapturedForward(_Graphs):
+    def __init__(self, fn: Callable, device: torch.device,
+                 watch: Optional[Callable[[], Iterable[torch.Tensor]]] = None):
+        """fn(batch: Dict[str, Tensor]) -> Tensor or tuple of Tensors on
+        ``device`` (a CUDA device); ``watch()`` the tensors ``fn`` reads by
+        address (parameters, buffers)."""
+        super().__init__(fn, device, watch)
 
     def __call__(self, host_batch: Dict[str, np.ndarray]):
         """The outputs of ``fn`` on one host batch (numpy arrays), as float32
         numpy arrays on the host: one array, or a tuple where ``fn`` returns one."""
         arrays = {k: host_array(v) for k, v in host_batch.items() if v is not None}
         with torch.inference_mode():
-            self._check_addresses()
-            bucket = self._buckets.get(self._bucket_key(arrays))
+            self._watch.check()
+            key = self._bucket_key(arrays)
+            bucket = self._buckets.get(key)
             if bucket is None:
-                bucket = self._capture(arrays)
-            return self._replay(bucket, arrays)
-
-    def _capture(self, arrays: Dict[str, np.ndarray]) -> _Bucket:
-        dev = self.device
-        if self._stream is None:
-            self._stream = torch.cuda.Stream(dev)
-        if self._pool is None:
-            self._pool = torch.cuda.graph_pool_handle()
-        side = self._stream
-        full = {k: torch.from_numpy(v).to(dev) for k, v in arrays.items()}
-        side.wait_stream(torch.cuda.current_stream(dev))
-        log = _ReadLog(full)
-        with torch.cuda.stream(side):
-            self.fn(log)
-        torch.cuda.current_stream(dev).wait_stream(side)
-        self.keys |= log.read
-        inputs = {k: full[k] for k in sorted(log.read)}
-        counters = _counters()
-        before = [dict(c) for c in counters]
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self._pool, stream=side):
-            out = self.fn(dict(inputs))
-        counts = []
-        for c, b in zip(counters, before):
-            counts.append({k: c[k] - b[k] for k in c if c[k] != b[k]})
-            c.update(b)  # the capture launched nothing; each replay adds these
-        is_tuple = isinstance(out, tuple)
-        outputs = tuple(out) if is_tuple else (out,)
-        bucket = _Bucket(graph, inputs, outputs, is_tuple, counts)
-        self._buckets[self._bucket_key(arrays)] = bucket
-        self.captures += 1
-        return bucket
-
-    def _replay(self, bucket: _Bucket, arrays: Dict[str, np.ndarray]):
-        for k, staged in bucket.staging.items():
-            staged.copy_(torch.from_numpy(arrays[k]))  # torch's copy runs on the intra-op threads
-            bucket.inputs[k].copy_(staged, non_blocking=True)
-        bucket.graph.replay()
-        for host, out in zip(bucket.host, bucket.outputs):
-            host.copy_(out, non_blocking=True)
-        torch.cuda.current_stream(self.device).synchronize()
-        for c, delta in zip(_counters(), bucket.counts):
-            for k, n in delta.items():
-                c[k] += n
-        self.replays += 1
+                full, read, out = self._warm_up(arrays)
+                bucket = self._capture(key, {k: full[k] for k in sorted(read)}, self.fn)
+                bucket.is_tuple = isinstance(out, tuple)
+                bucket.host = tuple(torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in bucket.outputs)
+            self._replay(bucket, arrays)
+            for host, out in zip(bucket.host, bucket.outputs):
+                host.copy_(out, non_blocking=True)
+            torch.cuda.current_stream(self.device).synchronize()
         outs = tuple(h.numpy().astype(np.float32, copy=True) for h in bucket.host)
         return outs if bucket.is_tuple else outs[0]
+
+
+class CapturedStep(_Graphs):
+    def __init__(self, fn: Callable, device: torch.device,
+                 watch: Optional[Callable[[], Iterable[torch.Tensor]]] = None,
+                 generators: Sequence[torch.Generator] = ()):
+        """fn(batch: Dict[str, Tensor]) -> Dict[str, 0-d float Tensor]: one
+        train step on ``device`` (a CUDA device) that updates its state in
+        place; ``watch()`` the tensors it reads or writes by address
+        (parameters and their gradients, buffers, optimizer state, the LR);
+        ``generators`` the generators it draws from."""
+        super().__init__(fn, device, watch, generators)
+
+    def __call__(self, host_batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+        """One step on a host batch; its metrics as device tensors."""
+        arrays = {k: host_array(v) for k, v in host_batch.items() if v is not None}
+        self._watch.check()
+        key = self._bucket_key(arrays)
+        bucket = self._buckets.get(key)
+        if bucket is None:
+            full, read, mets = self._warm_up(arrays)
+            names = list(mets)
+            watched = self._watch.now()
+
+            def stacked(batch):
+                out = self.fn(batch)
+                if list(out) != names:
+                    raise RuntimeError(f"the captured step returned {list(out)}, its warm-up {names}")
+                return torch.stack([out[k] for k in names])
+
+            bucket = self._capture(key, {k: full[k] for k in sorted(read)}, stacked)
+            bucket.names = names
+            if self._watch.now() != watched:
+                raise RuntimeError("the capture replaced a tensor that the step updates in place "
+                                   "(a parameter's .grad, optimizer state, a buffer)")
+            return mets
+        self._replay(bucket, arrays)
+        return dict(zip(bucket.names, bucket.outputs[0].clone().unbind()))

@@ -5,8 +5,7 @@ shuffle from an explicit generator, an optional length-sorted mode that
 groups similar-length dialogues to cut padding, ``batch_count`` to cut or
 cycle an epoch, and ``drop_last``.  The same seed gives the same batches as
 the JAX package's loader.  ``to_device`` copies a batch to the card from
-pinned memory without blocking the host, and keeps the lengths on the host
-as well (``text_length_host``) for code that needs them there.
+pinned memory without blocking the host.
 """
 
 from __future__ import annotations
@@ -99,14 +98,9 @@ class DialogueLoader:
         self.epoch += 1
 
 
-def to_device(batch: Dict[str, np.ndarray], device: torch.device,
-              host_lengths: bool = True) -> Dict[str, torch.Tensor]:
+def to_device(batch: Dict[str, np.ndarray], device: torch.device) -> Dict[str, torch.Tensor]:
     """A packed batch as tensors on `device`; to a card from pinned memory,
-    without blocking the host.  Arrays that are None are left out.  With
-    ``host_lengths`` the lengths are also kept on the host as
-    ``text_length_host``, so that an RNN packs by them and no forward copies
-    them back from the device; without (the val and test stages), the RNNs
-    take their masked form."""
+    without blocking the host.  Arrays that are None are left out."""
     out = {}
     for k, v in batch.items():
         if v is None:
@@ -115,6 +109,4 @@ def to_device(batch: Dict[str, np.ndarray], device: torch.device,
         if device.type == "cuda":
             t = t.pin_memory().to(device, non_blocking=True)
         out[k] = t
-    if host_lengths and batch.get("text_length") is not None:
-        out["text_length_host"] = torch.from_numpy(batch["text_length"])
     return out

@@ -111,11 +111,9 @@ class CIMModule(nn.Module):
 
     def forward(self, batch):
         mask = batch["attention_mask"]
-        # packed by the host batch's lengths where the batch carries them, else masked
-        lengths = batch.get("text_length_host")
         dense = {}
         for m, key in MODALITIES:
-            h = self.drop0(getattr(self, f"rnn_{m}")(batch[key], mask, lengths))
+            h = self.drop0(getattr(self, f"rnn_{m}")(batch[key], mask))
             dense[m] = self.drop1(torch.relu(getattr(self, f"adapter_{m}")(h)))
         key_mask = (1.0 - mask[:, None, :]) * -10000.0
 
@@ -155,7 +153,7 @@ class CIMTrainer(Trainer):
     def imodels(self, params: CIMParams):
         generator = torch.Generator().manual_seed(int(params.seed))
         self.model = build(params, generator=generator, device=self.device)
-        self.optimizer = optim_factory.build_optim(params.optim, self.model.parameters())
+        self.optimizer = optim_factory.build_optim(params.optim, self.model.parameters(), self.device)
 
     def loss_and_metrics(self, batch: Dict[str, torch.Tensor]):
         p = self.params

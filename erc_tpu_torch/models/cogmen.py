@@ -157,7 +157,7 @@ class COGMENTrainer(Trainer):
     def imodels(self, params: COGMENParams):
         generator = torch.Generator().manual_seed(int(params.seed))
         self.model = build(params, generator=generator, device=self.device)
-        self.optimizer = optim_factory.build_optim(params.optim, self.model.parameters())
+        self.optimizer = optim_factory.build_optim(params.optim, self.model.parameters(), self.device)
 
 
 def main(argv: Optional[list] = None) -> COGMENTrainer:

@@ -365,7 +365,7 @@ class DAGERCTrainer(Trainer):
     def imodels(self, params: DAGERCParams):
         generator = torch.Generator().manual_seed(int(params.seed))
         self.model = build(params, generator=generator, device=self.device)
-        self.optimizer = optim_factory.build_optim(params.optim, self.model.parameters())
+        self.optimizer = optim_factory.build_optim(params.optim, self.model.parameters(), self.device)
         self.grad_clip_norm = 5.0
         self.lr_sche = torch.optim.lr_scheduler.ReduceLROnPlateau(self.optimizer, "min")
 

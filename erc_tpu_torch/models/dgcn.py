@@ -9,9 +9,8 @@ Port of ``erc_tpu.models.dgcn``.
   [B, L, L] masked layers, the oracle; ``'auto'`` picks banded only for
   L > 256, as the JAX module does.  All three share one set of weights.
 - The context encoder is a 2-layer bidirectional LSTM (``ops.rnn.BiRNN``)
-  with packed-sequence semantics, run by cuDNN in full float32 on the card:
-  packed in the training steps, masked where the batch carries no host
-  lengths (serving, the val and test stages).
+  over each dialogue's valid prefix (the masked form), run by cuDNN in full
+  float32 on the card.
 
 ``DGCNTrainer`` trains it as the JAX ``DGCNTrainer`` does: Adam (lr 3e-4,
 no weight decay), no clip, no plateau controller, and the IEMOCAP-6 class
@@ -138,8 +137,7 @@ class DGCNModule(nn.Module):
         speakers = batch["speaker_ids"]
         lengths = batch["text_length"]
         L = x.shape[1]
-        # packed by the host batch's lengths where the batch carries them, else masked
-        feats = self.rnn(x, mask, batch.get("text_length_host"))
+        feats = self.rnn(x, mask)
         impl = self.graph_impl
         if impl == "auto":
             impl = "banded" if L > 256 else "dense"
@@ -174,7 +172,7 @@ class DGCNTrainer(Trainer):
     def imodels(self, params: DGCNParams):
         generator = torch.Generator().manual_seed(int(params.seed))
         self.model = build(params, generator=generator, device=self.device)
-        self.optimizer = optim_factory.build_optim(params.optim, self.model.parameters())
+        self.optimizer = optim_factory.build_optim(params.optim, self.model.parameters(), self.device)
         if params.get("loss_weights", True) and params.n_classes == 6:
             self.class_weights = torch.tensor(IEMOCAP6_LOSS_WEIGHTS, dtype=torch.float32, device=self.device)
 

@@ -15,15 +15,15 @@ Port of ``erc_tpu.models.dgcnv2``.
   history of global states grows by one ``torch.cat`` a step (an in-place
   write would break the backward of the earlier steps' attention).
 - ``base_model='LSTM'`` / ``'GRU'``: ``ops.rnn.BiRNN`` (cuDNN in full float32
-  on the card), packed by the dialogue lengths in the training steps and
-  masked elsewhere, or over every padded step
-  with ``lstm_mode='unpacked'``.
+  on the card), over each dialogue's valid prefix (the masked form), or over
+  every padded step with ``lstm_mode='unpacked'``.
 - The graph is dense ([B, L, L], ``ops.gnn.DenseRGCN`` and
   ``DenseGraphConv``), as in the JAX module: this family launches none of
   the hand-written kernels.
 - ``CNNFeatureExtractor``: embedding (no padding row: word padding runs
   through the convolutions, as flax's ``nn.Embed`` has it) → one ``Conv1d``
-  per kernel size in full float32 → relu → max over words → Linear → relu.
+  per kernel size (all of them one matrix product, ``ops.conv.conv1d_gemm``)
+  → relu → max over words → Linear → relu.
 
 ``DGCNV2Trainer`` trains the feature track as the JAX ``DGCNV2Trainer``
 does: Adam 3e-4 with no weight decay, no clip, no plateau controller, and the
@@ -56,7 +56,8 @@ from erc_tpu_torch.ops.attention import Linear, masked_softmax
 from erc_tpu_torch.ops.dropout import Dropout
 from erc_tpu_torch.ops.gnn import DenseGraphConv, DenseRGCN
 from erc_tpu_torch.ops.init import lecun_normal_, normal_, uniform_
-from erc_tpu_torch.ops.rnn import BiRNN, _backward_in_full_fp32, cudnn_full_fp32, gru_cell, reverse_padded
+from erc_tpu_torch.ops.conv import conv1d_gemm
+from erc_tpu_torch.ops.rnn import BiRNN, gru_cell, reverse_padded
 from erc_tpu_torch.train import optim as optim_factory
 from erc_tpu_torch.train.trainer import Trainer
 
@@ -201,8 +202,8 @@ class CNNFeatureExtractor(nn.Module):
 
     Weights as flax initialises them: the embedding N(0, 1) with no padding
     row, the convolutions and the Linear lecun-normal with zero bias.
-    ``conv_{K}.weight`` is [F, E, K] (flax's kernel is [K, E, F]).  cuDNN runs
-    the convolutions in full float32, forward and backward."""
+    ``conv_{K}.weight`` is [F, E, K] (flax's kernel is [K, E, F]).  The
+    convolutions run as one matrix product (``ops.conv.conv1d_gemm``)."""
 
     def __init__(self, vocab_size: int, embedding_dim: int = 300, output_size: int = 100, filters: int = 50,
                  kernel_sizes=(3, 4, 5), dropout: float = 0.5, *, generator=None, device=None):
@@ -222,15 +223,9 @@ class CNNFeatureExtractor(nn.Module):
 
     def forward(self, token_ids: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         B, L, W = token_ids.shape
-        emb = self.embedding(token_ids.reshape(B * L, W).long()).transpose(1, 2)  # [BL, E, W]
-        conv_fp32 = torch.backends.cudnn.conv
-        pooled = []
-        for K in self.kernel_sizes:
-            with cudnn_full_fp32(conv_fp32):
-                c = getattr(self, f"conv_{K}")(emb)  # [BL, F, W - K + 1]
-            if c.requires_grad and c.is_cuda:
-                _backward_in_full_fp32(c, conv_fp32, "ConvolutionBackward")
-            pooled.append(torch.relu(c).amax(-1))
+        emb = self.embedding(token_ids.reshape(B * L, W).long())  # [BL, W, E]
+        convs = [getattr(self, f"conv_{K}") for K in self.kernel_sizes]
+        pooled = [torch.relu(c).amax(1) for c in conv1d_gemm(emb, convs)]  # each [BL, W - K + 1, F] -> [BL, F]
         h = torch.relu(self.fc(self.dropout(torch.cat(pooled, -1))))
         return h.reshape(B, L, -1) * mask[..., None]
 
@@ -283,8 +278,7 @@ class DGCNV2Module(nn.Module):
             return torch.cat([f, reverse_padded(b, mask)], -1)
         if self.base_model in ("LSTM", "GRU"):
             if self.lstm_mode == "packed":
-                # packed by the host batch's lengths where the batch carries them, else masked
-                return self.rnn(x, mask, batch.get("text_length_host"))
+                return self.rnn(x, mask)  # padded steps masked
             return self.rnn(x)  # every padded step, unpacked
         return self.base_linear(x)
 
@@ -376,7 +370,7 @@ class DGCNV2Trainer(Trainer):
     def imodels(self, params):
         generator = torch.Generator().manual_seed(int(params.seed))
         self.model = build(params, generator=generator, device=self.device)
-        self.optimizer = optim_factory.build_optim(params.optim, self.model.parameters())
+        self.optimizer = optim_factory.build_optim(params.optim, self.model.parameters(), self.device)
         if params.get("loss_weights", True) and params.n_classes == 6:
             self.class_weights = torch.tensor(IEMOCAP6_LOSS_WEIGHTS, dtype=torch.float32, device=self.device)
 

@@ -6,9 +6,9 @@ Port of ``erc_tpu.models.mmgcn``.
 
 - Encoders: ``linear_a``, ``linear_v``, ``linear_l`` to 200, then on text
   a 2-layer bidirectional LSTM of 100 a direction (``ops.rnn.BiRNN``,
-  cuDNN in full float32 on the card).  ``lstm_mode='packed'`` packs by the
-  dialogue lengths in the training steps and masks elsewhere (the same
-  numbers); ``'unpacked'`` runs every padded step, as the reference's
+  cuDNN in full float32 on the card).  ``lstm_mode='packed'`` runs over each
+  dialogue's valid prefix (the masked form, packed sequences' numbers);
+  ``'unpacked'`` runs every padded step, as the reference's
   ``lstm_l`` does (its backward direction consumes the padding).
 - ``adj_impl='dense'`` builds the [B, M·L, M·L] adjacency and runs
   ``GCNIIStack``; ``'structured'`` builds its block-sparse form (M dense
@@ -115,8 +115,7 @@ class MMGCNModule(nn.Module):
     def _text(self, batch, mask):
         t = self.linear_l(batch["text_feature"])
         if self.lstm_mode == "packed":
-            # packed by the host batch's lengths where the batch carries them, else masked
-            t = self.lstm_l(t, mask, batch.get("text_length_host"))
+            t = self.lstm_l(t, mask)  # padded steps masked
         else:
             t = self.lstm_l(t)  # every padded step, unpacked
         # the speaker embedding on the text nodes only, as the reference has it
@@ -165,7 +164,7 @@ class MMGCNTrainer(Trainer):
     def imodels(self, params: MMGCNParams):
         generator = torch.Generator().manual_seed(int(params.seed))
         self.model = build(params, generator=generator, device=self.device)
-        self.optimizer = optim_factory.build_optim(params.optim, self.model.parameters())
+        self.optimizer = optim_factory.build_optim(params.optim, self.model.parameters(), self.device)
 
 
 def main(argv: Optional[list] = None) -> MMGCNTrainer:

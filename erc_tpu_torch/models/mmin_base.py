@@ -86,7 +86,7 @@ class MMINBaseTrainer(Trainer):
     def imodels(self, params: MMINBaseParams):
         self.model = self.build_module(params, generator=torch.Generator().manual_seed(int(params.seed)),
                                        device=self.device)
-        self.optimizer = optim_factory.build_optim(params.optim, self.model.parameters())
+        self.optimizer = optim_factory.build_optim(params.optim, self.model.parameters(), self.device)
         self.lr_sche = torch.optim.lr_scheduler.ReduceLROnPlateau(self.optimizer, "min")
 
     def initialize(self) -> None:
@@ -115,11 +115,9 @@ class MMINBaseTrainer(Trainer):
         torch._foreach_mul_(ema, alpha)
         torch._foreach_add_(ema, new)
 
-    def train_step(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        mets = super().train_step(batch)
+    def after_step(self) -> None:
         if self.ema_model is not None:
             self.update_ema()
-        return mets
 
     def state_tree(self) -> Dict[str, Any]:
         tree = super().state_tree()

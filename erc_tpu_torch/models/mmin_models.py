@@ -4,9 +4,8 @@ Port of ``erc_tpu.models.mmin_models``:
 
 - ``TextCNN``: one ``Conv1d`` per width 3/4/5 over the words (VALID) →
   ReLU → max over the words → concatenation → dropout 0.5 → ``embd`` →
-  ReLU.  cuDNN runs the convolutions in full float32, forward and backward
-  (``ops.rnn.cudnn_full_fp32`` and hooks on the ``ConvolutionBackward``
-  node), as ``models.dgcnv2.CNNFeatureExtractor`` does.
+  ReLU.  The convolutions are one matrix product
+  (``ops.conv.conv1d_gemm``), as in ``models.dgcnv2.CNNFeatureExtractor``.
 - ``LSTMEncoder``: a one-direction LSTM over every step of the zero-padded
   sequence (no packing: the JAX module runs a mask of ones), then the
   ``maxpool``, ``last`` or ``attention`` readout.  The ``attention`` readout
@@ -40,7 +39,8 @@ from torch import nn
 from erc_tpu_torch.ops.attention import Linear
 from erc_tpu_torch.ops.dropout import Dropout
 from erc_tpu_torch.ops.init import lecun_normal_, normal_
-from erc_tpu_torch.ops.rnn import BiRNN, _backward_in_full_fp32, cudnn_full_fp32
+from erc_tpu_torch.ops.conv import conv1d_gemm
+from erc_tpu_torch.ops.rnn import BiRNN
 
 MODALITIES = (("netA", "audio_feature"), ("netV", "visual_feature"), ("netL", "text_feature"))
 
@@ -63,15 +63,8 @@ class TextCNN(nn.Module):
         self.embd = Linear(len(self.kernel_heights) * out_channels, embd_size, generator=generator, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.transpose(1, 2)  # [B, D, W]
-        conv_fp32 = torch.backends.cudnn.conv
-        outs = []
-        for k in self.kernel_heights:
-            with cudnn_full_fp32(conv_fp32):
-                h = getattr(self, f"conv{k}")(x)  # [B, C, W - k + 1]
-            if h.requires_grad and h.is_cuda:
-                _backward_in_full_fp32(h, conv_fp32, "ConvolutionBackward")
-            outs.append(torch.relu(h).amax(-1))
+        convs = [getattr(self, f"conv{k}") for k in self.kernel_heights]
+        outs = [torch.relu(h).amax(1) for h in conv1d_gemm(x, convs)]  # each [B, W - k + 1, C] -> [B, C]
         return torch.relu(self.embd(self.dropout(torch.cat(outs, -1))))
 
 

@@ -153,16 +153,20 @@ def _save_products(ctx, op, *args, **kwargs):
 def _remat(trip, mode):
     """``trip`` run as ``mode`` says: 'off' (or False) as is, 'full' (or
     True) under ``torch.utils.checkpoint``, 'dots' under a checkpoint that
-    saves the products."""
+    saves the products.  The checkpoint does not save and restore the RNG
+    state (reading the card's generator state cannot be captured in a CUDA
+    graph): a trip draws nothing, its dropout masks come in as inputs
+    (``Dropout.masks``)."""
     if not mode or mode == "off":
         return trip
     from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
     if mode in (True, "full"):
-        return lambda *a: checkpoint(trip, *a, use_reentrant=False)
+        return lambda *a: checkpoint(trip, *a, use_reentrant=False, preserve_rng_state=False)
     if mode == "dots":
         context_fn = functools.partial(create_selective_checkpoint_contexts, _save_products)
-        return lambda *a: checkpoint(trip, *a, use_reentrant=False, context_fn=context_fn)
+        return lambda *a: checkpoint(trip, *a, use_reentrant=False, preserve_rng_state=False,
+                                     context_fn=context_fn)
     raise ValueError(f"unknown remat mode {mode!r}")
 
 

@@ -7,17 +7,14 @@ Port of ``erc_tpu.ops.rnn``:
 - ``BiRNN``: a multi-layer bidirectional LSTM (DialogueGCN, MMGCN,
   DialogueGCN v2) or GRU (DialogueGCN v2, CIM), or a one-direction LSTM
   (MMIN's ``LSTMEncoder``, ``bidirectional=False``), over a right-padded
-  [B, L, D] batch, in one of three forms:
-  - packed, by lengths on the host (the training steps): padded steps
-    neither update the state nor produce output; each layer is one
-    ``nn.LSTM`` or ``nn.GRU`` call on a ``PackedSequence``;
-  - masked, by the mask alone (serving and the val and test stages): the
-    JAX package's masked scan
-    (``_scan_bidirectional``), with no host sync, so it can be captured in
-    a CUDA graph.  The forward direction runs over the padded tensor (a
-    valid step reads no later step), the reverse one over each row's valid
-    prefix, and padded outputs are 0;
-  - every step, padding included, where neither is given (the JAX
+  [B, L, D] batch, in one of two forms:
+  - masked, by the mask (training, serving, the val and test stages): the
+    JAX package's masked scan (``_scan_bidirectional``), with no host sync,
+    so it can be captured in a CUDA graph.  Padded steps neither update
+    the state nor produce output: the forward direction runs over the
+    padded tensor (a valid step reads no later step), the reverse one over
+    each row's valid prefix, and padded outputs are 0;
+  - every step, padding included, where no mask is given (the JAX
     package's mask of ones: MMIN's encoders, and ``lstm_mode='unpacked'``
     of MMGCN and DialogueGCN v2).
   The layers' gate order (i, f, g, o for the LSTM; r, z, n for the GRU,
@@ -37,7 +34,7 @@ from typing import Optional
 
 import torch
 from torch import nn
-from torch.nn.utils.rnn import PackedSequence, pack_padded_sequence, pad_packed_sequence
+from torch.nn.utils.rnn import PackedSequence
 
 from erc_tpu_torch.ops.dropout import Dropout
 from erc_tpu_torch.ops.init import uniform_
@@ -140,55 +137,45 @@ class BiRNN(nn.Module):
             d_in = (2 if bidirectional else 1) * hidden_size
         self.dropout = Dropout(dropout)
 
-    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
-                lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """x: [B, L, D]; mask: [B, L], 1 on each row's first ``lengths[b]``
-        positions; lengths: [B] ints.  Returns [B, L, 2H] ([B, L, H] in one
-        direction).
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """x: [B, L, D]; mask: [B, L], 1 on each row's valid prefix.  Returns
+        [B, L, 2H] ([B, L, H] in one direction).
 
-        - ``lengths`` on the host (a CPU tensor, taken from the host batch:
-          packing needs them there, and a device tensor costs a copy that
-          waits for the device): the packed form.
-        - ``mask`` alone: the masked form (``_masked``), which reads the
-          lengths from the mask on the device.
-        - neither: every row runs all L steps, padding included, unpacked
-          and unmasked: one cuDNN call a layer over the tensor as it is.
-        The packed and masked forms give 0 at padded positions and on rows
-        of length 0.
+        - ``mask``: the masked form (``_masked``), which reads the lengths
+          from the mask on the device; 0 at padded positions and on rows of
+          length 0.
+        - no mask: every row runs all L steps, padding included: one cuDNN
+          call a layer over the tensor as it is.
 
         cuDNN runs each layer, forward and backward, in full float32
-        (``cudnn_rnn_full_fp32``).  Packed rows are sorted by length on the
-        host and the permutations go to the device without blocking, so
-        packing waits for nothing (``enforce_sorted=False`` would copy its
-        permutation with a blocking copy).  A row of length 0 (a padding
-        dialogue) is packed with length 1 and its output zeroed by the mask:
-        packing refuses length 0.
+        (``cudnn_rnn_full_fp32``).
         """
-        if lengths is None:
-            return self._unpacked(x) if mask is None else self._masked(x, mask)
-        L = x.shape[1]
-        n = lengths.to("cpu", torch.int64).clamp(min=1)
-        order = torch.argsort(n, descending=True, stable=True)
-        n_sorted, inverse = n[order], torch.argsort(order)
-        if x.is_cuda:
-            order, inverse = (t.pin_memory().to(x.device, non_blocking=True) for t in (order, inverse))
-        packed = pack_padded_sequence(x.index_select(0, order), n_sorted, batch_first=True)
-        for i, layer in enumerate(self.layers):
-            if i:
-                packed = packed._replace(data=self.dropout(packed.data))
-            packed, _ = self._run(layer, packed)
-        out, _ = pad_packed_sequence(packed, batch_first=True, total_length=L)
-        return out.index_select(0, inverse) * mask[..., None].to(out.dtype)
+        return self._unpacked(x) if mask is None else self._masked(x, mask)
 
     @staticmethod
     def _run(layer, inp):
-        """One layer's cuDNN call in full float32, forward and backward."""
+        """One layer's cuDNN call in full float32, forward and backward.
+
+        Under autograd on the card the rows go to cuDNN as a
+        ``PackedSequence`` of full-length rows (its batch sizes come from the
+        shape, so nothing waits for the device): on the padded layout cuDNN's
+        float32 results lie about 16 times further from the CPU's (on an
+        H100, outputs 3.8e-6 against 2.3e-7 at B 32, L 96, D 712,
+        ``scripts/torch_train_numerics.py layout``), and a gradient through a
+        ReLU or a max can turn that into gaps far above the 1e-4 the card and
+        the CPU are held to.  Without autograd (serving, the val and test
+        stages) the padded layout, which is faster (8.4 against 22.5 ms for
+        the same forward and backward there)."""
+        if inp.is_cuda and torch.is_grad_enabled():
+            B, L = inp.shape[:2]
+            packed = PackedSequence(inp.transpose(0, 1).reshape(L * B, -1), torch.full((L,), B, dtype=torch.int64))
+            with cudnn_rnn_full_fp32():
+                out, state = layer(packed)
+            if out.data.requires_grad:
+                _backward_in_full_fp32(out.data)
+            return out.data.reshape(L, B, -1).transpose(0, 1), state
         with cudnn_rnn_full_fp32():
-            out, state = layer(inp)
-        data = out.data if isinstance(out, PackedSequence) else out
-        if data.requires_grad and data.is_cuda:
-            _backward_in_full_fp32(data)
-        return out, state
+            return layer(inp)
 
     def _unpacked(self, x: torch.Tensor) -> torch.Tensor:
         out = x

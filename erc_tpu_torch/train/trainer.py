@@ -25,20 +25,27 @@ own (MMIN's EMA shadow) in checkpoints.  Batches are of dialogues
 (``text_length``) or of utterances (``sample_mask``, MMIN): a record's
 ``dialogues`` counts the rows that are not padding either way.
 
-The val and test stages run the eval forward (``to_logits``) on the card as
-one replay of a CUDA graph per batch shape (``core.cuda_graphs``: the JAX
-trainer's eval step, jitted once per shape bucket), which ``eval_graphs =
-False`` turns into the eager forward; the RNNs take their masked form there
-(the batch carries no host lengths), the train steps their packed form.
-``load_state_tree`` drops the graphs, and a replay raises where a parameter
-was replaced rather than written in place.
+The train step is ``_step``: forward, backward, the gradients' global norm
+before the clip, optax's clip, the optimizer step and ``after_step`` (MMIN's
+EMA shadow), every state update in place, each parameter's ``.grad``
+allocated once and zeroed in the step.  On the card ``train()`` replays it
+as one CUDA graph per batch shape (``core.cuda_graphs.CapturedStep``: the
+JAX trainer's train step, jitted once per shape bucket), the first batch of
+each shape trained eagerly before its capture; the LR is then a 0-d tensor
+on the card (``train.optim.build_optim``), which the plateau controller
+writes in place.  The val and test stages replay the eval forward
+(``to_logits``) the same way (``CapturedForward``).  ``train_graphs =
+False`` and ``eval_graphs = False`` run them eagerly.  ``load_state_tree``
+drops the graphs, and a replay raises where a tensor it reads was replaced
+rather than written in place.
 
 The trainer runs in float32 on ``params.device`` (the card unless it is
 ``"cpu"``).  Dropout draws from a generator on that device seeded from
 ``params.seed``.  Left out, for later slices: callbacks, experiment
 directories, the metric database and board, step-count checkpoints,
-several processes or devices, ``steps_per_call``, ``compute_dtype``,
-``transfer_dtype`` and ``profile_steps``.
+several processes or devices, ``compute_dtype``, ``transfer_dtype`` and
+``profile_steps``; and ``steps_per_call`` (K steps in one compiled call,
+which the captured step would hold as K steps in one graph).
 """
 
 from __future__ import annotations
@@ -50,7 +57,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-from erc_tpu_torch.core.cuda_graphs import CapturedForward
+from erc_tpu_torch.core.cuda_graphs import CapturedForward, CapturedStep
 from erc_tpu_torch.core.device import resolve_device
 from erc_tpu_torch.core.seed import RngPool
 from erc_tpu_torch.data.collate import ERCBatcher
@@ -59,7 +66,7 @@ from erc_tpu_torch.data.registry import dataset_has_val, get_root, pick_datas
 from erc_tpu_torch.ops.dropout import Dropout
 from erc_tpu_torch.train.checkpoint import Saver
 from erc_tpu_torch.train.metrics import classification_summary
-from erc_tpu_torch.train.optim import clip_by_global_norm_, global_norm
+from erc_tpu_torch.train.optim import clip_by_global_norm_, global_norm, load_optimizer_state
 
 
 def masked_cross_entropy(logits, labels, mask, class_weights=None) -> torch.Tensor:
@@ -86,6 +93,7 @@ class Trainer:
 
     plateau_source = "test"  # which stage's loss steps lr_sche ("val": MMIN)
     eval_graphs = True  # on the card, replay the captured eval forward (False: eager)
+    train_graphs = True  # on the card, replay the captured train step (False: eager)
 
     def __init__(self, params):
         self.params = params
@@ -105,6 +113,7 @@ class Trainer:
         self._val_loader = None
         self._saver: Optional[Saver] = None
         self._captured: Optional[CapturedForward] = None
+        self._captured_step: Optional[CapturedStep] = None
 
     # ------------------------------------------------------------------ setup
     def imodels(self, params) -> None:
@@ -165,31 +174,80 @@ class Trainer:
     def compute_grads(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """Forward and backward of one batch in training mode: leaves every
         parameter's gradient in ``.grad`` (zeros where none reaches it, as
-        optax updates every leaf) and returns the metrics, on the device."""
+        optax updates every leaf) and returns the metrics, on the device.
+        The ``.grad`` tensors are made once and zeroed here, so that a
+        captured step writes the same tensors whatever its bucket."""
         self.model.train()
-        params = list(self.model.parameters())
-        for t in params:
-            t.grad = None
+        torch._foreach_zero_(self.grads())
         with torch.enable_grad():
             loss, mets = self.loss_and_metrics(batch)
             loss.backward()
+        return mets
+
+    def grads(self) -> List[torch.Tensor]:
+        """Each parameter's ``.grad``, made (zeros) where it is None."""
+        params = list(self.model.parameters())
         for t in params:
             if t.grad is None:
                 t.grad = torch.zeros_like(t)
-        return mets
+        return [t.grad for t in params]
 
-    def train_step(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        """One optimizer step; the metrics include ``gnorm``, the global norm of
-        the gradients before the clip.  Nothing waits for the device."""
+    def after_step(self) -> None:
+        """State updated after the optimizer step, inside the captured step
+        (MMIN's EMA shadow); in place."""
+
+    def _step(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """The step that the card captures: the gradients, their global norm
+        before the clip (``gnorm``), optax's clip, the optimizer step and
+        ``after_step``.  Nothing waits for the device."""
         mets = self.compute_grads(batch)
-        grads = [t.grad for t in self.model.parameters()]
+        grads = self.grads()
         if self.grad_clip_norm:
             mets["gnorm"] = clip_by_global_norm_(grads, float(self.grad_clip_norm))
         else:
             mets["gnorm"] = global_norm(grads)
         self.optimizer.step()
+        self.after_step()
+        return mets
+
+    def train_step(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """One eager optimizer step on a batch of device tensors; the metrics
+        include ``gnorm``, the global norm of the gradients before the clip."""
+        mets = self._step(batch)
         self.global_steps += 1
         return mets
+
+    def train_batch(self, host_batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+        """One optimizer step on a host batch, as ``train()`` takes it: on the
+        card a replay of the step captured for the batch's shape (its first
+        batch trains eagerly before the capture), else ``train_step``."""
+        if self.device.type == "cuda" and self.train_graphs:
+            mets = self.captured_step(host_batch)
+            self.global_steps += 1
+            return mets
+        return self.train_step(to_device(host_batch, self.device))
+
+    def _step_tensors(self) -> List[torch.Tensor]:
+        """What the captured step reads or writes by address: parameters,
+        their gradients and buffers of every module the trainer holds, the
+        optimizer's state and tensor hyperparameters (the LR)."""
+        params = list(self.model.parameters())
+        opt = [v for s in self.optimizer.state.values() for v in s.values() if isinstance(v, torch.Tensor)]
+        hyper = [v for g in self.optimizer.param_groups for v in g.values() if isinstance(v, torch.Tensor)]
+        return [*self._eval_tensors(), *(t.grad for t in params if t.grad is not None), *opt, *hyper]
+
+    @property
+    def captured_step(self) -> CapturedStep:
+        """The train step captured per batch shape (the card only); raises
+        where the optimizer cannot be captured."""
+        if self._captured_step is None:
+            if not all(g.get("capturable") for g in self.optimizer.param_groups):
+                raise NotImplementedError(
+                    f"the captured train step needs a capturable optimizer (adam or adamw on the card), not "
+                    f"{type(self.optimizer).__name__}: set train_graphs = False to step eagerly")
+            self._captured_step = CapturedStep(self._step, self.device, watch=self._step_tensors,
+                                               generators=(self._dropout_rng,))
+        return self._captured_step
 
     # ------------------------------------------------------------------- loop
     def train(self) -> List[Dict[str, Any]]:
@@ -219,7 +277,7 @@ class Trainer:
             n_steps = n_dialogues = 0
             t0 = time.perf_counter()
             for bidx, host_batch in enumerate(loader):
-                mets = self.train_step(to_device(host_batch, self.device))
+                mets = self.train_batch(host_batch)
                 for k, v in mets.items():
                     sums[k] = sums[k] + v if k in sums else v
                 n_steps += 1
@@ -301,7 +359,7 @@ class Trainer:
                 if self.device.type == "cuda" and self.eval_graphs:
                     out = self.captured(host_batch)
                 else:
-                    out = _to_host(self.to_logits(to_device(host_batch, self.device, host_lengths=False)))
+                    out = _to_host(self.to_logits(to_device(host_batch, self.device)))
                 self.test_step_collect(host_batch, out)
 
     # hooks where the JAX trainer fires them; a subclass overrides what it needs
@@ -326,9 +384,9 @@ class Trainer:
         """Step the plateau controller (where the subclass set one) on a loss."""
         if self.lr_sche is None or loss is None or not self.params.get("lr_plateau", True):
             return
-        cur = self.optimizer.param_groups[0]["lr"]
+        cur = float(self.optimizer.param_groups[0]["lr"])  # a tensor on the card, written in place
         self.lr_sche.step(float(loss))
-        new = self.optimizer.param_groups[0]["lr"]
+        new = float(self.optimizer.param_groups[0]["lr"])
         if new != cur:
             self.log(f"ReduceLROnPlateau: lr {cur} -> {new}")
 
@@ -437,11 +495,12 @@ class Trainer:
 
     def load_state_tree(self, tree: Dict[str, Any]) -> None:
         """Restore what ``state_tree`` saved (the epoch is the saved one's);
-        the captured eval graphs are dropped."""
-        if self._captured is not None:
-            self._captured.invalidate()
+        the captured graphs are dropped."""
+        for graphs in (self._captured, self._captured_step):
+            if graphs is not None:
+                graphs.invalidate()
         self.model.load_state_dict(tree["model"])
-        self.optimizer.load_state_dict(tree["optimizer"])
+        load_optimizer_state(self.optimizer, tree["optimizer"])
         if self.lr_sche is not None:
             self.lr_sche.load_state_dict(tree["lr_sche"])
         self._dropout_rng.set_state(tree["rng"])

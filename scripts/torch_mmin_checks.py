@@ -14,9 +14,9 @@ cuDNN's TF32 flag on, as in ``chip_smoke.py``'s MMIN phases.
   ``*_reverse``) filled with noise, beside the number of (row, unit) pairs
   whose max over time the card and the CPU take at different steps in the
   LSTM encoders' maxpool readouts.
-- ``lstm``: ``BiRNN`` run over every padded step in its two forms, packed
-  with full lengths and unpacked (``lengths=None``), at MMGCN's, DialogueGCN
-  v2's and MMIN's shapes: forward and backward time (CUDA events, median of
+- ``lstm``: ``BiRNN`` run over every padded step in its two forms, masked
+  by a mask of ones and unpacked (no mask), at MMGCN's, DialogueGCN v2's and
+  MMIN's shapes: forward and backward time (CUDA events, median of
   interleaved repeats) and the largest difference of outputs and gradients.
 
     python scripts/torch_mmin_checks.py [ema|tie|lstm ...]   # all by default
@@ -172,8 +172,8 @@ def lstm() -> None:
         rnn = BiRNN(D, H, num_layers=layers, bidirectional=bi, generator=gen, device="cuda")
         x = torch.randn(B, L, D, generator=gen).cuda().requires_grad_()
         g = torch.randn(B, L, (2 if bi else 1) * H, generator=gen).cuda()
-        ones, full = torch.ones(B, L, device="cuda"), torch.full((B,), L)
-        forms = {"packed, full lengths": lambda: rnn(x, ones, full), "unpacked": lambda: rnn(x)}
+        ones = torch.ones(B, L, device="cuda")
+        forms = {"masked, mask of ones": lambda: rnn(x, ones), "unpacked": lambda: rnn(x)}
         res = {}
         for k, f in forms.items():
             x.grad = None

@@ -65,9 +65,7 @@ def _np_tree(tree):
 
 
 def _t(batch):
-    out = {k: torch.from_numpy(v) for k, v in batch.items() if v is not None}
-    out["text_length_host"] = out["text_length"]
-    return out
+    return {k: torch.from_numpy(v) for k, v in batch.items() if v is not None}
 
 
 def _batch(seed=0):

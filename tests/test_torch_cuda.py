@@ -26,6 +26,8 @@ MMIN's card vs CPU raw and EMA logits 1e-4 and its gradients 1e-4 relative
 for each of its three trainers, TF32 flag on.
 """
 
+import gc
+
 import numpy as np
 import pytest
 import torch
@@ -1006,31 +1008,116 @@ def test_engine_replay_equals_eager_and_counts_the_same_launches(cuda, module, k
         torch.backends.cudnn.allow_tf32 = prev
 
 
-def test_masked_rnn_form_equals_packed_on_the_card(cuda):
-    """BiRNN's masked form (no host lengths) against its packed form on the
-    card, with cuDNN's TF32 flag on, and captured ≡ eager bit for bit."""
-    from erc_tpu_torch.core.cuda_graphs import CapturedForward
-    from erc_tpu_torch.ops.rnn import BiRNN
+def _two_bucket_batches(trainer, lengths=((10, 20), (30, 40)), B=4):
+    """Host batches in two shape buckets: B dialogues of each length range, padded to the batch's L."""
+    from erc_tpu_torch.data.synthetic import synthetic_erc
 
-    prev = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = True
+    batcher = trainer.batcher(B)
+    return [batcher(synthetic_erc("iemocap-cogmen", 6, n_train=B, min_len=lo, max_len=hi, seed=i))
+            for i, (lo, hi) in enumerate(lengths)]
+
+
+def _steps(trainer, batches, replayed):
+    """Steps on host batches, replayed or eager, the LR halved in place after the first; the losses, gnorms,
+    and every tensor the captured step reads or writes, and the generator state, after them."""
+    trainer.train_graphs = replayed
+    out = []
+    for i, b in enumerate(batches):
+        if i == 1:
+            trainer.optimizer.param_groups[0]["lr"].mul_(0.5)
+        m = trainer.train_batch(b)
+        out += [m["Lall"].clone(), m["gnorm"].clone()]
+    trainer.train_graphs = True
+    torch.cuda.synchronize()
+    return out + [t.detach().clone() for t in trainer._step_tensors()] + [trainer._dropout_rng.get_state()]
+
+
+@pytest.mark.parametrize("module", ["cogmen", "dagerc"])
+def test_train_step_replay_equals_eager_over_buckets_and_an_lr_change(cuda, module):
+    """COGMEN banded (K1, K2, K1ᵀ) and DAG-ERC's kernel form (K3, K4) at
+    their dropout: 3 replayed steps over two shape buckets, with the LR tensor
+    changed in place between, ≡ 3 eager steps from the same state bit for bit
+    (losses, gnorm, parameters, gradients, optimizer state, LR, generator
+    state), one capture a bucket and one replay a step."""
+    trainer = _cogmen_trainer("banded") if module == "cogmen" else _trainers()[0][0]
+    a, b = _two_bucket_batches(trainer)
+    trainer.train_batch(a)
+    trainer.train_batch(b)
+    graphs = trainer.captured_step
+    assert graphs.captures == 2 and graphs.replays == 0
+    torch.cuda.synchronize()
+    saved = [t.detach().clone() for t in trainer._step_tensors()], trainer._dropout_rng.get_state()
+
+    def restore():
+        with torch.no_grad():
+            torch._foreach_copy_(trainer._step_tensors(), saved[0])
+        trainer._dropout_rng.set_state(saved[1])
+
+    eager = _steps(trainer, [a, b, a], replayed=False)
+    restore()
+    replayed = _steps(trainer, [a, b, a], replayed=True)
+    assert graphs.captures == 2 and graphs.replays == 3
+    assert len(eager) == len(replayed)
+    for i, (x, y) in enumerate(zip(eager, replayed)):
+        assert torch.equal(x, y), i
+
+
+def test_load_state_tree_drops_the_captured_step(cuda):
+    """``load_state_tree`` (``--resume``) drops the captured step's graphs;
+    the next batch captures again, its LR a tensor on the card; a parameter
+    replaced behind the trainer's back makes the next replay raise."""
+    t = _dgcn_trainer("banded")
+    a, b = _two_bucket_batches(t)
+    t.train_batch(a)
+    t.train_batch(b)
+    t.train_batch(a)
+    assert t.captured_step.captures == 2 and t.captured_step.replays == 1
+    tree = t.state_tree()
+    t.load_state_tree(tree)
+    assert not t.captured_step._buckets
+    lr = t.optimizer.param_groups[0]["lr"]
+    assert isinstance(lr, torch.Tensor) and lr.is_cuda and t.optimizer.param_groups[0]["capturable"]
+    t.train_batch(a)
+    t.train_batch(a)
+    assert t.captured_step.captures == 3 and t.captured_step.replays == 2
+    with torch.no_grad():
+        t.model.clf_lin2.weight = torch.nn.Parameter(t.model.clf_lin2.weight.clone())
+    with pytest.raises(RuntimeError, match="replaced"):
+        t.train_batch(a)
+
+
+def test_no_collection_runs_while_a_step_is_captured(cuda):
+    """A trainer dropped in a reference cycle holds captured graphs, which
+    only the cyclic collector frees; freed while another trainer's step is
+    captured, they break that capture (CUDA refuses to destroy a graph while
+    a stream captures).  With the collector made to run at every allocation,
+    none runs during a capture, and the next trainer captures and replays."""
+    old = _dgcn_trainer("banded")
+    a, _ = _two_bucket_batches(old)
+    old.train_batch(a)
+    assert old.captured_step.captures == 1
+    old.cycle = old
+    del old
+    t = _dgcn_trainer("banded")
+    seen = []
+
+    def on_collect(phase, info):
+        if phase == "start":
+            seen.append(torch.cuda.is_current_stream_capturing())
+
+    threshold = gc.get_threshold()
+    gc.callbacks.append(on_collect)
+    gc.set_threshold(1, 1, 1)
     try:
-        for cell in ("lstm", "gru"):
-            g = torch.Generator().manual_seed(5)
-            rnn = BiRNN(200, 100, num_layers=2, cell=cell, generator=g).to("cuda").eval()
-            lengths = torch.tensor([112, 0, 1, 57, 111])
-            mask = (torch.arange(112)[None] < lengths[:, None]).float()
-            x = torch.randn(5, 112, 200, generator=g) * mask[..., None]
-            with torch.inference_mode():
-                packed = rnn(x.cuda(), mask.cuda(), lengths).cpu()
-                masked = rnn(x.cuda(), mask.cuda()).cpu()
-            captured = CapturedForward(lambda b: rnn(b["x"], b["mask"]), torch.device("cuda"))
-            replayed = captured({"x": x.numpy(), "mask": mask.numpy(), "unread": np.zeros(3)})
-            torch.testing.assert_close(masked, packed, rtol=0, atol=1e-5)
-            assert np.array_equal(replayed, masked.numpy())
-            assert captured.keys == {"x", "mask"}
+        t.train_batch(a)
+        t.train_batch(a)
     finally:
-        torch.backends.cudnn.allow_tf32 = prev
+        gc.callbacks.remove(on_collect)
+        gc.set_threshold(*threshold)
+    gc.collect()
+    torch.cuda.synchronize()
+    assert t.captured_step.captures == 1 and t.captured_step.replays == 1
+    assert seen and not any(seen)
 
 
 def test_trainer_test_stage_replays_and_load_state_tree_drops_the_graphs(cuda):

@@ -144,7 +144,7 @@ def test_birnn_matches_jax_on_ragged_lengths(num_layers):
     module = trnn.BiRNN(D, H, num_layers=num_layers)
     module.load_state_dict(convert.birnn_state(params))
     xt = torch.from_numpy(x).requires_grad_()
-    got, grads = _grads(module, lambda m: m(xt, torch.from_numpy(mask), torch.from_numpy(lengths)), cot)
+    got, grads = _grads(module, lambda m: m(xt, torch.from_numpy(mask)), cot)  # the masked form
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=ATOL)
     assert np.all(got.numpy()[1] == 0.0)
     _assert_grads_close(grads, convert.birnn_state(gp))

@@ -12,7 +12,7 @@ global norm where the exact gradient is 0); losses within 1e-5 relative.
 
 Covered: ``synthetic_daily``, ``DailyBatcher`` and the DailyDialog reader in
 its three layouts with a malformed line, and the registry's DailyDialog
-names; ``BiRNN``'s GRU form (1 and 2 layers, packed and over every padded
+names; ``BiRNN``'s GRU form (1 and 2 layers, masked and over every padded
 step); ``DialogueRNNScan`` with 2 and 3 parties; ``reverse_padded``,
 ``MaskedEdgeAttentionDense`` and ``CNNFeatureExtractor``; ``DGCNV2Module``
 for each base encoder and ``lstm_mode`` and for the token track, with the
@@ -69,9 +69,7 @@ def _np_tree(tree):
 
 
 def _t(batch):
-    out = {k: torch.from_numpy(v) for k, v in batch.items() if v is not None}
-    out["text_length_host"] = out["text_length"]
-    return out
+    return {k: torch.from_numpy(v) for k, v in batch.items() if v is not None}
 
 
 def _assert_close_rel(got, want, what, rtol=RTOL, floor=0.0):
@@ -219,15 +217,14 @@ def test_birnn_gru_matches_jax(num_layers, rnn_mask):
     mask = (np.arange(9)[None] < lengths[:, None]).astype(np.float32)
     x = (np.random.default_rng(1).normal(size=(4, 9, 6)) * mask[..., None]).astype(np.float32)
     if rnn_mask == "ones":  # every padded step runs, as lstm_mode='unpacked' has it
-        mask, lengths = np.ones_like(mask), np.full(4, 9, np.int32)
+        mask = np.ones_like(mask)
     jm = jrnn.BiRNN(hidden_size=5, num_layers=num_layers, cell="gru", bidirectional=True)
     params = _np_tree(jm.init(jax.random.PRNGKey(0), x, mask))["params"]
     want, cot, (gp, gx) = _jax_vjp(lambda p, xx: jm.apply({"params": p}, xx, mask), params, x)
     module = trnn.BiRNN(6, 5, num_layers=num_layers, cell="gru")
     assert all(isinstance(layer, torch.nn.GRU) for layer in module.layers)
     module.load_state_dict(convert.birnn_state(params))
-    got, (tx,), grads = _port_vjp(module, lambda xx: module(xx, torch.from_numpy(mask), torch.from_numpy(lengths)),
-                                  cot, x)
+    got, (tx,), grads = _port_vjp(module, lambda xx: module(xx, torch.from_numpy(mask)), cot, x)
     np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
     _assert_grads_close(list(grads.items()), convert.birnn_state(gp))
     _assert_close_rel(tx, gx, "x")

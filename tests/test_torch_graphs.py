@@ -3,7 +3,9 @@
 - ``BiRNN``'s masked form (the form the card captures: lengths read from the
   mask on the device, no host sync) ≡ the JAX ``BiRNN``'s masked scan within
   1e-5 (LSTM and GRU, one and two layers, both directions and one, a batch
-  with rows of length 0, 1 and L), and ≡ the port's packed form within 1e-6;
+  with rows of length 0, 1 and L), in eval mode, and in training mode at
+  dropout 0 its output, input gradient and weight gradients ≡ ``jax.grad``
+  of the JAX module within 1e-5;
 - DialogueGCN, whose biLSTM takes the masked form, served by
   ``InferenceEngine(device="cpu")`` ≡ the JAX engine (pred equal, probs
   within 1e-5, as ``tests/test_torch_serve.py`` holds COGMEN);
@@ -11,7 +13,12 @@
   leaves out the raw modality features, the labels and the speaker tensor;
 - the CPU engine runs eagerly: it builds no ``CapturedForward`` and calls
   nothing of ``torch.cuda``;
-- the val and test stages' batches carry no host lengths;
+- ``to_device`` carries no host lengths;
+- ``CapturedStep``, like ``CapturedForward``, refuses the CPU, and shares
+  its bucket key and its watch of addresses (in-place writes pass, a
+  replaced tensor raises); a trainer whose optimizer cannot be captured
+  (SGD) raises where the captured step is asked for; the CPU trainer steps
+  eagerly and touches nothing of ``torch.cuda``;
 - ``_tap_valid`` as one window of the padded mask ≡ the per-tap form it
   replaced, bit for bit.
 
@@ -20,6 +27,7 @@ against the eager forward in ``tests/test_torch_cuda.py`` and
 ``chip_smoke.py``.
 """
 
+import inspect
 import os
 
 import numpy as np
@@ -39,7 +47,7 @@ from erc_tpu_torch.ops.kernels.banded import band_offsets
 from erc_tpu_torch.serve import InferenceEngine
 
 ATOL = 1e-5
-PACKED_ATOL = 1e-6
+GRAD_ATOL = 1e-5
 PROBS_ATOL = 1e-5
 
 
@@ -81,28 +89,49 @@ def test_birnn_masked_form_matches_jax(cell, num_layers, bidirectional):
 
 
 @pytest.mark.parametrize("cell,num_layers,bidirectional", RNN_CASES, ids=RNN_IDS)
-def test_birnn_masked_form_matches_the_packed_form(cell, num_layers, bidirectional):
-    x, mask, lengths = _ragged(L=9, D=6, seed=1)
-    module = trnn.BiRNN(6, 5, num_layers=num_layers, cell=cell, bidirectional=bidirectional,
-                        generator=torch.Generator().manual_seed(2)).eval()
-    xt, mt = torch.from_numpy(x), torch.from_numpy(mask)
-    with torch.no_grad():
-        masked = module(xt, mt)
-        packed = module(xt, mt, torch.from_numpy(lengths))
-    np.testing.assert_allclose(masked.numpy(), packed.numpy(), rtol=0, atol=PACKED_ATOL)
+def test_birnn_masked_form_gradients_match_jax(cell, num_layers, bidirectional):
+    """Training mode at dropout 0: the output and the gradients of
+    sum(out · cotangent) with respect to the input and every weight ≡
+    ``jax.grad`` of the JAX ``BiRNN``, within 1e-5."""
+    x, mask, _ = _ragged(L=9, D=6, seed=1)
+    H = 5
+    jm = jrnn.BiRNN(hidden_size=H, num_layers=num_layers, cell=cell, bidirectional=bidirectional)
+    params = jax.tree_util.tree_map(np.asarray, jm.init(jax.random.PRNGKey(4), x, mask))["params"]
+    cot = np.random.default_rng(2).normal(size=(4, 9, (2 if bidirectional else 1) * H)).astype(np.float32)
+
+    def loss(p, xx):
+        out = jm.apply({"params": p}, xx, mask)
+        return (out * cot).sum(), out
+
+    (_, want), (gp, gx) = jax.value_and_grad(loss, argnums=(0, 1), has_aux=True)(params, x)
+    module = trnn.BiRNN(6, H, num_layers=num_layers, cell=cell, bidirectional=bidirectional).train()
+    module.load_state_dict(convert.birnn_state(params))
+    xt = torch.from_numpy(x).requires_grad_()
+    with torch.enable_grad():
+        out = module(xt, torch.from_numpy(mask))
+        (out * torch.from_numpy(cot)).sum().backward()
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(want), rtol=0, atol=ATOL)
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(gx), rtol=0, atol=GRAD_ATOL)
+    want_grads = convert.birnn_state(jax.tree_util.tree_map(np.asarray, gp))
+    assert want_grads.keys() == dict(module.named_parameters()).keys()
+    for name, t in module.named_parameters():
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(want_grads[name]), rtol=0, atol=GRAD_ATOL, err_msg=name)
 
 
 def test_birnn_masked_form_reads_no_host_lengths(monkeypatch):
-    """The masked form never packs (packing needs the lengths on the host)."""
+    """The masked form never packs (packing needs the lengths on the host),
+    in eval mode or in training."""
     x, mask, _ = _ragged()
 
     def refuse(*a, **k):
         raise AssertionError("packed")
 
-    monkeypatch.setattr(trnn, "pack_padded_sequence", refuse)
-    module = trnn.BiRNN(5, 3, num_layers=2).eval()
+    monkeypatch.setattr(torch.nn.utils.rnn, "pack_padded_sequence", refuse)
+    module = trnn.BiRNN(5, 3, num_layers=2)
     with torch.no_grad():
-        out = module(torch.from_numpy(x), torch.from_numpy(mask))
+        out = module.eval()(torch.from_numpy(x), torch.from_numpy(mask))
+    with torch.enable_grad():
+        module.train()(torch.from_numpy(x), torch.from_numpy(mask)).sum().backward()
     assert out.shape == (4, 7, 6)
 
 
@@ -188,9 +217,90 @@ def test_captured_forward_refuses_the_cpu():
 
 
 def test_eval_batches_carry_no_host_lengths():
+    """No batch carries host lengths: ``to_device`` copies the arrays it is
+    given (None left out) and adds none."""
     batch = InferenceEngine.from_module("dgcn", batch_size=2, device="cpu", **DGCN_KW).batcher(_dialogues(2))
-    assert "text_length_host" in to_device(batch, torch.device("cpu"))
-    assert "text_length_host" not in to_device(batch, torch.device("cpu"), host_lengths=False)
+    out = to_device(batch, torch.device("cpu"))
+    assert out.keys() == {k for k, v in batch.items() if v is not None}
+    assert "host_lengths" not in inspect.signature(to_device).parameters
+
+
+def test_captured_step_refuses_the_cpu():
+    with pytest.raises(ValueError, match="CUDA device"):
+        cuda_graphs.CapturedStep(lambda b: {}, torch.device("cpu"))
+
+
+def test_captured_step_shares_the_bucket_key():
+    """A bucket is the (key, shape, dtype) of every array, in key order, for
+    the step as for the forward."""
+    assert cuda_graphs.CapturedStep._bucket_key is cuda_graphs.CapturedForward._bucket_key
+    key = cuda_graphs.CapturedStep._bucket_key
+    a = {"m": np.zeros((2, 3), np.float32), "ids": np.zeros((2, 3), np.int64)}
+    assert key(a) == (("ids", (2, 3), "<i8"), ("m", (2, 3), "<f4"))
+    assert key(a) == key(dict(reversed(list(a.items()))))
+    assert key(a) != key({**a, "m": np.zeros((2, 4), np.float32)})
+    assert key(a) != key({**a, "ids": np.zeros((2, 3), np.int32)})
+
+
+def test_address_watch_passes_in_place_writes_and_raises_on_a_replaced_tensor():
+    """The watch both captured kinds use: addresses taken at the first
+    capture; writing in place (an optimizer step, the LR's fill_) passes,
+    replacing a watched tensor raises, and a reset takes them anew."""
+    p = torch.nn.Parameter(torch.ones(3))
+    lr = torch.tensor(1e-3)
+    held = {"p": p, "lr": lr}
+    watch = cuda_graphs._Watch(lambda: [held["p"], held["lr"]])
+    watch.check()  # nothing recorded yet
+    watch.record()
+    with torch.no_grad():
+        p.add_(1.0)
+    lr.fill_(1e-4)
+    watch.check()
+    assert watch.unchanged()
+    held["lr"] = torch.tensor(1e-4)
+    assert not watch.unchanged()
+    with pytest.raises(RuntimeError, match="replaced"):
+        watch.check()
+    watch.addresses = None
+    watch.record()
+    watch.check()
+
+
+def test_trainer_with_sgd_refuses_the_captured_step():
+    from erc_tpu_torch.models import dgcn
+
+    p = dgcn.DGCNParams()
+    p.finalize(["--dataset=synthetic-cogmen-6", "--device=cpu", "--hidden_size=8", "--max_seq_len=16",
+                "--optim.name=SGD"])
+    trainer = dgcn.DGCNTrainer(p)
+    trainer.log = lambda msg: None
+    trainer.initialize()
+    assert isinstance(trainer.optimizer, torch.optim.SGD)
+    with pytest.raises(NotImplementedError, match="train_graphs = False"):
+        trainer.captured_step
+
+
+def test_cpu_trainer_steps_eagerly_and_never_touches_cuda(monkeypatch):
+    from erc_tpu_torch.models import dgcn
+    from erc_tpu_torch.train import trainer as ttrainer
+
+    def refuse(*a, **k):
+        raise AssertionError("torch.cuda touched on the CPU route")
+
+    for name in ("CUDAGraph", "Stream", "Event", "graph", "graph_pool_handle", "current_stream", "synchronize",
+                 "is_available", "device_count", "get_device_name", "stream"):
+        monkeypatch.setattr(torch.cuda, name, refuse)
+    monkeypatch.setattr(ttrainer, "CapturedStep", refuse)
+    monkeypatch.setattr(ttrainer, "CapturedForward", refuse)
+    p = dgcn.DGCNParams()
+    p.finalize(["--dataset=synthetic-cogmen-6", "--device=cpu", "--hidden_size=8", "--max_seq_len=16",
+                "--train.batch_size=4", "--test.batch_size=4", "--epoch=1", "--batch_count=2",
+                "--confusion_matrix=false"])
+    trainer = dgcn.DGCNTrainer(p)
+    trainer.log = lambda msg: None
+    (rec,) = trainer.train()
+    assert rec["steps"] == 2 and trainer.global_steps == 2 and np.isfinite(rec["Lall"])
+    assert trainer._captured_step is None and trainer._captured is None
 
 
 def test_host_array_takes_floats_to_float32():
@@ -224,3 +334,33 @@ def test_tap_valid_equals_the_per_tap_form(offsets):
         got = _tap_valid(mask, offsets)
         assert got.shape == want.shape and got.dtype == want.dtype
         assert torch.equal(got, want)
+
+
+# ------------------------------------------------------------------ the TextCNNs' convolutions
+@pytest.mark.parametrize("widths,C,F,W", [((3, 4, 5), 7, 5, 9), ((3,), 4, 6, 3), ((2, 5), 3, 2, 11)])
+def test_conv1d_gemm_equals_conv1d(widths, C, F, W):
+    """``conv1d_gemm`` ≡ the ``nn.Conv1d`` layers it computes (VALID, stride
+    1, K up to W), outputs and the gradients of the input, weights and biases
+    within 1e-5."""
+    from erc_tpu_torch.ops.conv import conv1d_gemm
+
+    g = torch.Generator().manual_seed(len(widths) + C)
+    convs = [torch.nn.Conv1d(C, F, k) for k in widths]
+    with torch.no_grad():
+        for c in convs:
+            c.weight.copy_(torch.randn(c.weight.shape, generator=g))
+            c.bias.copy_(torch.randn(c.bias.shape, generator=g))
+    x = torch.randn(4, W, C, generator=g)
+    cots = [torch.randn(4, W - k + 1, F, generator=g) for k in widths]
+    runs = []
+    for gemm in (False, True):
+        xx = x.clone().requires_grad_()
+        for c in convs:
+            c.zero_grad(set_to_none=True)
+        with torch.enable_grad():
+            outs = conv1d_gemm(xx, convs) if gemm else [c(xx.transpose(1, 2)).transpose(1, 2) for c in convs]
+            sum((o * t).sum() for o, t in zip(outs, cots)).backward()
+        runs.append([o.detach() for o in outs] + [xx.grad] + [p.grad.clone() for c in convs for p in c.parameters()])
+    assert [tuple(o.shape) for o in runs[1][:len(widths)]] == [(4, W - k + 1, F) for k in widths]
+    for got, want in zip(runs[1], runs[0]):
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-5)

@@ -336,9 +336,7 @@ def _batch(modals, n_speakers, seed=0, B=3, n=2):
 
 
 def _t(batch):
-    out = {k: torch.from_numpy(v) for k, v in batch.items() if v is not None}
-    out["text_length_host"] = out["text_length"]
-    return out
+    return {k: torch.from_numpy(v) for k, v in batch.items() if v is not None}
 
 
 def _jax_loss(model, batch):
@@ -546,6 +544,24 @@ def test_remat_gradients_equal_off_with_dropout(remat):
     _assert_grads_close(list(g_remat.items()), g_off, 1e-6)
     g_nodrop = _grads_of(_port_trainer("--gcn_remat=off"), batch)
     assert not torch.allclose(g_nodrop["gcnii.convs"], g_off["gcnii.convs"])
+
+
+@pytest.mark.parametrize("remat", ["full", "dots"])
+def test_remat_reads_no_rng_state(remat, monkeypatch):
+    """A checkpointed GCNII trip neither saves nor restores the RNG state
+    (on the card that read cannot be captured in a CUDA graph): the step's
+    forward and backward run with the generator-state readers refused, and
+    give the gradients of ``off`` from one generator state."""
+    batch = _t(_train_batches(1)[0])
+    g_off = _grads_of(_port_trainer("--gcn_remat=off", drop_rate=0.4), batch)
+    trainer = _port_trainer(f"--gcn_remat={remat}", drop_rate=0.4)
+
+    def refuse(*a, **k):
+        raise AssertionError("the RNG state was read")
+
+    monkeypatch.setattr(torch, "get_rng_state", refuse)
+    monkeypatch.setattr(torch, "set_rng_state", refuse)
+    _assert_grads_close(list(_grads_of(trainer, batch).items()), g_off, 1e-6)
 
 
 def test_structured_gradients_equal_dense_with_dropout():

@@ -24,6 +24,7 @@ K4 run as their plain versions through the autograd Function:
   interpreter, which also shows that the port's training imports no JAX.
 """
 
+import copy
 import subprocess
 import sys
 from pathlib import Path
@@ -203,6 +204,56 @@ def test_plateau_controller_matches_jax():
         assert trainer.optimizer.param_groups[0]["lr"] == pytest.approx(lr, rel=1e-12)
         seen.add(lr)
     assert len(seen) == 4  # three reductions happened
+
+
+def test_plateau_controller_with_a_tensor_lr_matches_jax():
+    """The LR as a 0-d float32 tensor, as the captured step reads it on the
+    card: the controller reduces it at the steps where the JAX controller
+    reduces its LR, to the same values rounded to float32 (as optax's
+    injected LR holds them), writing the tensor in place (the captured
+    step's graph reads it by address), and the trainer logs each change."""
+    losses = [1.0, 0.9, 0.8] + [0.8] * 12 + [0.79995] * 3 + [0.5] + [0.6] * 25
+    jsche = joptim.ReduceLROnPlateau(mode="min")
+    trainer = ttrainer.Trainer.__new__(ttrainer.Trainer)
+    trainer.params = Params(lr_plateau=True)
+    lr_t = torch.tensor(1e-3)
+    trainer.optimizer = torch.optim.Adam([torch.nn.Parameter(torch.ones(1))], lr=lr_t, foreach=False)
+    trainer.lr_sche = torch.optim.lr_scheduler.ReduceLROnPlateau(trainer.optimizer, "min")
+    logged = []
+    trainer.log = logged.append
+    lr, changes = 1e-3, 0
+    for loss in losses:
+        new = jsche.step(loss, lr)
+        changes += new != lr
+        lr = new
+        trainer._plateau_step(loss)
+        assert trainer.optimizer.param_groups[0]["lr"] is lr_t
+        np.testing.assert_allclose(lr_t.item(), np.float32(lr), rtol=1e-6)
+    assert changes == 3 and len(logged) == 3 and all("ReduceLROnPlateau" in m for m in logged)
+
+
+def test_load_optimizer_state_keeps_the_cpu_optimizer_from_a_card_state():
+    """A state saved by a capturable optimizer (the LR a tensor, its step
+    counts tensors) loads into the CPU trainer's optimizer as a float LR,
+    not capturable, and its next step is the step of the optimizer that
+    saved the state."""
+    w = torch.nn.Parameter(torch.tensor([1.0, -2.0, 3.0]))
+    src = toptim.build_optim(Params(name="Adam", lr=1e-2), [w], torch.device("cpu"))
+    assert not src.param_groups[0]["capturable"] and isinstance(src.param_groups[0]["lr"], float)
+    for _ in range(2):
+        w.grad = torch.tensor([0.5, -1.0, 0.25])
+        src.step()
+    card_like = copy.deepcopy(src.state_dict())  # as a checkpoint holds it: no tensor shared with src
+    card_like["param_groups"][0].update(lr=torch.tensor(1e-2), capturable=True)
+    v = torch.nn.Parameter(w.detach().clone())
+    dst = toptim.build_optim(Params(name="Adam", lr=5.0), [v])
+    toptim.load_optimizer_state(dst, card_like)
+    group = dst.param_groups[0]
+    assert group["lr"] == pytest.approx(1e-2) and isinstance(group["lr"], float) and not group["capturable"]
+    for p, opt in ((w, src), (v, dst)):
+        p.grad = torch.tensor([0.1, 0.2, -0.3])
+        opt.step()
+    np.testing.assert_allclose(v.detach().numpy(), w.detach().numpy(), rtol=0, atol=1e-7)
 
 
 # ------------------------------------------------------------------ data
