@@ -108,7 +108,22 @@ Phases (any failure raises, so the exit code is non-zero):
      giving its raw and EMA logits bit for bit, mmin_base's best_val as
      --pretrain_path of the other two (loaded exactly; the frozen encoder
      does not move), utterances/s and a profile of one step;
- 17. print the run's wall time, one JSON line of kernel records (K1/K2/K1ᵀ
+ 17. the precision knobs (drive_precision): for every configuration that
+     trains in bfloat16 at its phase's width (COGMEN dense, DAG-ERC's eager
+     form at L <= 32, DialogueGCN dense, MMGCN dense, DialogueGCN v2 with the
+     biLSTM, the token track, CIM, the three MMIN modules): the captured
+     bfloat16 step ≡ the eager one over two buckets as above, the card's
+     bfloat16 gradients against the CPU port's on 4 rows (loss within 2e-2;
+     each gradient within 5e-2 of its norm beyond the larger of the two
+     steps' own bfloat16 errors), 3 eager steps bfloat16 vs float32 within
+     5e-2 at dropout 0, and float32 -> bfloat16 wall and busy of a replayed
+     step and an epoch's rate (information); then --transfer_dtype=bfloat16
+     (a COGMEN epoch ≡ the float32 transfer of the rounded batches, half the
+     staged bytes), a TF32 step within 1e-2 of the strict one with torch's
+     settings restored, the bfloat16 refusals raising on the card, and K3's
+     launches in a bfloat16-trained DAG-ERC's float32 test stage against a
+     device trace;
+ 18. print the run's wall time, one JSON line of kernel records (K1/K2/K1ᵀ
      also at DialogueGCN's shapes, K = 10 and 21, D = 100 and 200, with their
      launches on its paths), the card's name and power limit, and a last
      JSON line {"ok": true, "device": {...}}.
@@ -1286,21 +1301,19 @@ def _step_time(fn) -> float:
     return time.perf_counter() - t0
 
 
-def check_train_graphs(name, run, host, card, extra=(), show=(), timed=None):
-    """The captured train step of `run` (a trainer on the card at its family's dropout):
-    - no host sync in an eager step (torch.cuda.set_sync_debug_mode("error"));
-    - 3 replayed steps ≡ 3 eager steps from one state (weights, optimizer state, LR, generator, EMA shadow),
-      over two shape buckets with one plateau LR change between: bit for bit, or, where they differ, held to
-      the spread of a second eager run (`_compare_steps`);
-    - one capture a bucket and one replay a step;
-    - wall, busy and device operations of an eager and a replayed step of `timed` (a host batch; the first
-      step's by default), the replayed step's device trace holding the K1/K2/K1ᵀ/K3/K4 records that the Python
-      counts moved; capture seconds per bucket and the graph pool's bytes.
-    `host`: the train loader's batches; `extra`: batches of another shape where the loader has one bucket."""
-    import torch
-    from erc_tpu_torch.data.loader import to_device
+def _wall_and_busy(fn, desc, reps=1, **profile):
+    """(wall seconds, the median of `reps` warm calls of `fn`, each ending on the device; busy ms of one more call
+    under the profiler, which logs its table as `desc` (`_profile`))."""
+    wall = statistics.median(_step_time(fn) for _ in range(reps))
+    return wall, _profile(fn, desc, wall, **profile)
 
-    t0 = time.perf_counter()
+
+def _replayed_vs_eager(name, run, host, card, extra=()) -> list:
+    """3 replayed steps ≡ 3 eager steps of `run` from one state, over its two smallest shape buckets (of `host`
+    and `extra`) with a plateau LR change after the first, no host sync in an eager step, one capture a bucket
+    and one replay a step (`check_train_graphs`).  Returns the smallest bucket's batches."""
+    import torch
+
     buckets = _host_buckets([*host, *extra])
     require(len(buckets) >= 2, f"{name}: {len(buckets)} shape bucket(s) to step over, want 2")
     a, b = buckets[0], buckets[1]
@@ -1335,15 +1348,32 @@ def check_train_graphs(name, run, host, card, extra=(), show=(), timed=None):
         verdict = f"all {len(runs['eager'])} quantities bit for bit ({what})"
     log(f"{name} captured train step: 3 steps (shapes {shapes}, a plateau LR change after the first) replayed vs "
         f"eager from one state: {verdict}; no host sync in an eager step; on {card}")
+    return a
+
+
+def check_train_graphs(name, run, host, card, extra=(), show=(), timed=None):
+    """The captured train step of `run` (a trainer on the card at its family's dropout):
+    - no host sync in an eager step (torch.cuda.set_sync_debug_mode("error"));
+    - 3 replayed steps ≡ 3 eager steps from one state (weights, optimizer state, LR, generator, EMA shadow),
+      over two shape buckets with one plateau LR change between: bit for bit, or, where they differ, held to
+      the spread of a second eager run (`_compare_steps`);
+    - one capture a bucket and one replay a step;
+    - wall, busy and device operations of an eager and a replayed step of `timed` (a host batch; the first
+      step's by default), the replayed step's device trace holding the K1/K2/K1ᵀ/K3/K4 records that the Python
+      counts moved; capture seconds per bucket and the graph pool's bytes.
+    `host`: the train loader's batches; `extra`: batches of another shape where the loader has one bucket."""
+    from erc_tpu_torch.data.loader import to_device
+
+    t0 = time.perf_counter()
+    a = _replayed_vs_eager(name, run, host, card, extra)
+    graphs = run.captured_step
 
     timed = a[0] if timed is None else timed
     dev_t = to_device(timed, run.device)
-    eager_s = _step_time(lambda: run.train_step(dev_t))
-    replay_s = _step_time(lambda: run.train_batch(timed))
     desc = f"{name} train step ({tuple(dev_t['attention_mask' if 'attention_mask' in dev_t else 'sample_mask'].shape)})"
-    busy_e = _profile(lambda: run.train_step(dev_t), f"one eager {desc}", eager_s, show=show)
-    busy_r = _profile(lambda: run.train_batch(timed), f"one replayed {desc}", replay_s, show=show,
-                      traced=f"{name} replayed train step")
+    eager_s, busy_e = _wall_and_busy(lambda: run.train_step(dev_t), f"one eager {desc}", show=show)
+    replay_s, busy_r = _wall_and_busy(lambda: run.train_batch(timed), f"one replayed {desc}", show=show,
+                                      traced=f"{name} replayed train step")
     log(f"{desc}, eager / replayed: wall {eager_s * 1e3:.3f} / {replay_s * 1e3:.3f} ms, busy {busy_e} / {busy_r} "
         f"ms; {graphs.captures} captures ({graphs.replays} replays so far), capture seconds per bucket "
         f"{[round(x, 4) for x in graphs.capture_seconds]}, graph pool {_pool_bytes(graphs)} bytes on {card}; "
@@ -1362,10 +1392,10 @@ def _other_shape(run, n, **change):
     return batcher(loader.samples[:n])
 
 
-def _epoch_rates(name, run, card, unit="dialogues", batch_count=None):
+def _epoch_rates(name, run, card, unit="dialogues", batch_count=None, eager=True, passes=1):
     """The train steps of one epoch's batches (`batch_count` of them where given; no val or test stage), replayed
-    (one replay a batch: a first replayed pass that has to capture a bucket is run again) and eager: `unit`/s of
-    each."""
+    (one replay a batch: a first replayed pass that has to capture a bucket is run again; the median `unit`/s of
+    `passes` passes) and, with `eager`, eager: logs `unit`/s of each; returns the replayed rate and the steps."""
     p = run.params
     saved = p.get("eval_per_epoch", 1), p.get("batch_count")
     p.eval_per_epoch, p.batch_count = 0, batch_count or saved[1]
@@ -1382,17 +1412,22 @@ def _epoch_rates(name, run, card, unit="dialogues", batch_count=None):
 
     try:
         rec, new = epoch(True)
-        if new:
+        rates = [] if new else [rec["dialogues"] / rec["seconds"]]
+        while len(rates) < passes:
             rec, again = epoch(True)
-            require(not again, f"{name}: the second replayed epoch captured {again} graphs")
-        replayed = rec["dialogues"] / rec["seconds"]
-        rec, _ = epoch(False)
+            require(not again, f"{name}: a second replayed epoch captured {again} graphs")
+            rates.append(rec["dialogues"] / rec["seconds"])
+        replayed, steps = statistics.median(rates), rec["steps"]
+        if eager:
+            rec, _ = epoch(False)
     finally:
         run.train_graphs = True
         p.eval_per_epoch, p.batch_count = saved
-    log(f"{name} training throughput, an epoch's train steps ({rec['steps']} steps, {rec['dialogues']} {unit}): "
-        f"eager {rec['dialogues'] / rec['seconds']:.1f}, replayed {replayed:.1f} {unit}/s ({new} buckets captured "
-        f"in a pass before) on {card}")
+    if eager:
+        log(f"{name} training throughput, an epoch's train steps ({rec['steps']} steps, {rec['dialogues']} {unit}): "
+            f"eager {rec['dialogues'] / rec['seconds']:.1f}, replayed {replayed:.1f} {unit}/s ({new} buckets "
+            f"captured in a pass before) on {card}")
+    return replayed, steps
 
 
 def _check_epoch_graphs(name, run, host, captures_before=0, replays_before=0):
@@ -3032,6 +3067,298 @@ def drive_mmin_training(card: str):
                 log("mmin_miss: the frozen encoder equals the pretrained file before and after the epochs")
 
 
+# ------------------------------------------------------------------ the precision phase
+BF16_VS_F32_TOL = 5e-2  # bfloat16 against float32 losses, 3 steps: the JAX package's bound (test_round2_fixes.py)
+CPU_LOSS_TOL, CPU_GRAD_TOL, CPU_GRAD_FLOOR = 2e-2, 5e-2, 1e-3  # the card's bfloat16 step vs the CPU's: the CPU tests'
+TF32_TOL = 1e-2  # a TF32 step against the strict one
+CPU_ROWS = 4  # rows of the batch that the card's bfloat16 gradients are held to the CPU's on (CPU time) ...
+WHOLE_BATCH = ("mmin_base", "mmin_miss", "mmin_miss2")  # ... or all 32, where that is cheap on the CPU: on 4 rows,
+# a few ReLU inputs near 0 that take another sign on the card move mmin_miss's classifier's bfloat16 gradients by up
+# to 13 % of their norm (PERF.md §6, `scripts/torch_train_numerics.py bf16`)
+
+
+def _precision_configs():
+    """(name, trainer factory (extra args, device, dropout off), the second shape bucket's batches or None, unit)
+    of every configuration that trains in bfloat16, at the widths of its earlier phase."""
+    def off(dropout):
+        return 0.0 if dropout else None
+
+    return [
+        ("COGMEN dense", lambda *e, device="cuda", d=False: _cogmen_trainer("dense", *e, device=device,
+                                                                            dropout=off(d)), None, "dialogues"),
+        ("DAG-ERC eager form", lambda *e, device="cuda", d=False: _trainer("--dag_impl=auto", "--max_seq_len=32", *e,
+                                                                           device=device, dropout=off(d)),
+         lambda run: [_other_shape(run, 16, max_len=16)], "dialogues"),
+        ("DialogueGCN dense", lambda *e, device="cuda", d=False: _dgcn_trainer("dense", *e, device=device,
+                                                                               dropout=off(d)), None, "dialogues"),
+        ("MMGCN dense", lambda *e, device="cuda", d=False: _mmgcn_trainer("dense", *e, device=device, dropout=off(d)),
+         None, "dialogues"),
+        ("DialogueGCN v2 biLSTM", lambda *e, device="cuda", d=False: _dgcnv2_trainer(
+            False, "--base_model=LSTM", *e, device=device, dropout_off=d), None, "dialogues"),
+        ("DialogueGCN v2 token track", lambda *e, device="cuda", d=False: _dgcnv2_trainer(
+            True, *e, device=device, dropout_off=d),
+         lambda run: [_other_shape(run, 32, max_len=int(run.params.max_seq_len) // 2)], "dialogues"),
+        ("CIM", lambda *e, device="cuda", d=False: _cim_trainer(*e, device=device, dropout_off=d), None, "dialogues"),
+        *[(m, lambda *e, device="cuda", d=False, m=m: _mmin_trainer(m, *e, device=device, dropout_off=d),
+           lambda run: [_other_shape(run, 16, pad_batch_to=16)], "utterances")
+          for m in ("mmin_base", "mmin_miss", "mmin_miss2")],
+    ]
+
+
+def _rows(batch, n):
+    """The first `n` rows of a host batch."""
+    return {k: None if v is None else v[:n] for k, v in batch.items()}
+
+
+def _grads(run, batch):
+    """The loss and every parameter's gradient (float64, on the host) of one compute_grads of a host batch."""
+    from erc_tpu_torch.data.loader import to_device
+
+    loss = run.compute_grads(to_device(batch, run.device))["Lall"].item()
+    return loss, {n: p.grad.double().cpu() for n, p in run.model.named_parameters()}
+
+
+def _bf16_runs(make, card16, card32):
+    """card16's weights (and frozen encoder) in card32 and in a bfloat16 and a float32 CPU trainer at dropout 0:
+    {"card16", "card32", "cpu16", "cpu32"} -> trainer."""
+    runs = {"card16": card16, "card32": card32, "cpu16": make("--compute_dtype=bfloat16", device="cpu", d=True),
+            "cpu32": make(device="cpu", d=True)}
+    for t in list(runs.values())[1:]:
+        t.model.load_state_dict(card16.model.state_dict())
+        if getattr(t, "pretrained_model", None) is not None:
+            t.pretrained_model.load_state_dict(card16.pretrained_model.state_dict())
+    return runs
+
+
+def _bf16_gaps(g):
+    """Gaps between the gradients of the four runs of `_bf16_runs` (`g`: run -> name -> gradient), each relative
+    to max(the second gradient's norm, CPU_GRAD_FLOOR · the float32 CPU gradients' global norm):
+    - per parameter whose float32 CPU gradient is over that floor: (name, the card's bfloat16 gradient to the
+      CPU's, the CPU's own bfloat16 error (its bfloat16 gradient to its float32 one), the card's own, and two
+      planted faults: the card's float32 gradient to the CPU's bfloat16 one, 1.25 × the card's bfloat16 gradient
+      to the CPU's);
+    - the names under the floor, with the card's bfloat16 norm over the floor there;
+    - the float32 gradients' largest gap, card to CPU."""
+    gnorm = math.sqrt(sum(float((x ** 2).sum()) for x in g["cpu32"].values()))
+    floor = CPU_GRAD_FLOOR * gnorm
+
+    def gap(a, b):
+        return float((a - b).norm()) / max(float(b.norm()), floor)
+
+    rows, under = [], []
+    for n, g32 in g["cpu32"].items():
+        if float(g32.norm()) <= floor:
+            under.append((n, float(g["card16"][n].norm()) / floor))
+            continue
+        card, cpu = g["card16"][n], g["cpu16"][n]
+        rows.append((n, gap(card, cpu), gap(cpu, g32), gap(card, g["card32"][n]), gap(g["card32"][n], cpu),
+                     gap(1.25 * card, cpu)))
+    return rows, under, max(gap(g["card32"][n], x) for n, x in g["cpu32"].items())
+
+
+def _bf16_tolerance(own_cpu):
+    """The card's bfloat16 gradient's allowed gap to the CPU's, from the reference's own bfloat16 error alone: the
+    CPU tests' rule."""
+    return CPU_GRAD_TOL + own_cpu
+
+
+def _bf16_vs_cpu(name, make, card16, card32, batch):
+    """The card's bfloat16 step against the CPU's on one batch (rows cut to CPU_ROWS but in WHOLE_BATCH), from the
+    same weights at dropout 0:
+    - the bfloat16 knob took effect on the card: its loss is not the float32 one, a forward hook sees bfloat16
+      activations, and every gradient stays float32;
+    - the loss within CPU_LOSS_TOL of the CPU's;
+    - each gradient within `_bf16_tolerance` of the CPU's bfloat16 one: CPU_GRAD_TOL beyond the CPU's own bfloat16
+      error for it (its gap to its float32 gradient), relative to max(its norm, CPU_GRAD_FLOOR · the global norm),
+      as the CPU tests hold the port to the JAX package.  Where the float32 gradient is under the floor (rounding
+      alone), the card's bfloat16 one stays under it;
+    - the card's float32 gradients within TRAIN_TOL of the CPU's (the weights and code agree).
+    Also logs what two planted faults read under the rule: the card's float32 gradients in place of its
+    bfloat16 ones (what the knob check above is for), and each gradient scaled by 1.25 alone."""
+    import torch
+
+    t0 = time.perf_counter()
+    n_rows = len(batch["label"]) if name in WHOLE_BATCH else CPU_ROWS
+    batch = _rows(batch, n_rows)
+    runs = _bf16_runs(make, card16, card32)
+    seen = set()
+    hooks = [m.register_forward_hook(lambda m, i, o: seen.add(o.dtype) if isinstance(o, torch.Tensor) else None)
+             for m in card16.model.modules()]
+    try:
+        res = {k: _grads(t, batch) for k, t in runs.items()}
+    finally:
+        for h in hooks:
+            h.remove()
+    losses = {k: v[0] for k, v in res.items()}
+    g = {k: v[1] for k, v in res.items()}
+    require(torch.bfloat16 in seen and losses["card16"] != losses["card32"],
+            f"{name}: the card's bfloat16 step saw activations of {seen} and loss {losses['card16']!r} (float32 "
+            f"{losses['card32']!r}): the knob did not take effect")
+    require(all(p.grad.dtype == torch.float32 for p in card16.model.parameters()),
+            f"{name}: a gradient of the bfloat16 step is not float32")
+    rows, under, f32 = _bf16_gaps(g)
+    for n, over in under:
+        require(over <= 1.0, f"{name}: the card's bfloat16 gradient of {n} is {over:.3e} of the floor where the "
+                f"float32 one is under it")
+    tol = [_bf16_tolerance(r[2]) for r in rows]
+    n, got, own_cpu, own_card, _, _ = max(rows, key=lambda r: r[1] / _bf16_tolerance(r[2]))
+    as_f32 = sum(r[4] > t for r, t in zip(rows, tol))  # planted: the card's float32 gradients as its bfloat16 ones
+    scaled = sum(r[5] > t for r, t in zip(rows, tol))  # planted: one gradient scaled by 1.25
+    rel = abs(losses["card16"] - losses["cpu16"]) / abs(losses["cpu16"])
+    log(f"{name} bfloat16, card vs CPU on {n_rows} rows at dropout 0: losses {losses['card16']:.6f} / "
+        f"{losses['cpu16']:.6f} (float32 {losses['card32']:.6f} / {losses['cpu32']:.6f}), relative {rel:.3e} "
+        f"(tolerance {CPU_LOSS_TOL}); {len(rows)} gradients over the floor, the largest gap / tolerance "
+        f"{got / _bf16_tolerance(own_cpu):.3f} at {n} (gap {got:.3e}, the CPU's own bfloat16 error {own_cpu:.3e}, "
+        f"the card's {own_card:.3e}); planted faults over the tolerance: "
+        f"float32 gradients in place of bfloat16 {as_f32} of {len(rows)} (the knob check catches that), one gradient "
+        f"scaled by 1.25 {scaled} of {len(rows)}; activations {sorted(map(str, seen))}; float32 gradients card vs "
+        f"CPU {f32:.3e} (tolerance {TRAIN_TOL}); {time.perf_counter() - t0:.1f} s")
+    for (n, got, own_cpu, *_), t in zip(rows, tol):
+        require(got <= t, f"{name}: the card's bfloat16 gradient of {n} lies {got:.3e} from the CPU's, over {t:.3e} "
+                f"(the CPU's own bfloat16 error {own_cpu:.3e})")
+    require(rel <= CPU_LOSS_TOL, f"{name}: card vs CPU bfloat16 losses differ by {rel} > {CPU_LOSS_TOL}")
+    require(f32 <= TRAIN_TOL, f"{name}: card vs CPU float32 gradients differ by {f32} > {TRAIN_TOL}")
+
+
+def _precision_config(name, make, other, unit, card, rates):
+    """One configuration in bfloat16 on the card (see drive_precision)."""
+    import torch
+
+    t0 = time.perf_counter()
+    run16 = make("--compute_dtype=bfloat16")
+    require(all(p.dtype == torch.float32 for p in run16.model.parameters()), f"{name}: a bfloat16 master weight")
+    host = list(run16.make_loader("train"))
+    extra = other(run16) if other is not None else []
+    # the captured bfloat16 step at the family's dropout: replayed ≡ eager
+    timed = _replayed_vs_eager(f"{name} bfloat16", run16, host, card, extra)[0]
+    # float32 -> bfloat16: a replayed step's wall (median of 5) and busy times, the rate of a whole epoch's train
+    # steps (median of 3 passes)
+    run32 = make()
+    run32.train_batch(timed)  # its bucket's capture
+    row = {}
+    for dt, r in (("float32", run32), ("bfloat16", run16)):
+        wall, busy = _wall_and_busy(lambda r=r: r.train_batch(timed), f"one replayed {name} {dt} train step", reps=5)
+        row[dt] = (wall * 1e3, busy, *_epoch_rates(f"{name} {dt}", r, card, unit, eager=False, passes=3))
+    rates[name] = row
+    del run32
+    # at dropout 0, fresh weights: the card's bfloat16 gradients against the CPU's, then 3 eager steps in
+    # bfloat16 against float32
+    z16, z32 = make("--compute_dtype=bfloat16", d=True), make(d=True)
+    _bf16_vs_cpu(name, make, z16, z32, host[0])
+    steps = [b for bucket in _host_buckets([*host, *extra])[:2] for b in bucket[:2]][:3]
+    losses = []
+    for r in (z32, z16):
+        r.train_graphs = False
+        losses.append([r.train_batch(b)["Lall"].item() for b in steps])
+    rel = max(abs(a - b) / abs(b) for b, a in zip(*losses))
+    log(f"{name}: 3 eager steps at dropout 0 from the same weights, losses float32 {losses[0]} vs bfloat16 "
+        f"{losses[1]}: worst relative {rel:.3e} (tolerance {BF16_VS_F32_TOL})")
+    require(rel <= BF16_VS_F32_TOL, f"{name}: bfloat16 losses differ from float32 by {rel} > {BF16_VS_F32_TOL}")
+    (w32, b32, e32, n), (w16, b16, e16, _) = row["float32"], row["bfloat16"]
+    log(f"{name} float32 -> bfloat16: replayed step wall (median of 5) {w32:.3f} -> {w16:.3f} ms, busy {b32} -> {b16} "
+        f"ms; a whole epoch's {n} train steps replayed (median of 3 passes) {e32:.1f} -> {e16:.1f} {unit}/s on {card}; "
+        f"this configuration {time.perf_counter() - t0:.1f} s")
+    return run16
+
+
+def _precision_transfer(card):
+    """--transfer_dtype=bfloat16: an epoch of COGMEN's captured step ≡ the float32-transfer epoch on the batches
+    rounded to bfloat16 and back, bit for bit in every state tensor; its staged floating bytes half the other's."""
+    import torch
+    from erc_tpu_torch.core.cuda_graphs import host_tensor
+
+    a, b = _cogmen_trainer("dense", "--transfer_dtype=bfloat16"), _cogmen_trainer("dense")
+    b.model.load_state_dict(a.model.state_dict())
+    host = list(a.make_loader("train"))
+    rounded = [{k: None if v is None else host_tensor(v, torch.bfloat16).float().numpy() if v.dtype.kind == "f" else v
+                for k, v in batch.items()} for batch in host]
+    for x, y in zip(host, rounded):
+        ma, mb = a.train_batch(x), b.train_batch(y)
+        require(all(torch.equal(ma[k], mb[k]) for k in ma), f"bfloat16 transfer: the step's metrics differ {ma} {mb}")
+    same = all(torch.equal(x, y) for x, y in zip(a._step_tensors(), b._step_tensors()))
+    staged = [sum(t.nbytes for t in bk.staging.values() if t.is_floating_point()) for bk in
+              (next(iter(r.captured_step._buckets.values())) for r in (a, b))]
+    dtypes = {str(t.dtype) for bk in a.captured_step._buckets.values() for t in bk.staging.values()
+              if t.is_floating_point()}
+    log(f"COGMEN --transfer_dtype=bfloat16: {len(host)} steps replayed ({a.captured_step.replays} replays) ≡ the "
+        f"float32 transfer of the rounded batches: {same}; staged floating bytes a batch {staged[0]} vs {staged[1]} "
+        f"({dtypes}) on {card}")
+    require(same, "the bfloat16-transferred epoch differs from the float32 one on the rounded batches")
+    require(2 * staged[0] == staged[1] and dtypes == {"torch.bfloat16"},
+            "the bfloat16 staging does not halve the bytes")
+
+
+def _precision_tf32(card):
+    """--matmul_precision=tensorfloat32: a replayed COGMEN step that differs from the strict one and lies within
+    TF32_TOL of it, with torch's settings as they were after."""
+    import torch
+
+    backends = (torch.backends.cuda.matmul, torch.backends.cudnn.rnn, torch.backends.cudnn.conv)
+    before = [x.fp32_precision for x in backends]
+    strict, tf32 = _cogmen_trainer("dense", dropout=0.0), _cogmen_trainer("dense", "--matmul_precision=tensorfloat32",
+                                                                          dropout=0.0)
+    tf32.model.load_state_dict(strict.model.state_dict())
+    batch = next(iter(strict.make_loader("train")))
+    mets = []
+    for t in (strict, tf32):
+        t.train_batch(batch)  # eager, then captured
+        snap = _snapshot(t)
+        mets.append(t.train_batch(batch))  # a replay
+        _restore(t, snap)
+    ls, lt = mets[0]["Lall"].item(), mets[1]["Lall"].item()
+    gs, gt = mets[0]["gnorm"].item(), mets[1]["gnorm"].item()
+    rel = max(abs(lt - ls) / abs(ls), abs(gt - gs) / abs(gs))
+    after = [x.fp32_precision for x in backends]
+    log(f"COGMEN --matmul_precision=tensorfloat32, a replayed step: loss {lt!r} vs strict {ls!r}, gnorm {gt!r} vs "
+        f"{gs!r}: relative {rel:.3e} (tolerance {TF32_TOL}); fp32_precision before {before}, after {after}")
+    require(0 < rel <= TF32_TOL, f"the TF32 step lies {rel} from the strict one: want (0, {TF32_TOL}]")
+    require(after == before, f"the trainer's matmul precision leaked: {before} -> {after}")
+
+
+REFUSED = [("COGMEN banded", lambda: _cogmen_trainer("banded", "--compute_dtype=bfloat16")),
+           ("COGMEN auto at L 300", lambda: _cogmen_trainer("auto", "--compute_dtype=bfloat16", "--max_seq_len=300")),
+           ("DialogueGCN banded", lambda: _dgcn_trainer("banded", "--compute_dtype=bfloat16")),
+           ("DAG-ERC kernel form", lambda: _trainer("--compute_dtype=bfloat16")),
+           ("DialogueGCN v2 DialogueRNN", lambda: _dgcnv2_trainer(False, "--compute_dtype=bfloat16")),
+           ("--matmul_precision=bfloat16", lambda: _cogmen_trainer("dense", "--matmul_precision=bfloat16"))]
+
+
+def drive_precision(card: str):
+    """The precision knobs on the card.  Every family that trains in bfloat16 at the width of its earlier phase
+    (`_precision_configs`): its bfloat16 step against the CPU port's by the CPU tests' rule, 3 steps bfloat16 vs
+    float32 within BF16_VS_F32_TOL at dropout 0, the captured bfloat16 step ≡ the eager one over two buckets, and
+    float32 -> bfloat16 replayed step wall and busy times and epoch rate (information).  Then the bfloat16
+    transfer, a TF32 step, the refusals on the card, and K3 in the float32 test stage of a bfloat16-trained
+    DAG-ERC, its count held against a device trace."""
+    from erc_tpu_torch.ops.kernels import dag_block as kd
+
+    t0 = time.perf_counter()
+    rates = {}
+    for name, make, other, unit in _precision_configs():
+        run = _precision_config(name, make, other, unit, card, rates)
+        if name == "DAG-ERC eager form":
+            run.test()  # the test stage's buckets captured
+            before = kd.launches["dag_block"]
+            res, traced = _traced("bfloat16-trained DAG-ERC test stage replayed", run.test)
+            moved = kd.launches["dag_block"] - before
+            log(f"DAG-ERC trained in bfloat16: test stage in float32 through K3, {moved} launches (traced "
+                f"{traced.get('dag_block', 0)}), loss {res['Lall']:.5f}, F1 {res['f1']:.5f}")
+            require(moved > 0 and traced.get("dag_block") == moved and math.isfinite(res["Lall"]),
+                    f"K3 ran {moved} times ({traced}) in the bfloat16-trained DAG-ERC's test stage")
+        del run
+    _precision_transfer(card)
+    _precision_tf32(card)
+    for what, build in REFUSED:
+        try:
+            build()
+        except ValueError as e:
+            log(f"refused on the card: {what}: {str(e)[:160]}")
+        else:
+            require(False, f"{what} built a trainer in bfloat16")
+    log("float32 -> bfloat16 on " + card + ": " + json.dumps(rates))
+    log(f"precision phase: {time.perf_counter() - t0:.1f} s")
+
+
 def _stamp(phase: str) -> None:
     log(f"phase {phase} done at {time.perf_counter() - T_START:.1f} s")
 
@@ -3096,6 +3423,8 @@ def main() -> int:
         drive_mmin_training(card)
         _stamp("MMIN training")
         log(f"MMIN phases: {time.perf_counter() - t_mmin:.1f} s")
+        drive_precision(card)
+        _stamp("precision")
     # the DialogueGCN-shape records: their instantiation's launches on DialogueGCN's serving and training paths
     for rec in dgcn_records.values():
         rec["launches"] = dgcn_serve_taps[rec["tap_key"]] + dgcn_train_taps[rec["tap_key"]]

@@ -23,9 +23,12 @@ What they share:
   only those are staged and copied.  Capture runs nothing.
 - A replay fills pinned staging buffers of the bucket from the host batch,
   copies them into the static inputs without blocking and replays the
-  graph.  Before it refills a bucket's staging buffers the host waits for
-  the copy out of them that the bucket's previous replay queued, and for
-  nothing else.
+  graph.  Floating arrays are staged in ``transfer_dtype``: float32, or
+  bfloat16 (``--transfer_dtype``), rounded by the copy into the staging
+  buffer, so half the bytes cross; ``fn`` upcasts them at its entry.
+  Before it refills a bucket's staging buffers the host waits for the copy
+  out of them that the bucket's previous replay queued, and for nothing
+  else.
 - All the graphs of one object share one memory pool.  That is safe because
   nothing allocated in a capture outlives its graph's replay but the static
   outputs, and each replay's outputs are copied out (to the host, or to new
@@ -114,6 +117,15 @@ def host_array(v: np.ndarray) -> np.ndarray:
     return v.astype(np.float32) if v.dtype.kind == "f" and v.dtype != np.float32 else v
 
 
+def host_tensor(v: np.ndarray, transfer_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``host_array(v)`` as it crosses to the device: floating data in
+    ``transfer_dtype`` (float32, or bfloat16 rounded to the nearest even, as
+    the JAX package's ``transfer_cast_fn`` does through ``ml_dtypes``),
+    integers and booleans as they are."""
+    t = torch.from_numpy(host_array(v))
+    return t.to(transfer_dtype) if t.is_floating_point() else t
+
+
 class _Watch:
     """The addresses of the tensors that captured graphs read or write,
     taken when the first graph is captured."""
@@ -158,10 +170,11 @@ class _Graphs:
 
     def __init__(self, fn: Callable, device: torch.device,
                  watch: Optional[Callable[[], Iterable[torch.Tensor]]] = None,
-                 generators: Sequence[torch.Generator] = ()):
+                 generators: Sequence[torch.Generator] = (), transfer_dtype: torch.dtype = torch.float32):
         if device.type != "cuda":
             raise ValueError(f"{type(self).__name__} runs on a CUDA device, not {device}")
         self.fn, self.device, self.generators = fn, device, tuple(generators)
+        self.transfer_dtype = transfer_dtype
         self.keys: set = set()  # the keys fn read, over every bucket's warm-up
         self.replays = 0
         self.captures = 0
@@ -196,7 +209,7 @@ class _Graphs:
         dev = self.device
         if self._stream is None:
             self._stream = torch.cuda.Stream(dev)
-        full = {k: torch.from_numpy(v).to(dev) for k, v in arrays.items()}
+        full = {k: host_tensor(v, self.transfer_dtype).to(dev) for k, v in arrays.items()}
         self._stream.wait_stream(torch.cuda.current_stream(dev))
         log = _ReadLog(full)
         with torch.cuda.stream(self._stream):
@@ -243,7 +256,7 @@ class _Graphs:
     def _replay(self, bucket: _Bucket, arrays: Dict[str, np.ndarray]) -> None:
         bucket.copied.synchronize()
         for k, staged in bucket.staging.items():
-            staged.copy_(torch.from_numpy(arrays[k]))  # torch's copy runs on the intra-op threads
+            staged.copy_(torch.from_numpy(arrays[k]))  # on the intra-op threads; rounds to a bfloat16 staging
             bucket.inputs[k].copy_(staged, non_blocking=True)
         bucket.copied.record()
         bucket.graph.replay()
@@ -255,11 +268,13 @@ class _Graphs:
 
 class CapturedForward(_Graphs):
     def __init__(self, fn: Callable, device: torch.device,
-                 watch: Optional[Callable[[], Iterable[torch.Tensor]]] = None):
+                 watch: Optional[Callable[[], Iterable[torch.Tensor]]] = None,
+                 transfer_dtype: torch.dtype = torch.float32):
         """fn(batch: Dict[str, Tensor]) -> Tensor or tuple of Tensors on
         ``device`` (a CUDA device); ``watch()`` the tensors ``fn`` reads by
-        address (parameters, buffers)."""
-        super().__init__(fn, device, watch)
+        address (parameters, buffers); floating arrays cross in
+        ``transfer_dtype``."""
+        super().__init__(fn, device, watch, transfer_dtype=transfer_dtype)
 
     def __call__(self, host_batch: Dict[str, np.ndarray]):
         """The outputs of ``fn`` on one host batch (numpy arrays), as float32
@@ -285,13 +300,14 @@ class CapturedForward(_Graphs):
 class CapturedStep(_Graphs):
     def __init__(self, fn: Callable, device: torch.device,
                  watch: Optional[Callable[[], Iterable[torch.Tensor]]] = None,
-                 generators: Sequence[torch.Generator] = ()):
+                 generators: Sequence[torch.Generator] = (), transfer_dtype: torch.dtype = torch.float32):
         """fn(batch: Dict[str, Tensor]) -> Dict[str, 0-d float Tensor]: one
         train step on ``device`` (a CUDA device) that updates its state in
         place; ``watch()`` the tensors it reads or writes by address
         (parameters and their gradients, buffers, optimizer state, the LR);
-        ``generators`` the generators it draws from."""
-        super().__init__(fn, device, watch, generators)
+        ``generators`` the generators it draws from; floating arrays cross
+        in ``transfer_dtype``."""
+        super().__init__(fn, device, watch, generators, transfer_dtype)
 
     def __call__(self, host_batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         """One step on a host batch; its metrics as device tensors."""

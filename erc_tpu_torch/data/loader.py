@@ -5,7 +5,8 @@ shuffle from an explicit generator, an optional length-sorted mode that
 groups similar-length dialogues to cut padding, ``batch_count`` to cut or
 cycle an epoch, and ``drop_last``.  The same seed gives the same batches as
 the JAX package's loader.  ``to_device`` copies a batch to the card from
-pinned memory without blocking the host.
+pinned memory without blocking the host, floating arrays in float32, or in
+bfloat16 under ``--transfer_dtype=bfloat16`` (``core.cuda_graphs.host_tensor``).
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from typing import Dict, Iterator, List, Optional
 import numpy as np
 import torch
 
+from erc_tpu_torch.core.cuda_graphs import host_tensor
 from erc_tpu_torch.core.seed import RngPool
 from erc_tpu_torch.data.collate import ERCBatcher
 
@@ -98,14 +100,16 @@ class DialogueLoader:
         self.epoch += 1
 
 
-def to_device(batch: Dict[str, np.ndarray], device: torch.device) -> Dict[str, torch.Tensor]:
-    """A packed batch as tensors on `device`; to a card from pinned memory,
+def to_device(batch: Dict[str, np.ndarray], device: torch.device,
+              transfer_dtype: torch.dtype = torch.float32) -> Dict[str, torch.Tensor]:
+    """A packed batch as tensors on `device`, floating arrays in
+    ``transfer_dtype`` (``host_tensor``); to a card from pinned memory,
     without blocking the host.  Arrays that are None are left out."""
     out = {}
     for k, v in batch.items():
         if v is None:
             continue
-        t = torch.from_numpy(v)
+        t = host_tensor(v, transfer_dtype)
         if device.type == "cuda":
             t = t.pin_memory().to(device, non_blocking=True)
         out[k] = t

@@ -36,6 +36,22 @@ class MMBaseParams(BaseParams):
         # an int or "cuda[:N]" runs on the card, "cpu" on the CPU
         self.device = 0
 
+        # the train step's forward and backward on bfloat16 copies of the
+        # parameters and the batch; masters, gradients, optimizer state and
+        # buffers stay float32, losses reduce in float32, eval is float32
+        self.compute_dtype = self.choice("float32", "bfloat16")
+        # float32 batch arrays rounded to bfloat16 on the host before the copy
+        # to the card (half the bytes); the steps upcast them at entry
+        self.transfer_dtype = self.choice("float32", "bfloat16")
+        # float32 products of the trainer's steps: "highest"/"float32" strict,
+        # "high"/"tensorfloat32" TF32 (cuBLAS and cuDNN); the rest raise at
+        # trainer build (core.precision.fp32_precision)
+        self.matmul_precision = self.choice("highest", "float32", "high", "tensorfloat32", "bfloat16", "default",
+                                            "fastest")
+        # K steps a compiled call, in the JAX package; the port runs one
+        self.steps_per_call = 1
+        self.eval_steps_per_call = 0
+
         # batches pad L to a multiple of length_bucket, at most max_seq_len
         self.max_seq_len = 128
         self.length_bucket = 16

@@ -36,7 +36,7 @@ from erc_tpu_torch.ops.gnn_banded import BandedRGCN, BandedTransformerConv
 from erc_tpu_torch.ops.norm import MaskedBatchNorm
 from erc_tpu_torch.core.params import Params
 from erc_tpu_torch.train import optim as optim_factory
-from erc_tpu_torch.train.trainer import Trainer
+from erc_tpu_torch.train.trainer import Trainer, refuse_banded_compute_dtype
 
 
 class COGMENParams(MMBaseParams):
@@ -153,6 +153,8 @@ def build(p: COGMENParams, *, generator=None, device=None) -> COGMENModule:
 class COGMENTrainer(Trainer):
     """Adam from the config, no clip and no plateau controller, as the JAX
     ``COGMENTrainer`` (cogmen.py:158-175)."""
+
+    check_compute_dtype = refuse_banded_compute_dtype
 
     def imodels(self, params: COGMENParams):
         generator = torch.Generator().manual_seed(int(params.seed))

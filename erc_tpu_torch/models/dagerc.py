@@ -41,7 +41,7 @@ from erc_tpu_torch.ops.init import uniform_
 from erc_tpu_torch.ops.kernels.dag_block import dag_block, dag_block_reference
 from erc_tpu_torch.ops.rnn import gru_cell
 from erc_tpu_torch.train import optim as optim_factory
-from erc_tpu_torch.train.trainer import Trainer
+from erc_tpu_torch.train.trainer import Trainer, refuse_compute_dtype
 
 
 class DAGERCParams(MMBaseParams):
@@ -219,7 +219,12 @@ class DAGStack(nn.Module):
         """One DAG layer over all positions; h_in [B, Lp, D]."""
         D = self.hidden_dim
         B, Lp, _ = h_in.shape
-        p = lambda name: getattr(self, f"layer_{l}_{name}")  # noqa: E731
+        # a bfloat16 step's first layer runs in bfloat16; its float32 masks make
+        # the layer's output float32, and the layers after it run in float32
+        # on the bfloat16 weights, as JAX's promotion has it
+        dt = torch.promote_types(h_in.dtype, getattr(self, f"layer_{l}_att_w").dtype)
+        p = lambda name: getattr(self, f"layer_{l}_{name}").to(dt)  # noqa: E731
+        h_in = h_in.to(dt)
         wq, wk, bias = p("att_w")[:D, 0], p("att_w")[D:, 0], p("att_b")[0]
         q = h_in @ wq  # [B, Lp]
         xc = h_in @ p("gru_c_w_ih").T + p("gru_c_b_ih")  # node GRU input projection
@@ -248,7 +253,7 @@ class DAGStack(nn.Module):
             ep = torch.exp(lpre - mp[..., None]) * pre
             den_p = ep.sum(-1)
             e0 = ep * s_mask[:, s:e]
-            num01 = torch.bmm(e0, V0) + torch.bmm(ep - e0, V1)
+            num01 = torch.bmm(e0, V0.to(e0.dtype)) + torch.bmm(ep - e0, V1.to(e0.dtype))
             args = (t == 0, qb_all[:, s:e], xc4[:, s:e], hpp4[:, s:e], h_in[:, s:e], num01, den_p,
                     mp, addmask[:, s:e, s:e], s_mask[:, s:e, s:e], Whc, bhc, Wip, bip, Wr0T, Wr1T,
                     wk[:, None])
@@ -361,6 +366,14 @@ def build(p: DAGERCParams, *, generator=None, device=None) -> DAGERCModule:
 class DAGERCTrainer(Trainer):
     """AdamW with grad clip 5.0 and ReduceLROnPlateau(min), as the JAX
     ``DAGERCTrainer`` (dagerc.py:512-533)."""
+
+    def check_compute_dtype(self, params) -> None:
+        """bfloat16 trains the eager form only (``auto`` trains it too, and
+        evaluates through K3 in float32): with ``dag_impl=kernel`` the JAX
+        step fails in the Pallas kernel's stores."""
+        if self.compute_dtype != torch.float32 and str(params.get("dag_impl", "auto")) == "kernel":
+            refuse_compute_dtype("--dag_impl=kernel", "erc_tpu/ops/pallas/dag_block.py:320, the fused block kernel: "
+                                 "Invalid dtype for swap, a float32 value into a bfloat16 ref")
 
     def imodels(self, params: DAGERCParams):
         generator = torch.Generator().manual_seed(int(params.seed))

@@ -38,7 +38,7 @@ from erc_tpu_torch.ops.init import normal_
 from erc_tpu_torch.ops.kernels.banded import banded_dot
 from erc_tpu_torch.ops.rnn import BiRNN
 from erc_tpu_torch.train import optim as optim_factory
-from erc_tpu_torch.train.trainer import Trainer
+from erc_tpu_torch.train.trainer import Trainer, refuse_banded_compute_dtype
 
 # IEMOCAP-6 inverse class frequencies (the reference's dgcn.py:109-111)
 IEMOCAP6_LOSS_WEIGHTS = [
@@ -168,6 +168,8 @@ class DGCNTrainer(Trainer):
     """Adam from the config, no clip and no plateau controller, and the
     IEMOCAP-6 class weights for 6 classes, as the JAX ``DGCNTrainer``
     (dgcn.py:185-200)."""
+
+    check_compute_dtype = refuse_banded_compute_dtype
 
     def imodels(self, params: DGCNParams):
         generator = torch.Generator().manual_seed(int(params.seed))

@@ -52,14 +52,14 @@ from erc_tpu_torch.data.synthetic import synthetic_daily
 from erc_tpu_torch.models.base import MMBaseParams
 from erc_tpu_torch.models.dgcn import IEMOCAP6_LOSS_WEIGHTS
 from erc_tpu_torch.ops import graphs
-from erc_tpu_torch.ops.attention import Linear, masked_softmax
+from erc_tpu_torch.ops.attention import Linear, linear, masked_softmax
 from erc_tpu_torch.ops.dropout import Dropout
 from erc_tpu_torch.ops.gnn import DenseGraphConv, DenseRGCN
 from erc_tpu_torch.ops.init import lecun_normal_, normal_, uniform_
 from erc_tpu_torch.ops.conv import conv1d_gemm
 from erc_tpu_torch.ops.rnn import BiRNN, gru_cell, reverse_padded
 from erc_tpu_torch.train import optim as optim_factory
-from erc_tpu_torch.train.trainer import Trainer
+from erc_tpu_torch.train.trainer import Trainer, refuse_compute_dtype
 
 BASE_MODELS = ("LSTM", "DialogRNN", "GRU", "None")
 
@@ -299,7 +299,7 @@ class DGCNV2Module(nn.Module):
         # nodal attention (MatchingAttention 'general2' over every valid node):
         # tanh scores with the keys masked, a softmax over every key, then
         # masked and renormalised
-        xq = F.linear(em, self.matchatt_w, self.matchatt_b)
+        xq = linear(em, self.matchatt_w, self.matchatt_b)  # em is float32 in a bfloat16 step: the GraphConv's sum
         scores = torch.tanh(torch.einsum("bqd,bkd->bqk", xq, em * mask[:, :, None]) * mask[:, None, :])
         alpha = torch.softmax(scores, -1) * mask[:, None, :]
         alpha = alpha / alpha.sum(-1, keepdim=True).clamp_min(1e-10)
@@ -366,6 +366,13 @@ class DGCNV2Trainer(Trainer):
     """Adam from the config, no clip and no plateau controller, and the
     IEMOCAP-6 class weights for 6 classes, as the JAX ``DGCNV2Trainer``
     (dgcnv2.py:374-391)."""
+
+    def check_compute_dtype(self, params) -> None:
+        """bfloat16 trains the biRNN and linear bases: DialogueRNN's JAX scan
+        turns its party and emotion states float32 in a bfloat16 step."""
+        if self.compute_dtype != torch.float32 and params.base_model == "DialogRNN":
+            refuse_compute_dtype("--base_model=DialogRNN", "erc_tpu/models/dgcnv2.py:156, DialogueRNNScan's "
+                                 "lax.scan: carry input bfloat16, carry output float32")
 
     def imodels(self, params):
         generator = torch.Generator().manual_seed(int(params.seed))

@@ -14,7 +14,8 @@ Port of ``erc_tpu.models.mmgcn``.
   ``GCNIIStack``; ``'structured'`` builds its block-sparse form (M dense
   blocks, diagonal cross-modal blocks) and runs ``GCNIIStackStructured``.
   Both give the same features in the same order, from one set of weights.
-  The adjacency is float32.  MMGCN launches none of the hand-written kernels:
+  The adjacency is built in float32 and cast to the features' dtype (bfloat16
+  in a bfloat16 train step), as in JAX.  MMGCN launches none of the hand-written kernels:
   its graph products are ``torch.bmm`` / ``torch.matmul``.
 - ``gcn_remat`` (``off``, ``full``, ``dots``) checkpoints each trip of
   ``gcn_chunk`` GCNII layers (``ops.gnn._remat``).
@@ -129,14 +130,17 @@ class MMGCNModule(nn.Module):
                   "t": lambda: self._text(batch, mask)}
         feats = [encode[m]() for m in self.order]
         M = len(feats)
+        # the adjacency is built in float32 (arccos near ±1 is sensitive to
+        # rounding) and aggregates in the features' dtype, as in JAX
+        feats32, cdtype = [f.float() for f in feats], feats[0].dtype
         if self.adj_impl == "structured":
-            intra, cross = graphs.mmgcn_structured_adjacency(feats, mask)
+            intra, cross = (a.to(cdtype) for a in graphs.mmgcn_structured_adjacency(feats32, mask))
             x = self.dropout(torch.stack(feats, 1))  # [B, M, L, 200]
             h = self.gcnii(torch.relu(self.fc0(x)), intra, cross)
             h = torch.cat([x, self.dropout(h)], -1)
             feat = h.transpose(1, 2).reshape(B, L, -1)
         else:
-            adj = graphs.mmgcn_big_adjacency(feats, mask)
+            adj = graphs.mmgcn_big_adjacency(feats32, mask).to(cdtype)
             x = self.dropout(torch.cat(feats, 1))  # [B, M·L, 200]
             h = self.gcnii(torch.relu(self.fc0(x)), adj)
             h = torch.cat([x, self.dropout(h)], -1)

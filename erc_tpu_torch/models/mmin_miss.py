@@ -25,6 +25,7 @@ from typing import Dict, Optional
 
 import torch
 
+from erc_tpu_torch.core.precision import cast_floats
 from erc_tpu_torch.models.mmin_base import MMINBaseParams, MMINBaseTrainer, build as build_base, run
 from erc_tpu_torch.models.mmin_models import MODALITIES, MMINMissModule
 from erc_tpu_torch.train.checkpoint import load_model_state
@@ -85,7 +86,9 @@ class MMINMissTrainer(MMINBaseTrainer):
         Lall = Lce
         if self.model.training and "audio_feature_reverse" in batch:
             with torch.no_grad():
-                reverse_features = self.pretrained_model.encode(reverse_batch(batch))
+                # the frozen encoder's weights are float32, not cast with the model's: as in
+                # JAX, they promote a bfloat16 step's batch to float32
+                reverse_features = self.pretrained_model.encode(cast_floats(reverse_batch(batch), torch.float32))
             Lmse = masked_mse(reverse_features, fusion, mask)
             Lcycle = masked_mse(features, fusion_cycle, mask)
             Lall = Lce + Lmse * 4 + Lcycle * 2

@@ -46,13 +46,28 @@ def masked_softmax(scores: torch.Tensor, mask: torch.Tensor, dim: int = -1,
 
 class Linear(nn.Linear):
     """nn.Linear with the JAX package's Dense init (lecun-normal kernel,
-    zero bias) drawn from an explicit generator."""
+    zero bias) drawn from an explicit generator.  Where the input's dtype is
+    not the weights' (a float32 sum into bfloat16 weights), both are lifted
+    to the wider one, as flax's ``Dense`` promotes them."""
 
     def __init__(self, in_features, out_features, *, generator=None, device=None):
         super().__init__(in_features, out_features, device=device)
         with torch.no_grad():
             lecun_normal_(self.weight, fan_in=in_features, generator=generator)
             self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return linear(x, self.weight, self.bias)
+
+
+def linear(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``F.linear`` with flax's promotion: where ``x`` and the weights differ
+    in dtype (a float32 activation into bfloat16 weights), both in the wider
+    one."""
+    if x.dtype != weight.dtype:
+        dt = torch.promote_types(x.dtype, weight.dtype)
+        x, weight, bias = x.to(dt), weight.to(dt), None if bias is None else bias.to(dt)
+    return F.linear(x, weight, bias)
 
 
 class MultiheadAttention(nn.Module):

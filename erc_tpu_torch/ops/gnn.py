@@ -34,7 +34,9 @@ def relational_message_passing(x, adj, rel, weights, edge_norm=None, aggr: str =
     """
     R = weights.shape[0]
     B, L, _ = x.shape
-    out = torch.zeros(B, L, weights.shape[-1], dtype=x.dtype, device=x.device)
+    # summed in float32 and cast to x's dtype at the end, as the JAX scan does;
+    # a float32 adjacency lifts bfloat16 messages to float32, as jnp.einsum does
+    out = torch.zeros(B, L, weights.shape[-1], dtype=torch.float32, device=x.device)
     for r in range(R):
         a_r = adj * (rel == r)
         if edge_norm is not None:
@@ -42,8 +44,10 @@ def relational_message_passing(x, adj, rel, weights, edge_norm=None, aggr: str =
         if aggr == "mean":
             cnt = a_r.sum(dim=1)  # [B, v]: in-degree of v under relation r
             a_r = a_r / cnt.clamp(min=1.0)[:, None, :]
-        out = out + torch.einsum("buv,bue->bve", a_r, x @ weights[r])
-    return out
+        msg = x @ weights[r]
+        dt = torch.promote_types(a_r.dtype, msg.dtype)
+        out = out + torch.einsum("buv,bue->bve", a_r.to(dt), msg.to(dt))
+    return out.to(x.dtype)
 
 
 class DenseRGCN(nn.Module):
@@ -127,7 +131,11 @@ class DenseGraphConv(nn.Module):
         self.lin_root = Linear(in_features, out_features, **kw)
 
     def forward(self, x, adj):
-        return self.lin_rel(torch.einsum("buv,bud->bvd", adj, x)) + self.lin_root(x)
+        # a float32 adjacency lifts bfloat16 features to float32 (jnp.einsum's
+        # promotion), and lin_rel's bfloat16 weights take the float32 sum back
+        dt = torch.promote_types(adj.dtype, x.dtype)
+        agg = torch.einsum("buv,bud->bvd", adj.to(dt), x.to(dt))
+        return self.lin_rel(agg) + self.lin_root(x)
 
 
 def _chunk_of(n: int, want: int) -> int:

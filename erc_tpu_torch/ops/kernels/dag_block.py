@@ -89,6 +89,8 @@ def _attend(qc, Kw, amw_c, smw_c, V0w, V1w, num01_c, den_p_c, mp_c):
     ew = torch.exp(lw - mw)
     e0w = ew * smw_c
     e1w = ew - e0w
+    # float32 masks lift a bfloat16 block to float32, as jnp.einsum promotes
+    V0w, V1w = V0w.to(ew.dtype), V1w.to(ew.dtype)
     nw = torch.einsum("bj,bjd->bd", e0w, V0w) + torch.einsum("bj,bjd->bd", e1w, V1w)
     dnw = ew.sum(-1, keepdim=True)
     m = torch.maximum(mp_c, mw)
@@ -108,6 +110,11 @@ def dag_block_reference(flag: Flag, qb, xcb, hppb, hb, num01, den_p, mp, amw, sm
     B, C = qb.shape
     D = hb.shape[-1]
     flag = _flag(flag)
+    # in a bfloat16 step the float32 masks make M float32 (JAX's promotion):
+    # its products then run in float32, and the written rows are rounded to
+    # the block's dtype, as JAX's ``.at[].set`` into a bfloat16 buffer does
+    dt = torch.promote_types(torch.promote_types(qb.dtype, amw.dtype), num01.dtype)
+    Whc, bhc, Wip, bip, Wr0T, Wr1T, wkc = (t.to(dt) for t in (Whc, bhc, Wip, bip, Wr0T, Wr1T, wkc))
     # M @ Wm + bm = (node GRU hidden r|z|n, proxy GRU input r|z|n), each [B, 3D]
     Wm = torch.cat([Whc.permute(1, 0, 2).reshape(D, 3 * D), Wip.permute(1, 0, 2).reshape(D, 3 * D)], 1)
     bm = torch.cat([bhc.reshape(-1), bip.reshape(-1)])
@@ -124,7 +131,7 @@ def dag_block_reference(flag: Flag, qb, xcb, hppb, hb, num01, den_p, mp, amw, sm
             M = torch.zeros_like(M)
         mm = M @ Wm + bm
         h1 = gru_cell_proj(xc[:, c], mm[:, : 3 * D], M) + gru_cell_proj(mm[:, 3 * D :], hpp[:, c], hb[:, c])
-        o = h1 @ Wout
+        o = (h1 @ Wout).to(V0w.dtype)
         V0w = V0w.select_scatter(o[:, :D], 1, c)
         V1w = V1w.select_scatter(o[:, D : 2 * D], 1, c)
         Kw = Kw.select_scatter(o[:, 2 * D], 1, c)

@@ -30,12 +30,14 @@ from __future__ import annotations
 
 import contextlib
 import math
+import weakref
 from typing import Optional
 
 import torch
 from torch import nn
 from torch.nn.utils.rnn import PackedSequence
 
+from erc_tpu_torch.core.precision import cudnn_fp32
 from erc_tpu_torch.ops.dropout import Dropout
 from erc_tpu_torch.ops.init import uniform_
 
@@ -62,9 +64,12 @@ def cudnn_full_fp32(backend):
     ``.conv``) in full float32 within the block, whatever the process-wide
     flags say (torch lets cuDNN run them in TF32 by default, which misses the
     port's 1e-4 agreement with the CPU): the backend's own setting,
-    ``fp32_precision``, is "ieee" within and restored after."""
+    ``fp32_precision``, is "ieee" within and restored after.  Inside a
+    trainer's ``--matmul_precision=high`` scope (``core.precision.scoped``)
+    it is that scope's "tf32" instead.  Bfloat16 ops are bfloat16 either
+    way."""
     prev = backend.fp32_precision
-    backend.fp32_precision = "ieee"
+    backend.fp32_precision = cudnn_fp32()
     try:
         yield
     finally:
@@ -80,9 +85,11 @@ def _backward_in_full_fp32(t: torch.Tensor, backend=torch.backends.cudnn.rnn,
                            node_prefix: str = "CudnnRnnBackward") -> None:
     """cuDNN reads the setting again when the backward runs, outside the
     forward's block: hooks on the cuDNN node that made ``t`` (its name starts
-    with ``node_prefix``) set ``backend``'s full float32 just before that
-    node runs and restore the setting just after.  Where no such node made
-    ``t`` (cuDNN disabled) there is nothing to do."""
+    with ``node_prefix``) set ``backend`` to the forward's precision (full
+    float32, or the trainer scope's TF32) just before that node runs and
+    restore the setting just after.  Where no such node made ``t`` (cuDNN
+    disabled) there is nothing to do."""
+    precision = cudnn_fp32()
     nodes, seen = [t.grad_fn], set()
     while nodes:
         node = nodes.pop()
@@ -94,7 +101,7 @@ def _backward_in_full_fp32(t: torch.Tensor, backend=torch.backends.cudnn.rnn,
 
             def before(grad_outputs):
                 prev.append(backend.fp32_precision)
-                backend.fp32_precision = "ieee"
+                backend.fp32_precision = precision
 
             def after(grad_inputs, grad_outputs):
                 backend.fp32_precision = prev.pop()
@@ -147,8 +154,10 @@ class BiRNN(nn.Module):
         - no mask: every row runs all L steps, padding included: one cuDNN
           call a layer over the tensor as it is.
 
-        cuDNN runs each layer, forward and backward, in full float32
-        (``cudnn_rnn_full_fp32``).
+        cuDNN runs each float32 layer, forward and backward, in full float32
+        (``cudnn_rnn_full_fp32``); bfloat16 inputs and weights (the bfloat16
+        train step) run in bfloat16, which cuDNN takes under autograd in the
+        same layouts.
         """
         return self._unpacked(x) if mask is None else self._masked(x, mask)
 
@@ -214,6 +223,19 @@ class BiRNN(nn.Module):
                 y, _ = self._run(layer, out)
             out = y * m
         return out
+
+
+def point_rnns_at_their_parameters(module: nn.Module) -> None:
+    """Every ``nn.LSTM``/``nn.GRU`` in ``module`` reading its own parameters
+    again.  Their forward reads the list ``_flat_weights``, which their
+    ``__setattr__`` keeps in step; ``torch.func.functional_call`` swaps the
+    bfloat16 copies in through it but swaps the parameters back around it,
+    which left the list on the copies (and their autograd graph alive).  The
+    list is rebuilt without flattening, which would move the parameters."""
+    for m in module.modules():
+        if isinstance(m, nn.RNNBase):
+            m._flat_weights = [getattr(m, n) for n in m._flat_weights_names]
+            m._flat_weight_refs = [weakref.ref(w) for w in m._flat_weights]
 
 
 def _take_steps(x: torch.Tensor, index: torch.Tensor) -> torch.Tensor:

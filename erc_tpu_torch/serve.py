@@ -46,7 +46,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from erc_tpu_torch.core.cuda_graphs import CapturedForward, host_array
+from erc_tpu_torch.core.cuda_graphs import CapturedForward, host_tensor
 from erc_tpu_torch.core.device import resolve_device
 from erc_tpu_torch.data.collate import ERCBatcher, bucket_length
 from erc_tpu_torch.data.synthetic import synthetic_erc
@@ -116,7 +116,7 @@ class InferenceEngine:
 
     def _to_device(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         """Every array of the batch on the device (the eager route)."""
-        return {k: torch.from_numpy(host_array(v)).to(self.device, non_blocking=True)
+        return {k: host_tensor(v).to(self.device, non_blocking=True)
                 for k, v in batch.items() if v is not None}
 
     def logits(self, batch: Dict[str, np.ndarray]) -> np.ndarray:

@@ -39,13 +39,33 @@ False`` and ``eval_graphs = False`` run them eagerly.  ``load_state_tree``
 drops the graphs, and a replay raises where a tensor it reads was replaced
 rather than written in place.
 
-The trainer runs in float32 on ``params.device`` (the card unless it is
-``"cpu"``).  Dropout draws from a generator on that device seeded from
-``params.seed``.  Left out, for later slices: callbacks, experiment
-directories, the metric database and board, step-count checkpoints,
-several processes or devices, ``compute_dtype``, ``transfer_dtype`` and
-``profile_steps``; and ``steps_per_call`` (K steps in one compiled call,
-which the captured step would hold as K steps in one graph).
+The trainer runs on ``params.device`` (the card unless it is ``"cpu"``),
+with the JAX trainer's precision knobs (``core.precision``):
+
+- ``--compute_dtype=bfloat16``: the train step's forward and backward run on
+  bfloat16 copies of the parameters (``torch.func.functional_call`` of the
+  model with the cast parameters, so the cast's backward carries each
+  gradient back to its float32 master) and of the batch's floating arrays.
+  Buffers (the batch norms' running statistics), the masters, their
+  ``.grad``, the global norm, the clip and the optimizer state stay float32,
+  and the losses reduce in float32.  The val and test stages always compute
+  in float32.  A family refuses it (``check_compute_dtype``) where the JAX
+  package's bfloat16 step fails to trace.
+- ``--transfer_dtype=bfloat16``: floating batch arrays cross to the device
+  in bfloat16 (``core.cuda_graphs.host_tensor``, bfloat16 pinned staging in the
+  captured graphs); the steps cast them to their compute dtype at entry.
+- ``--matmul_precision``: ``highest`` (the default) or ``tensorfloat32``,
+  scoped to the trainer's own steps, captures and eval stages.
+
+Dropout draws from a generator on the device seeded from ``params.seed``.
+Left out, for later slices, and refused with ``NotImplementedError`` where a
+knob asks for them (``NOT_PORTED``): ``steps_per_call`` > 1 and
+``eval_steps_per_call`` (K steps in one compiled call, which the captured
+step would hold as K steps in one graph), step-count checkpoints,
+``profile_steps``, the NaN guard and ``debug_nans``, ``eval_first``, and the
+metric exporters (TensorBoard, wandb, a remote URL).  Also left out:
+experiment directories, the metric database and board, and several
+processes or devices.
 """
 
 from __future__ import annotations
@@ -57,6 +77,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from erc_tpu_torch.core import precision
 from erc_tpu_torch.core.cuda_graphs import CapturedForward, CapturedStep
 from erc_tpu_torch.core.device import resolve_device
 from erc_tpu_torch.core.seed import RngPool
@@ -64,9 +85,60 @@ from erc_tpu_torch.data.collate import ERCBatcher
 from erc_tpu_torch.data.loader import DialogueLoader, to_device
 from erc_tpu_torch.data.registry import dataset_has_val, get_root, pick_datas
 from erc_tpu_torch.ops.dropout import Dropout
+from erc_tpu_torch.ops.rnn import point_rnns_at_their_parameters
 from erc_tpu_torch.train.checkpoint import Saver
 from erc_tpu_torch.train.metrics import classification_summary
 from erc_tpu_torch.train.optim import clip_by_global_norm_, global_norm, load_optimizer_state
+
+
+# knobs of the JAX trainer that the port does not honour yet: the value each
+# may keep, and the test that it asks for more
+NOT_PORTED = {
+    "steps_per_call": lambda v: int(v or 1) > 1,
+    "eval_steps_per_call": lambda v: int(v or 0) > 0,
+    "checkpoint_per_step": bool,
+    "profile_steps": bool,
+    "nan_guard": bool,
+    "eval_first": bool,
+    "debug_nans": bool,
+    "tensorboard": bool,
+    "wandb": bool,
+    "remote_url": bool,
+}
+
+
+def refuse_compute_dtype(form: str, jax_site: str) -> None:
+    """The ``ValueError`` of a family form that does not train in bfloat16:
+    the JAX package's bfloat16 step fails at ``jax_site`` before a kernel
+    runs, and the port trains nothing that the JAX package does not."""
+    raise ValueError(f"--compute_dtype=bfloat16 with {form}: the JAX package's bfloat16 train step fails to trace "
+                     f"there ({jax_site}); train this form in float32, or pick one that trains in bfloat16")
+
+
+def refuse_banded_compute_dtype(trainer, params) -> None:
+    """``check_compute_dtype`` of the families with a banded graph (COGMEN,
+    DialogueGCN): bfloat16 trains the dense graph only; with
+    ``graph_impl=banded``, or ``auto`` where L may pass 256, the JAX step
+    fails in the band kernels' products."""
+    if trainer.compute_dtype != torch.float32 and (
+            params.graph_impl == "banded" or (params.graph_impl == "auto" and int(params.max_seq_len) > 256)):
+        refuse_compute_dtype(f"--graph_impl={params.graph_impl} at --max_seq_len={params.max_seq_len}",
+                             "erc_tpu/ops/gnn_banded.py:163, banded_gather_sum(alpha, v, ...): "
+                             "lax.mul of bfloat16 and float32")
+
+
+class _Bound(torch.nn.Module):
+    """``fn`` as the forward of a module whose one child is ``model``: under
+    ``torch.func.functional_call`` of it, ``fn`` sees ``model`` with the
+    parameters the call was given."""
+
+    def __init__(self, model: torch.nn.Module, fn):
+        super().__init__()
+        self.model = model
+        self.fn = fn
+
+    def forward(self, *args):
+        return self.fn(*args)
 
 
 def masked_cross_entropy(logits, labels, mask, class_weights=None) -> torch.Tensor:
@@ -96,6 +168,13 @@ class Trainer:
     train_graphs = True  # on the card, replay the captured train step (False: eager)
 
     def __init__(self, params):
+        for name, asks in NOT_PORTED.items():
+            if asks(params.get(name)):
+                raise NotImplementedError(f"--{name}={params.get(name)!r} is not ported to the PyTorch trainer yet")
+        self.compute_dtype = precision.dtype_of(params.get("compute_dtype"))
+        self.transfer_dtype = precision.dtype_of(params.get("transfer_dtype"))
+        self.fp32_precision = precision.fp32_precision(params.get("matmul_precision"))
+        self.check_compute_dtype(params)
         self.params = params
         self.device = resolve_device(params.get("device", 0))
         self.rng = RngPool(params.seed)
@@ -118,6 +197,15 @@ class Trainer:
     # ------------------------------------------------------------------ setup
     def imodels(self, params) -> None:
         raise NotImplementedError
+
+    def check_compute_dtype(self, params) -> None:
+        """Raise ``ValueError`` where the family cannot train in
+        ``self.compute_dtype`` with these settings (a subclass overrides it)."""
+
+    def precision(self):
+        """The block in which the trainer's products run at its
+        ``--matmul_precision``."""
+        return precision.scoped(self.fp32_precision)
 
     def log(self, msg: str) -> None:
         print(msg, flush=True)
@@ -172,15 +260,25 @@ class Trainer:
         return loss, {"Lall": loss.detach(), "Acc": masked_accuracy(logits.detach(), batch["label"], mask)}
 
     def compute_grads(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        """Forward and backward of one batch in training mode: leaves every
-        parameter's gradient in ``.grad`` (zeros where none reaches it, as
-        optax updates every leaf) and returns the metrics, on the device.
-        The ``.grad`` tensors are made once and zeroed here, so that a
-        captured step writes the same tensors whatever its bucket."""
+        """Forward and backward of one batch in training mode, in
+        ``compute_dtype`` (the batch's floating arrays cast at entry, and in
+        bfloat16 the model run on bfloat16 copies of its parameters): leaves
+        every parameter's float32 gradient in ``.grad`` (zeros where none
+        reaches it, as optax updates every leaf) and returns the metrics, on
+        the device.  The ``.grad`` tensors are made once and zeroed here, so
+        that a captured step writes the same tensors whatever its bucket."""
         self.model.train()
         torch._foreach_zero_(self.grads())
-        with torch.enable_grad():
-            loss, mets = self.loss_and_metrics(batch)
+        batch = precision.cast_floats(batch, self.compute_dtype)
+        with self.precision(), torch.enable_grad():
+            if self.compute_dtype == torch.float32:
+                loss, mets = self.loss_and_metrics(batch)
+            else:
+                cast = {f"model.{n}": t.to(self.compute_dtype) for n, t in self.model.named_parameters()}
+                try:
+                    loss, mets = torch.func.functional_call(_Bound(self.model, self.loss_and_metrics), cast, (batch,))
+                finally:
+                    point_rnns_at_their_parameters(self.model)
             loss.backward()
         return mets
 
@@ -225,7 +323,7 @@ class Trainer:
             mets = self.captured_step(host_batch)
             self.global_steps += 1
             return mets
-        return self.train_step(to_device(host_batch, self.device))
+        return self.train_step(to_device(host_batch, self.device, self.transfer_dtype))
 
     def _step_tensors(self) -> List[torch.Tensor]:
         """What the captured step reads or writes by address: parameters,
@@ -246,7 +344,7 @@ class Trainer:
                     f"the captured train step needs a capturable optimizer (adam or adamw on the card), not "
                     f"{type(self.optimizer).__name__}: set train_graphs = False to step eagerly")
             self._captured_step = CapturedStep(self._step, self.device, watch=self._step_tensors,
-                                               generators=(self._dropout_rng,))
+                                               generators=(self._dropout_rng,), transfer_dtype=self.transfer_dtype)
         return self._captured_step
 
     # ------------------------------------------------------------------- loop
@@ -340,6 +438,11 @@ class Trainer:
         """The eval forward: logits [B, L, C], or a tuple of outputs."""
         return self.model(batch)
 
+    def _eval_forward(self, batch: Dict[str, torch.Tensor]):
+        """``to_logits`` in float32 whatever the compute dtype, on the batch's
+        floating arrays upcast from their transfer dtype."""
+        return self.to_logits(precision.cast_floats(batch, torch.float32))
+
     def _eval_tensors(self) -> List[torch.Tensor]:
         """The parameters and buffers of every module the trainer holds."""
         mods = [m for m in vars(self).values() if isinstance(m, torch.nn.Module)]
@@ -349,17 +452,18 @@ class Trainer:
     def captured(self) -> CapturedForward:
         """The eval forward captured per batch shape (the card only)."""
         if self._captured is None:
-            self._captured = CapturedForward(self.to_logits, self.device, watch=self._eval_tensors)
+            self._captured = CapturedForward(self._eval_forward, self.device, watch=self._eval_tensors,
+                                             transfer_dtype=self.transfer_dtype)
         return self._captured
 
     def _eval_loop(self, loader) -> None:
         self.model.eval()
-        with torch.inference_mode():
+        with torch.inference_mode(), self.precision():
             for host_batch in loader:
                 if self.device.type == "cuda" and self.eval_graphs:
                     out = self.captured(host_batch)
                 else:
-                    out = _to_host(self.to_logits(to_device(host_batch, self.device)))
+                    out = _to_host(self._eval_forward(to_device(host_batch, self.device, self.transfer_dtype)))
                 self.test_step_collect(host_batch, out)
 
     # hooks where the JAX trainer fires them; a subclass overrides what it needs

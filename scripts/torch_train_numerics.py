@@ -1,6 +1,6 @@
 """The numerics behind the captured train step's design, on one NVIDIA GPU.
 
-    python scripts/torch_train_numerics.py [layout|relu|conv ...]   # all by default
+    python scripts/torch_train_numerics.py [layout|relu|conv|bf16 ...]   # all by default
 
 - ``layout``: a 2-layer biLSTM of 100 a direction (``ops.rnn.BiRNN``'s masked
   form) over B 32, L 96, D 712 with ragged lengths, cuDNN in full float32:
@@ -18,6 +18,18 @@
   4, 5 over 50 words of 300, 4 096 utterances) through cuDNN's heuristics
   and through ``ops.conv.conv1d_gemm``: forward + backward milliseconds and
   the largest difference of the weight gradients between two runs of each.
+- ``bf16``: every configuration of ``chip_smoke.py``'s precision phase at
+  dropout 0, one batch cut to 4 rows and to 32, from one set of weights: per parameter
+  the card's bfloat16 gradient's gap to the CPU's (``chip_smoke._bf16_gaps``,
+  the CPU run the reference), and the same with cuDNN off on the card and
+  with the CPU's bfloat16 run without oneDNN in the card's place (a second
+  sound implementation).  For each, the factor K that the largest gap needs
+  in ``K · (5e-2 + the reference's own bfloat16 error)``, the ReLU inputs
+  whose sign differs from the reference's forward, the median ratio of the
+  two runs' own errors, and how many parameters
+  ``chip_smoke._bf16_tolerance`` fails in the sound run and under two
+  planted faults (the card's float32 gradients as its bfloat16 ones, one
+  gradient scaled by 1.25).
 """
 
 import contextlib
@@ -179,10 +191,59 @@ def conv() -> None:
               f"weight gradients max abs diff {spread:.3e}", flush=True)
 
 
+def _bf16_summary(label, rows, flips):
+    """One line: the factor the largest gap needs, and where; the own errors' median ratio; what the rule fails;
+    the ReLU inputs of another sign than the reference's."""
+    need = max(rows, key=lambda r: r[1] / (cs.CPU_GRAD_TOL + r[2]))
+    ratio = statistics.median(r[3] / max(r[2], 1e-12) for r in rows)
+    over = [sum(r[i] > cs._bf16_tolerance(r[2]) for r in rows) for i in (1, 4, 5)]
+    worst = sorted(rows, key=lambda r: -r[1] / (cs.CPU_GRAD_TOL + r[2]))[:3]
+    print(f"  {label}: factor needed {need[1] / (cs.CPU_GRAD_TOL + need[2]):.3f} at {need[0]}; ReLU inputs of "
+          f"another sign than the reference's {flips}; own errors, this run / the reference's, median {ratio:.3f}; "
+          f"over the tolerance: sound {over[0]}, float32 in place of "
+          f"bfloat16 {over[1]}, scaled by 1.25 {over[2]}, of {len(rows)}; worst "
+          + "; ".join(f"{n} gap {g:.3e} own reference {c:.3e} own {o:.3e}" for n, g, c, o, *_ in worst), flush=True)
+
+
+def bf16() -> None:
+    def grads(run, batch, signs):
+        with _relu_inputs(signs):
+            return cs._grads(run, batch)[1]
+
+    def flips(a, b):
+        return sum(int((x != y).sum()) for x, y in zip(a, b, strict=True))
+
+    with cs._cudnn_tf32_on():
+        for name, make, _, _ in cs._precision_configs():
+            card16, card32 = make("--compute_dtype=bfloat16", d=True), make(d=True)
+            runs = cs._bf16_runs(make, card16, card32)
+            for n_rows in (4, 32):
+                batch = cs._rows(next(iter(card16.make_loader("train"))), n_rows)
+                signs = {k: [] for k in runs}
+                g = {k: grads(t, batch, signs[k]) for k, t in runs.items()}
+                rows, under, f32 = cs._bf16_gaps(g)
+                print(f"bf16 {name} on {n_rows} rows: {len(rows)} gradients over the floor, {len(under)} under it "
+                      f"(the card's largest {max((u for _, u in under), default=0.0):.3e} of the floor); float32 card "
+                      f"vs CPU {f32:.3e}, ReLU inputs of another sign {flips(signs['card32'], signs['cpu32'])} of "
+                      f"{sum(x.numel() for x in signs['cpu32'])}", flush=True)
+                _bf16_summary("the card", rows, flips(signs["card16"], signs["cpu16"]))
+                no_cudnn = []
+                with torch.backends.cudnn.flags(enabled=False):
+                    g_no = grads(card16, batch, no_cudnn)
+                _bf16_summary("the card without cuDNN", cs._bf16_gaps({**g, "card16": g_no})[0],
+                              flips(no_cudnn, signs["cpu16"]))
+                native = []
+                with torch.backends.mkldnn.flags(enabled=False):
+                    g_native = grads(runs["cpu16"], batch, native)
+                _bf16_summary("the CPU without oneDNN as the card",
+                              cs._bf16_gaps({**g, "card16": g_native, "card32": g["cpu32"]})[0],
+                              flips(native, signs["cpu16"]))
+
+
 def main(argv) -> int:
     print(cs.probe(), flush=True)  # builds the kernels (DialogueGCN's banded graph needs them)
-    for what in argv or ["layout", "relu", "conv"]:
-        {"layout": layout, "relu": relu, "conv": conv}[what]()
+    for what in argv or ["layout", "relu", "conv", "bf16"]:
+        {"layout": layout, "relu": relu, "conv": conv, "bf16": bf16}[what]()
     return 0
 
 

@@ -23,7 +23,8 @@ gradients (the GRU base, the DialogueRNN base, the token track's TextCNN)
 1e-4 relative, with cuDNN's TF32 flag on.  CIM's card vs CPU logits of both
 heads 1e-4, and its gradients of Lce + Lmulti 1e-4 relative, TF32 flag on.
 MMIN's card vs CPU raw and EMA logits 1e-4 and its gradients 1e-4 relative
-for each of its three trainers, TF32 flag on.
+for each of its three trainers, TF32 flag on.  The bfloat16 train step
+(``--compute_dtype``, ``--transfer_dtype``): replayed ≡ eager bit for bit.
 """
 
 import gc
@@ -1143,3 +1144,38 @@ def test_trainer_test_stage_replays_and_load_state_tree_drops_the_graphs(cuda):
         t.model.clf_lin2.weight = torch.nn.Parameter(t.model.clf_lin2.weight.clone())
     with pytest.raises(RuntimeError, match="replaced"):
         t.test()
+
+
+@pytest.mark.parametrize("module", ["cogmen", "dgcn"])
+def test_bf16_train_step_replay_equals_eager_and_stages_bf16(cuda, module):
+    """--compute_dtype=bfloat16 with --transfer_dtype=bfloat16 (COGMEN's dense
+    graph; DialogueGCN's dense graph, its biLSTM a bfloat16 cuDNN call): 3
+    replayed steps over two buckets, the LR changed in place between, ≡ 3
+    eager steps bit for bit; the masters stay float32 and every floating
+    staging buffer is bfloat16."""
+    from erc_tpu_torch.models import cogmen, dgcn
+
+    mod, name = {"cogmen": (cogmen, "COGMEN"), "dgcn": (dgcn, "DGCN")}[module]
+    p = getattr(mod, f"{name}Params")()
+    p.finalize(["--dataset=synthetic-cogmen-6", "--graph_impl=dense", "--device=cuda", "--max_seq_len=96",
+                "--compute_dtype=bfloat16", "--transfer_dtype=bfloat16"])
+    trainer = getattr(mod, f"{name}Trainer")(p)
+    trainer.log = lambda msg: None
+    trainer.initialize()
+    a, b = _two_bucket_batches(trainer)
+    trainer.train_batch(a)
+    trainer.train_batch(b)
+    graphs = trainer.captured_step
+    torch.cuda.synchronize()
+    saved = [t.detach().clone() for t in trainer._step_tensors()], trainer._dropout_rng.get_state()
+    eager = _steps(trainer, [a, b, a], replayed=False)
+    with torch.no_grad():
+        torch._foreach_copy_(trainer._step_tensors(), saved[0])
+    trainer._dropout_rng.set_state(saved[1])
+    replayed = _steps(trainer, [a, b, a], replayed=True)
+    assert graphs.captures == 2 and graphs.replays == 3
+    for i, (x, y) in enumerate(zip(eager, replayed)):
+        assert torch.equal(x, y), i
+    assert all(t.dtype == torch.float32 for t in trainer.model.parameters())
+    staged = [t for bucket in graphs._buckets.values() for t in bucket.staging.values() if t.is_floating_point()]
+    assert staged and all(t.dtype == torch.bfloat16 for t in staged)
