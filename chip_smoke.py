@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 Phases (any failure raises, so the exit code is non-zero):
-  1. probe the toolchain and the card, build the CUDA kernels from csrc/;
+  1. probe the toolchain and the card, build the CUDA kernels from csrc/ and
+     the host batch packer (csrc/collate.cpp, g++);
   2. hold each kernel against its plain PyTorch version on the card at the
      shapes the model paths give it (K1/K2 banded and K1ᵀ, the band's
      transposed index mode that their backward uses, in both
@@ -123,7 +124,23 @@ Phases (any failure raises, so the exit code is non-zero):
      settings restored, the bfloat16 refusals raising on the card, and K3's
      launches in a bfloat16-trained DAG-ERC's float32 test stage against a
      device trace;
- 18. print the run's wall time, one JSON line of kernel records (K1/K2/K1ᵀ
+ 18. the rest of the train loop (drive_pipeline): --steps_per_call=4, one
+     replay of a group of 4 batches ≡ 4 eager steps from one state bit for
+     bit (each step's losses and gnorm, parameters, gradients, buffers,
+     optimizer state, LR and schedule count, generator, EMA shadow) for
+     COGMEN banded (K1/K2/K1ᵀ), DAG-ERC's kernel form (K3/K4), mmin_miss,
+     COGMEN dense in bfloat16, lars under a Cos schedule (each step's LR
+     against the host curve within 1e-6) and AdamW with split_wd=1; a
+     replay's launches 4 x one step's, held against a device trace; one
+     capture a (K, bucket) and a leftover batch through the single-step
+     graph; --eval_steps_per_call=4 ≡ K = 1 bit for bit (COGMEN banded,
+     DAG-ERC kernel form, mmin_miss's raw and EMA logits); the native
+     packer's batches ≡ numpy's; and, for information, replayed step wall
+     and busy at K = 1 against 4, epoch rates at K = 1 and 4 with prefetch
+     on and off (DialogueRNN: the step's walls only), and host batching of a 64-dialogue
+     predict, native against numpy (and its text features alone, packed on
+     one thread and on 4);
+ 19. print the run's wall time, one JSON line of kernel records (K1/K2/K1ᵀ
      also at DialogueGCN's shapes, K = 10 and 21, D = 100 and 200, with their
      launches on its paths), the card's name and power limit, and a last
      JSON line {"ok": true, "device": {...}}.
@@ -241,6 +258,9 @@ def probe():
     t0 = time.perf_counter()
     libs = build.build_all()
     log(f"kernel build: {sorted(libs)} in {time.perf_counter() - t0:.2f} s -> {build.build_dir()}")
+    t0 = time.perf_counter()
+    packer = build.build_host("collate")  # the host batch packer (g++), which every batcher packs through
+    log(f"host packer build: {packer} in {time.perf_counter() - t0:.2f} s")
     for name in libs:
         logf = build.build_dir() / f"{name}.log"
         if logf.exists():
@@ -1061,7 +1081,7 @@ def _host_breakdown(name, engine, dialogues, reps=5):
             t_batch, t_logits = t_batch + t1 - t0, t_logits + time.perf_counter() - t1
             if engine.captured is not None:
                 arrays = {k: host_array(v) for k, v in batch.items() if v is not None}
-                bucket = engine.captured._buckets[engine.captured._bucket_key(arrays)]
+                bucket = engine.captured._buckets[(0, engine.captured._bucket_key(arrays))]
                 t0 = time.perf_counter()
                 with torch.inference_mode():  # where the buffers were made
                     for k, staged in bucket.staging.items():
@@ -3359,6 +3379,284 @@ def drive_precision(card: str):
     log(f"precision phase: {time.perf_counter() - t0:.1f} s")
 
 
+# ------------------------------------------------------------------ the pipeline phase
+PIPELINE_K = 4
+# a Cos schedule long enough that each of the phase's steps reads another LR
+PIPELINE_SCHE = ["--optim.sche.name=Cos", "--optim.sche.start=0.0001", "--optim.sche.end=0.00001",
+                 "--optim.sche.left=0", "--optim.sche.right=200"]
+PIPELINE_LR_TOL = 1e-6  # the LR read back against the host curve, relative
+PIPELINE_RATE_BATCHES = 16  # batches an epoch in the K = 1 / K = 4 and prefetch rates
+
+
+def _one_bucket_group(host, k):
+    """`k` host batches of one shape bucket: the largest bucket's, cycled where it holds fewer."""
+    bucket = max(_host_buckets(host), key=len)
+    return [bucket[i % len(bucket)] for i in range(k)]
+
+
+def _moved(before: dict) -> dict:
+    """The launch counts that moved since `before` (_all_launches())."""
+    return {k: n - before[k] for k, n in _all_launches().items() if n != before[k]}
+
+
+def _state_after(run, mets: list) -> dict:
+    """Each step's metrics (a list of {name: 0-d tensor}), every tensor the captured step reads or writes, and the
+    dropout generator's state: what a K-step replay is held to."""
+    out = {f"step {i} {k}": v.detach().clone() for i, m in enumerate(mets) for k, v in m.items()}
+    out.update(zip(_state_names(run), (t.detach().clone() for t in run._step_tensors())))
+    out["dropout generator state"] = run._dropout_rng.get_state()
+    return out
+
+
+def _k_replay_vs_eager(name, run, host, card, k=PIPELINE_K, curve=None):
+    """`k` train steps replayed as one graph (`CapturedStep.group` on a stacked group of `k` batches of one bucket)
+    ≡ `k` eager steps from the same state, bit for bit in each step's losses and gnorm, the parameters, gradients,
+    buffers, optimizer state, LR and schedule count, the generator state and MMIN's EMA (where they differ, a second
+    eager run decides, `_compare_steps`); the replay's launch counts are `k` x one eager step's and equal a device
+    trace's; one capture for the group's (k, bucket) and a leftover batch of the bucket through the single-step
+    graph.  With `curve` (the host curve of a declared schedule) each eager step's LR and the LR after the replay
+    are held against it.  Returns the stacked group."""
+    import torch
+    from erc_tpu_torch.core.cuda_graphs import CapturedStep, host_array
+    from erc_tpu_torch.data.loader import StackedGroup, to_device
+
+    t0 = time.perf_counter()
+    group = _one_bucket_group(host, k)
+    stacked = StackedGroup(group)  # as GroupedLoader yields it
+    graphs = run.captured_step
+    captures = graphs.captures
+    run.train_group(stacked, k)  # the bucket's first group: k eager steps, then the capture
+    require(graphs.captures == captures + 1, f"{name}: {graphs.captures - captures} captures for a new group")
+    snap = _snapshot(run)
+    count0 = int(run.optimizer.state["schedule"]["count"]) if "schedule" in run.optimizer.state else None
+
+    def eager():
+        mets, lrs, counts = [], [], []
+        for b in group:
+            before = _all_launches()
+            mets.append(run.train_step(to_device(b, run.device, run.transfer_dtype)))
+            counts.append(_moved(before))
+            lrs.append(float(run.optimizer.param_groups[0]["lr"]))
+        out = _state_after(run, mets)
+        _restore(run, snap)
+        return out, lrs, counts
+
+    ea, lrs, counts = eager()
+    before, replays = _all_launches(), graphs.replays
+    per_step, traced = _traced(f"{name} {k}-step replay", lambda: graphs.group(stacked, k))
+    moved = _moved(before)
+    require(graphs.replays == replays + 1 and graphs.captures == captures + 1,
+            f"{name}: the replay made {graphs.replays - replays} replays and {graphs.captures - captures} captures")
+    replayed = _state_after(run, [{n: v[i] for n, v in per_step.items()} for i in range(k)])
+    lr_after = float(run.optimizer.param_groups[0]["lr"])
+    _restore(run, snap)
+    same = ea.keys() == replayed.keys() and all(torch.equal(replayed[q], v) for q, v in ea.items())
+    eb = ea if same else eager()[0]
+    spread, ee, re_ = _compare_steps(f"{name} K = {k}", ea, eb, replayed)
+    one = counts[0]
+    require(all(c == one for c in counts), f"{name}: eager steps launched {counts}")
+    require(moved == {q: k * n for q, n in one.items()},
+            f"{name}: a {k}-step replay counted {moved}, one eager step {one}")
+    if curve is not None:
+        want = [curve(count0 + i) for i in range(k)]
+        worst = max(abs(a - b) / abs(b) for a, b in zip([*lrs, lr_after], [*want, want[-1]]))
+        log(f"{name}: LR of steps {count0}..{count0 + k - 1} read back {lrs}, after the replay {lr_after}; host "
+            f"curve {want}; worst relative {worst:.3e} (tolerance {PIPELINE_LR_TOL})")
+        require(worst <= PIPELINE_LR_TOL, f"{name}: the scheduled LR is {worst:.3e} off the host curve")
+    # a leftover batch of the bucket: the single-step graph, captured once, then replayed
+    def key(batch):
+        return CapturedStep._bucket_key({q: host_array(v) for q, v in batch.items() if v is not None})
+
+    for _ in range(2):
+        run.train_batch(group[0])
+    require((0, key(group[0])) in graphs._buckets and (k, key(dict(stacked))) in graphs._buckets
+            and graphs.captures == captures + 2,
+            f"{name}: graphs {sorted(kk for kk, _ in graphs._buckets)} after a group and two leftovers")
+    verdict = "bit for bit" if not spread else f"within the eager spread ({ee:.3e}; replayed {re_:.3e})"
+    log(f"{name} K = {k}: one replay ≡ {k} eager steps {verdict} in {len(ea)} quantities (losses, gnorm, parameters, "
+        f"gradients, buffers, optimizer state, LR{', schedule count' if count0 is not None else ''}, generator"
+        f"{', EMA shadow' if getattr(run, 'ema_model', None) is not None else ''}); launches a replay {moved} = "
+        f"{k} x one step's {one}, traced {traced}; graphs (k, bucket) {sorted(kk for kk, _ in graphs._buckets)}; "
+        f"on {card}; {time.perf_counter() - t0:.1f} s")
+    return stacked
+
+
+def _k_eval_vs_single(name, run, card, k=PIPELINE_K, batch_size=4):
+    """The test stage at --eval_steps_per_call=k (one replay a group of k batches), in batches of `batch_size` of one
+    shape (length_bucket 0) so that groups form, ≡ the stage at K = 1: the same predictions, NLL and record, bit for
+    bit; its launch counts equal."""
+    p = run.params
+    saved = p.test.batch_size, p.get("length_bucket", 16)
+    p.test.batch_size, p.length_bucket = batch_size, 0  # one shape: every run of k batches a group
+    out = {}
+    for label, kk in (("K = 1", 0), (f"K = {k}", k)):
+        p.eval_steps_per_call, run._test_loader = kk, None
+        run.test()  # every bucket captured
+        before = _all_launches()
+        res = run.test()
+        out[label] = (res, list(run._true), list(run._pred), run._nll_sum, _moved(before))
+    p.eval_steps_per_call, run._test_loader, (p.test.batch_size, p.length_bucket) = 0, None, saved
+    (r1, t1, p1, n1, c1), (rk, tk, pk, nk, ck) = out.values()
+    require(t1 == tk and p1 == pk and n1 == nk and _same_record(r1, rk) and c1 == ck,
+            f"{name}: the test stage at eval_steps_per_call={k} differs from K = 1 (launches {c1} / {ck})")
+    groups = sum(1 for key in run.captured._buckets if key[0] == k)
+    require(groups > 0, f"{name}: no {k}-batch eval graph captured")
+    log(f"{name} test stage at eval_steps_per_call={k} ≡ K = 1 bit for bit ({len(t1)} utterances, loss "
+        f"{r1['Lall']:.6f}, launches {ck}); {groups} {k}-batch eval graphs on {card}")
+
+
+def _pipeline_rates(name, run, card, unit="dialogues", settings=((1, True), (4, True), (1, False), (4, False)),
+                    batches=PIPELINE_RATE_BATCHES, cycles=3):
+    """An epoch's train steps (`batches` batches of one shape, no val or test stage) at each (K, prefetch) of
+    `settings`, replayed: `cycles` rounds over the settings in turn (a pass that had to capture a graph is run again),
+    the median `unit`/s of each setting; and the wall and busy of a replayed step at K = 1 against a 4-step replay's
+    per step.  Returns {setting: rate} with the walls and busy times."""
+    from erc_tpu_torch.data.loader import StackedGroup
+
+    t0 = time.perf_counter()
+    p = run.params
+    saved = {"eval_per_epoch": p.get("eval_per_epoch", 1), "batch_count": p.get("batch_count"),
+             "length_bucket": p.get("length_bucket", 16), "steps_per_call": p.get("steps_per_call", 1),
+             "prefetch": p.get("prefetch", True)}
+    p.eval_per_epoch, p.batch_count, p.length_bucket = 0, batches, 0
+    passes: dict = {}
+    try:
+        for _ in range(cycles):
+            for k, prefetch in settings:
+                p.steps_per_call, p.prefetch = k, prefetch
+                captures = -1
+                while captures != run.captured_step.captures:  # again where the pass had to capture
+                    captures = run.captured_step.captures
+                    run.eidx, p.epoch = run.eidx + 1, run.eidx + 2
+                    rec = run.train()[-1]
+                passes.setdefault(f"K={k} prefetch {'on' if prefetch else 'off'}", []).append(
+                    rec["dialogues"] / rec["seconds"])
+        host = list(run.make_loader("train"))
+        batch = host[0]
+        stacked = StackedGroup([host[i % len(host)] for i in range(PIPELINE_K)])
+        run.train_batch(batch)
+        run.train_group(stacked, PIPELINE_K)  # both captured before the timings
+        shape = tuple(batch["attention_mask" if "attention_mask" in batch else "sample_mask"].shape)
+        w1, b1 = _wall_and_busy(lambda: run.train_batch(batch), f"{name} replayed step {shape}", reps=5)
+        wk, bk = _wall_and_busy(lambda: run.train_group(stacked, PIPELINE_K),
+                                f"{name} {PIPELINE_K}-step replay {shape}", reps=5)
+    finally:
+        for q, v in saved.items():
+            p[q] = v
+    rates = {q: round(statistics.median(v), 1) for q, v in passes.items()}
+    per = lambda x: None if x is None else round(x / PIPELINE_K, 3)  # noqa: E731
+    share = lambda b, w: "not measured" if b is None else f"{100 * b / (w * 1e3):.1f}%"  # noqa: E731
+    log(f"{name} ({shape}): a replayed step K = 1 wall {w1 * 1e3:.3f} ms, busy {b1} ms ({share(b1, w1)}); K = "
+        f"{PIPELINE_K} per step wall {wk * 1e3 / PIPELINE_K:.3f} ms, busy {per(bk)} ms ({share(bk, wk)}); an epoch of "
+        f"{batches} batches, {unit}/s, medians of {cycles} passes: {rates} (each pass "
+        f"{ {q: [round(x, 1) for x in v] for q, v in passes.items()} }) on {card}; {time.perf_counter() - t0:.1f} s")
+    return {"wall_ms": [round(w1 * 1e3, 3), round(wk * 1e3 / PIPELINE_K, 3)], "busy_ms": [b1, per(bk)], **rates}
+
+
+def _native_batching(card):
+    """Host batching of a 64-dialogue COGMEN predict, native packer against numpy (`ERCBatcher(native=False)`):
+    every batch bit for bit, the predict's results equal, and the host clock split of each."""
+    import numpy as np
+    from erc_tpu_torch.serve import InferenceEngine
+
+    engine = InferenceEngine.from_module("cogmen", graph_impl="banded", dataset="synthetic-cogmen-6",
+                                         encoder_mode="chained", batch_size=32)
+    dialogues, desc = _dialogues()
+    results = engine.predict(dialogues)
+    bs = engine.batch_size
+    for s in range(0, len(dialogues), bs):
+        engine.batcher.native = True
+        a = engine.batcher(dialogues[s : s + bs])
+        engine.batcher.native = False
+        b = engine.batcher(dialogues[s : s + bs])
+        require(a.keys() == b.keys() and all((a[q] is None and b[q] is None) or (
+            a[q].dtype == b[q].dtype and np.array_equal(a[q], b[q])) for q in a),
+            "the native packer's batch differs from the numpy one")
+    plain = engine.predict(dialogues)
+    require(all(np.array_equal(x["probs"], y["probs"]) for x, y in zip(results, plain)),
+            "a predict of numpy-packed batches differs from the native-packed one")
+    def median_ms(fn):
+        t = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            for s in range(0, len(dialogues), bs):
+                fn(dialogues[s : s + bs])
+            t.append(time.perf_counter() - t0)
+        return round(statistics.median(t) * 1e3, 3)
+
+    timings = {}
+    for label, native in (("native", True), ("numpy", False)):
+        engine.batcher.native = native
+        timings[label] = median_ms(engine.batcher)
+        _host_breakdown(f"COGMEN replayed, {label} packing", engine, dialogues)
+    engine.batcher.native = True
+    # the text features alone, packed on the batcher's one thread and on the JAX package's 4
+    from erc_tpu_torch.data import native
+
+    def text_rows(threads):
+        def pack(chunk):
+            rows = [np.asarray(d["text"], np.float32) for d in chunk]
+            lens = np.array([len(r) for r in rows], np.int32)
+            return native.pack_rows(rows, lens, int(lens.max()), rows[0].shape[-1], n_threads=threads)
+        return pack
+
+    for threads in (1, 4):
+        timings[f"text features alone, native on {threads} thread{'s' if threads > 1 else ''}"] = median_ms(
+            text_rows(threads))
+    log(f"host batching of a predict of {desc}, medians of 5, ms: {timings}; batches bit for bit, predictions equal; "
+        f"on {card}")
+    return timings
+
+
+def drive_pipeline(card: str):
+    """The rest of the train loop on the card: K = 4 train steps a replay ≡ 4 eager steps (COGMEN banded: K1/K2/K1ᵀ;
+    DAG-ERC's kernel form: K3/K4; mmin_miss; COGMEN dense in bfloat16; lars under a Cos schedule, its LR read back
+    against the host curve; AdamW with split_wd=1), launches 4 x a step's against a device trace, one capture a (K,
+    bucket) and a leftover batch through the single-step graph; eval_steps_per_call=4 ≡ K = 1 (COGMEN banded,
+    DAG-ERC kernel form, mmin_miss's raw and EMA logits); the native packer ≡ numpy; and, for information, replayed
+    step wall and busy and epoch rates at K = 1 against K = 4 with prefetch on and off, and host batching native
+    against numpy."""
+    from erc_tpu_torch.core.interp import Cos
+
+    t0 = time.perf_counter()
+    rates = {}
+    run = _cogmen_trainer("banded", f"--steps_per_call={PIPELINE_K}")
+    host = list(run.make_loader("train"))
+    _k_replay_vs_eager("COGMEN banded", run, host, card)
+    _k_eval_vs_single("COGMEN banded", run, card)
+    rates["COGMEN banded"] = _pipeline_rates("COGMEN banded", run, card)
+    del run
+    run = _trainer(f"--steps_per_call={PIPELINE_K}")
+    host = list(run.make_loader("train"))
+    _k_replay_vs_eager("DAG-ERC kernel form", run, host, card)
+    _k_eval_vs_single("DAG-ERC kernel form", run, card)
+    rates["DAG-ERC kernel form"] = _pipeline_rates("DAG-ERC kernel form", run, card)
+    del run
+    run = _mmin_trainer("mmin_miss", f"--steps_per_call={PIPELINE_K}")
+    host = list(run.make_loader("train"))
+    _k_replay_vs_eager("mmin_miss", run, host, card)
+    _k_eval_vs_single("mmin_miss", run, card, batch_size=8)
+    rates["mmin_miss"] = _pipeline_rates("mmin_miss", run, card, unit="utterances")
+    del run
+    run = _cogmen_trainer("dense", "--compute_dtype=bfloat16")
+    _k_replay_vs_eager("COGMEN dense bfloat16", run, list(run.make_loader("train")), card)
+    del run
+    run = _cogmen_trainer("dense", "--optim.name=lars", *PIPELINE_SCHE)
+    curve = Cos(0.0001, 0.00001, 0, 200)
+    _k_replay_vs_eager("COGMEN dense lars, Cos schedule", run, list(run.make_loader("train")), card, curve=curve)
+    del run
+    run = _cogmen_trainer("dense", "--optim.name=AdamW", "--optim.weight_decay=0.01", "--optim.split_wd=1")
+    require(len(run.optimizer.param_groups) == 2, "split_wd=1 built one parameter group")
+    _k_replay_vs_eager("COGMEN dense AdamW split_wd=1", run, list(run.make_loader("train")), card)
+    del run
+    run = _dgcnv2_trainer(False)  # its step is 97 % busy at K = 1: the replayed step's walls alone
+    rates["DialogueGCN v2 DialogueRNN"] = _pipeline_rates("DialogueGCN v2 DialogueRNN", run, card, settings=())
+    del run
+    rates["host batching ms"] = _native_batching(card)
+    log("pipeline rates on " + card + ": " + json.dumps(rates))
+    log(f"pipeline phase: {time.perf_counter() - t0:.1f} s")
+
+
 def _stamp(phase: str) -> None:
     log(f"phase {phase} done at {time.perf_counter() - T_START:.1f} s")
 
@@ -3425,6 +3723,8 @@ def main() -> int:
         log(f"MMIN phases: {time.perf_counter() - t_mmin:.1f} s")
         drive_precision(card)
         _stamp("precision")
+        drive_pipeline(card)
+        _stamp("pipeline")
     # the DialogueGCN-shape records: their instantiation's launches on DialogueGCN's serving and training paths
     for rec in dgcn_records.values():
         rec["launches"] = dgcn_serve_taps[rec["tap_key"]] + dgcn_train_taps[rec["tap_key"]]

@@ -50,16 +50,32 @@ registered with every graph, so that replays advance them as eager steps
 do.  A capture that fails raises: nothing falls back to the eager call.
 Only the card: the CPU route calls ``fn`` eagerly and never builds one of
 these.
+
+K batches a replay (``steps_per_call`` and ``eval_steps_per_call``, the
+JAX trainer's ``multi_step`` and ``multi_eval`` scans): ``group(stacked, k)``
+takes a group of k batches stacked [k, B, ...] (``data.loader.
+GroupedLoader``'s ``StackedGroup``, whose batches are copied each into its
+slice), staged in one pinned buffer per key
+and copied to the card once, and replays one graph per (k, bucket) whose
+body runs ``fn`` on slice 0, 1, ..., k - 1 in turn.  ``CapturedStep.group``
+returns each metric as a [k] device tensor, one value a step; its first
+group of a bucket trains as k eager steps before the capture, and a
+replay's launch counts are k steps'.  ``CapturedForward.group`` returns
+each output stacked [k, ...] on the host (a tuple of them where ``fn``
+returns a tuple), warmed up on slice 0.
 """
 
 from __future__ import annotations
 
 import gc
 import time
-from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
+from typing import TYPE_CHECKING, Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+if TYPE_CHECKING:
+    from erc_tpu_torch.data.loader import StackedGroup
 
 
 def _counters() -> List[dict]:
@@ -152,11 +168,11 @@ class _Watch:
 
 class _Bucket:
     """One captured graph, its static and pinned buffers (of the keys its
-    warm-up read), its static outputs and the launch counts its capture
-    recorded."""
+    warm-up read), its static outputs, the launch counts its capture
+    recorded, and the batches a replay takes (k; 0 for one batch)."""
 
-    def __init__(self, graph, inputs, outputs, counts):
-        self.graph = graph
+    def __init__(self, graph, inputs, outputs, counts, k):
+        self.graph, self.k = graph, k
         self.inputs = inputs
         self.staging = {k: torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for k, t in inputs.items()}
         self.copied = torch.cuda.Event()  # after the last copy out of `staging`
@@ -203,20 +219,25 @@ class _Graphs:
         """Whether every watched tensor is where it was when the first graph was captured."""
         return self._watch.unchanged()
 
-    def _warm_up(self, arrays: Dict[str, np.ndarray]):
+    def _warm_up(self, arrays: Dict[str, np.ndarray], slices: int = 0):
         """``fn`` eagerly on the side stream that captures: (the batch on the
-        device, the keys fn read, fn's result)."""
+        device, the keys fn read, fn's result).  With ``slices`` the batch is
+        stacked and ``fn`` runs on each of its first ``slices`` slices in
+        turn, giving the list of their results."""
         dev = self.device
         if self._stream is None:
             self._stream = torch.cuda.Stream(dev)
         full = {k: host_tensor(v, self.transfer_dtype).to(dev) for k, v in arrays.items()}
         self._stream.wait_stream(torch.cuda.current_stream(dev))
-        log = _ReadLog(full)
+        read, outs = set(), []
         with torch.cuda.stream(self._stream):
-            out = self.fn(log)
+            for batch in ([_slice(full, i) for i in range(slices)] if slices else [full]):
+                log = _ReadLog(batch)
+                outs.append(self.fn(log))
+                read |= log.read
         torch.cuda.current_stream(dev).wait_stream(self._stream)
-        self.keys |= log.read
-        return full, log.read, out
+        self.keys |= read
+        return full, read, outs if slices else outs[0]
 
     def _capture(self, key: Tuple, inputs: Dict[str, torch.Tensor], fn: Callable) -> _Bucket:
         """``fn`` captured from the static ``inputs``; its result is the
@@ -248,15 +269,22 @@ class _Graphs:
             counts.append({k: c[k] - b[k] for k in c if c[k] != b[k]})
             c.update(b)  # the capture launched nothing; each replay adds these
         outputs = tuple(out) if isinstance(out, tuple) else (out,)
-        bucket = self._buckets[key] = _Bucket(graph, inputs, outputs, counts)
+        bucket = self._buckets[key] = _Bucket(graph, inputs, outputs, counts, key[0])
         self.captures += 1
         self._watch.record()
         return bucket
 
-    def _replay(self, bucket: _Bucket, arrays: Dict[str, np.ndarray]) -> None:
+    def _replay(self, bucket: _Bucket, parts: List[Dict[str, np.ndarray]]) -> None:
+        """Stage ``parts`` (the batch, or a group's k batches: each into its
+        slice) in the bucket's pinned buffers, copy them in and replay."""
         bucket.copied.synchronize()
         for k, staged in bucket.staging.items():
-            staged.copy_(torch.from_numpy(arrays[k]))  # on the intra-op threads; rounds to a bfloat16 staging
+            # on the intra-op threads; rounds to a bfloat16 staging
+            if bucket.k:
+                for i, part in enumerate(parts):
+                    staged[i].copy_(torch.from_numpy(part[k]))
+            else:
+                staged.copy_(torch.from_numpy(parts[0][k]))
             bucket.inputs[k].copy_(staged, non_blocking=True)
         bucket.copied.record()
         bucket.graph.replay()
@@ -264,6 +292,27 @@ class _Graphs:
             for k, n in delta.items():
                 c[k] += n
         self.replays += 1
+
+    def _parts(self, host_batch, k: int):
+        """(the host arrays as staged: [the batch], or a ``StackedGroup``'s
+        k batches as they are (nothing stacked), its bucket's key)."""
+        if not k:
+            arrays = {n: host_array(v) for n, v in host_batch.items() if v is not None}
+            return [arrays], (0, self._bucket_key(arrays))
+        parts = [{n: host_array(v) for n, v in b.items() if v is not None} for b in host_batch.batches]
+        if len(parts) != k:
+            raise ValueError(f"a group of {len(parts)} batches given as {k}")
+        return parts, (k, tuple((n, (k, *v.shape), v.dtype.str) for n, v in sorted(parts[0].items())))
+
+
+def _stacked(parts: List[Dict[str, np.ndarray]], k: int) -> Dict[str, np.ndarray]:
+    """The batch of ``_parts``: the one batch, or the group's k stacked (a bucket's warm-up only)."""
+    return {n: np.stack([p[n] for p in parts]) for n in parts[0]} if k else parts[0]
+
+
+def _slice(batch: Dict[str, torch.Tensor], i: int) -> Dict[str, torch.Tensor]:
+    """Batch i of a stacked group (views)."""
+    return {k: t[i] for k, t in batch.items()}
 
 
 class CapturedForward(_Graphs):
@@ -279,17 +328,33 @@ class CapturedForward(_Graphs):
     def __call__(self, host_batch: Dict[str, np.ndarray]):
         """The outputs of ``fn`` on one host batch (numpy arrays), as float32
         numpy arrays on the host: one array, or a tuple where ``fn`` returns one."""
-        arrays = {k: host_array(v) for k, v in host_batch.items() if v is not None}
+        return self._run(host_batch, 0)
+
+    def group(self, stacked: StackedGroup, k: int):
+        """The outputs of ``fn`` on each batch of a ``StackedGroup`` of ``k``,
+        stacked [k, ...] as float32 numpy arrays (a tuple of them where
+        ``fn`` returns a tuple): one replay."""
+        return self._run(stacked, k)
+
+    def _run(self, host_batch: Dict[str, np.ndarray], k: int):
+        parts, key = self._parts(host_batch, k)
         with torch.inference_mode():
             self._watch.check()
-            key = self._bucket_key(arrays)
             bucket = self._buckets.get(key)
             if bucket is None:
-                full, read, out = self._warm_up(arrays)
-                bucket = self._capture(key, {k: full[k] for k in sorted(read)}, self.fn)
-                bucket.is_tuple = isinstance(out, tuple)
+                full, read, out = self._warm_up(_stacked(parts, k), slices=min(k, 1))
+                is_tuple = isinstance(out[0] if k else out, tuple)
+
+                def body(batch):
+                    if not k:
+                        return self.fn(batch)
+                    outs = [self.fn(_slice(batch, i)) for i in range(k)]
+                    return tuple(torch.stack(o) for o in zip(*outs)) if is_tuple else torch.stack(outs)
+
+                bucket = self._capture(key, {n: full[n] for n in sorted(read)}, body)
+                bucket.is_tuple = is_tuple
                 bucket.host = tuple(torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in bucket.outputs)
-            self._replay(bucket, arrays)
+            self._replay(bucket, parts)
             for host, out in zip(bucket.host, bucket.outputs):
                 host.copy_(out, non_blocking=True)
             torch.cuda.current_stream(self.device).synchronize()
@@ -311,26 +376,37 @@ class CapturedStep(_Graphs):
 
     def __call__(self, host_batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         """One step on a host batch; its metrics as device tensors."""
-        arrays = {k: host_array(v) for k, v in host_batch.items() if v is not None}
+        return self._run(host_batch, 0)
+
+    def group(self, stacked: StackedGroup, k: int) -> Dict[str, torch.Tensor]:
+        """``k`` steps on a ``StackedGroup`` of ``k`` host batches, one replay;
+        each metric as a [k] device tensor, one value a step."""
+        return self._run(stacked, k)
+
+    def _run(self, host_batch: Dict[str, np.ndarray], k: int) -> Dict[str, torch.Tensor]:
+        parts, key = self._parts(host_batch, k)
         self._watch.check()
-        key = self._bucket_key(arrays)
         bucket = self._buckets.get(key)
         if bucket is None:
-            full, read, mets = self._warm_up(arrays)
-            names = list(mets)
+            full, read, mets = self._warm_up(_stacked(parts, k), slices=k)
+            names = list(mets[0] if k else mets)
             watched = self._watch.now()
 
             def stacked(batch):
                 out = self.fn(batch)
                 if list(out) != names:
                     raise RuntimeError(f"the captured step returned {list(out)}, its warm-up {names}")
-                return torch.stack([out[k] for k in names])
+                return torch.stack([out[n] for n in names])
 
-            bucket = self._capture(key, {k: full[k] for k in sorted(read)}, stacked)
+            def body(batch):
+                return torch.stack([stacked(_slice(batch, i)) for i in range(k)]) if k else stacked(batch)
+
+            bucket = self._capture(key, {n: full[n] for n in sorted(read)}, body)
             bucket.names = names
             if self._watch.now() != watched:
                 raise RuntimeError("the capture replaced a tensor that the step updates in place "
                                    "(a parameter's .grad, optimizer state, a buffer)")
-            return mets
-        self._replay(bucket, arrays)
-        return dict(zip(bucket.names, bucket.outputs[0].clone().unbind()))
+            return {n: torch.stack([m[n] for m in mets]) for n in names} if k else mets
+        self._replay(bucket, parts)
+        out = bucket.outputs[0].clone()
+        return dict(zip(bucket.names, out.unbind(-1 if k else 0)))

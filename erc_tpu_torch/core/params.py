@@ -2,7 +2,10 @@
 
 Port of ``erc_tpu.core.params``: attribute-style schema with defaults
 declared in ``__init__``, ``choice()`` constraints enforced on every
-assignment, and dotted-key CLI overrides (``--train.batch_size=8``).
+assignment, dotted-key CLI overrides (``--train.batch_size=8``), and
+``--config=<file>``: a yaml or json file loaded before the other flags, so
+that the flags win (yaml read with ``yaml`` where it is installed, else the
+file is read as json).
 """
 
 from __future__ import annotations
@@ -122,13 +125,40 @@ class Params:
     def to_dict(self) -> dict:
         return {k: v.to_dict() if isinstance(v, Params) else v for k, v in self._data.items()}
 
+    def update(self, other) -> "Params":
+        """Merge a dict (or Params) in: nested dicts into existing nodes."""
+        if isinstance(other, Params):
+            other = other.to_dict()
+        for k, v in other.items():
+            if isinstance(v, dict) and isinstance(self._data.get(k), Params):
+                self._data[k].update(v)
+            else:
+                self[k] = v
+        return self
+
+    def from_json_file(self, path: str) -> "Params":
+        with open(path) as f:
+            return self.update(json.load(f))
+
+    def from_yaml_file(self, path: str) -> "Params":
+        """A yaml file, or the file as json where ``yaml`` is not installed."""
+        try:
+            import yaml
+        except ImportError:
+            return self.from_json_file(path)
+        with open(path) as f:
+            return self.update(yaml.safe_load(f))
+
     def from_args(self, argv: Optional[list] = None) -> "Params":
         """Apply ``--key=value`` / ``--key value`` / ``--flag`` overrides.
 
-        Dotted keys address nested nodes: ``--train.batch_size=8``.
+        Dotted keys address nested nodes: ``--train.batch_size=8``.  Every
+        ``--config=<file>`` is loaded first (``from_yaml_file``), so that
+        the other flags win over the file.
         """
         if argv is None:
             argv = sys.argv[1:]
+        pairs = []
         i = 0
         while i < len(argv):
             tok = argv[i]
@@ -137,14 +167,19 @@ class Params:
                 continue
             body = tok[2:]
             if "=" in body:
-                k, v = body.split("=", 1)
+                pairs.append(tuple(body.split("=", 1)))
             elif i + 1 < len(argv) and not argv[i + 1].startswith("--"):
-                k, v = body, argv[i + 1]
+                pairs.append((body, argv[i + 1]))
                 i += 1
             else:
-                k, v = body, "true"
-            self[k] = _parse_value(v)
+                pairs.append((body, "true"))
             i += 1
+        for k, v in pairs:
+            if k == "config":
+                self.from_yaml_file(v)
+        for k, v in pairs:
+            if k != "config":
+                self[k] = _parse_value(v)
         return self
 
     def __repr__(self):

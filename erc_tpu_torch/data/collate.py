@@ -2,9 +2,14 @@
 
 Port of ``erc_tpu.data.collate``: lengths round up to a few buckets, and
 the batch dict has the same keys, dtypes and values as the JAX package's
-``ERCBatcher`` (numpy packing; label padded with -1, speakers with 0;
-MOSEI samples add ``emo_label`` and ``senti2_label``).  A one-entry speaker
-row (``mosei_cim``'s ``[0]``) is broadcast over the dialogue.
+``ERCBatcher`` (label padded with -1, speakers with 0; MOSEI samples add
+``emo_label`` and ``senti2_label``).  A one-entry speaker row
+(``mosei_cim``'s ``[0]``) is broadcast over the dialogue.  The mask, labels,
+speakers and features are packed by the native packer (``data.native``,
+``csrc/collate.cpp``), as in the JAX package, on one thread (the JAX
+package's 4 spawned threads a call were slower on the H100's host);
+``native=False`` packs them with ``_pack``, the plain numpy version, which
+gives the same arrays bit for bit.
 """
 
 from __future__ import annotations
@@ -42,6 +47,7 @@ class ERCBatcher:
         bucket: int = 0,
         max_len: int = 128,
         pad_batch_to: Optional[int] = None,
+        native: bool = True,
     ):
         self.modality = modality
         self.n_classes = n_classes
@@ -50,6 +56,7 @@ class ERCBatcher:
         self.bucket = bucket
         self.max_len = max_len
         self.pad_batch_to = pad_batch_to
+        self.native = native
 
     def __call__(self, samples: List[dict]) -> Dict[str, np.ndarray]:
         B = len(samples)
@@ -62,8 +69,27 @@ class ERCBatcher:
         lens_p = np.zeros(Bp, np.int32)
         lens_p[:B] = lengths
 
-        mask = (np.arange(L)[None, :] < lens_p[:, None]).astype(np.float32)
-        label = _pack([s["label"] for s in samples], lens_p, (Bp, L), np.int32, -1)
+        pad = [None] * (Bp - B)
+        if self.native:
+            from erc_tpu_torch.data import native
+
+            mask = native.fill_mask(lens_p, L)
+
+            def labels(rows, fill):
+                return native.pack_labels(rows + pad, lens_p, L, fill)
+
+            def features(rows, D):
+                return native.pack_rows(rows + pad, lens_p, L, D, n_threads=1)
+        else:
+            mask = (np.arange(L)[None, :] < lens_p[:, None]).astype(np.float32)
+
+            def labels(rows, fill):
+                return _pack(rows, lens_p, (Bp, L), np.int32, fill)
+
+            def features(rows, D):
+                return _pack(rows, lens_p, (Bp, L, D), np.float32, 0.0)
+
+        label = labels([np.asarray(s["label"]) for s in samples], -1)
 
         spk_rows = []
         for s in samples:
@@ -72,16 +98,17 @@ class ERCBatcher:
                 spk_rows.append(np.zeros(len(s["label"]), np.int32))  # MOSEI [[0]]
             elif spk_arr.ndim == 2:
                 spk_rows.append(spk_arr.argmax(-1).astype(np.int32))
+            elif spk_arr.shape[0] == 1:  # mosei_cim's one entry [0] for the whole dialogue
+                spk_rows.append(np.full(len(s["label"]), spk_arr[0], np.int32))
             else:
                 spk_rows.append(spk_arr.astype(np.int32))
-        spk = _pack(spk_rows, lens_p, (Bp, L), np.int32, 0)
+        spk = labels(spk_rows, 0)
 
         mod_arrays = {}
         key_of = {"a": "audio", "t": "text", "v": "visual"}
         for m in self.modality:
             D = np.asarray(samples[0][key_of[m]]).shape[-1]
-            rows = [s[key_of[m]] for s in samples]
-            mod_arrays[m] = _pack(rows, lens_p, (Bp, L, D), np.float32, 0.0)
+            mod_arrays[m] = features([np.asarray(s[key_of[m]], np.float32) for s in samples], D)
 
         input_tensor = np.concatenate([mod_arrays[m] for m in self.modality], -1)
 

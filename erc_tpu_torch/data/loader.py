@@ -7,10 +7,37 @@ cycle an epoch, and ``drop_last``.  The same seed gives the same batches as
 the JAX package's loader.  ``to_device`` copies a batch to the card from
 pinned memory without blocking the host, floating arrays in float32, or in
 bfloat16 under ``--transfer_dtype=bfloat16`` (``core.cuda_graphs.host_tensor``).
+
+The wrappers of ``erc_tpu.data.loader`` (each forwards ``len`` and
+``set_epoch``); the trainer's pipeline stacks the last two on a loader:
+
+- ``MappedLoader(loader, fn)``: ``fn`` of every batch; ``transfer_cast_fn``
+  gives the JAX package's ``--transfer_dtype`` cast.  numpy has no bfloat16,
+  so the port's cast rounds float32 arrays to bfloat16 (nearest even,
+  through torch on the CPU) and keeps them float32: the values the JAX
+  package's ``ml_dtypes`` arrays hold.  The trainer does not use it: its
+  copy into the bfloat16 staging (``host_tensor``) rounds the same way;
+- ``GroupedLoader(loader, k)``: ``(stacked [K, B, ...], K)`` for each K
+  consecutive batches of one shape, ``(batch, 1)`` for the batches of a
+  shape change or an epoch's tail; ``len`` stays the number of steps.  The
+  group is a ``StackedGroup``: a key is stacked at its first read, and the
+  captured graphs copy each batch straight into its slice of the pinned
+  staging (``batches``), so that no key is stacked on the hot path (a
+  stacked copy of a COGMEN group of 4 is 70 MB);
+- ``PrefetchLoader(loader, depth)``: a producer thread runs the loader (and
+  the wrappers under it) ``depth`` items ahead through a bounded queue; an
+  exception in it reaches the consumer, and a consumer that stops early
+  stops and joins it.  The trainer gives it numpy work only (collation and
+  grouping): a CUDA call from another thread while the main
+  thread captures a CUDA graph (``capture_error_mode="global"``) would
+  break the capture, so staging and copies stay on the main thread.
 """
 
 from __future__ import annotations
 
+import queue
+import threading
+from collections.abc import Mapping
 from typing import Dict, Iterator, List, Optional
 
 import numpy as np
@@ -98,6 +125,177 @@ class DialogueLoader:
         for idx in batches:
             yield self.batcher([self.samples[i] for i in idx])
         self.epoch += 1
+
+
+def stack_batches(batches: List[dict]) -> dict:
+    """Stack K same-shape host batches → {key: [K, B, ...]} (None passes)."""
+    out = {}
+    for k in batches[0]:
+        if batches[0][k] is None:
+            out[k] = None
+        else:
+            out[k] = np.stack([np.asarray(b[k]) for b in batches])
+    return out
+
+
+class StackedGroup(Mapping):
+    """K same-shape host batches read as ``{key: [K, B, ...]}``
+    (``stack_batches``' result), each key stacked at its first read; the K
+    batches themselves in ``batches``."""
+
+    def __init__(self, batches: List[dict]):
+        self.batches = batches
+        self._stacked: Dict[str, Optional[np.ndarray]] = {}
+
+    def __getitem__(self, key):
+        if key not in self._stacked:
+            first = self.batches[0][key]
+            self._stacked[key] = None if first is None else np.stack([np.asarray(b[key]) for b in self.batches])
+        return self._stacked[key]
+
+    def __iter__(self):
+        return iter(self.batches[0])
+
+    def __len__(self):
+        return len(self.batches[0])
+
+
+class MappedLoader:
+    """Apply ``fn`` to every yielded batch (the transfer-dtype cast)."""
+
+    def __init__(self, loader, fn):
+        self.loader = loader
+        self.fn = fn
+
+    def __len__(self):
+        return len(self.loader)
+
+    def set_epoch(self, epoch: int):
+        self.loader.set_epoch(epoch)
+
+    def __iter__(self):
+        return (self.fn(b) for b in self.loader)
+
+
+def bfloat16_round(v: np.ndarray) -> np.ndarray:
+    """float32 values rounded to bfloat16 (nearest even), kept as float32."""
+    return torch.from_numpy(v).to(torch.bfloat16).to(torch.float32).numpy()
+
+
+def transfer_cast_fn(dtype):
+    """Batch-cast fn for ``--transfer_dtype``: float32 arrays rounded to
+    bfloat16 values (kept float32, see the module's note); other arrays pass
+    through.  None when dtype is float32 (no cast needed)."""
+    if not dtype or str(dtype) == "float32":
+        return None
+    if str(dtype) != "bfloat16":
+        raise ValueError(f"--transfer_dtype={dtype}: float32 or bfloat16")
+
+    def cast(batch):
+        return {k: (bfloat16_round(v) if isinstance(v, np.ndarray) and v.dtype == np.float32 else v)
+                for k, v in batch.items()}
+
+    return cast
+
+
+class GroupedLoader:
+    """Group K consecutive same-shape batches into stacked [K, B, ...] arrays
+    for the K-step replay (``steps_per_call`` > 1).
+
+    Yields ``(stacked_or_batch, k)``: k > 1 a stacked group, k == 1 a plain
+    leftover batch (the tail of the epoch, or a shape change under length
+    bucketing: ``np.stack`` needs one shape)."""
+
+    def __init__(self, loader, k: int):
+        self.loader = loader
+        self.k = max(int(k), 1)
+
+    def __len__(self):
+        # the underlying batch count: optimizer steps, not yielded items
+        return len(self.loader)
+
+    def set_epoch(self, epoch: int):
+        self.loader.set_epoch(epoch)
+
+    @staticmethod
+    def _shape_key(batch: dict) -> tuple:
+        return tuple((kk, tuple(np.asarray(v).shape)) for kk, v in sorted(batch.items()) if v is not None)
+
+    _stack = StackedGroup
+
+    def __iter__(self):
+        group = []
+        for batch in self.loader:
+            if group and self._shape_key(batch) != self._shape_key(group[0]):
+                yield from self._flush(group)
+                group = []
+            group.append(batch)
+            if len(group) == self.k:
+                yield self._stack(group), self.k
+                group = []
+        yield from self._flush(group)
+
+    def _flush(self, group):
+        # a partial group runs single steps: a stacked group of k' != k
+        # batches would capture another graph
+        for b in group:
+            yield b, 1
+
+
+class PrefetchLoader:
+    """Run ``loader`` in a producer thread, ``depth`` items ahead: the
+    collation of batch N+1 overlaps step N.  Unlike the JAX package's, it
+    takes no ``place_fn``: placing a batch on the card is a CUDA call, which
+    stays on the trainer's thread."""
+
+    def __init__(self, loader, depth: int = 2):
+        self.loader = loader
+        self.depth = depth
+
+    def __len__(self):
+        return len(self.loader)
+
+    def set_epoch(self, epoch: int):
+        self.loader.set_epoch(epoch)
+
+    def __iter__(self):
+        q: "queue.Queue" = queue.Queue(maxsize=self.depth)
+        end = object()
+        stop = threading.Event()
+
+        def put(item) -> bool:
+            # a bounded put that gives up once the consumer is gone, so that
+            # an epoch stopped early never leaves the producer blocked
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def producer():
+            try:
+                for b in self.loader:
+                    if not put(b):
+                        return
+                put(end)
+            except BaseException as e:  # reaches the consumer, never truncates the epoch silently
+                put(e)
+
+        t = threading.Thread(target=producer, daemon=True)
+        t.start()
+        try:
+            while True:
+                item = q.get()
+                if item is end:
+                    break
+                if isinstance(item, BaseException):
+                    raise item
+                yield item
+        finally:  # also on GeneratorExit: unblock and join the producer
+            stop.set()
+            t.join()
 
 
 def to_device(batch: Dict[str, np.ndarray], device: torch.device,

@@ -48,7 +48,7 @@ class MMBaseParams(BaseParams):
         # trainer build (core.precision.fp32_precision)
         self.matmul_precision = self.choice("highest", "float32", "high", "tensorfloat32", "bfloat16", "default",
                                             "fastest")
-        # K steps a compiled call, in the JAX package; the port runs one
+        # K train steps (eval batches) a replayed graph; eval 0 inherits steps_per_call
         self.steps_per_call = 1
         self.eval_steps_per_call = 0
 

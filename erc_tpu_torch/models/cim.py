@@ -150,10 +150,12 @@ class CIMTrainer(Trainer):
     """Adam from the config (1e-3), no clip and no plateau controller, as the
     JAX ``CIMTrainer`` (cim.py:173-251)."""
 
+    flax_module = "cim"
+
     def imodels(self, params: CIMParams):
         generator = torch.Generator().manual_seed(int(params.seed))
         self.model = build(params, generator=generator, device=self.device)
-        self.optimizer = optim_factory.build_optim(params.optim, self.model.parameters(), self.device)
+        self.optimizer = optim_factory.build_optim(params.optim, self.model.named_parameters(), self.device)
 
     def loss_and_metrics(self, batch: Dict[str, torch.Tensor]):
         p = self.params

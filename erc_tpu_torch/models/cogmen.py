@@ -156,10 +156,12 @@ class COGMENTrainer(Trainer):
 
     check_compute_dtype = refuse_banded_compute_dtype
 
+    flax_module = "cogmen"
+
     def imodels(self, params: COGMENParams):
         generator = torch.Generator().manual_seed(int(params.seed))
         self.model = build(params, generator=generator, device=self.device)
-        self.optimizer = optim_factory.build_optim(params.optim, self.model.parameters(), self.device)
+        self.optimizer = optim_factory.build_optim(params.optim, self.model.named_parameters(), self.device)
 
 
 def main(argv: Optional[list] = None) -> COGMENTrainer:

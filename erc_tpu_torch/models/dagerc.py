@@ -367,6 +367,8 @@ class DAGERCTrainer(Trainer):
     """AdamW with grad clip 5.0 and ReduceLROnPlateau(min), as the JAX
     ``DAGERCTrainer`` (dagerc.py:512-533)."""
 
+    flax_module = "dagerc"
+
     def check_compute_dtype(self, params) -> None:
         """bfloat16 trains the eager form only (``auto`` trains it too, and
         evaluates through K3 in float32): with ``dag_impl=kernel`` the JAX
@@ -378,7 +380,7 @@ class DAGERCTrainer(Trainer):
     def imodels(self, params: DAGERCParams):
         generator = torch.Generator().manual_seed(int(params.seed))
         self.model = build(params, generator=generator, device=self.device)
-        self.optimizer = optim_factory.build_optim(params.optim, self.model.parameters(), self.device)
+        self.optimizer = optim_factory.build_optim(params.optim, self.model.named_parameters(), self.device)
         self.grad_clip_norm = 5.0
         self.lr_sche = torch.optim.lr_scheduler.ReduceLROnPlateau(self.optimizer, "min")
 
@@ -389,4 +391,5 @@ def main(argv: Optional[list] = None) -> DAGERCTrainer:
     params.finalize(argv)
     trainer = DAGERCTrainer(params)
     trainer.train()
+    trainer.save_model()
     return trainer

@@ -171,10 +171,12 @@ class DGCNTrainer(Trainer):
 
     check_compute_dtype = refuse_banded_compute_dtype
 
+    flax_module = "dgcn"
+
     def imodels(self, params: DGCNParams):
         generator = torch.Generator().manual_seed(int(params.seed))
         self.model = build(params, generator=generator, device=self.device)
-        self.optimizer = optim_factory.build_optim(params.optim, self.model.parameters(), self.device)
+        self.optimizer = optim_factory.build_optim(params.optim, self.model.named_parameters(), self.device)
         if params.get("loss_weights", True) and params.n_classes == 6:
             self.class_weights = torch.tensor(IEMOCAP6_LOSS_WEIGHTS, dtype=torch.float32, device=self.device)
 

@@ -367,6 +367,8 @@ class DGCNV2Trainer(Trainer):
     IEMOCAP-6 class weights for 6 classes, as the JAX ``DGCNV2Trainer``
     (dgcnv2.py:374-391)."""
 
+    flax_module = "dgcnv2"
+
     def check_compute_dtype(self, params) -> None:
         """bfloat16 trains the biRNN and linear bases: DialogueRNN's JAX scan
         turns its party and emotion states float32 in a bfloat16 step."""
@@ -377,7 +379,7 @@ class DGCNV2Trainer(Trainer):
     def imodels(self, params):
         generator = torch.Generator().manual_seed(int(params.seed))
         self.model = build(params, generator=generator, device=self.device)
-        self.optimizer = optim_factory.build_optim(params.optim, self.model.parameters(), self.device)
+        self.optimizer = optim_factory.build_optim(params.optim, self.model.named_parameters(), self.device)
         if params.get("loss_weights", True) and params.n_classes == 6:
             self.class_weights = torch.tensor(IEMOCAP6_LOSS_WEIGHTS, dtype=torch.float32, device=self.device)
 
@@ -412,6 +414,8 @@ class DGCNV2DailyTrainer(DGCNV2Trainer):
     """The DailyDialog track: ``CNNFeatureExtractor`` over token ids feeding
     the dgcnv2 pipeline (the reference's DialogueGCN_DailyModel), Adam from
     the config and no class weights, as the JAX ``DGCNV2DailyTrainer``."""
+
+    flax_module = "dgcnv2_daily"
 
     def imodels(self, params):
         super().imodels(params)

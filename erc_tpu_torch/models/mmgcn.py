@@ -165,10 +165,12 @@ class MMGCNTrainer(Trainer):
     controller and no class weights, as the JAX ``MMGCNTrainer``
     (mmgcn.py:194-211)."""
 
+    flax_module = "mmgcn"
+
     def imodels(self, params: MMGCNParams):
         generator = torch.Generator().manual_seed(int(params.seed))
         self.model = build(params, generator=generator, device=self.device)
-        self.optimizer = optim_factory.build_optim(params.optim, self.model.parameters(), self.device)
+        self.optimizer = optim_factory.build_optim(params.optim, self.model.named_parameters(), self.device)
 
 
 def main(argv: Optional[list] = None) -> MMGCNTrainer:

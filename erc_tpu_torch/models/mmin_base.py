@@ -83,10 +83,12 @@ class MMINBaseTrainer(Trainer):
     plateau_source = "val"  # the reference steps on the val loss, not the test loss
     build_module = staticmethod(build)
 
+    flax_module = "mmin_base"
+
     def imodels(self, params: MMINBaseParams):
         self.model = self.build_module(params, generator=torch.Generator().manual_seed(int(params.seed)),
                                        device=self.device)
-        self.optimizer = optim_factory.build_optim(params.optim, self.model.parameters(), self.device)
+        self.optimizer = optim_factory.build_optim(params.optim, self.model.named_parameters(), self.device)
         self.lr_sche = torch.optim.lr_scheduler.ReduceLROnPlateau(self.optimizer, "min")
 
     def initialize(self) -> None:
@@ -125,9 +127,9 @@ class MMINBaseTrainer(Trainer):
             tree["ema"] = self.ema_model.state_dict()
         return tree
 
-    def load_state_tree(self, tree: Dict[str, Any]) -> None:
-        super().load_state_tree(tree)
-        if self.ema_model is not None:
+    def load_state_tree(self, tree: Dict[str, Any], whole: bool = True) -> None:
+        super().load_state_tree(tree, whole)
+        if self.ema_model is not None and "ema" in tree:
             self.ema_model.load_state_dict(tree["ema"])
 
     # -- utterance-level data ----------------------------------------------------

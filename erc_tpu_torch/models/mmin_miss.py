@@ -62,6 +62,8 @@ def reverse_batch(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
 class MMINMissTrainer(MMINBaseTrainer):
     build_module = staticmethod(build)
 
+    flax_module = "mmin_miss"
+
     def has_miss(self) -> bool:
         return True
 

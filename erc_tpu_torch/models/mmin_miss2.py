@@ -48,6 +48,8 @@ def build(p, *, generator=None, device=None) -> MMINMiss2Module:
 class MMINMiss2Trainer(MMINBaseTrainer):
     build_module = staticmethod(build)
 
+    flax_module = "mmin_miss2"
+
     def has_miss(self) -> bool:
         return True
 

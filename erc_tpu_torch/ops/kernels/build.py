@@ -6,6 +6,14 @@ that the wrappers load with ``ctypes``.  The hash covers every source in
 ``csrc/``, so an edited kernel builds again and an unchanged one loads from
 the cache.  All sources compile at once, one ``nvcc`` each.  Nothing here
 runs at import.
+
+``build_host(name)`` builds ``csrc/<name>.cpp`` (the host-side batch
+packer) with the host compiler (``g++ -O3 -shared -fPIC -pthread``) into
+``_build/host-<hash>/lib<name>.so``, the hash over the source, the flags
+and the compiler's version; ``load_host(name)`` loads it.  Several
+processes may build it at once (the test workers): each compiles to a file
+of its own and renames it into place, so a loader sees a whole library or
+none.  A failed build raises with the compiler's output.
 """
 
 from __future__ import annotations
@@ -58,6 +66,46 @@ def find_nvcc() -> str:
         if c.is_file():
             return str(c)
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH to build the CUDA kernels")
+
+
+HOST_FLAGS = ["-O3", "-shared", "-fPIC", "-pthread"]
+
+
+def _host_compiler() -> str:
+    cxx = os.environ.get("CXX") or shutil.which("g++")
+    if not cxx:
+        raise RuntimeError("g++ not found: the host packer (csrc/*.cpp) needs a C++ compiler (set CXX)")
+    return cxx
+
+
+def build_host(name: str) -> Path:
+    """Compile csrc/<name>.cpp with the host compiler where it has no library yet; its path."""
+    cxx = _host_compiler()
+    src = CSRC / f"{name}.cpp"
+    version = subprocess.run([cxx, "--version"], capture_output=True, text=True).stdout.splitlines()[:1]
+    h = hashlib.sha256(src.read_bytes())
+    h.update(" ".join([cxx, *HOST_FLAGS, *version]).encode())
+    out_dir = BUILD_ROOT / f"host-{h.hexdigest()[:16]}"
+    lib = out_dir / f"lib{name}.so"
+    if lib.exists():
+        return lib
+    out_dir.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    res = subprocess.run([cxx, *HOST_FLAGS, str(src), "-o", str(tmp)], capture_output=True, text=True)
+    if res.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"{cxx} failed for {src.name}:\n{res.stdout}{res.stderr}")
+    os.replace(tmp, lib)
+    return lib
+
+
+def load_host(name: str) -> ctypes.CDLL:
+    """The loaded library of csrc/<name>.cpp, built first if need be."""
+    key = f"host:{name}"
+    lib = _loaded.get(key)
+    if lib is None:
+        lib = _loaded[key] = ctypes.CDLL(str(build_host(name)))
+    return lib
 
 
 def build_all() -> Dict[str, Path]:

@@ -24,14 +24,20 @@ token track, CIM, COGMEN on MOSEI and the MMIN family: all seven families).
 On a dataset with a real val split (MOSEI, DailyDialog, MMIN's) each eval
 epoch runs the val stage before the test stage; ``--select_on=val`` then
 keeps ``model.best_val.ckpt``.  It runs on the card unless ``--device=cpu`` is given;
-without CUDA and without ``--device=cpu`` it raises.  Every ``main`` but
-DAG-ERC's saves the model at the end
-(``model.last.ckpt`` under ``--save_dir``, default
+without CUDA and without ``--device=cpu`` it raises.  Every ``main`` saves
+the model at the end (``model.last.ckpt`` under ``--save_dir``, default
 ``~/.erc_tpu_torch/saver/<module>/<dataset>``), which ``python -m
 erc_tpu_torch.serve --module=<module> --checkpoint=...`` serves (but for
 the token track and MMIN, which have no serving path).
 ``--checkpoint_per_epoch=N``, ``--keypoint_per_epoch=N`` and ``--resume``
-write and read the rotating checkpoints and keypoints there.
+write and read the rotating checkpoints and keypoints there;
+``--pretrain=true --pretrain_path=FILE`` starts from the model and
+optimizer state of a file of either package's Saver.  ``--config=FILE``
+(yaml or json) sets knobs before the other flags; ``--steps_per_call=K``
+trains K steps a replay and ``--eval_steps_per_call=K`` evaluates K batches
+a replay; ``--prefetch=false`` collates in line; ``--optim.sche.name=Cos
+--optim.sche.left=0 --optim.sche.right=N ...`` declares an LR schedule;
+``--optim.split_wd=1|full`` and ``--optim.name=lars`` as in the JAX package.
 Real datasets (``iemocap-cogmen-*``, ``meld-mmgcn-7``,
 ``meld-mmgcn-sbert-7``, ``mosei-cim-2``, the ``mosei-*-sbert*`` names,
 ``dailydialog-token-7``, ``iemocap-mmin-4``, which needs ``h5py``) are read

@@ -21,6 +21,14 @@ that numpy names for flax's dtype string; flax's chunked form of arrays
 over 1 GiB is not read, since no ported model has such an array.  ``load_model_state`` gives the
 module's torch state dict from a file of either Saver, or from a bare
 state dict (``python -m erc_tpu_torch.convert``'s output).
+``read_train_state`` gives a trainer's state tree (``model``, ``optimizer``,
+and MMIN's ``ema``) from a file of either Saver, for ``--pretrain``: a
+JAX TrainState's params, model state and EMA go through ``convert.STATES``,
+and its optax state becomes the torch optimizer's: the LR and count of
+``inject_hyperparams`` (a declared schedule's count), Adam's ``count``,
+``mu`` and ``nu`` (``step``, ``exp_avg``, ``exp_avg_sq``), and a ``trace``
+(lars' ``trace``, SGD's ``momentum_buffer``), each moment tree converted as
+the parameters are.
 """
 
 from __future__ import annotations
@@ -226,3 +234,72 @@ def load_model_state(path: str, module: Optional[str] = None) -> Dict[str, torch
     if module not in convert.STATES:
         raise ValueError(f"{path} is a flax file: name the module to convert it to, one of {sorted(convert.STATES)}")
     return convert.STATES[module](load_flax_msgpack(path))
+
+
+def _find(tree, keys) -> list:
+    """Every dict in ``tree`` (nested dicts and lists) that holds all of ``keys``, depth first."""
+    found = []
+    if isinstance(tree, dict):
+        if set(keys) <= set(tree):
+            found.append(tree)
+        for v in tree.values():
+            found += _find(v, keys)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            found += _find(v, keys)
+    return found
+
+
+def _flax_optimizer_state(opt_state, to_state, model_state, optimizer, named) -> Dict[str, Any]:
+    """The torch ``optimizer``'s state dict from an optax state tree (see the
+    module's note); ``named`` the model's (name, parameter) pairs."""
+    def convert(tree):
+        return to_state({"params": tree, **model_state})
+
+    sd = optimizer.state_dict()
+    names = {id(p): n for n, p in named}
+    index = {names[id(p)]: i for i, p in enumerate(p for g in optimizer.param_groups for p in g["params"])}
+    inject = _find(opt_state, ("count", "hyperparams"))
+    if inject:
+        lr = float(np.asarray(inject[0]["hyperparams"]["learning_rate"]))
+        for g in sd["param_groups"]:
+            g["lr"] = lr
+        if "schedule" in optimizer.state:
+            sd["state"]["schedule"] = {"count": torch.tensor(int(np.asarray(inject[0]["count"])))}
+    adam = _find(opt_state, ("count", "mu", "nu"))
+    if adam:
+        mu, nu = convert(adam[0]["mu"]), convert(adam[0]["nu"])
+        step = float(np.asarray(adam[0]["count"]))
+        for n, i in index.items():
+            sd["state"][i] = {"step": torch.tensor(step), "exp_avg": mu[n], "exp_avg_sq": nu[n]}
+    trace = _find(opt_state, ("trace",))
+    if trace:
+        key = "momentum_buffer" if isinstance(optimizer, torch.optim.SGD) else "trace"
+        tr = convert(trace[0]["trace"])
+        for n, i in index.items():
+            sd["state"][i] = {key: tr[n]}
+    return sd
+
+
+def read_train_state(path: str, trainer) -> Dict[str, Any]:
+    """A trainer's state tree from ``path``: a file of the port's Saver as
+    it is, or a JAX package file (a TrainState, or bare variables) converted
+    with the trainer's ``flax_module``."""
+    if zipfile.is_zipfile(path):
+        return torch.load(path, map_location="cpu", weights_only=True)
+    from erc_tpu_torch import convert
+
+    with open(path, "rb") as f:
+        raw = unpackb(f.read())
+    if trainer.flax_module not in convert.STATES:
+        raise ValueError(f"{path} is a flax file, and {type(trainer).__name__} names no converter for it")
+    to_state = convert.STATES[trainer.flax_module]
+    if not (isinstance(raw, dict) and {"params", "opt_state", "step"} <= set(raw)):
+        return {"model": to_state(raw if isinstance(raw, dict) and "params" in raw else {"params": raw})}
+    model_state = raw.get("model_state") or {}
+    tree = {"model": to_state({"params": raw["params"], **model_state}),
+            "optimizer": _flax_optimizer_state(raw["opt_state"], to_state, model_state, trainer.optimizer,
+                                               list(trainer.model.named_parameters()))}
+    if raw.get("ema_params") is not None:
+        tree["ema"] = to_state({"params": raw["ema_params"], **model_state})
+    return tree

@@ -57,15 +57,28 @@ with the JAX trainer's precision knobs (``core.precision``):
 - ``--matmul_precision``: ``highest`` (the default) or ``tensorfloat32``,
   scoped to the trainer's own steps, captures and eval stages.
 
+The loaders run through the JAX trainer's pipeline (``_pipeline``):
+``--steps_per_call`` = K > 1 grouping of K same-shape batches into one
+stacked group (``--eval_steps_per_call``, where it is not 0, for the val
+and test stages), then, with ``--prefetch`` (on by default), a producer
+thread that collates and groups ahead of the steps (numpy only: no CUDA
+call leaves the main thread).  The ``--transfer_dtype`` cast is the staging
+copy's, not a pipeline stage.  A group trains as
+K optimizer steps in one replay on the card (``train_group``; eagerly
+elsewhere), returning the means of its K steps' metrics, and an epoch's
+means are over calls, as the JAX package's ``Record`` takes them; a group
+evaluates as K batches in one replay, each batch collected as with K = 1.
+``--pretrain=true --pretrain_path=FILE`` loads the model and optimizer
+state of a port or a JAX package file at train start (``load_pretrained``;
+MMIN's ``pretrain_path`` alone keeps its own meaning).
+
 Dropout draws from a generator on the device seeded from ``params.seed``.
 Left out, for later slices, and refused with ``NotImplementedError`` where a
-knob asks for them (``NOT_PORTED``): ``steps_per_call`` > 1 and
-``eval_steps_per_call`` (K steps in one compiled call, which the captured
-step would hold as K steps in one graph), step-count checkpoints,
-``profile_steps``, the NaN guard and ``debug_nans``, ``eval_first``, and the
-metric exporters (TensorBoard, wandb, a remote URL).  Also left out:
-experiment directories, the metric database and board, and several
-processes or devices.
+knob asks for them (``NOT_PORTED``): step-count checkpoints,
+``profile_steps``, the NaN guard and ``debug_nans``, ``eval_first``, the
+metric exporters (TensorBoard, wandb, a remote URL), and several processes
+(``--coordinator``, ``--num_processes``, ``--process_id``).  Also left out:
+experiment directories, the metric database and board.
 """
 
 from __future__ import annotations
@@ -82,20 +95,22 @@ from erc_tpu_torch.core.cuda_graphs import CapturedForward, CapturedStep
 from erc_tpu_torch.core.device import resolve_device
 from erc_tpu_torch.core.seed import RngPool
 from erc_tpu_torch.data.collate import ERCBatcher
-from erc_tpu_torch.data.loader import DialogueLoader, to_device
+from erc_tpu_torch.data.loader import DialogueLoader, GroupedLoader, PrefetchLoader, StackedGroup, to_device
 from erc_tpu_torch.data.registry import dataset_has_val, get_root, pick_datas
 from erc_tpu_torch.ops.dropout import Dropout
 from erc_tpu_torch.ops.rnn import point_rnns_at_their_parameters
-from erc_tpu_torch.train.checkpoint import Saver
+from erc_tpu_torch.train.checkpoint import Saver, read_train_state
 from erc_tpu_torch.train.metrics import classification_summary
-from erc_tpu_torch.train.optim import clip_by_global_norm_, global_norm, load_optimizer_state
+from erc_tpu_torch.train.optim import clip_by_global_norm_, global_norm, has_schedule, load_optimizer_state
+
+
+def _given(v) -> bool:
+    return v is not None and v != ""
 
 
 # knobs of the JAX trainer that the port does not honour yet: the value each
 # may keep, and the test that it asks for more
 NOT_PORTED = {
-    "steps_per_call": lambda v: int(v or 1) > 1,
-    "eval_steps_per_call": lambda v: int(v or 0) > 0,
     "checkpoint_per_step": bool,
     "profile_steps": bool,
     "nan_guard": bool,
@@ -104,6 +119,9 @@ NOT_PORTED = {
     "tensorboard": bool,
     "wandb": bool,
     "remote_url": bool,
+    "coordinator": _given,
+    "num_processes": _given,
+    "process_id": _given,
 }
 
 
@@ -164,6 +182,7 @@ class Trainer:
     """Generic ERC trainer; one subclass per model family."""
 
     plateau_source = "test"  # which stage's loss steps lr_sche ("val": MMIN)
+    flax_module = ""  # convert.STATES' key of the family: --pretrain reads a JAX package file through it
     eval_graphs = True  # on the card, replay the captured eval forward (False: eager)
     train_graphs = True  # on the card, replay the captured train step (False: eager)
 
@@ -251,6 +270,30 @@ class Trainer:
             batch_count=(int(bc) if bc and split == "train" else None),
         )
 
+    def _pipeline(self, loader, k):
+        """The JAX trainer's loader pipeline: K-batch grouping (K > 1), then
+        prefetch (``--prefetch``, on by default) in a producer thread that
+        does numpy work only.  The JAX pipeline's first stage, the
+        transfer-dtype cast (``transfer_cast_fn``), is left out: the copy
+        into the bfloat16 staging (``host_tensor``) rounds the same way, so
+        a cast before it would be a second pass over every batch for the
+        same values."""
+        k = max(int(k or 1), 1)
+        if k > 1:
+            loader = GroupedLoader(loader, k)
+        if self.params.get("prefetch", True):
+            loader = PrefetchLoader(loader)
+        return loader
+
+    def _pipeline_train(self, loader):
+        return self._pipeline(loader, self.params.get("steps_per_call", 1))
+
+    def _pipeline_eval(self, loader):
+        """The val and test stages group by ``--eval_steps_per_call``, or by
+        ``--steps_per_call`` where it is 0."""
+        p = self.params
+        return self._pipeline(loader, p.get("eval_steps_per_call", 0) or p.get("steps_per_call", 1))
+
     # ------------------------------------------------------------------- step
     def loss_and_metrics(self, batch: Dict[str, torch.Tensor]):
         """Default: masked cross-entropy and accuracy."""
@@ -325,6 +368,22 @@ class Trainer:
             return mets
         return self.train_step(to_device(host_batch, self.device, self.transfer_dtype))
 
+    def train_group(self, stacked: StackedGroup, k: int) -> Dict[str, torch.Tensor]:
+        """``k`` optimizer steps on a stacked group of ``k`` host batches
+        (``GroupedLoader``): on the card one replay of the ``k`` steps
+        captured for the group's shape (its first group trains as ``k`` eager
+        steps before the capture), else ``k`` eager steps.  Returns the mean
+        of each metric over the ``k`` steps, as the JAX trainer's
+        ``multi_step`` call does."""
+        if self.device.type == "cuda" and self.train_graphs:
+            mets = self.captured_step.group(stacked, k)
+        else:
+            per = [self._step(to_device(stacked.batches[i], self.device, self.transfer_dtype))
+                   for i in range(k)]
+            mets = {n: torch.stack([m[n] for m in per]) for n in per[0]}
+        self.global_steps += k
+        return {n: v.mean() for n, v in mets.items()}
+
     def _step_tensors(self) -> List[torch.Tensor]:
         """What the captured step reads or writes by address: parameters,
         their gradients and buffers of every module the trainer holds, the
@@ -356,6 +415,8 @@ class Trainer:
         and the val and test results."""
         p = self.params
         self.initialize()
+        if p.get("pretrain") and p.get("pretrain_path"):
+            self.load_pretrained(str(p.pretrain_path))
         if p.get("resume"):
             self.resume()
         has_val = dataset_has_val(str(p.dataset))
@@ -364,7 +425,7 @@ class Trainer:
             self.log(f"--select_on=val but dataset {p.dataset!r} has no real val split (val aliases test); "
                      "falling back to select_on=test")
             p.select_on = "test"
-        loader = self.make_loader("train")
+        loader = self._pipeline_train(self.make_loader("train"))
         log_every = max(int(p.get("log_every", 10)), 1)
         eval_every = int(p.get("eval_per_epoch", 1) or 0)
         history = []
@@ -372,17 +433,20 @@ class Trainer:
             self.eidx = eidx
             loader.set_epoch(eidx)
             sums: Dict[str, torch.Tensor] = {}
-            n_steps = n_dialogues = 0
+            n_calls = n_steps = n_dialogues = 0
             t0 = time.perf_counter()
-            for bidx, host_batch in enumerate(loader):
-                mets = self.train_batch(host_batch)
-                for k, v in mets.items():
-                    sums[k] = sums[k] + v if k in sums else v
-                n_steps += 1
+            for bidx, item in enumerate(loader):
+                host_batch, k = item if isinstance(item, tuple) else (item, 1)
+                mets = self.train_batch(host_batch) if k == 1 else self.train_group(host_batch, k)
+                for name, v in mets.items():
+                    sums[name] = sums[name] + v if name in sums else v
+                n_calls += 1
+                n_steps += k
                 n_dialogues += _rows(host_batch)
                 if bidx % log_every == 0:  # reads the metrics back: keep it sparse
-                    self.log(f"e{eidx} b{bidx} " + _fmt({k: v.item() for k, v in mets.items()}))
-            means = {k: v.item() / max(n_steps, 1) for k, v in sums.items()}  # waits for the device
+                    self.log(f"e{eidx} b{bidx} " + _fmt({name: v.item() for name, v in mets.items()}))
+            # the mean over calls, a group counting once with its mean (the JAX package's Record)
+            means = {name: v.item() / max(n_calls, 1) for name, v in sums.items()}  # waits for the device
             dt = time.perf_counter() - t0
             self.log(f"epoch {eidx}: {_fmt(means)} | {n_steps} steps, {n_dialogues / max(dt, 1e-9):.1f} dia/s")
             record = {"epoch": eidx, **means, "steps": n_steps, "dialogues": n_dialogues, "seconds": dt}
@@ -457,14 +521,28 @@ class Trainer:
         return self._captured
 
     def _eval_loop(self, loader) -> None:
+        """Every batch's eval forward, collected by ``test_step_collect``; a
+        stacked group of K (``GroupedLoader``) is one replay on the card, and
+        each of its batches is collected with its own outputs, as with K = 1
+        (in line: the JAX trainer collects a group one group late, which
+        gives the same results)."""
         self.model.eval()
+        graphs = self.device.type == "cuda" and self.eval_graphs
         with torch.inference_mode(), self.precision():
-            for host_batch in loader:
-                if self.device.type == "cuda" and self.eval_graphs:
-                    out = self.captured(host_batch)
-                else:
-                    out = _to_host(self._eval_forward(to_device(host_batch, self.device, self.transfer_dtype)))
-                self.test_step_collect(host_batch, out)
+            for item in loader:
+                host_batch, k = item if isinstance(item, tuple) else (item, 1)
+                if k == 1:
+                    out = self.captured(host_batch) if graphs else self._eager_eval(host_batch)
+                    self.test_step_collect(host_batch, out)
+                    continue
+                outs = self.captured.group(host_batch, k) if graphs else None
+                for i in range(k):
+                    batch = host_batch.batches[i]
+                    out = self._eager_eval(batch) if outs is None else _out_slice(outs, i)
+                    self.test_step_collect(batch, out)
+
+    def _eager_eval(self, host_batch):
+        return _to_host(self._eval_forward(to_device(host_batch, self.device, self.transfer_dtype)))
 
     # hooks where the JAX trainer fires them; a subclass overrides what it needs
     def on_eval_begin(self) -> None:
@@ -488,6 +566,12 @@ class Trainer:
         """Step the plateau controller (where the subclass set one) on a loss."""
         if self.lr_sche is None or loss is None or not self.params.get("lr_plateau", True):
             return
+        if has_schedule(self.optimizer):
+            # a declared schedule writes the LR before every step: it owns it
+            if not getattr(self, "_warned_sche_plateau", False):
+                self._warned_sche_plateau = True
+                self.log("lr schedule declared (--optim.sche): plateau controller disabled")
+            return
         cur = float(self.optimizer.param_groups[0]["lr"])  # a tensor on the card, written in place
         self.lr_sche.step(float(loss))
         new = float(self.optimizer.param_groups[0]["lr"])
@@ -502,7 +586,7 @@ class Trainer:
         p = self.params
         self.initialize()
         if self._val_loader is None:
-            self._val_loader = self.make_loader("val")
+            self._val_loader = self._pipeline_eval(self.make_loader("val"))
         self._reset_collectors()
         self.on_eval_begin()
         self._eval_loop(self._val_loader)
@@ -525,7 +609,7 @@ class Trainer:
         p = self.params
         self.initialize()
         if self._test_loader is None:
-            self._test_loader = self.make_loader("test")
+            self._test_loader = self._pipeline_eval(self.make_loader("test"))
         self._reset_collectors()
         self.on_test_begin()
         self._eval_loop(self._test_loader)
@@ -597,14 +681,28 @@ class Trainer:
             return path
         return None
 
-    def load_state_tree(self, tree: Dict[str, Any]) -> None:
+    def load_pretrained(self, path: str) -> None:
+        """``--pretrain``: the model and the optimizer state (its LR and a
+        declared schedule's count with it) of ``path``, a file of the port's
+        Saver or of the JAX package's (``checkpoint.read_train_state``), as
+        the JAX package's ``AutoLoadModel`` loads a whole TrainState; the
+        epoch, the step count, the generator and the best F1 stay."""
+        self.initialize()
+        self.load_state_tree(read_train_state(path, self), whole=False)
+        self.log(f"loaded pretrained state from {path}")
+
+    def load_state_tree(self, tree: Dict[str, Any], whole: bool = True) -> None:
         """Restore what ``state_tree`` saved (the epoch is the saved one's);
-        the captured graphs are dropped."""
+        the captured graphs are dropped.  ``whole=False`` restores the
+        model and the optimizer only (and a subclass's own training state)."""
         for graphs in (self._captured, self._captured_step):
             if graphs is not None:
                 graphs.invalidate()
         self.model.load_state_dict(tree["model"])
-        load_optimizer_state(self.optimizer, tree["optimizer"])
+        if "optimizer" in tree:
+            load_optimizer_state(self.optimizer, tree["optimizer"])
+        if not whole:
+            return
         if self.lr_sche is not None:
             self.lr_sche.load_state_dict(tree["lr_sche"])
         self._dropout_rng.set_state(tree["rng"])
@@ -618,6 +716,13 @@ def _rows(host_batch: Dict[str, np.ndarray]) -> int:
     if host_batch.get("text_length") is not None:
         return int((host_batch["text_length"] > 0).sum())
     return int((host_batch["sample_mask"] > 0).sum())
+
+
+
+
+def _out_slice(out, i: int):
+    """Batch i's outputs of a stacked eval group (an array or a tuple of them)."""
+    return tuple(o[i] for o in out) if isinstance(out, tuple) else out[i]
 
 
 def _to_host(out):

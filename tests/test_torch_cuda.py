@@ -25,6 +25,10 @@ heads 1e-4, and its gradients of Lce + Lmulti 1e-4 relative, TF32 flag on.
 MMIN's card vs CPU raw and EMA logits 1e-4 and its gradients 1e-4 relative
 for each of its three trainers, TF32 flag on.  The bfloat16 train step
 (``--compute_dtype``, ``--transfer_dtype``): replayed ≡ eager bit for bit.
+K steps a replay (``steps_per_call``): one replay of a group of 4 ≡ 4 eager
+steps bit for bit, with 4 x one step's launches (COGMEN banded, DAG-ERC's
+kernel form, lars under a Cos schedule); K eval batches a replay ≡ the
+batches' single replays bit for bit.
 """
 
 import gc
@@ -557,12 +561,12 @@ def test_trainer_chunk_128_kernel_equals_eager(cuda):
 
 
 # ------------------------------------------------------------------ COGMEN training
-def _cogmen_trainer(impl, device="cuda", drop=None):
+def _cogmen_trainer(impl, device="cuda", drop=None, sche=()):
     from erc_tpu_torch.models import cogmen
 
     p = cogmen.COGMENParams()
     p.finalize(["--dataset=synthetic-cogmen-6", "--encoder_mode=chained", f"--graph_impl={impl}",
-                f"--device={device}", "--max_seq_len=96"])
+                f"--device={device}", "--max_seq_len=96", *sche])
     if drop is not None:
         p.drop_rate = drop
     t = cogmen.COGMENTrainer(p)
@@ -1179,3 +1183,93 @@ def test_bf16_train_step_replay_equals_eager_and_stages_bf16(cuda, module):
     assert all(t.dtype == torch.float32 for t in trainer.model.parameters())
     staged = [t for bucket in graphs._buckets.values() for t in bucket.staging.values() if t.is_floating_point()]
     assert staged and all(t.dtype == torch.bfloat16 for t in staged)
+
+
+# ------------------------------------------------------------ K steps a replay
+def _group(trainer, k=4, B=4):
+    """k host batches of one shape bucket (lengths 10..20, padded to the bucket's L) and their stacked group."""
+    from erc_tpu_torch.data.loader import StackedGroup
+    from erc_tpu_torch.data.synthetic import synthetic_erc
+
+    batcher = trainer.batcher(B)
+    batches = [batcher(synthetic_erc("iemocap-cogmen", 6, n_train=B, min_len=10, max_len=20, seed=10 + i))
+               for i in range(k)]
+    return batches, StackedGroup(batches)
+
+
+def _all_counts():
+    from erc_tpu_torch.ops.kernels import dag_block as kd
+
+    torch.cuda.synchronize()
+    return {**kb.launches, **kd.launches}
+
+
+@pytest.mark.parametrize("module", ["cogmen", "dagerc", "cogmen-lars-cos"])
+def test_k_step_replay_equals_k_eager_steps(cuda, module):
+    """steps_per_call = 4: one replay of the group's graph ≡ 4 eager steps
+    from the same state bit for bit (each step's losses and gnorm, every
+    tensor the captured step reads or writes, the generator), its launch
+    counts 4 x one step's (COGMEN banded: K1/K2/K1ᵀ; DAG-ERC's kernel form:
+    K3/K4); under lars and a Cos schedule too, whose count advances by 4."""
+    from erc_tpu_torch.data.loader import to_device
+
+    if module == "dagerc":
+        trainer = _trainers()[0][0]
+    elif module == "cogmen":
+        trainer = _cogmen_trainer("banded")
+    else:
+        trainer = _cogmen_trainer("dense", sche=["--optim.name=lars", "--optim.sche.name=Cos",
+                                                 "--optim.sche.start=0.01", "--optim.sche.end=0.001",
+                                                 "--optim.sche.right=40"])
+    batches, stacked = _group(trainer)
+    graphs = trainer.captured_step
+    trainer.train_group(stacked, 4)  # 4 eager steps, then the capture
+    assert graphs.captures == 1 and trainer.global_steps == 4
+    torch.cuda.synchronize()
+    saved = [t.detach().clone() for t in trainer._step_tensors()], trainer._dropout_rng.get_state()
+
+    def state():
+        torch.cuda.synchronize()
+        return [t.detach().clone() for t in trainer._step_tensors()] + [trainer._dropout_rng.get_state()]
+
+    counts, eager = [], []
+    for b in batches:
+        before = _all_counts()
+        m = trainer.train_step(to_device(b, trainer.device))
+        counts.append({k: v - before[k] for k, v in _all_counts().items() if v != before[k]})
+        eager += [m["Lall"].clone(), m["gnorm"].clone()]
+    eager += state()
+    with torch.no_grad():
+        torch._foreach_copy_(trainer._step_tensors(), saved[0])
+    trainer._dropout_rng.set_state(saved[1])
+    before = _all_counts()
+    mets = graphs.group(stacked, 4)
+    moved = {k: v - before[k] for k, v in _all_counts().items() if v != before[k]}
+    replayed = [x for i in range(4) for x in (mets["Lall"][i].clone(), mets["gnorm"][i].clone())] + state()
+    assert graphs.captures == 1 and graphs.replays == 1
+    assert all(c == counts[0] for c in counts) and moved == {k: 4 * v for k, v in counts[0].items()}
+    if module != "cogmen-lars-cos":
+        assert moved, "no kernel launched"
+    assert len(eager) == len(replayed)
+    for i, (x, y) in enumerate(zip(eager, replayed)):
+        assert torch.equal(x, y), i
+
+
+@pytest.mark.parametrize("module", ["cogmen", "dagerc"])
+def test_k_eval_replay_equals_single_batches(cuda, module):
+    """eval_steps_per_call = 4: the group's outputs, stacked, ≡ each batch's
+    replayed eval forward bit for bit, with 4 x one batch's launches."""
+    trainer = _trainers()[0][0] if module == "dagerc" else _cogmen_trainer("banded")
+    trainer.model.eval()
+    batches, stacked = _group(trainer)
+    singles = [trainer.captured(b) for b in batches]
+    before = _all_counts()
+    trainer.captured(batches[0])
+    one = {k: v - before[k] for k, v in _all_counts().items() if v != before[k]}
+    group = trainer.captured.group(stacked, 4)
+    before = _all_counts()
+    group = trainer.captured.group(stacked, 4)
+    moved = {k: v - before[k] for k, v in _all_counts().items() if v != before[k]}
+    assert group.shape[0] == 4 and moved == {k: 4 * v for k, v in one.items()} and moved
+    for i, s in enumerate(singles):
+        np.testing.assert_array_equal(group[i], s)

@@ -402,9 +402,9 @@ def test_matmul_precision_is_scoped_to_the_trainer():
 
 
 # ------------------------------------------------------------ not ported yet
-NOT_PORTED = [("steps_per_call", 8), ("eval_steps_per_call", 4), ("checkpoint_per_step", 100), ("profile_steps", 5),
-              ("nan_guard", True), ("eval_first", True), ("debug_nans", True), ("tensorboard", True),
-              ("wandb", True), ("remote_url", "http://localhost:8000")]
+NOT_PORTED = [("checkpoint_per_step", 100), ("profile_steps", 5), ("nan_guard", True), ("eval_first", True),
+              ("debug_nans", True), ("tensorboard", True), ("wandb", True), ("remote_url", "http://localhost:8000"),
+              ("coordinator", "localhost:1234"), ("num_processes", 2), ("process_id", 0)]
 
 
 @pytest.mark.parametrize("knob, value", NOT_PORTED, ids=[k for k, _ in NOT_PORTED])

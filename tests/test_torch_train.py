@@ -21,7 +21,15 @@ K4 run as their plain versions through the autograd Function:
   (Adam divides by the root of the second moment, which magnifies the
   gradients' last-digit differences);
 - ``python -m erc_tpu_torch.train --device=cpu`` for 2 steps, in a fresh
-  interpreter, which also shows that the port's training imports no JAX.
+  interpreter, which also shows that the port's training imports no JAX,
+  and leaves ``model.last.ckpt`` under ``--save_dir``;
+- ``--config=FILE`` (json, and yaml) gives the JAX ``Params``' values, the
+  file loaded before the flags so that a flag wins;
+- ``--pretrain=true --pretrain_path=FILE`` loads the model and optimizer
+  state of a port file (exactly; the epoch and step count stay 0) and of a
+  JAX ``Saver`` file of a TrainState (weights, AdamW's moments and count,
+  the injected LR and a declared schedule's count, converted), from which
+  one more step equals optax's within 1e-5.
 """
 
 import copy
@@ -396,10 +404,10 @@ def test_dropout_draws_from_the_seeded_generator():
 
 
 # ------------------------------------------------------------------ entry point
-def test_train_entry_point_runs_two_steps_on_cpu():
+def test_train_entry_point_runs_two_steps_on_cpu(tmp_path):
     cmd = [sys.executable, "-m", "erc_tpu_torch.train", "--module=dagerc", *SMALL, "--epoch=1",
            "--batch_count=2", "--max_seq_len=16", "--train.batch_size=4", "--test.batch_size=16",
-           "--confusion_matrix=false"]
+           "--confusion_matrix=false", f"--save_dir={tmp_path}"]
     code = ("import runpy, sys\n"
             "import erc_tpu_torch.train, erc_tpu_torch.models.dagerc, erc_tpu_torch.ops.kernels.dag_block\n"
             f"sys.argv = {['erc_tpu_torch.train'] + cmd[3:]!r}\n"
@@ -413,6 +421,97 @@ def test_train_entry_point_runs_two_steps_on_cpu():
     assert "e0 b0 Lall=" in out and "epoch 0: " in out and "2 steps" in out, out
     assert "test: acc=" in out and "Lall=" in out.split("test: acc=")[1], out
     assert "JAX modules: []" in out
+    path = tmp_path / "model.last.ckpt"
+    assert path.exists() and f"saved {path}" in out
+    assert torch.load(path, weights_only=True)["step"] == 2
+
+
+# ------------------------------------------------------------ --config, --pretrain
+@pytest.mark.parametrize("fmt", ["json", "yaml"])
+def test_config_file_loads_before_the_flags(fmt, tmp_path):
+    cfg = {"epoch": 3, "seed": 9, "optim": {"lr": 0.01, "weight_decay": 0.5}, "train": {"batch_size": 5},
+           "dag_chunk": 8}
+    path = tmp_path / f"run.{fmt}"
+    if fmt == "yaml":
+        import yaml
+
+        path.write_text(yaml.safe_dump(cfg))
+    else:
+        import json
+
+        path.write_text(json.dumps(cfg))
+    argv = [f"--config={path}", "--dataset=synthetic-iemocap-6", "--seed=4"]
+    jp = jdagerc.DAGERCParams()
+    jp.from_args(argv)
+    jp.iparams()
+    tp = tdagerc.DAGERCParams()
+    tp.finalize(argv)
+    for key in ("epoch", "seed", "optim.lr", "optim.weight_decay", "train.batch_size", "dag_chunk", "optim.name"):
+        assert tp[key] == jp[key], key
+    assert tp.epoch == 3 and tp.seed == 4 and tp.get("config") is None and jp.get("config") is None
+
+
+SCHE = ["--optim.sche.name=Cos", "--optim.sche.start=0.001", "--optim.sche.end=0.0001", "--optim.sche.right=9"]
+
+
+def test_pretrain_loads_a_port_file(tmp_path):
+    source = _port_trainer("--optim.name=AdamW", *SCHE, f"--save_dir={tmp_path}")
+    for batch in _batches(2):
+        source.train_step(_torch_batch(batch))
+    path = source.save_model()
+    trainer = _port_trainer("--optim.name=AdamW", *SCHE, "--pretrain=true", f"--pretrain_path={path}", "--epoch=0")
+    assert trainer.train() == [] and trainer.eidx == 0 and trainer.global_steps == 0
+    for (n, a), b in zip(trainer.model.state_dict().items(), source.model.state_dict().values()):
+        assert torch.equal(a, b), n
+    got, want = trainer.optimizer.state_dict(), source.optimizer.state_dict()
+    assert got["param_groups"] == want["param_groups"] and got["state"].keys() == want["state"].keys()
+    for k, st in want["state"].items():
+        for name, v in st.items():
+            assert torch.equal(got["state"][k][name], v), (k, name)
+    assert int(trainer.optimizer.state["schedule"]["count"]) == 2
+
+
+def test_pretrain_loads_a_jax_trainstate_file(tmp_path):
+    from erc_tpu.train.checkpoint import Saver as JSaver
+
+    probe = _port_trainer()
+    params = jax.tree_util.tree_map(jnp.asarray, _flax_params(probe.model.state_dict()))
+    jcfg = joptim.create_optim("AdamW", lr=5e-4, weight_decay=0.01)
+    jcfg.from_args([a.replace("--optim.", "--") for a in SCHE])
+    tx = joptim.build_optim(jcfg, grad_clip_norm=5.0)
+    opt_state = tx.init(params)
+    r = np.random.default_rng(0)
+
+    def grads():
+        return jax.tree_util.tree_map(lambda v: jnp.asarray(r.normal(size=v.shape).astype(np.float32) * 0.1), params)
+
+    for _ in range(2):
+        updates, opt_state = tx.update(grads(), opt_state, params)
+        params = optax.apply_updates(params, updates)
+    state = jtrainer.TrainState(params=params, opt_state=opt_state, model_state={}, step=jnp.asarray(2, jnp.int32))
+    path = JSaver(str(tmp_path)).save_model("last", state)
+
+    trainer = _port_trainer("--optim.name=AdamW", "--optim.weight_decay=0.01", *SCHE, "--pretrain=true",
+                            f"--pretrain_path={path}", "--epoch=0")
+    trainer.train()
+    want = convert.dagerc_state(jax.tree_util.tree_map(np.asarray, params))
+    for n, t in trainer.model.named_parameters():
+        assert torch.equal(t.detach(), want[n]), n
+    assert int(trainer.optimizer.state["schedule"]["count"]) == 2
+    assert float(trainer.optimizer.param_groups[0]["lr"]) == joptim.get_learning_rate(opt_state)
+    # one more step from the loaded state: the moments and counts took
+    g = grads()
+    updates, opt_state = tx.update(g, opt_state, params)
+    params = optax.apply_updates(params, updates)
+    gt = convert.dagerc_state(jax.tree_util.tree_map(np.asarray, g))
+    for n, t in trainer.model.named_parameters():
+        t.grad = gt[n].clone()
+    grads_t = [t.grad for t in trainer.model.parameters()]
+    toptim.clip_by_global_norm_(grads_t, 5.0)
+    trainer.optimizer.step()
+    want = convert.dagerc_state(jax.tree_util.tree_map(np.asarray, params))
+    for n, t in trainer.model.named_parameters():
+        np.testing.assert_allclose(t.detach().numpy(), want[n].numpy(), rtol=0, atol=RTOL, err_msg=n)
 
 
 def test_train_main_without_cuda_raises(monkeypatch):
