@@ -140,7 +140,29 @@ Phases (any failure raises, so the exit code is non-zero):
      on and off (DialogueRNN: the step's walls only), and host batching of a 64-dialogue
      predict, native against numpy (and its text features alone, packed on
      one thread and on 4);
- 19. print the run's wall time, one JSON line of kernel records (K1/K2/K1ᵀ
+ 19. the runtime around the train loop (drive_runtime), in a fresh experiment
+     root (every trainer of the script writes its runs under a temporary
+     ERC_TPU_EXPROOT, git snapshots off, each phase's runs dropped after it):
+     COGMEN banded at full width through its entry point (models.cogmen.main)
+     for 2 epochs of 8 batches (one length bucket) at --steps_per_call=4 with
+     --checkpoint_per_step=6, --profile_steps=4, --nan_guard, --eval_first,
+     --tensorboard and --remote_url pointed at a stub HTTP server on
+     127.0.0.1, MemoryMonitor and the phase's own callback hooked: the run's
+     files (the JAX layout's and the knobs'), step checkpoints at the
+     thresholds that its calls give (epoch_end false, the resume hash), one
+     train POST an epoch and one test POST a test stage (EvalFirst's first),
+     K1/K2/K1ᵀ in the profile's Chrome trace as the launch counts moved over
+     the profiled steps, MemoryMonitor's in-use and peak above 0 and below the
+     card's memory, device_memory_stats() not None, and the same run with every
+     callback off giving the same losses, test F1 and parameters bit for bit;
+     DAG-ERC's kernel form with --profile_steps=2 (K3 8 and K4 4 a block of 16
+     a step in the trace); NaNGuard raising over replayed K = 4 groups after a
+     parameter is set to NaN in place (its checkpoint epoch_end false) and
+     --debug_nans raising, eagerly, on a NaN input with the module's name; and,
+     for information, COGMEN dense's step FLOPs (core.flops, card ≡ CPU: a hard
+     check) over its replayed busy time, cli mem's report, cli warm's capture
+     seconds and the epoch rates with the callbacks on and off;
+ 20. print the run's wall time, one JSON line of kernel records (K1/K2/K1ᵀ
      also at DialogueGCN's shapes, K = 10 and 21, D = 100 and 200, with their
      launches on its paths), the card's name and power limit, and a last
      JSON line {"ok": true, "device": {...}}.
@@ -1017,12 +1039,12 @@ def _trace_counts(names) -> dict:
     return out
 
 
-def _trace_check(what: str, before: dict, names) -> dict:
+def _trace_check(what: str, before: dict, names, after=None) -> dict:
     """The K1/K2/K1ᵀ/K3/K4 records of a device trace (`names`: its kernels' names) must equal what the Python
-    counts moved since `before` (_all_launches()): a replay adds its capture's record to them; K4's global
-    variant runs its stream kernel, so it reads as stream.  Returns the traced counts."""
+    counts moved since `before` (_all_launches()), up to now or to `after`: a replay adds its capture's record to
+    them; K4's global variant runs its stream kernel, so it reads as stream.  Returns the traced counts."""
     counted: dict = {}
-    for k, n in _all_launches().items():
+    for k, n in (after or _all_launches()).items():
         if n != before[k]:
             k = "dag_block_bwd/stream" if k == "dag_block_bwd/global" else k
             counted[k] = counted.get(k, 0) + n - before[k]
@@ -3657,11 +3679,360 @@ def drive_pipeline(card: str):
     log(f"pipeline phase: {time.perf_counter() - t0:.1f} s")
 
 
+COGMEN_TRAIN_PARAMS = 10_117_874
+RUNTIME_K = 4
+RUNTIME_PER_STEP = 6  # --checkpoint_per_step: a threshold that K = 4 calls cross every other call
+# one length bucket (L 96), so that each epoch's 8 batches form two K = 4 groups
+RUNTIME_ARGS = ["--graph_impl=banded", "--epoch=2", "--batch_count=8", "--length_bucket=96",
+                f"--steps_per_call={RUNTIME_K}"]
+RUNTIME_KNOBS = [f"--checkpoint_per_step={RUNTIME_PER_STEP}", "--profile_steps=4", "--nan_guard=true",
+                 "--eval_first=true", "--tensorboard=true"]
+# the files of a run of the JAX layout (tests/test_torch_runtime.py holds them against the JAX package's), and
+# those that this phase's knobs add; log.<stamp>.0.txt and blob/board's TensorBoard event file besides
+RUNTIME_FILES = {"experiment/params.yaml", "experiment/initial.json", "experiment/final.json",
+                 "experiment/report.json", "experiment/rerun.sh", "experiment/metrics.json",
+                 "experiment/board.jsonl", "blob/predictions.jsonl", "blob/saver/model.best.ckpt",
+                 "blob/saver/model.best.ckpt.json", "blob/saver/best.model.ckpt"}
+RUNTIME_KNOB_FILES = {"experiment/heartbeat.json", "experiment/.hb", "blob/saver/model.last.ckpt",
+                      "blob/saver/model.last.ckpt.json", "blob/profile/trace.pt.trace.json"}
+
+
+@contextlib.contextmanager
+def _stub_server():
+    """A stub HTTP server on 127.0.0.1 that keeps the JSON bodies POSTed to it: (its URL, the list)."""
+    import http.server
+
+    posts: list = []
+
+    class Handler(http.server.BaseHTTPRequestHandler):
+        def do_POST(self):
+            posts.append(json.loads(self.rfile.read(int(self.headers["Content-Length"]))))
+            self.send_response(200)
+            self.end_headers()
+
+        def log_message(self, *args):
+            pass
+
+    server = http.server.ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        yield f"http://127.0.0.1:{server.server_address[1]}/", posts
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=10)
+
+
+class _Window:
+    """The phase's own callback: each call's global step, the launch counts at train_begin (after EvalFirst) and
+    when --profile_steps' window closes, and each epoch's device memory through MemoryMonitor's log."""
+
+    def __init__(self, profile_steps: int):
+        from erc_tpu_torch.train import callbacks as cbs
+
+        self.priority = 120  # after EvalFirst (110): the window opens after train_begin
+        self.profile_steps, self.calls, self.before, self.after, self.memory = profile_steps, [], None, None, []
+        self.monitor = cbs.MemoryMonitor()
+
+    def hook(self, trainer):
+        trainer.callbacks.append(self)
+        trainer.callbacks.sort(key=lambda c: getattr(c, "priority", 100))
+        return self
+
+    def train_begin(self, tr):
+        self.before = _all_launches()
+
+    def train_step_end(self, tr, bidx, mets):
+        self.calls.append(tr.global_steps)
+        if self.after is None and tr.global_steps >= self.profile_steps:
+            self.after = _all_launches()
+
+    def train_epoch_end(self, tr, eidx, record):
+        log_fn = tr.log
+        tr.log = lambda msg: (self.memory.append(msg), log_fn(msg))
+        try:
+            self.monitor.train_epoch_end(tr, eidx, record)
+        finally:
+            tr.log = log_fn
+
+
+def _run_files(root: Path, trainer) -> set:
+    """A run's files, relative to its experiment and blob directories (the log's stamp as <stamp>)."""
+    out = set()
+    for kind, base in (("experiment", Path(trainer.exp.test_dir)), ("blob", Path(trainer.exp.blob_dir))):
+        for f in base.rglob("*"):
+            if f.is_file():
+                out.add(f"{kind}/" + re.sub(r"log\.\d{6}-\d{6}\.", "log.<stamp>.", str(f.relative_to(base))))
+    return out
+
+
+def _cogmen_main(argv, window=None):
+    """COGMEN's entry point (`models.cogmen.main`) with `window` hooked beside the knobs' callbacks."""
+    from erc_tpu_torch.models import cogmen
+
+    icallbacks = cogmen.COGMENTrainer.icallbacks
+
+    def with_window(self, params):
+        icallbacks(self, params)
+        if window is not None:
+            window.hook(self)
+
+    cogmen.COGMENTrainer.icallbacks = with_window
+    try:
+        return cogmen.main([*COGMEN_TRAIN_ARGS, *argv])
+    finally:
+        cogmen.COGMENTrainer.icallbacks = icallbacks
+
+
+def _board(trainer, stage):
+    return [r for r in map(json.loads, open(trainer.exp.test_file("board.jsonl"))) if r["stage"] == stage]
+
+
+def _expected_step_checkpoints(calls, per_step):
+    """The steps at which GlobalStepCheckpoint saves, given each call's global step (a threshold, not a multiple)."""
+    last, out = 0, []
+    for g in calls:
+        if g - last >= per_step:
+            last = g
+            out.append(g)
+    return out
+
+
+def _runtime_cogmen(card, url, posts, root):
+    """Phase 1: COGMEN banded at full width through its entry point with the runtime's knobs on, then off."""
+    import torch
+
+    from erc_tpu_torch.core import memstat
+
+    window = _Window(4)
+    _reset_launches()
+    on = _cogmen_main([*RUNTIME_ARGS, *RUNTIME_KNOBS, f"--remote_url={url}"], window)
+    n_params = sum(t.numel() for t in on.model.parameters())
+    require(n_params == COGMEN_TRAIN_PARAMS, f"COGMEN has {n_params} parameters, not {COGMEN_TRAIN_PARAMS}")
+    files = _run_files(root, on)
+    log(f"runtime: run {on.exp.exp_name}/{on.exp.test_name}: {sorted(files)}")
+    missing = (RUNTIME_FILES | RUNTIME_KNOB_FILES) - files
+    require(not missing, f"runtime: the run lacks {sorted(missing)}")
+    require(any(re.fullmatch(r"experiment/log\.<stamp>\.0\.txt", f) for f in files), "runtime: no log file")
+    require(any(re.fullmatch(r"blob/board/events\.out\.tfevents\..+", f) for f in files),
+            "runtime: no TensorBoard event file under blob/board")
+    # step checkpoints at the thresholds of this run's calls
+    steps = [int(re.search(r"checkpoint\.(\d+)\.ckpt$", f).group(1)) for f in files
+             if re.fullmatch(r"blob/saver/checkpoint\.\d+\.ckpt", f)]
+    want = _expected_step_checkpoints(window.calls, RUNTIME_PER_STEP)[-3:]  # the saver keeps 3
+    require(sorted(steps) == want and want, f"runtime: step checkpoints at {sorted(steps)}, the calls {window.calls} "
+            f"give {want}")
+    for step in want:
+        meta = json.loads(Path(on.saver.save_dir, f"checkpoint.{step:08d}.ckpt.json").read_text())
+        require(meta["epoch_end"] is False and meta["params_hash"] == on.params.resume_hash(),
+                f"runtime: checkpoint {step}'s meta {meta}")
+    require(any(b - a == RUNTIME_K for a, b in zip([0, *window.calls], window.calls)),
+            f"runtime: no call of {RUNTIME_K} steps in {window.calls}")
+    # the exporter: a train POST an epoch, a test POST a test stage (EvalFirst's first)
+    got = [(p["stage"], p["epoch"]) for p in posts]
+    require(got == [("test", 0), ("train", 0), ("test", 0), ("train", 1), ("test", 1)], f"runtime: POSTs {got}")
+    # the profile: K1/K2/K1ᵀ in the Chrome trace as the launch counts moved over the profiled steps
+    trace = json.loads(Path(on.exp.blob_dir, "profile", "trace.pt.trace.json").read_text())
+    names = [e["name"] for e in trace["traceEvents"] if e.get("cat") == "kernel"]
+    require(window.after is not None, "runtime: the profiled window never closed")
+    traced = _trace_check("runtime: --profile_steps=4 trace", window.before, names, window.after)
+    require(all(traced.get(k, 0) > 0 for k in ("banded_gather_sum", "banded_dot", "banded_gather_sum_t")),
+            f"runtime: the profile lacks a band kernel: {traced}")
+    log(f"runtime: profile window {trace.get('erc_tpu_torch.window')}, {len(names)} kernels, band kernels {traced}")
+    # MemoryMonitor's lines: in use and peak positive and below the card's memory
+    total = torch.cuda.get_device_properties(0).total_memory
+    require(len(window.memory) == 2, f"runtime: MemoryMonitor logged {window.memory}")
+    for line in window.memory:
+        in_use, peak = (float(x) * 2 ** 20 for x in re.findall(r"(?:in_use|peak)=(\d+)MiB", line))
+        require(0 < in_use <= peak < total, f"runtime: MemoryMonitor {line!r} against {total} bytes")
+    require(memstat.device_memory_stats() is not None, "runtime: device_memory_stats() gave None on the card")
+    # the same run with every callback off: the same losses, test F1 and parameters, bit for bit
+    off = _cogmen_main(RUNTIME_ARGS)
+    on_train, off_train = _board(on, "train"), _board(off, "train")
+    on_test, off_test = _board(on, "test")[1:], _board(off, "test")  # the first is EvalFirst's
+    require(len(on_train) == len(off_train) == 2,
+            f"runtime: {len(on_train)} train rows on, {len(off_train)} off, not 2 and 2")
+    for a, b in zip(on_train, off_train):
+        require(all(a[k] == b[k] for k in ("Lall", "Acc", "gnorm")), f"runtime: train rows on {a} off {b}")
+    require(len(on_test) == len(off_test) == 2 and all(a["f1"] == b["f1"] for a, b in zip(on_test, off_test)),
+            f"runtime: test F1 on {[r['f1'] for r in on_test]} off {[r['f1'] for r in off_test]}")
+    for (n, a), b in zip(on.model.state_dict().items(), off.model.state_dict().values()):
+        require(torch.equal(a, b), f"runtime: {n} differs with the callbacks on")
+    rates = {"on": [r["dps"] for r in on_train], "off": [r["dps"] for r in off_train]}
+    log(f"runtime: callbacks on ≡ off bit for bit (losses, test F1, {len(on.model.state_dict())} tensors); epoch "
+        f"rates dia/s, epoch 0 (profiled, EvalFirst before it) and 1: on {rates['on']} off {rates['off']}; on {card}")
+    return rates
+
+
+def _runtime_dagerc(card):
+    """Phase 2: DAG-ERC's kernel form at full width, --profile_steps=2: K3 and K4 in the trace at 8 and 4
+    launches a 16-position block a step."""
+    window = _Window(2)
+    run = _trainer("--profile_steps=2", "--batch_count=3", "--eval_per_epoch=0")
+    window.hook(run)
+    loader = run.make_loader("train")
+    loader.set_epoch(0)
+    blocks = [_blocks(b, 16) for b in list(loader)[:2]]
+    run.train()
+    trace = json.loads(Path(run.exp.blob_dir, "profile", "trace.pt.trace.json").read_text())
+    names = [e["name"] for e in trace["traceEvents"] if e.get("cat") == "kernel"]
+    traced = _trace_check("runtime: DAG-ERC --profile_steps=2 trace", window.before, names, window.after)
+    want = {"dag_block": 8 * sum(blocks), "dag_block_bwd": 4 * sum(blocks)}
+    require(all(traced.get(k) == n for k, n in want.items()), f"runtime: DAG-ERC trace {traced}, want {want}")
+    log(f"runtime: DAG-ERC profile of 2 steps ({blocks} blocks): {traced}; on {card}")
+
+
+class _Poison:
+    """Sets one parameter to NaN in place after the first call (before NaNGuard looks), so the graphs read it."""
+
+    priority = 50
+
+    def __init__(self):
+        self.at = None
+
+    def train_step_end(self, tr, bidx, mets):
+        import torch
+
+        if self.at is None:
+            self.at = tr.global_steps
+            with torch.no_grad():
+                next(tr.model.parameters()).fill_(float("nan"))
+
+
+def _runtime_nan(card):
+    """Phase 3: NaNGuard over replayed K = 4 groups, and --debug_nans eagerly, on the card."""
+    import torch
+
+    from erc_tpu_torch.data.loader import to_device
+
+    run = _cogmen_trainer("banded", f"--steps_per_call={RUNTIME_K}", "--batch_count=16", "--length_bucket=96",
+                          "--nan_guard=true", "--eval_per_epoch=0")
+    poison = _Poison()
+    run.callbacks.append(poison)
+    try:
+        run.train()
+        require(False, "runtime: NaNGuard did not raise")
+    except FloatingPointError as e:
+        log(f"runtime: NaNGuard raised {e!r} (NaN set after step {poison.at}, {run._captured_step.replays} replays)")
+        step = run.global_steps
+        require(step >= 10 and step - RUNTIME_K < 10 and run._captured_step.replays > 0,
+                f"runtime: NaNGuard at step {step}, replays {run._captured_step.replays}")
+    path = run.saver.latest_checkpoint()
+    meta = json.loads(Path(path + ".json").read_text())
+    require(meta["global_steps"] == step and meta["epoch_end"] is False, f"runtime: NaNGuard's checkpoint {meta}")
+    del run
+    run = _cogmen_trainer("banded", "--debug_nans=true")
+    require(not run.train_graphs, "runtime: --debug_nans kept the captured step")
+    batch = to_device(next(iter(run.make_loader("train"))), run.device)
+    batch["input_tensor"][0, 1, 3] = float("nan")
+    try:
+        run.train_step(batch)
+        require(False, "runtime: --debug_nans did not raise")
+    except FloatingPointError as e:
+        require("module '" in str(e), f"runtime: --debug_nans raised {e!r} without a module")
+        log(f"runtime: --debug_nans raised {e!r}; on {card}")
+    torch.cuda.synchronize()
+
+
+def _runtime_info(card):
+    """Phase 4, information: FLOPs of COGMEN's dense step (card ≡ CPU, a hard check) over its replayed busy time,
+    cli mem and cli warm."""
+    from erc_tpu_torch import cli
+    from erc_tpu_torch.core import flops, memstat
+    from erc_tpu_torch.data.loader import to_device
+
+    dense = _cogmen_trainer("dense")
+    cpu = _cogmen_trainer("dense", device="cpu")
+    cpu.model.load_state_dict(dense.model.state_dict())
+    host = next(iter(dense.make_loader("train")))
+    on_card = flops.step_flops(dense.compute_grads, to_device(host, dense.device))
+    on_cpu = flops.step_flops(cpu.compute_grads, to_device(host, cpu.device))
+    require(on_card == on_cpu, f"runtime: step_flops on the card {on_card}, on the CPU {on_cpu}")
+    for _ in range(3):  # the bucket's eager step and its capture, then replays
+        dense.train_batch(host)
+    wall, busy = _wall_and_busy(lambda: dense.train_batch(host), "runtime: replayed COGMEN dense step")
+    shape = tuple(host["input_tensor"].shape)
+    rate = on_card["flops"] / (busy / 1e3) if busy else None
+    rate_text = (f"{rate:.6g} FLOP/s ({100 * rate / PEAK_F32_FLOP_PER_S:.2f} % of the float32 peak)" if rate
+                 else "FLOP/s not measured (no busy time)")
+    log(f"runtime: COGMEN dense step {shape}: {on_card['flops']:.6g} FLOPs (card ≡ CPU), replayed busy {busy} ms, "
+        f"{rate_text}; on {card}")
+    del dense, cpu
+    log(f"runtime: cli mem on {card}:\n" + memstat.memory_report())
+    t0 = time.perf_counter()
+    warmed = cli.warm("cogmen", "synthetic-cogmen-6", 32, 96)
+    log(f"runtime: cli warm cogmen 32 96: {warmed}, {time.perf_counter() - t0:.3f} s; on {card}")
+    return {"flops": on_card["flops"], "busy_ms": busy, "flop_per_s": rate, "warm": warmed}
+
+
+def drive_runtime(card: str):
+    """The runtime around the train loop (callbacks, experiment directories, metric store, exporters,
+    --profile_steps, NaNGuard and --debug_nans, memory and FLOP counters, the CLI) on the card, in a fresh
+    experiment root."""
+    import os
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    root = Path(tempfile.mkdtemp(prefix="runtime_"))
+    before = os.environ["ERC_TPU_EXPROOT"]  # the script's root (_experiment_root)
+    os.environ["ERC_TPU_EXPROOT"] = str(root)
+    try:
+        with _stub_server() as (url, posts):
+            rates = _runtime_cogmen(card, url, posts, root)
+        _runtime_dagerc(card)
+        _runtime_nan(card)
+        info = _runtime_info(card)
+    finally:
+        os.environ["ERC_TPU_EXPROOT"] = before
+        shutil.rmtree(root, ignore_errors=True)
+    log("runtime on " + card + ": " + json.dumps({"epoch_rates": rates, **info}, default=str))
+    log(f"runtime phase: {time.perf_counter() - t0:.1f} s")
+
+
 def _stamp(phase: str) -> None:
-    log(f"phase {phase} done at {time.perf_counter() - T_START:.1f} s")
+    """Log the phase's end with the runs that its trainers left in the script's experiment root (their count and
+    the bytes of their blobs: best models, checkpoints, traces), and drop them."""
+    import os
+    import shutil
+
+    root = Path(os.environ["ERC_TPU_EXPROOT"])
+    runs = sum(1 for d in root.glob("experiment/*/*") if d.is_dir())
+    blob = sum(f.stat().st_size for f in root.glob("blob/**/*") if f.is_file())
+    log(f"phase {phase} done at {time.perf_counter() - T_START:.1f} s ({runs} runs, {blob / 2 ** 20:.1f} MiB of blobs)")
+    for kind in ("experiment", "blob"):
+        shutil.rmtree(root / kind, ignore_errors=True)
+
+
+@contextlib.contextmanager
+def _experiment_root():
+    """Every trainer's run (experiment directories, best models) under a temporary root, removed at the end; no
+    git snapshots (a checkout may have no .git)."""
+    import os
+    import shutil
+    import tempfile
+
+    saved = {k: os.environ.get(k) for k in ("ERC_TPU_EXPROOT", "ERC_TPU_GIT_SNAPSHOT")}
+    root = tempfile.mkdtemp(prefix="chip_smoke_runs_")
+    os.environ.update(ERC_TPU_EXPROOT=root, ERC_TPU_GIT_SNAPSHOT="0")
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(root, ignore_errors=True)
 
 
 def main() -> int:
+    with _experiment_root():
+        return _main()
+
+
+def _main() -> int:
     import torch
 
     card = probe()
@@ -3725,6 +4096,8 @@ def main() -> int:
         _stamp("precision")
         drive_pipeline(card)
         _stamp("pipeline")
+    drive_runtime(card)
+    _stamp("runtime")
     # the DialogueGCN-shape records: their instantiation's launches on DialogueGCN's serving and training paths
     for rec in dgcn_records.values():
         rec["launches"] = dgcn_serve_taps[rec["tap_key"]] + dgcn_train_taps[rec["tap_key"]]

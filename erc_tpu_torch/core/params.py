@@ -1,18 +1,22 @@
-"""Schema-in-code configuration with choice constraints and CLI overrides.
+"""Schema-in-code configuration with constraints and CLI overrides.
 
 Port of ``erc_tpu.core.params``: attribute-style schema with defaults
-declared in ``__init__``, ``choice()`` constraints enforced on every
-assignment, dotted-key CLI overrides (``--train.batch_size=8``), and
-``--config=<file>``: a yaml or json file loaded before the other flags, so
-that the flags win (yaml read with ``yaml`` where it is installed, else the
-file is read as json).
+declared in ``__init__``, ``choice()`` and ``arange()`` constraints
+enforced on every assignment, dotted-key CLI overrides
+(``--train.batch_size=8``), ``--config=<file>``: a yaml or json file
+loaded before the other flags, so that the flags win (yaml read with
+``yaml`` where it is installed, else the file is read as json), json and
+yaml dumps, and the JAX package's content hashes (``hash``, and
+``resume_hash`` over the knobs that define a run's identity), byte for
+byte: the same config gives the same hash in both packages.
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
 import sys
-from typing import Any, Optional
+from typing import Any, Iterator, Optional
 
 
 def _parse_value(raw: str) -> Any:
@@ -52,6 +56,21 @@ class Choice:
         return v
 
 
+class Arange:
+    """A numeric value constrained to [lo, hi]."""
+
+    __slots__ = ("value", "lo", "hi")
+
+    def __init__(self, default: float, lo: float, hi: float):
+        self.lo, self.hi = lo, hi
+        self.value = self.check(default)
+
+    def check(self, v: float) -> float:
+        if not (self.lo <= v <= self.hi):
+            raise ValueError(f"value {v!r} outside range [{self.lo}, {self.hi}]")
+        return v
+
+
 class Params:
     """Attribute-style config node. Nested nodes are created on demand."""
 
@@ -69,6 +88,10 @@ class Params:
         The first option is the default.
         """
         return Choice(options[0], tuple(options))
+
+    def arange(self, default, lo, hi) -> Any:
+        """Declare a range-constrained field: ``p.rate = p.arange(0.5, 0, 1)``."""
+        return Arange(default, lo, hi)
 
     def __setattr__(self, key: str, value: Any):
         if key in self._RESERVED:
@@ -95,7 +118,7 @@ class Params:
                 self._data[head] = node
             node[rest] = value
             return
-        if isinstance(value, Choice):
+        if isinstance(value, (Choice, Arange)):
             self._constraints[key] = value
             self._data[key] = value.value
             return
@@ -119,6 +142,9 @@ class Params:
             return default
         return v
 
+    def keys(self) -> Iterator[str]:
+        return iter(self._data.keys())
+
     def items(self):
         return self._data.items()
 
@@ -136,6 +162,29 @@ class Params:
                 self[k] = v
         return self
 
+    def to_json(self, path: Optional[str] = None, indent: int = 2) -> str:
+        s = json.dumps(self.to_dict(), indent=indent, default=str, sort_keys=True)
+        if path is not None:
+            with open(path, "w") as f:
+                f.write(s)
+        return s
+
+    def to_yaml(self, path: Optional[str] = None) -> str:
+        """The config as yaml, or as json where ``yaml`` is not installed."""
+        try:
+            import yaml
+
+            s = yaml.safe_dump(self.to_dict(), sort_keys=True)
+        except ImportError:
+            s = self.to_json(indent=2)
+        if path is not None:
+            with open(path, "w") as f:
+                f.write(s)
+        return s
+
+    def from_dict(self, d: dict) -> "Params":
+        return self.update(d)
+
     def from_json_file(self, path: str) -> "Params":
         with open(path) as f:
             return self.update(json.load(f))
@@ -148,6 +197,33 @@ class Params:
             return self.from_json_file(path)
         with open(path) as f:
             return self.update(yaml.safe_load(f))
+
+    def hash(self) -> str:
+        """Stable content hash: md5 of the sorted json, 16 hex digits."""
+        return _md5(self.to_dict())
+
+    # run-control knobs that a preempted job legitimately changes when it is
+    # relaunched (--resume with a longer --epoch, other cadences, another
+    # card or save directory); everything else (model, optimizer, data)
+    # defines resume identity.  The JAX package's set, with the port's own
+    # run-control knob save_dir.
+    _VOLATILE_KEYS = frozenset({
+        "epoch", "resume", "eval_per_epoch", "eval_first", "eval_val",
+        "select_on", "checkpoint_per_epoch", "checkpoint_per_step",
+        "keypoint_per_epoch", "batch_count", "heartbeat", "profile_steps",
+        "log_every", "prefetch", "steps_per_call", "eval_steps_per_call",
+        "device", "pretrain_path",
+        # every process of one logical run differs in process_id, and a
+        # relaunch may move the coordinator
+        "coordinator", "num_processes", "process_id",
+        "save_dir",
+    })
+
+    def resume_hash(self) -> str:
+        """Identity hash for checkpoint-resume compatibility: the config
+        minus the run-control knobs (``AutoResume`` finds sibling runs by
+        it)."""
+        return _md5({k: v for k, v in self.to_dict().items() if k not in self._VOLATILE_KEYS})
 
     def from_args(self, argv: Optional[list] = None) -> "Params":
         """Apply ``--key=value`` / ``--key value`` / ``--flag`` overrides.
@@ -184,6 +260,13 @@ class Params:
 
     def __repr__(self):
         return f"{type(self).__name__}({self.to_dict()!r})"
+
+    def __eq__(self, other):
+        return isinstance(other, Params) and self.to_dict() == other.to_dict()
+
+
+def _md5(d: dict) -> str:
+    return hashlib.md5(json.dumps(d, sort_keys=True, default=str).encode()).hexdigest()[:16]
 
 
 class BaseParams(Params):

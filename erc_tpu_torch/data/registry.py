@@ -19,45 +19,13 @@ names (the raw corpus and the extraction views) are not read yet.
 
 from __future__ import annotations
 
-import json
 import os
-import subprocess
 from functools import partial
 from typing import Callable, Dict, Optional
 
+from erc_tpu_torch.core.machine import cfg_get
 from erc_tpu_torch.data import dailydialog, mmin, readers
 from erc_tpu_torch.data.synthetic import synthetic_daily, synthetic_erc, synthetic_mosei
-
-
-def _read_json(path: Optional[str]) -> dict:
-    if path and os.path.exists(path):
-        try:
-            with open(path) as f:
-                return json.load(f)
-        except (OSError, ValueError):
-            pass
-    return {}
-
-
-def _git_root() -> Optional[str]:
-    try:
-        r = subprocess.run(["git", "rev-parse", "--show-toplevel"], capture_output=True, text=True, timeout=5)
-        return r.stdout.strip() or None
-    except (OSError, subprocess.SubprocessError):
-        return None
-
-
-def cfg_get(key: str, env: Optional[str] = None, default=None):
-    """The JAX package's ``core.machine.cfg_get``: the environment variable
-    `env`, else `key` in ``<git root>/.erc_tpurc.json``, else in
-    ``~/.erc_tpurc.json``, else `default`.  JSON nulls count as missing."""
-    if env and os.environ.get(env):
-        return os.environ[env]
-    root = _git_root()
-    cfg = _read_json(os.path.expanduser("~/.erc_tpurc.json"))
-    cfg.update(_read_json(os.path.join(root, ".erc_tpurc.json") if root else None))
-    v = cfg.get(key)
-    return default if v is None else v
 
 
 def default_roots() -> Dict[str, str]:

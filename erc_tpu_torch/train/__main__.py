@@ -25,12 +25,22 @@ On a dataset with a real val split (MOSEI, DailyDialog, MMIN's) each eval
 epoch runs the val stage before the test stage; ``--select_on=val`` then
 keeps ``model.best_val.ckpt``.  It runs on the card unless ``--device=cpu`` is given;
 without CUDA and without ``--device=cpu`` it raises.  Every ``main`` saves
-the model at the end (``model.last.ckpt`` under ``--save_dir``, default
-``~/.erc_tpu_torch/saver/<module>/<dataset>``), which ``python -m
+the model at the end (``model.last.ckpt`` in the saver directory), which ``python -m
 erc_tpu_torch.serve --module=<module> --checkpoint=...`` serves (but for
 the token track and MMIN, which have no serving path).
-``--checkpoint_per_epoch=N``, ``--keypoint_per_epoch=N`` and ``--resume``
-write and read the rotating checkpoints and keypoints there;
+Each run is an experiment: its metadata, log, best metrics (``metrics.json``)
+and board (``board.jsonl``) under ``<exproot>/experiment/erc_tpu_torch.<Trainer>/<test>/``,
+its checkpoints, predictions, profile and TensorBoard events under
+``<exproot>/blob/...`` (``ERC_TPU_EXPROOT``, default ``~/.erc_tpu``); ``python
+-m erc_tpu_torch.cli list|tests|sum|board|stop`` finds and stops runs.
+``--checkpoint_per_epoch=N``, ``--checkpoint_per_step=N``,
+``--keypoint_per_epoch=N`` and ``--resume`` (this run's newest readable
+checkpoint, else a sibling run's with the same config) write and read the
+rotating checkpoints and keypoints in the saver directory (``<blob>/saver``,
+or ``--save_dir``); ``--eval_first``, ``--nan_guard``, ``--profile_steps=N``
+(a Chrome trace of the first N steps), ``--debug_nans`` (the train step
+eager, under NaN checks), ``--tensorboard``, ``--wandb`` and
+``--remote_url=URL`` as in the JAX package;
 ``--pretrain=true --pretrain_path=FILE`` starts from the model and
 optimizer state of a file of either package's Saver.  ``--config=FILE``
 (yaml or json) sets knobs before the other flags; ``--steps_per_call=K``

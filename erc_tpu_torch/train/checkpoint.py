@@ -6,7 +6,9 @@ with the same three tiers and the trainer's writers of each:
                               the best epoch so far copied to
                               ``best.checkpoint.ckpt`` (``--checkpoint_per_epoch``;
                               ``--resume`` reads them);
-  - ``model.<tag>.ckpt``      overwrite-style saves (``main``'s ``model.last``);
+  - ``model.<tag>.ckpt``      overwrite-style saves (``main``'s ``model.last``;
+                              the test stage's ``model.best``, also copied to
+                              ``best.model.ckpt``);
   - ``key.<N>.ckpt``          permanent keypoints (``--keypoint_per_epoch``);
 each with a ``.json`` meta sidecar.  A tree is a dict of state dicts and
 plain values (``Trainer.state_tree``), written with ``torch.save`` to a
@@ -45,13 +47,18 @@ import torch
 
 
 class Saver:
-    def __init__(self, save_dir: str, max_keep: int = 3):
+    def __init__(self, save_dir: str, max_keep: int = 3, write: bool = True):
+        # write=False (every process but 0, once several train one model):
+        # each save_* returns the path that process 0 writes and writes nothing
         self.save_dir = save_dir
         self.max_keep = max_keep
+        self.write = write
         os.makedirs(save_dir, exist_ok=True)
 
     # -- low level ------------------------------------------------------------
     def _write(self, path: str, tree: Any, meta: Optional[Dict] = None) -> str:
+        if not self.write:
+            return path
         # meta lands first: a .ckpt without meta loads with defaults, but meta
         # without its .ckpt is never read
         if meta is not None:
@@ -71,13 +78,17 @@ class Saver:
     # -- tiers ----------------------------------------------------------------
     def save_checkpoint(self, step: int, tree: Any, meta: Optional[Dict] = None, is_best: bool = False) -> str:
         path = self._write(os.path.join(self.save_dir, f"checkpoint.{step:08d}.ckpt"), tree, meta)
-        if is_best:
-            shutil.copy(path, os.path.join(self.save_dir, "best.checkpoint.ckpt"))
-        self._prune()
+        if self.write:
+            if is_best:
+                shutil.copy(path, os.path.join(self.save_dir, "best.checkpoint.ckpt"))
+            self._prune()
         return path
 
-    def save_model(self, tag: str, tree: Any, meta: Optional[Dict] = None) -> str:
-        return self._write(os.path.join(self.save_dir, f"model.{tag}.ckpt"), tree, meta)
+    def save_model(self, tag: str, tree: Any, meta: Optional[Dict] = None, is_best: bool = False) -> str:
+        path = self._write(os.path.join(self.save_dir, f"model.{tag}.ckpt"), tree, meta)
+        if is_best and self.write:
+            shutil.copy(path, os.path.join(self.save_dir, "best.model.ckpt"))
+        return path
 
     def save_keypoint(self, step: int, tree: Any, meta: Optional[Dict] = None) -> str:
         return self._write(os.path.join(self.save_dir, f"key.{step:08d}.ckpt"), tree, meta)
@@ -97,6 +108,10 @@ class Saver:
             for f in os.listdir(self.save_dir)
             if f.startswith("checkpoint.") and f.endswith(".ckpt")
         )
+
+    def latest_checkpoint(self) -> Optional[str]:
+        cps = self.list_checkpoints()
+        return cps[-1] if cps else None
 
 
 # ------------------------------------------------------------------ msgpack

@@ -1,29 +1,52 @@
 """The train loop.
 
-Port of the core of ``erc_tpu.train.trainer.Trainer``: build the model and
-optimizer (``imodels``), the train step (loss, gradients, their global norm
-before the clip, optax's clip, the optimizer step), the epoch loop with
+Port of ``erc_tpu.train.trainer.Trainer``: build the model and optimizer
+(``imodels``), the train step (loss, gradients, their global norm before
+the clip, optax's clip, the optimizer step), the epoch loop with
 ``batch_count`` and ``log_every``, the val stage (``evaluate``: on datasets
 with a real val split, before each test stage) and the test stage (masked
 NLL and the classification summary on the host), ``--select_on=test|val``,
-the plateau controller on the test or val loss (``plateau_source``), with
-logging to stdout, and checkpoints through the port's ``Saver``
-(``train/checkpoint.py``) into ``--save_dir`` (default
-``~/.erc_tpu_torch/saver/<module>/<dataset>``): ``save_model``, a rotating
-checkpoint every ``--checkpoint_per_epoch`` epochs (the best epoch's by test
-F1, or by val F1 with ``--select_on=val``, also as ``best.checkpoint.ckpt``),
-``model.best_val.ckpt`` with ``--select_on=val``, a keypoint every
-``--keypoint_per_epoch`` epochs, and ``--resume`` from the newest readable
-rotating checkpoint, as the JAX package's callbacks of those names do.  A
+the plateau controller on the test or val loss (``plateau_source``).  A
 subclass sets ``model``, ``optimizer`` and, where it wants them,
 ``grad_clip_norm`` and ``lr_sche``; it may override ``to_logits`` (the eval
 forward; a tuple of outputs is fine, ``test_step_collect`` then gets a
 tuple of arrays), the hooks ``on_eval_begin``, ``on_eval_end(res)``,
-``on_test_begin`` and ``on_test_end(res)``, called where the JAX trainer
-fires them, and ``state_tree``/``load_state_tree`` to carry state of its
-own (MMIN's EMA shadow) in checkpoints.  Batches are of dialogues
-(``text_length``) or of utterances (``sample_mask``, MMIN): a record's
-``dialogues`` counts the rows that are not padding either way.
+``on_test_begin``, ``on_test_end(res)`` and ``on_train_epoch_end(eidx,
+record)``, fired where the JAX trainer fires them, and
+``state_tree``/``load_state_tree`` to carry state of its own (MMIN's EMA
+shadow) in checkpoints.  Batches are of dialogues (``text_length``) or of
+utterances (``sample_mask``, MMIN): a record's ``dialogues`` counts the
+rows that are not padding either way.
+
+The runtime around the loop is the JAX trainer's:
+
+- Every trainer is a run of an experiment (``core.experiment``):
+  ``<exproot>/experiment/erc_tpu_torch.<TrainerClass>/<test_name>/`` holds
+  ``params.yaml``, ``initial.json``/``final.json``, ``rerun.sh``, the log
+  (``core.logger``), ``metrics.json`` (best metrics, ``core.metrics_db``),
+  ``board.jsonl`` (one row per train, val and test stage) and the heartbeat
+  (``--heartbeat``); ``<exproot>/blob/...`` holds ``predictions.jsonl``,
+  the ``Saver``'s ``saver/`` (``--save_dir`` takes its place where given),
+  ``profile/`` and TensorBoard's ``board/``.  ``exproot`` is
+  ``ERC_TPU_EXPROOT``, the machine config's, or ``~/.erc_tpu``.
+- Callbacks (``train.callbacks``) are installed by ``icallbacks`` from the
+  knobs and fired by ``_fire``: ``--checkpoint_per_epoch``,
+  ``--checkpoint_per_step`` (a threshold in steps), ``--keypoint_per_epoch``,
+  ``--resume`` (the newest readable checkpoint of this run, else of a
+  sibling run with the same ``params.resume_hash()``), ``--pretrain``,
+  ``--eval_first``, ``--nan_guard``, a ``.stop`` file, ``--tensorboard``,
+  ``--wandb`` and ``--remote_url``.  ``save_checkpoint(epoch_end=...)``
+  records whether the epoch ended, so a mid-epoch checkpoint resumes by
+  running its epoch again and an epoch-end one at the next.
+- ``--profile_steps=N`` traces the first N steps (with K > 1, steps, not
+  calls) of the first epoch trained into ``<blob>/profile/`` as a Chrome
+  trace (``train.profiler``), the card's kernels included; the trace covers
+  the steps only (``train_begin``'s callbacks, such as ``EvalFirst``, run
+  before it), and may hold a bucket's eager first steps and its capture.
+- ``--debug_nans`` (the port's ``jax_debug_nans``) raises
+  ``FloatingPointError`` naming the first module whose forward output, or
+  whose gradient (autograd's anomaly mode), is not finite.  Anomaly mode
+  cannot run inside a CUDA graph, so under it the train step runs eagerly.
 
 The train step is ``_step``: forward, backward, the gradients' global norm
 before the clip, optax's clip, the optimizer step and ``after_step`` (MMIN's
@@ -37,7 +60,8 @@ writes in place.  The val and test stages replay the eval forward
 (``to_logits``) the same way (``CapturedForward``).  ``train_graphs =
 False`` and ``eval_graphs = False`` run them eagerly.  ``load_state_tree``
 drops the graphs, and a replay raises where a tensor it reads was replaced
-rather than written in place.
+rather than written in place.  A checkpoint reads the state and replaces
+nothing, so the graphs stay valid across one.
 
 The trainer runs on ``params.device`` (the card unless it is ``"cpu"``),
 with the JAX trainer's precision knobs (``core.precision``):
@@ -68,23 +92,18 @@ K optimizer steps in one replay on the card (``train_group``; eagerly
 elsewhere), returning the means of its K steps' metrics, and an epoch's
 means are over calls, as the JAX package's ``Record`` takes them; a group
 evaluates as K batches in one replay, each batch collected as with K = 1.
-``--pretrain=true --pretrain_path=FILE`` loads the model and optimizer
-state of a port or a JAX package file at train start (``load_pretrained``;
-MMIN's ``pretrain_path`` alone keeps its own meaning).
 
 Dropout draws from a generator on the device seeded from ``params.seed``.
-Left out, for later slices, and refused with ``NotImplementedError`` where a
-knob asks for them (``NOT_PORTED``): step-count checkpoints,
-``profile_steps``, the NaN guard and ``debug_nans``, ``eval_first``, the
-metric exporters (TensorBoard, wandb, a remote URL), and several processes
-(``--coordinator``, ``--num_processes``, ``--process_id``).  Also left out:
-experiment directories, the metric database and board.
+Left out, for a later slice, and refused with ``NotImplementedError``
+(``NOT_PORTED``): several processes (``--coordinator``,
+``--num_processes``, ``--process_id``).
 """
 
 from __future__ import annotations
 
-import os
+import contextlib
 import time
+import weakref
 from typing import Any, Dict, List, Optional
 
 import numpy as np
@@ -93,12 +112,19 @@ import torch
 from erc_tpu_torch.core import precision
 from erc_tpu_torch.core.cuda_graphs import CapturedForward, CapturedStep
 from erc_tpu_torch.core.device import resolve_device
+from erc_tpu_torch.core.experiment import Experiment
+from erc_tpu_torch.core.logger import Logger
+from erc_tpu_torch.core.meter import Meter, Record
+from erc_tpu_torch.core.metrics_db import BestMetrics, MetricBoard, PredictionStore
 from erc_tpu_torch.core.seed import RngPool
+from erc_tpu_torch.core.summary import tensors
 from erc_tpu_torch.data.collate import ERCBatcher
 from erc_tpu_torch.data.loader import DialogueLoader, GroupedLoader, PrefetchLoader, StackedGroup, to_device
 from erc_tpu_torch.data.registry import dataset_has_val, get_root, pick_datas
 from erc_tpu_torch.ops.dropout import Dropout
 from erc_tpu_torch.ops.rnn import point_rnns_at_their_parameters
+from erc_tpu_torch.train import callbacks as cbs
+from erc_tpu_torch.train import profiler
 from erc_tpu_torch.train.checkpoint import Saver, read_train_state
 from erc_tpu_torch.train.metrics import classification_summary
 from erc_tpu_torch.train.optim import clip_by_global_norm_, global_norm, has_schedule, load_optimizer_state
@@ -111,14 +137,6 @@ def _given(v) -> bool:
 # knobs of the JAX trainer that the port does not honour yet: the value each
 # may keep, and the test that it asks for more
 NOT_PORTED = {
-    "checkpoint_per_step": bool,
-    "profile_steps": bool,
-    "nan_guard": bool,
-    "eval_first": bool,
-    "debug_nans": bool,
-    "tensorboard": bool,
-    "wandb": bool,
-    "remote_url": bool,
     "coordinator": _given,
     "num_processes": _given,
     "process_id": _given,
@@ -186,7 +204,7 @@ class Trainer:
     eval_graphs = True  # on the card, replay the captured eval forward (False: eager)
     train_graphs = True  # on the card, replay the captured train step (False: eager)
 
-    def __init__(self, params):
+    def __init__(self, params, exp_name: Optional[str] = None):
         for name, asks in NOT_PORTED.items():
             if asks(params.get(name)):
                 raise NotImplementedError(f"--{name}={params.get(name)!r} is not ported to the PyTorch trainer yet")
@@ -196,7 +214,21 @@ class Trainer:
         self.check_compute_dtype(params)
         self.params = params
         self.device = resolve_device(params.get("device", 0))
+        self.debug_nans = bool(params.get("debug_nans", False))
+        if self.debug_nans:
+            self.train_graphs = False  # anomaly mode cannot run inside a CUDA graph
+        self.logger = Logger()
         self.rng = RngPool(params.seed)
+        self.exp = Experiment(exp_name or f"erc_tpu_torch.{type(self).__name__}")
+        self.exp.record_start(self.device)
+        log_file = self.logger.add_log_dir(self.exp.test_dir)
+        weakref.finalize(self, self.logger.remove_log_file, log_file)  # the singleton logger outlives the run
+        self.database = BestMetrics(self.exp.test_file("metrics.json"))
+        self.metric_board = MetricBoard(self.exp.test_file("board.jsonl"))
+        self.pred_info = PredictionStore(self.exp.blob_file("predictions.jsonl"))
+        self.saver = Saver(params.get("save_dir") or self.exp.blob_file("", "saver"))
+        self.callbacks: List[Any] = []
+        self.stopped = False
         self.model: Optional[torch.nn.Module] = None
         self.optimizer: Optional[torch.optim.Optimizer] = None
         self.grad_clip_norm: Optional[float] = None
@@ -209,9 +241,9 @@ class Trainer:
         self._dropout_rng: Optional[torch.Generator] = None
         self._test_loader = None
         self._val_loader = None
-        self._saver: Optional[Saver] = None
         self._captured: Optional[CapturedForward] = None
         self._captured_step: Optional[CapturedStep] = None
+        params.to_yaml(self.exp.test_file("params.yaml"))
 
     # ------------------------------------------------------------------ setup
     def imodels(self, params) -> None:
@@ -227,7 +259,7 @@ class Trainer:
         return precision.scoped(self.fp32_precision)
 
     def log(self, msg: str) -> None:
-        print(msg, flush=True)
+        self.logger.info(msg)
 
     def batcher(self, batch_size: Optional[int] = None) -> ERCBatcher:
         p = self.params
@@ -313,7 +345,8 @@ class Trainer:
         self.model.train()
         torch._foreach_zero_(self.grads())
         batch = precision.cast_floats(batch, self.compute_dtype)
-        with self.precision(), torch.enable_grad():
+        checks = nan_checks(self.model) if self.debug_nans else contextlib.nullcontext()
+        with self.precision(), torch.enable_grad(), checks:
             if self.compute_dtype == torch.float32:
                 loss, mets = self.loss_and_metrics(batch)
             else:
@@ -406,76 +439,147 @@ class Trainer:
                                                generators=(self._dropout_rng,), transfer_dtype=self.transfer_dtype)
         return self._captured_step
 
+    # ------------------------------------------------------------------ hooks
+    def icallbacks(self, params) -> None:
+        """Install the callbacks that the knobs ask for (the JAX trainer's
+        ``icallbacks``)."""
+        cbs.StopByCode().hook(self)
+        cbs.KeyErrorSave().hook(self)
+        cbs.FinalReport().hook(self)
+        if params.get("eval_first"):
+            cbs.EvalFirst().hook(self)
+        # both knobs: MMIN's pretrain_path alone has its own warm-start meaning
+        if params.get("pretrain", False) and params.get("pretrain_path"):
+            cbs.AutoLoadModel().hook(self)
+        if params.get("checkpoint_per_epoch"):
+            cbs.EpochCheckpoint(int(params.get("checkpoint_per_epoch"))).hook(self)
+        if params.get("checkpoint_per_step"):
+            cbs.GlobalStepCheckpoint(int(params.get("checkpoint_per_step"))).hook(self)
+        if params.get("keypoint_per_epoch"):
+            cbs.KeypointCheckpoint(int(params.get("keypoint_per_epoch"))).hook(self)
+        if params.get("resume"):
+            cbs.AutoResume().hook(self)
+        if params.get("nan_guard"):
+            cbs.NaNGuard().hook(self)
+        if params.get("tensorboard"):
+            cbs.TensorBoardCallback().hook(self)
+        if params.get("wandb"):
+            cbs.WandbCallback().hook(self)
+        if params.get("remote_url"):
+            cbs.RemoteCallback(params.get("remote_url")).hook(self)
+
+    def _fire(self, hook: str, *a, **kw) -> None:
+        """``hook`` of every callback in priority order, then the trainer's
+        own ``on_<hook>``."""
+        for cb in self.callbacks:
+            fn = getattr(cb, hook, None)
+            if fn is not None:
+                fn(self, *a, **kw)
+        own = getattr(self, "on_" + hook, None)
+        if own is not None:
+            own(*a, **kw)
+
     # ------------------------------------------------------------------- loop
     def train(self) -> List[Dict[str, Any]]:
         """Every epoch: the train steps, then the val stage (where the
         dataset has a real val split and ``eval_val`` holds) and the test
-        stage.  Returns one record per epoch: the metrics' means, steps,
-        dialogues (padding rows not counted), the train steps' wall seconds
-        and the val and test results."""
+        stage, with the callbacks fired around them.  Returns one record per
+        epoch: the metrics' means, steps, dialogues (padding rows not
+        counted), the train steps' wall seconds and the val and test
+        results."""
         p = self.params
         self.initialize()
-        if p.get("pretrain") and p.get("pretrain_path"):
-            self.load_pretrained(str(p.pretrain_path))
-        if p.get("resume"):
-            self.resume()
-        has_val = dataset_has_val(str(p.dataset))
-        if p.get("select_on", "test") == "val" and not has_val:
+        self.icallbacks(p)
+        if p.get("select_on", "test") == "val" and not dataset_has_val(str(p.dataset)):
             # selecting on val where val aliases test would save no best model at all
             self.log(f"--select_on=val but dataset {p.dataset!r} has no real val split (val aliases test); "
                      "falling back to select_on=test")
             p.select_on = "test"
         loader = self._pipeline_train(self.make_loader("train"))
-        log_every = max(int(p.get("log_every", 10)), 1)
-        eval_every = int(p.get("eval_per_epoch", 1) or 0)
-        history = []
-        for eidx in range(self.eidx, int(p.epoch)):
-            self.eidx = eidx
-            loader.set_epoch(eidx)
-            sums: Dict[str, torch.Tensor] = {}
-            n_calls = n_steps = n_dialogues = 0
-            t0 = time.perf_counter()
-            for bidx, item in enumerate(loader):
-                host_batch, k = item if isinstance(item, tuple) else (item, 1)
-                mets = self.train_batch(host_batch) if k == 1 else self.train_group(host_batch, k)
-                for name, v in mets.items():
-                    sums[name] = sums[name] + v if name in sums else v
-                n_calls += 1
-                n_steps += k
-                n_dialogues += _rows(host_batch)
-                if bidx % log_every == 0:  # reads the metrics back: keep it sparse
-                    self.log(f"e{eidx} b{bidx} " + _fmt({name: v.item() for name, v in mets.items()}))
-            # the mean over calls, a group counting once with its mean (the JAX package's Record)
-            means = {name: v.item() / max(n_calls, 1) for name, v in sums.items()}  # waits for the device
-            dt = time.perf_counter() - t0
-            self.log(f"epoch {eidx}: {_fmt(means)} | {n_steps} steps, {n_dialogues / max(dt, 1e-9):.1f} dia/s")
-            record = {"epoch": eidx, **means, "steps": n_steps, "dialogues": n_dialogues, "seconds": dt}
-            if eval_every and (eidx + 1) % eval_every == 0:
-                if p.get("eval_val", True) and has_val:
-                    record["val"] = self.evaluate()
-                record["test"] = self.test()
-            self._epoch_checkpoints(record)
-            history.append(record)
+        history: List[Dict[str, Any]] = []
+        heartbeat = self.exp.start_heartbeat() if p.get("heartbeat", True) else None
+        profile_steps = int(p.get("profile_steps", 0) or 0)
+        profiling = contextlib.ExitStack()  # open while the first steps are traced
+        try:
+            self._fire("train_begin")
+            profile_until = self.global_steps + profile_steps
+            if profile_steps > 0:
+                profile_dir = self.exp.blob_file("", "profile")
+                window = {"first_step": self.global_steps, "steps": profile_steps, "epoch": self.eidx,
+                          "steps_per_call": int(p.get("steps_per_call", 1) or 1)}
+                profiling.callback(self.log, "profile trace written")
+                profiling.enter_context(profiler.trace(profile_dir, {"erc_tpu_torch.window": window},
+                                                       cuda=self.device.type == "cuda"))
+                self.log(f"profiling the first {profile_steps} steps → {profile_dir}")
+            for eidx in range(self.eidx, int(p.epoch)):
+                self.eidx = eidx
+                history.append(self._train_epoch(loader, eidx, profiling, profile_until))
+                if self.stopped:
+                    break
+        except BaseException as e:
+            self.exp.record_end(ok=False, error=repr(e))
+            self._fire("exception", e)
+            raise
+        finally:
+            if heartbeat is not None:
+                heartbeat.stop()
+            profiling.close()  # an epoch shorter than profile_steps
+        self._fire("train_end")
+        self.metric_board.flush()
+        self.database.flush()
+        self.exp.record_end(ok=True)
         return history
 
-    def _epoch_checkpoints(self, record: Dict[str, Any]) -> None:
-        """The epoch's rotating checkpoint and keypoint.  ``best_f1`` follows
-        test F1; the rotating checkpoint is the best so far by test F1, or by
-        val F1 (which ``evaluate`` tracks) with ``--select_on=val``."""
+    def _train_epoch(self, loader, eidx: int, profiling: contextlib.ExitStack, profile_until: int) -> Dict[str, Any]:
+        """One epoch's steps, its record on the board, then its val and test
+        stages; ``profiling`` is closed once ``global_steps`` reaches
+        ``profile_until``."""
         p = self.params
-        f1 = record.get("test", {}).get("f1")
-        is_best = f1 is not None and f1 >= self.best_f1
-        if is_best:
-            self.best_f1 = f1
-        if p.get("select_on", "test") == "val":
-            val_f1 = record.get("val", {}).get("f1")
-            is_best = val_f1 is not None and val_f1 >= self.best_val_f1
-        every = int(p.get("checkpoint_per_epoch") or 0)
-        if every and (self.eidx + 1) % every == 0:
-            self.save_checkpoint(is_best=is_best)
-        every = int(p.get("keypoint_per_epoch") or 0)
-        if every and (self.eidx + 1) % every == 0:
-            self.saver.save_keypoint(self.global_steps, self.state_tree(), meta=self._meta())
+        log_every = max(int(p.get("log_every", 10)), 1)
+        eval_every = int(p.get("eval_per_epoch", 1) or 0)
+        loader.set_epoch(eidx)
+        record = Record("train")
+        self._fire("train_epoch_begin", eidx)
+        n_steps = n_dialogues = 0
+        t0 = time.perf_counter()
+        for bidx, item in enumerate(loader):
+            host_batch, k = item if isinstance(item, tuple) else (item, 1)
+            mets = self.train_batch(host_batch) if k == 1 else self.train_group(host_batch, k)
+            n_steps += k
+            n_dialogues += _rows(host_batch)
+            if self.global_steps >= profile_until:
+                profiling.close()
+            record.record(Meter().update(mets))  # device tensors: read back at agg()
+            self._fire("train_step_end", bidx, mets)
+            if self.stopped:
+                break
+            if bidx % log_every == 0:  # reads the metrics back: keep it sparse
+                self.logger.inline(f"e{eidx} b{bidx} {record}")
+        dt = time.perf_counter() - t0
+        self.logger.newline()
+        means = record.agg()  # waits for the device
+        dps = n_dialogues / max(dt, 1e-9)
+        self.log(f"epoch {eidx}: {_fmt(means)} | {n_steps} steps, {dps:.1f} dia/s")
+        self.metric_board.append({**means, "dps": dps}, step=eidx, stage="train")
+        self._fire("train_epoch_end", eidx, record)
+        result = {"epoch": eidx, **means, "steps": n_steps, "dialogues": n_dialogues, "seconds": dt}
+        if self.stopped:
+            return result
+        if eval_every and (eidx + 1) % eval_every == 0:
+            if p.get("eval_val", True) and dataset_has_val(str(p.dataset)):
+                result["val"] = self.evaluate()
+            result["test"] = self.test()
+        self._fire("epoch_end", eidx, result)
+        return result
+
+    def is_best_epoch(self, result: Dict[str, Any]) -> bool:
+        """Whether an epoch's record (``train()``'s) holds the best F1 so far:
+        test F1, or val F1 with ``--select_on=val``."""
+        if self.params.get("select_on", "test") == "val":
+            f1 = result.get("val", {}).get("f1")
+            return f1 is not None and f1 >= self.best_val_f1
+        f1 = result.get("test", {}).get("f1")
+        return f1 is not None and f1 >= self.best_f1
 
     # ------------------------------------------------------------------- eval
     def _collect_nll(self, logits: np.ndarray, labels: np.ndarray, sel: np.ndarray) -> None:
@@ -588,20 +692,25 @@ class Trainer:
         if self._val_loader is None:
             self._val_loader = self._pipeline_eval(self.make_loader("val"))
         self._reset_collectors()
-        self.on_eval_begin()
+        self._fire("eval_begin")
         self._eval_loop(self._val_loader)
         val_loss = self._nll_sum / max(self._nll_n, 1)
         res: Dict[str, Any] = {"Lall": val_loss}
         if self._true:
             summ = classification_summary(self._true, self._pred, p.n_classes)
             res.update({k: summ[k] for k in ("acc", "f1", "wa")})
+        self.metric_board.append(res, step=self.eidx, stage="val")
+        self.metric_board.flush()
         self.log(f"val: Lall={val_loss:.5f}" + (f" f1={res['f1']:.5f}" if "f1" in res else ""))
-        if p.get("select_on", "test") == "val" and "f1" in res and res["f1"] >= self.best_val_f1:
-            self.best_val_f1 = res["f1"]
-            self.save_model("best_val")
+        if p.get("select_on", "test") == "val" and "f1" in res:
+            with self.database as db:
+                db.update_metrics({"val_f1": res["f1"]}, compare="max")
+            if res["f1"] >= self.best_val_f1:
+                self.best_val_f1 = res["f1"]
+                self.save_model("best_val", is_best=True)
         if self.plateau_source == "val":
             self._plateau_step(val_loss if self._nll_n else None)
-        self.on_eval_end(res)
+        self._fire("eval_end", res)
         return res
 
     def test(self) -> Dict[str, Any]:
@@ -611,7 +720,7 @@ class Trainer:
         if self._test_loader is None:
             self._test_loader = self._pipeline_eval(self.make_loader("test"))
         self._reset_collectors()
-        self.on_test_begin()
+        self._fire("test_begin")
         self._eval_loop(self._test_loader)
         test_loss = self._nll_sum / max(self._nll_n, 1)
         res: Dict[str, Any] = {}
@@ -621,23 +730,30 @@ class Trainer:
             if p.get("confusion_matrix", True):
                 self.log(str(cm))
             self.log("test: " + _fmt({k: res[k] for k in ("acc", "wa", "pre", "rec", "f1", "mif1", "maf1")}))
+            best = Meter()
+            with self.database as db:
+                for key in ("pre", "rec", "f1"):
+                    best.update(db.update_metric_pair(key, res[key], f"cls_{key}", res[f"cls_{key}"]))
+                best.update(db.update_metrics({k: res[k] for k in ("acc", "wa", "mif1", "maf1")}, compare="max"))
+            self.metric_board.append({**res, "Lall": test_loss, "cm": cm}, step=self.eidx, stage="test")
+            self.metric_board.flush()  # per test: a crash must not drop board rows
+            self.log(f"Best Results {best}")
+            self.pred_info.append([self._true, self._pred])
+            self.pred_info.flush()
+            is_best = res["f1"] >= self.best_f1
+            if is_best:
+                self.best_f1 = res["f1"]
+            # with --select_on=val the val stage keeps best.model.ckpt
+            if is_best and p.get("select_on", "test") == "test":
+                self.save_model("best", is_best=True)
         res["Lall"] = test_loss
         self.log(f"test: Lall={test_loss:.5f} over {self._nll_n} utterances")
         if self.plateau_source == "test":
             self._plateau_step(test_loss if self._nll_n else None)
-        self.on_test_end(res)
+        self._fire("test_end", res)
         return res
 
     # ------------------------------------------------------------ checkpoints
-    @property
-    def saver(self) -> Saver:
-        if self._saver is None:
-            p = self.params
-            save_dir = p.get("save_dir") or os.path.join(
-                os.path.expanduser("~"), ".erc_tpu_torch", "saver", str(p.get("module") or "model"), str(p.dataset))
-            self._saver = Saver(save_dir)
-        return self._saver
-
     def state_tree(self) -> Dict[str, Any]:
         """What a checkpoint holds: the state dicts of the model, the
         optimizer and the plateau controller (where there is one), the
@@ -651,35 +767,42 @@ class Trainer:
             tree["lr_sche"] = self.lr_sche.state_dict()
         return tree
 
-    def _meta(self) -> Dict[str, Any]:
-        return {"eidx": self.eidx, "global_steps": self.global_steps}
-
-    def save_model(self, tag: str = "last") -> str:
-        path = self.saver.save_model(tag, self.state_tree(), meta=self._meta())
+    def save_model(self, tag: str = "last", is_best: bool = False) -> str:
+        """``model.<tag>.ckpt`` (and, ``is_best``, ``best.model.ckpt``), its
+        meta carrying ``params.hash()``."""
+        path = self.saver.save_model(tag, self.state_tree(), is_best=is_best,
+                                     meta={"eidx": self.eidx, "global_steps": self.global_steps,
+                                           "params_hash": self.params.hash()})
         self.log(f"saved {path}")
         return path
 
-    def save_checkpoint(self, is_best: bool = False) -> str:
-        """The rotating checkpoint of the epoch just ended."""
-        return self.saver.save_checkpoint(self.global_steps, self.state_tree(),
-                                          meta={**self._meta(), "epoch_end": True}, is_best=is_best)
+    def save_checkpoint(self, is_best: bool = False, epoch_end: bool = False) -> str:
+        """The rotating checkpoint; its meta records both counters, whether
+        the epoch ended (``AutoResume`` continues at ``eidx + 1`` if so, else
+        runs the epoch again) and ``params.resume_hash()`` (a relaunched
+        ``--resume`` run finds sibling runs' checkpoints by it)."""
+        return self.saver.save_checkpoint(
+            self.global_steps, self.state_tree(), is_best=is_best,
+            meta={"eidx": self.eidx, "global_steps": self.global_steps, "epoch_end": bool(epoch_end),
+                  "params_hash": self.params.resume_hash()})
+
+    def load_checkpoint(self, path: Optional[str] = None) -> str:
+        """Restore a file of the Saver (the newest rotating checkpoint where
+        ``path`` is None); returns its path."""
+        self.initialize()
+        path = path or self.saver.latest_checkpoint()
+        if not path:
+            raise FileNotFoundError(f"no checkpoint in {self.saver.save_dir}")
+        self.load_state_tree(self.saver.load(path))
+        return path
 
     def resume(self) -> Optional[str]:
-        """Restore the newest readable rotating checkpoint (a torn file is
-        passed over for the next-oldest) and continue at the epoch after its
-        own; returns its path, or None where there is none."""
+        """``--resume``: restore the newest readable checkpoint of this run,
+        else of a sibling run with the same ``params.resume_hash()``, and its
+        counters (``callbacks.AutoResume``); returns its path, or None where
+        there is none."""
         self.initialize()
-        for path in reversed(self.saver.list_checkpoints()):
-            try:
-                tree = self.saver.load(path)
-            except (OSError, RuntimeError) as e:
-                self.log(f"unreadable checkpoint {path}: {e!r}")
-                continue
-            self.load_state_tree(tree)
-            self.eidx += 1
-            self.log(f"resumed from {path} (eidx={self.eidx}, global_steps={self.global_steps})")
-            return path
-        return None
+        return cbs.AutoResume().resume(self)
 
     def load_pretrained(self, path: str) -> None:
         """``--pretrain``: the model and the optimizer state (its LR and a
@@ -710,14 +833,56 @@ class Trainer:
         self.best_val_f1 = tree.get("best_val_f1", float("-inf"))  # older checkpoints lack it
 
 
+def _finite(t: torch.Tensor) -> bool:
+    return not t.is_floating_point() or bool(torch.isfinite(t).all())  # waits for the device
+
+
+@contextlib.contextmanager
+def nan_checks(model: torch.nn.Module):
+    """``--debug_nans`` around a forward and backward: ``FloatingPointError``
+    at the first module whose forward output is not finite (forward hooks,
+    innermost module first), or whose output's gradient is not finite
+    (tensor hooks), and, under autograd's anomaly mode, where a backward
+    function returns a non-finite gradient, naming the module whose output
+    gradient autograd took last.  Every check reads back from the device, so
+    it runs eagerly only."""
+    names = {m: n or type(model).__name__ for n, m in model.named_modules()}
+    last = {"module": None}
+
+    def grad_hook(name, g):
+        last["module"] = name
+        if not _finite(g):
+            raise FloatingPointError(f"--debug_nans: non-finite gradient of the output of module {name!r}")
+
+    def forward_hook(m, args, out):
+        name = names[m]
+        for t in tensors(out):
+            if not _finite(t):
+                raise FloatingPointError(f"--debug_nans: non-finite forward output of module {name!r} "
+                                         f"({type(m).__name__}, shape {tuple(t.shape)})")
+            if t.requires_grad:
+                t.register_hook(lambda g, name=name: grad_hook(name, g))
+
+    handles = [m.register_forward_hook(forward_hook) for m in model.modules()]
+    try:
+        with torch.autograd.detect_anomaly(check_nan=True):
+            yield
+    except RuntimeError as e:
+        if "nan values" not in str(e):
+            raise
+        raise FloatingPointError(f"--debug_nans: non-finite gradient in the backward of module "
+                                 f"{last['module']!r}: {e}") from e
+    finally:
+        for h in handles:
+            h.remove()
+
+
 def _rows(host_batch: Dict[str, np.ndarray]) -> int:
     """Rows of a host batch that are not padding: dialogues of length > 0, or
     utterances with ``sample_mask`` > 0 where the batch has no ``text_length``."""
     if host_batch.get("text_length") is not None:
         return int((host_batch["text_length"] > 0).sum())
     return int((host_batch["sample_mask"] > 0).sum())
-
-
 
 
 def _out_slice(out, i: int):

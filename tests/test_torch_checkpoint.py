@@ -7,7 +7,9 @@
   back equal.
 - The trainer's writers of the tiers (COGMEN and DAG-ERC on the CPU, at
   dropout 0.5): ``--checkpoint_per_epoch`` and ``--keypoint_per_epoch``
-  leave their files, the best epoch's checkpoint is ``best.checkpoint.ckpt``,
+  leave their files (and the test stage its best model, ``model.best.ckpt``
+  and ``best.model.ckpt``, as the JAX trainer's test stage does), the best
+  epoch's checkpoint is ``best.checkpoint.ckpt``,
   and a run of one epoch resumed (``--resume``, past a torn newer file) for
   a second ends with the parameters of an uninterrupted two-epoch run,
   bit for bit.
@@ -42,6 +44,7 @@ from erc_tpu.train import optim as joptim
 from erc_tpu.train.trainer import TrainState
 from erc_tpu_torch.serve import InferenceEngine
 from erc_tpu_torch.train import checkpoint as tcheckpoint
+from torch_exproot import exproot_per_module, exproot_per_test  # noqa: F401 (autouse fixtures)
 
 
 # ------------------------------------------------------------------ Saver
@@ -117,12 +120,12 @@ def test_trainer_writes_the_tiers_and_resumes(tmp_path, module):
     full, history = _run(module, tmp_path / "full", "--epoch=2", "--checkpoint_per_epoch=1", "--keypoint_per_epoch=1")
     assert sorted(os.listdir(tmp_path / "full")) == sorted(
         [f"{t}.0000000{n}.ckpt{m}" for t in ("checkpoint", "key") for n in (2, 4) for m in ("", ".json")]
-        + ["best.checkpoint.ckpt"])
+        + ["best.checkpoint.ckpt", "model.best.ckpt", "model.best.ckpt.json", "best.model.ckpt"])
     f1 = [r["test"]["f1"] for r in history]
     best = torch.load(tmp_path / "full" / "best.checkpoint.ckpt", weights_only=True)
     assert best["step"] == (4 if f1[1] >= f1[0] else 2) and best["best_f1"] == max(f1)
     meta = json.loads((tmp_path / "full" / "checkpoint.00000004.ckpt.json").read_text())
-    assert meta == {"eidx": 1, "global_steps": 4, "epoch_end": True}
+    assert meta == {"eidx": 1, "global_steps": 4, "epoch_end": True, "params_hash": full.params.resume_hash()}
 
     part, _ = _run(module, tmp_path / "part", "--epoch=1", "--checkpoint_per_epoch=1")
     (tmp_path / "part" / "checkpoint.00000099.ckpt").write_bytes(b"PK\x03\x04 torn")

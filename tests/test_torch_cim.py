@@ -44,6 +44,7 @@ from erc_tpu_torch.models import cogmen_mosei as tcogmen_mosei
 from erc_tpu_torch.serve import InferenceEngine
 from erc_tpu_torch.train.checkpoint import load_model_state
 from erc_tpu_torch.train.trainer import masked_cross_entropy
+from torch_exproot import exproot_per_module, exproot_per_test  # noqa: F401 (autouse fixtures)
 
 ATOL = RTOL = 1e-5
 DIMS = dict(text_dim=8, audio_dim=6, visual_dim=5)

@@ -54,6 +54,7 @@ from erc_tpu.train import trainer as jtrainer
 from erc_tpu_torch import convert
 from erc_tpu_torch.models import cogmen as tcogmen
 from erc_tpu_torch.train.trainer import masked_cross_entropy
+from torch_exproot import exproot_per_module, exproot_per_test  # noqa: F401 (autouse fixtures)
 
 ROOT = Path(__file__).resolve().parents[1]
 RTOL = 1e-5

@@ -28,7 +28,10 @@ for each of its three trainers, TF32 flag on.  The bfloat16 train step
 K steps a replay (``steps_per_call``): one replay of a group of 4 ≡ 4 eager
 steps bit for bit, with 4 x one step's launches (COGMEN banded, DAG-ERC's
 kernel form, lars under a Cos schedule); K eval batches a replay ≡ the
-batches' single replays bit for bit.
+batches' single replays bit for bit.  The runtime: ``device_memory_stats``
+gives numbers on the card, and ``--profile_steps``' Chrome trace of a
+captured COGMEN banded step holds K1, K2 and K1ᵀ as the launch counts
+moved.
 """
 
 import gc
@@ -38,6 +41,7 @@ import pytest
 import torch
 
 from erc_tpu_torch.ops.kernels import banded as kb
+from torch_exproot import exproot_per_module, exproot_per_test  # noqa: F401 (autouse fixtures)
 
 pytestmark = pytest.mark.cuda
 
@@ -1273,3 +1277,51 @@ def test_k_eval_replay_equals_single_batches(cuda, module):
     assert group.shape[0] == 4 and moved == {k: 4 * v for k, v in one.items()} and moved
     for i, s in enumerate(singles):
         np.testing.assert_array_equal(group[i], s)
+
+
+def test_device_memory_stats_on_the_card(cuda):
+    """The caching allocator's counters under the JAX function's keys: numbers,
+    not None, in use no more than the peak and below the card's memory."""
+    from erc_tpu_torch.core import memstat
+
+    x = torch.empty(1 << 20, device=cuda)
+    stats = memstat.device_memory_stats(cuda)
+    assert stats is not None and stats["bytes_in_use"] >= x.numel() * 4
+    assert stats["bytes_in_use"] <= stats["peak_bytes_in_use"] < stats["bytes_limit"] <= \
+        torch.cuda.get_device_properties(cuda).total_memory
+    assert stats["largest_alloc_size"] >= x.numel() * 4 and "MiB" in memstat.memory_report()
+
+
+def test_profiled_captured_step_trace_holds_the_band_kernels(cuda, tmp_path, monkeypatch):
+    """--profile_steps=3 over COGMEN banded training: the bucket's eager first
+    step, its capture and two replays in the window; the Chrome trace holds
+    K1, K2 and K1ᵀ as many times as the launch counts moved over it."""
+    import json
+
+    from erc_tpu_torch.train import callbacks as cbs
+
+    monkeypatch.setenv("ERC_TPU_EXPROOT", str(tmp_path))
+    trainer = _cogmen_trainer("banded", sche=("--profile_steps=3", "--batch_count=4", "--length_bucket=96",
+                                              "--epoch=1", "--eval_per_epoch=0"))
+    seen = {}
+
+    class Window(cbs.Callback):
+        def train_begin(self, tr):
+            seen["before"] = _all_counts()
+
+        def train_step_end(self, tr, bidx, mets):
+            if tr.global_steps == 3:
+                seen["after"] = _all_counts()
+
+    Window().hook(trainer)
+    trainer.train()
+    assert trainer.captured_step.replays == 3
+    trace = json.load(open(tmp_path / "blob" / trainer.exp.exp_name / trainer.exp.test_name / "profile" /
+                           "trace.pt.trace.json"))
+    names = [e["name"] for e in trace["traceEvents"] if e.get("cat") == "kernel"]
+    moved = {k: seen["after"][k] - seen["before"][k] for k in ("banded_gather_sum", "banded_dot",
+                                                               "banded_gather_sum_t")}
+    traced = {"banded_gather_sum": sum("banded_gather_sum_kernel<" in n and "true>" not in n for n in names),
+              "banded_dot": sum("banded_dot_kernel<" in n for n in names),
+              "banded_gather_sum_t": sum("banded_gather_sum_kernel<" in n and "true>" in n for n in names)}
+    assert traced == moved and all(moved.values()), (traced, moved)

@@ -57,6 +57,7 @@ from erc_tpu_torch.ops import rnn as trnn
 from erc_tpu_torch.serve import InferenceEngine
 from erc_tpu_torch.train.checkpoint import load_model_state
 from erc_tpu_torch.train.trainer import masked_cross_entropy
+from torch_exproot import exproot_per_module, exproot_per_test  # noqa: F401 (autouse fixtures)
 
 ROOT = Path(__file__).resolve().parents[1]
 ATOL = RTOL = 1e-5

@@ -28,6 +28,7 @@ from erc_tpu_torch.models import mmin_base, mmin_miss, mmin_miss2
 from erc_tpu_torch.serve import InferenceEngine
 from erc_tpu_torch.train import trainer as ttrainer
 from test_torch_mmin_train import assert_trajectory, batches, draw_params, jax_reference, port_trainer
+from torch_exproot import exproot_per_module, exproot_per_test  # noqa: F401 (autouse fixtures)
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -43,6 +43,7 @@ from erc_tpu_torch import convert
 from erc_tpu_torch.core.seed import RngPool
 from erc_tpu_torch.models import mmin_base, mmin_miss, mmin_miss2
 from erc_tpu_torch.ops.dropout import Dropout
+from torch_exproot import exproot_per_module, exproot_per_test  # noqa: F401 (autouse fixtures)
 
 TOL = 1e-5
 WIDTHS = {"audio_feature": 16, "visual_feature": 20, "text_feature": 32}

@@ -49,6 +49,7 @@ from erc_tpu_torch.data.collate import ERCBatcher
 from erc_tpu_torch.models import cogmen as tcogmen
 from erc_tpu_torch.models import mmin_base as tmmin
 from erc_tpu_torch.ops.dropout import Dropout
+from torch_exproot import exproot_per_module, exproot_per_test  # noqa: F401 (autouse fixtures)
 
 TOL = 1e-5
 ZERO_GRAD = {f"gcn.conv2.lin_{n}.bias" for n in ("key", "value", "skip")}

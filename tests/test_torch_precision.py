@@ -18,8 +18,9 @@
   to trace there; ``--matmul_precision`` takes ``highest``/``float32`` and
   ``high``/``tensorfloat32``, defaults to ``highest``, raises for
   ``bfloat16``/``default``/``fastest``, and its scope restores torch's
-  settings; the knobs the port reads but does not honour yet raise
-  ``NotImplementedError``.
+  settings; the knobs the port reads but does not honour yet (the
+  distributed ones) raise ``NotImplementedError``, and those of the
+  runtime slice build.
 
 The families' bfloat16 steps against the JAX package's are in
 ``test_torch_precision_graph.py``, ``test_torch_precision_seq.py`` and
@@ -53,6 +54,7 @@ from erc_tpu_torch.core import precision
 from erc_tpu_torch.core.cuda_graphs import host_tensor
 from erc_tpu_torch.data.loader import to_device
 from erc_tpu_torch.ops.dropout import Dropout
+from torch_exproot import exproot_per_module, exproot_per_test  # noqa: F401 (autouse fixtures)
 
 LOSS_RTOL = 2e-2  # the port's bfloat16 loss against the JAX package's, relative
 GRAD_RTOL = 5e-2  # each gradient's gap, relative to its norm ...
@@ -402,6 +404,9 @@ def test_matmul_precision_is_scoped_to_the_trainer():
 
 
 # ------------------------------------------------------------ not ported yet
+# the JAX trainer's knobs that the port refused until its runtime slice; the
+# first eight are honoured since (tests/test_torch_callbacks.py and
+# test_torch_runtime.py run each), the distributed three still raise
 NOT_PORTED = [("checkpoint_per_step", 100), ("profile_steps", 5), ("nan_guard", True), ("eval_first", True),
               ("debug_nans", True), ("tensorboard", True), ("wandb", True), ("remote_url", "http://localhost:8000"),
               ("coordinator", "localhost:1234"), ("num_processes", 2), ("process_id", 0)]
@@ -409,6 +414,12 @@ NOT_PORTED = [("checkpoint_per_step", 100), ("profile_steps", 5), ("nan_guard", 
 
 @pytest.mark.parametrize("knob, value", NOT_PORTED, ids=[k for k, _ in NOT_PORTED])
 def test_knobs_not_ported_raise(knob, value):
+    from erc_tpu_torch.train import trainer as ttrainer
+
+    if knob not in ttrainer.NOT_PORTED:
+        assert knob not in ("coordinator", "num_processes", "process_id")
+        assert _cogmen(f"--{knob}={value}").params.get(knob) == value
+        return
     with pytest.raises(NotImplementedError, match=f"--{knob}="):
         _cogmen(f"--{knob}={value}")
 

@@ -10,6 +10,7 @@ forms of COGMEN and DialogueGCN do not train in bfloat16 in either package
 import pytest
 
 from test_torch_precision import FAMILIES, assert_bf16_step_matches, no_flax_dropout  # noqa: F401 (a fixture)
+from torch_exproot import exproot_per_module, exproot_per_test  # noqa: F401 (autouse fixtures)
 
 
 @pytest.mark.parametrize("name", ["cogmen", "dgcn", "mmgcn-dense", "mmgcn-structured"])

@@ -10,6 +10,7 @@ bfloat16 error for it, floored at 1e-3 of the global norm)."""
 import pytest
 
 from test_torch_precision import FAMILIES, assert_bf16_step_matches, no_flax_dropout  # noqa: F401 (a fixture)
+from torch_exproot import exproot_per_module, exproot_per_test  # noqa: F401 (autouse fixtures)
 
 
 @pytest.mark.parametrize("name", ["cim", "mmin_base", "mmin_miss", "mmin_miss2"])

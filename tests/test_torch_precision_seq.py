@@ -11,6 +11,7 @@ in either package (``test_torch_precision.py``)."""
 import pytest
 
 from test_torch_precision import FAMILIES, assert_bf16_step_matches, no_flax_dropout  # noqa: F401 (a fixture)
+from torch_exproot import exproot_per_module, exproot_per_test  # noqa: F401 (autouse fixtures)
 
 
 @pytest.mark.parametrize("name", ["dagerc", "dgcnv2-LSTM", "dgcnv2-GRU", "dgcnv2_daily"])

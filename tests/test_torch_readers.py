@@ -19,6 +19,7 @@ from erc_tpu.data import readers as jreaders
 from erc_tpu.data import registry as jregistry
 from erc_tpu_torch.data import readers as treaders
 from erc_tpu_torch.data import registry as tregistry
+from torch_exproot import exproot_per_module, exproot_per_test  # noqa: F401 (autouse fixtures)
 
 NAMES = sorted(n for n in tregistry.regist_data if n.startswith("iemocap-cogmen"))
 MELD_NAMES = ("meld-mmgcn-7", "meld-mmgcn-sbert-7")

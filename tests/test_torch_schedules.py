@@ -36,6 +36,7 @@ from erc_tpu_torch.models import dagerc as tdagerc
 from erc_tpu_torch.train import optim as toptim
 
 from test_torch_precision import FAMILIES, _state, host_batch, jax_trainer, port_trainer
+from torch_exproot import exproot_per_module, exproot_per_test  # noqa: F401 (autouse fixtures)
 
 CURVES = [("Constant", dict(value=0.3)), ("Linear", dict(start=1.0, end=0.1, left=2, right=9)),
           ("Cos", dict(start=1e-3, end=1e-5, left=1, right=12)), ("Exp", dict(start=0.0, end=2.0, right=7)),

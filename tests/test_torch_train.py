@@ -64,6 +64,7 @@ from erc_tpu_torch.ops.kernels import dag_block as tdb
 from erc_tpu_torch.train import metrics as tmetrics
 from erc_tpu_torch.train import optim as toptim
 from erc_tpu_torch.train import trainer as ttrainer
+from torch_exproot import exproot_per_module, exproot_per_test  # noqa: F401 (autouse fixtures)
 
 ROOT = Path(__file__).resolve().parents[1]
 RTOL = 1e-5

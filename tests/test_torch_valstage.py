@@ -26,6 +26,7 @@ from erc_tpu_torch.models import cogmen as tcogmen
 from erc_tpu_torch.models import dgcnv2 as tdgcnv2
 from erc_tpu_torch.ops.dropout import Dropout
 from erc_tpu_torch.train import trainer as ttrainer
+from torch_exproot import exproot_per_module, exproot_per_test  # noqa: F401 (autouse fixtures)
 
 TOL = 1e-5
 DAILY_FILES = {
@@ -167,13 +168,15 @@ class _ValPlateau(tdgcnv2.DGCNV2DailyTrainer):
 
 
 @pytest.mark.parametrize("source", ["val", "test"])
-def test_plateau_source_picks_the_loss_that_steps_the_controller(daily_root, tmp_path, source):
+def test_plateau_source_picks_the_loss_that_steps_the_controller(daily_root, tmp_path, source, monkeypatch):
     assert ttrainer.Trainer.plateau_source == jtrainer.Trainer.plateau_source == "test"
     cls = _ValPlateau if source == "val" else type("_TestPlateau", (_ValPlateau,), {"plateau_source": "test"})
     trainer = _port_daily(daily_root, tmp_path, "--epoch=1", cls=cls)
     stepped = []
-    step = trainer.lr_sche.step
-    trainer.lr_sche.step = lambda loss: (stepped.append(loss), step(loss))
+    # on the class: the test stage's best model pickles the scheduler's state, which an instance attribute joins
+    plateau = type(trainer.lr_sche)
+    step = plateau.step
+    monkeypatch.setattr(plateau, "step", lambda self, loss: (stepped.append(loss), step(self, loss)))
     history = trainer.train()
     assert stepped == [r[source]["Lall"] for r in history]
 
