@@ -162,9 +162,31 @@ Phases (any failure raises, so the exit code is non-zero):
      for information, COGMEN dense's step FLOPs (core.flops, card ≡ CPU: a hard
      check) over its replayed busy time, cli mem's report, cli warm's capture
      seconds and the epoch rates with the callbacks on and off;
- 20. print the run's wall time, one JSON line of kernel records (K1/K2/K1ᵀ
+ 20. data-parallel training (drive_ddp, parallel/mesh.py): (b) two ranks
+     of scripts/torch_mp_worker.py in their own processes, sharing the card
+     (so gloo, and eager steps), whose group the worker starts from the
+     --coordinator flags before it builds a trainer, as the entry points do: COGMEN banded at full width and DAG-ERC's kernel form at the
+     IEMOCAP reimplement settings, dropout 0, 3 steps and test() each,
+     against one process on the card (losses within rtol 2e-5 and atol 2e-6,
+     the ranks within rtol 1e-6 of each other, test F1 equal), the batch
+     norm's running statistics equal on both ranks, one run directory that
+     rank 0 alone wrote, and each rank's K1/K2/K1ᵀ (6 + 2 + 6 a step) and
+     K3/K4 (8 and 4 a block of 16 a step) launches; then (a) 3 replayed
+     COGMEN banded steps and a replayed group of 2 without a group (timed
+     then), and the same with this process as the one rank of an NCCL group
+     started from the same flags (the gradient all-reduce captured in the
+     graph, twice in the group's): bit for bit in every step's metrics and
+     every tensor the step touches, one capture of each, the grouped steps'
+     K1/K2/K1ᵀ launches (6 + 2 + 6 a step, counted from 0 around them), a
+     device trace of a replay against the launch counts (and NCCL's
+     operations in it), and, for information, a replayed step's wall and
+     busy time with and without the group and the ranks' step walls against
+     one process's.  The phase's launches (`ddp_launches`) are the gloo
+     ranks' and the NCCL rank's steps' alone;
+ 21. print the run's wall time, one JSON line of kernel records (K1/K2/K1ᵀ
      also at DialogueGCN's shapes, K = 10 and 21, D = 100 and 200, with their
-     launches on its paths), the card's name and power limit, and a last
+     launches on its paths; K1–K4 with their launches on the ddp path,
+     `ddp_launches`), the card's name and power limit, and a last
      JSON line {"ok": true, "device": {...}}.
 Each model path is driven with every launch count set to 0 just before it
 and read just after.
@@ -1884,10 +1906,13 @@ def _cogmen_trainer(graph_impl="banded", *extra, device="cuda", dropout=None):
     dropout 0.5; weights from seed 1, the same on every device)."""
     from erc_tpu_torch.models import cogmen
 
+    from erc_tpu_torch.train.trainer import start_group
+
     p = cogmen.COGMENParams()
     p.finalize([*COGMEN_TRAIN_ARGS, f"--graph_impl={graph_impl}", f"--device={device}", "--epoch=1", *extra])
     if dropout is not None:
         p.drop_rate = dropout
+    start_group(p)  # as the entry point does: the group that --coordinator asks for, before the trainer
     trainer = cogmen.COGMENTrainer(p)
     trainer.log = lambda msg: log(f"  [trainer] {msg}")
     trainer.initialize()
@@ -3991,6 +4016,239 @@ def drive_runtime(card: str):
     log(f"runtime phase: {time.perf_counter() - t0:.1f} s")
 
 
+# ------------------------------------------------------------------ phase 20
+DDP_LOSS_RTOL, DDP_LOSS_ATOL = 2e-5, 2e-6  # tests/test_multiprocess.py's: ranks against one process
+DDP_RANK_RTOL = 1e-6  # the ranks against each other
+DDP_STEPS = 3
+DDP_TIMEOUT = 300  # seconds for the two ranks' processes
+DDP_RANK_DEVICE = "cuda:0"  # both ranks on the one card: gloo
+DDP_TIMING_ROUNDS = 15
+
+
+def _free_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def _steps_and_state(run, host) -> dict:
+    """`run.train_batch` of each host batch, then two groups of 2 of them through `run.train_group` (the first
+    group trained as 2 eager steps and captured, the second one 2-step replay); every step's (and group's)
+    metrics and every tensor the step reads or writes, copied."""
+    import torch
+    from erc_tpu_torch.data.loader import StackedGroup
+
+    mets = [run.train_batch(b) for b in host]
+    mets += [run.train_group(StackedGroup(host[i: i + 2]), 2) for i in (0, 2)]
+    torch.cuda.synchronize()
+    out = {f"step {i} {k}": v.detach().clone() for i, m in enumerate(mets) for k, v in m.items()}
+    out.update(zip(_state_names(run), (t.detach().clone() for t in run._step_tensors())))
+    return out
+
+
+def _ddp_step_times(run, batch, name: str) -> tuple:
+    """(information) A replayed step's wall (median of DDP_TIMING_ROUNDS) and busy ms."""
+    walls = [_step_time(lambda: run.train_batch(batch)) for _ in range(DDP_TIMING_ROUNDS)]
+    wall = statistics.median(walls)
+    return wall * 1e3, _profile(lambda: run.train_batch(batch), f"ddp: COGMEN banded replayed step, {name}", wall)
+
+
+def _ddp_check_graphs(run, name: str) -> None:
+    """One capture of the step and one of the group, and DDP_STEPS + 1 replays, after `_steps_and_state`."""
+    graphs = run._captured_step
+    require(graphs.captures == 2 and graphs.replays == DDP_STEPS + 1,
+            f"ddp, {name}: {graphs.captures} captures and {graphs.replays} replays, want 2 (a step, a group of 2) "
+            f"and {DDP_STEPS + 1}")
+
+
+def _ddp_one_rank_nccl(card: str) -> dict:
+    """(a) COGMEN banded at full width, 4 batches of one shape bucket (the first trained eagerly and captured,
+    3 replayed) and two groups of 2 of them at K = 2 (the all-reduce twice in one graph), first without a process
+    group (and timed then, while none is up), then as the one rank of an NCCL group that the entry point's
+    start_group begins from --coordinator, --num_processes and --process_id: every step's losses and gnorm, the
+    parameters, gradients, buffers and optimizer state bit for bit, one capture of each kind and 4 replays, the
+    grouped run's K1/K2/K1ᵀ launches (counted from 0 around its steps alone) 8 steps' worth, a device trace of a
+    replay with the group against the launch counts, and (information) a replayed step's wall and busy time
+    with and without the group.  Returns the grouped run's launches and the times."""
+    import torch
+    from erc_tpu_torch.parallel import mesh
+
+    one_bucket = "--length_bucket=96"
+    alone = _cogmen_trainer("banded", one_bucket)
+    require(not mesh.grouped(), f"ddp: {mesh.describe()} before the NCCL rank started")
+    host = list(alone.make_loader("train"))[: DDP_STEPS + 1]
+    require(len(_host_buckets(host)) == 1, "ddp: the batches span several shape buckets")
+    ref = _steps_and_state(alone, host)
+    _ddp_check_graphs(alone, "no group")
+    times = {"no group": _ddp_step_times(alone, host[1], "no group")}
+    port = _free_port()
+    grouped = _cogmen_trainer("banded", one_bucket, f"--coordinator=localhost:{port}", "--num_processes=1",
+                              "--process_id=0")
+    require(mesh.grouped() and mesh.backend() == "nccl" and mesh.process_count() == 1,
+            f"ddp: the entry point's flags started {mesh.describe()}, want one NCCL rank")
+    log(f"ddp: {mesh.describe()}")
+    require(grouped.train_graphs, "ddp: the one NCCL rank does not capture its train step")
+    _reset_launches()
+    got = _steps_and_state(grouped, host)
+    path = {k: n for k, n in _read_launches().items() if n}
+    n_steps = len(host) + 4  # 4 single steps, then two groups of 2
+    want = {k: n_steps * n for k, n in TRAIN_STEP_LAUNCHES.items()}
+    require(path == want, f"ddp: the NCCL rank's {n_steps} steps launched {path}, want {want}")
+    _ddp_check_graphs(grouped, "NCCL group")
+    require(ref.keys() == got.keys(), "ddp: the runs give other quantities")
+    for k, a in ref.items():
+        require(torch.equal(a, got[k]), f"ddp: with the NCCL group, {k} differs from the run without a group "
+                f"(max abs diff {float((got[k].double() - a.double()).abs().max())})")
+    log(f"ddp: {DDP_STEPS} replayed steps and a replayed group of 2 with the all-reduce captured ≡ the same without "
+        f"a group, bit for bit in {len(ref)} quantities (losses, gnorm, parameters, gradients, buffers, optimizer "
+        f"state, LR); one capture of the step and one of the group, {DDP_STEPS + 1} replays, each; the NCCL rank's "
+        f"{n_steps} steps launched {path}")
+    from torch.profiler import ProfilerActivity, profile
+
+    before = _all_launches()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        grouped.train_batch(host[1])
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    traced = _trace_check("ddp: a replayed step with the NCCL group", before, names)
+    nccl = sorted({n for n in names if "nccl" in n.lower()})
+    log(f"ddp: NCCL's device operations in the replayed step's trace: {nccl or 'none'} ({len(names)} in all)")
+    times["NCCL group"] = _ddp_step_times(grouped, host[1], "NCCL group")
+    log(f"ddp: a replayed step (32 x 96), wall (median of {DDP_TIMING_ROUNDS}; no group first, then the group) "
+        "/ busy ms: " + "; ".join(f"{k} {w:.3f} / {b if b is None else round(b, 3)}" for k, (w, b) in times.items()))
+    return {"launches": path, "traced": traced, "nccl_ops": nccl, "times": times}
+
+
+def _ddp_reference(host_jobs) -> dict:
+    """(b)'s one-process reference on the card: each job's trainer (dropout 0) takes 3 eager steps on the
+    train loader's first batches, then test()."""
+    import torch
+
+    out = {}
+    for name, make in host_jobs:
+        run = make()
+        run.train_graphs = False  # as the ranks under gloo step
+        walls, losses = [], []
+        for b in list(run.make_loader("train"))[:DDP_STEPS]:
+            t0 = time.perf_counter()
+            losses.append(float(run.train_batch(b)["Lall"]))
+            walls.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        out[name] = {"losses": losses, "walls": walls, "test_f1": run.test()["f1"], "test_dir": run.exp.test_dir}
+    return out
+
+
+def _ddp_two_gloo_ranks(card: str) -> dict:
+    """(b) two ranks sharing the card (gloo, eager steps), in their own processes
+    (scripts/torch_mp_worker.py): COGMEN banded at full width and DAG-ERC's kernel form at the IEMOCAP
+    reimplement settings, dropout 0, 3 steps and test() each, against one process; the BN running statistics
+    equal on both ranks, one run directory that rank 0 alone wrote, and each rank's K1, K2, K1ᵀ, K3 and K4
+    launches what its steps should launch."""
+    import os
+    import tempfile
+
+    import numpy as np
+
+    dag_args = [*TRAIN_ARGS, "--epoch=1"]
+    cog_args = [*COGMEN_TRAIN_ARGS, "--graph_impl=banded", "--epoch=1", "--drop_rate=0.0"]
+    ref = _ddp_reference([("cogmen", lambda: _cogmen_trainer("banded", dropout=0.0)),
+                          ("dagerc", lambda: _trainer(dropout=0.0))])
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_ddp_"))
+    common = [f"--device={DDP_RANK_DEVICE}", "--prefetch=false", "--heartbeat=false"]
+    jobs = [{"name": "cogmen", "module": "cogmen", "args": [*cog_args, *common], "steps": DDP_STEPS, "test": True,
+             "dump": str(tmp / "cogmen.{rank}.npz")},
+            {"name": "dagerc", "module": "dagerc", "args": [*dag_args, *common], "steps": DDP_STEPS, "test": True,
+             "dropout0": True}]
+    (tmp / "jobs.json").write_text(json.dumps(jobs))
+    port = _free_port()
+    procs = []
+    t0 = time.perf_counter()
+    try:
+        for rank in range(2):
+            cmd = [sys.executable, str(ROOT / "scripts" / "torch_mp_worker.py"), f"--coordinator=localhost:{port}",
+                   "--num_processes=2", f"--process_id={rank}", f"--jobs={tmp / 'jobs.json'}",
+                   f"--out={tmp / f'rank{rank}.json'}"]
+            procs.append(subprocess.Popen(cmd, cwd=str(ROOT), stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
+        logs = [p.communicate(timeout=DDP_TIMEOUT)[0].decode(errors="replace") for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for rank, (p, text) in enumerate(zip(procs, logs)):
+        require(p.returncode == 0, f"ddp: gloo rank {rank} exited {p.returncode}:\n{text[-4000:]}")
+    ranks = [json.loads((tmp / f"rank{r}.json").read_text()) for r in range(2)]
+    log(f"ddp: two gloo ranks ran in {time.perf_counter() - t0:.1f} s (processes started included)")
+    launches = {}
+    for name in ("cogmen", "dagerc"):
+        r0, r1 = ranks[0][name], ranks[1][name]
+        one = ref[name]
+        for r in (r0, r1):
+            require(r["backend"] == "gloo" and r["world"] == 2 and not r["train_graphs"]
+                    and r["device"] == DDP_RANK_DEVICE,
+                    f"ddp {name}: rank {r['rank']} ran {r['backend']} at world {r['world']} on {r['device']}, "
+                    f"captured {r['train_graphs']}: want gloo, 2, {DDP_RANK_DEVICE}, eager")
+        require(np.allclose(r0["losses"], one["losses"], rtol=DDP_LOSS_RTOL, atol=DDP_LOSS_ATOL),
+                f"ddp {name}: rank 0's losses {r0['losses']} against one process's {one['losses']}")
+        require(np.allclose(r1["losses"], r0["losses"], rtol=DDP_RANK_RTOL, atol=0),
+                f"ddp {name}: the ranks' losses {r0['losses']} and {r1['losses']}")
+        require(r0["test_f1"] == r1["test_f1"], f"ddp {name}: test F1 {r0['test_f1']} and {r1['test_f1']}")
+        require(r0["test_name"] == r1["test_name"] and r0["test_dir"] == r1["test_dir"],
+                f"ddp {name}: the ranks ran in two run directories")
+        files = sorted(f for f in os.listdir(r0["test_dir"]) if not f.startswith("log."))
+        want = sorted(f for f in os.listdir(one["test_dir"]) if not f.startswith("log."))
+        logs_ = {f.rsplit(".", 2)[-2]: f for f in os.listdir(r0["test_dir"]) if f.startswith("log.")}  # by rank
+        require(files == want and sorted(logs_) == ["0", "1"]
+                and os.path.getsize(os.path.join(r0["test_dir"], logs_["1"])) == 0,
+                f"ddp {name}: the run directory holds {files} and logs {logs_}, one process's {want}")
+        rel = max(abs(a - b) / max(abs(b), 1e-30) for a, b in zip(r0["losses"], one["losses"]))
+        log(f"ddp {name}: losses rank 0 {r0['losses']}, rank 1 {r1['losses']}, one process {one['losses']} "
+            f"(worst relative {rel:.3e}); test F1 {r0['test_f1']} on both ranks, one process {one['test_f1']}; "
+            f"step walls ms, rank 0 {[round(w * 1e3, 3) for w in r0['walls']]}, rank 1 "
+            f"{[round(w * 1e3, 3) for w in r1['walls']]}, one process {[round(w * 1e3, 3) for w in one['walls']]}")
+        for r in (r0, r1):
+            if name == "cogmen":
+                want_l = {k: DDP_STEPS * n for k, n in TRAIN_STEP_LAUNCHES.items()}
+            else:
+                blocks = sum(-(-L // 16) for L in r["lengths"])
+                want_l = {"dag_block": 2 * 4 * blocks, "dag_block_bwd": 4 * blocks}
+            got_l = {k: r["launches"].get(k, 0) for k in want_l}
+            require(got_l == want_l, f"ddp {name}: rank {r['rank']} launched {got_l}, want {want_l}")
+            for k, n in got_l.items():
+                launches[k] = launches.get(k, 0) + n
+        log(f"ddp {name}: each rank's launches in its {DDP_STEPS} steps {r0['launches']} / {r1['launches']}")
+    bn = [np.load(tmp / f"cogmen.{r}.npz") for r in range(2)]
+    for stat in ("model.gcn.bn.running_mean", "model.gcn.bn.running_var"):
+        require(np.array_equal(bn[0][stat], bn[1][stat]), f"ddp: {stat} differs between the ranks")
+    log("ddp: the batch norm's running statistics are equal on both ranks")
+    return launches
+
+
+def drive_ddp(card: str) -> dict:
+    """Phase 20: data-parallel training (parallel/mesh.py).  (b) first, while this process has no process group,
+    then (a), which leaves one; it is ended here.  The phase's launches are those of the ddp path alone: each
+    gloo rank's steps (counted in the rank around them) and the NCCL rank's steps (counted from 0 around them);
+    the one-process references and the runs without a group are left out."""
+    from erc_tpu_torch.parallel import mesh
+
+    t0 = time.perf_counter()
+    ranks = _ddp_two_gloo_ranks(card)
+    try:
+        one = _ddp_one_rank_nccl(card)
+    finally:
+        mesh.destroy()
+    launches = dict(ranks)
+    for k, n in one["launches"].items():
+        launches[k] = launches.get(k, 0) + n
+    log(f"ddp phase: launches on the ddp path {launches} (both gloo ranks' {ranks}, the NCCL rank's "
+        f"{one['launches']}), {time.perf_counter() - t0:.1f} s")
+    return {**one, "launches": launches}
+
+
 def _stamp(phase: str) -> None:
     """Log the phase's end with the runs that its trainers left in the script's experiment root (their count and
     the bytes of their blobs: best models, checkpoints, traces), and drop them."""
@@ -4098,10 +4356,15 @@ def _main() -> int:
         _stamp("pipeline")
     drive_runtime(card)
     _stamp("runtime")
+    ddp = drive_ddp(card)
+    _stamp("ddp")
     # the DialogueGCN-shape records: their instantiation's launches on DialogueGCN's serving and training paths
     for rec in dgcn_records.values():
         rec["launches"] = dgcn_serve_taps[rec["tap_key"]] + dgcn_train_taps[rec["tap_key"]]
     records.update(dgcn_records)
+    for name in ("banded_gather_sum", "banded_dot", "banded_gather_sum_t", "dag_block", "dag_block_bwd"):
+        records[name]["ddp_launches"] = ddp["launches"].get(name, 0)
+        require(records[name]["ddp_launches"] > 0, f"{name} was not launched on the ddp path")
     for name, rec in records.items():
         require(rec["launches"] > 0, f"{name} was not launched on its path")
         rec["max_err"], rec["kernel_ms"] = rec["max_abs_err"], rec["ms"]

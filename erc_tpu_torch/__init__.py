@@ -8,7 +8,8 @@ kernels in ``csrc/``), ``models`` (COGMEN and its MOSEI alias
 ``cogmen_mosei``, DAG-ERC, DialogueGCN, MMGCN, DialogueGCN v2 and its
 DailyDialog token track, CIM, and the MMIN family ``mmin_base``,
 ``mmin_miss``, ``mmin_miss2``, which trains only), ``train`` (the train loop with its val and
-test stages, the metrics and checkpoints) and ``serve``.
+test stages, the metrics and checkpoints), ``parallel`` (data-parallel
+training over processes, one a card, on ``torch.distributed``) and ``serve``.
 The package imports torch, numpy and the standard library only; the JAX
 package is its reference in the tests, never a dependency.
 

@@ -23,7 +23,9 @@ on the card, captures its train step and eval forward for the (B, L)
 bucket and replays each once: the port's counterpart of filling the JAX
 package's compile cache (a process's graphs do not outlive it, so it times
 the captures).  ``warm``, ``mem`` and ``summary`` run on the card unless
-``--device=cpu`` is given.
+``--device=cpu`` is given, in one process.  ``stop`` also stops a run of
+several processes: its rank 0 polls the ``.stop`` file and every rank stops
+on the same step.
 """
 
 from __future__ import annotations

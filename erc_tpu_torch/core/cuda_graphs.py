@@ -69,6 +69,7 @@ from __future__ import annotations
 
 import gc
 import time
+import weakref
 from typing import TYPE_CHECKING, Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -76,6 +77,19 @@ import torch
 
 if TYPE_CHECKING:
     from erc_tpu_torch.data.loader import StackedGroup
+
+
+# every object that holds captured graphs, so that release_all can drop them
+_live: "weakref.WeakSet[_Graphs]" = weakref.WeakSet()
+
+
+def release_all() -> None:
+    """Drop every captured graph of the process (each object captures again
+    at its next call).  NCCL destroys a communicator only once the graphs that
+    captured its collectives are gone: ``parallel.mesh.destroy`` calls this
+    first."""
+    for graphs in list(_live):
+        graphs.invalidate()
 
 
 def _counters() -> List[dict]:
@@ -199,6 +213,7 @@ class _Graphs:
         self._pool = None
         self._stream = None
         self._watch = _Watch(watch)
+        _live.add(self)
 
     def invalidate(self) -> None:
         """Drop every graph (after tensors they read were replaced, not written in place)."""

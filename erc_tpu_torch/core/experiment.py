@@ -9,7 +9,10 @@ experiment ``erc_tpu_torch.<TrainerClass>``, so that the two packages' runs
 never share a directory under one root.  ``record_start`` names torch, its
 CUDA and cuDNN versions and numpy, and, on the card, the card's name and
 power limit as ``nvidia-smi`` gives them.  The heartbeat thread writes files
-only: no CUDA call leaves the main thread.
+only: no CUDA call leaves the main thread.  Under a process group every rank
+holds an ``Experiment`` of the test name that rank 0 made, and only rank 0's
+(``write=True``) writes its files; the others make its directories and write
+nothing.
 """
 
 from __future__ import annotations
@@ -31,8 +34,10 @@ def exproot() -> str:
 
 
 class Experiment:
-    def __init__(self, exp_name: str, test_name: Optional[str] = None, root: Optional[str] = None):
+    def __init__(self, exp_name: str, test_name: Optional[str] = None, root: Optional[str] = None,
+                 write: bool = True):
         self.exp_name = exp_name
+        self.write = write
         self.root = root or exproot()
         if test_name is None:
             test_name = self.make_test_name()
@@ -67,6 +72,8 @@ class Experiment:
 
     # -- provenance (reference: exphook.py LastCmd/GitCommit/LockFile) --------
     def dump_info(self, key: str, value) -> None:
+        if not self.write:
+            return
         path = self.test_file(f"{key}.json")
         with open(path, "w") as f:
             json.dump(value, f, indent=2, default=str)
@@ -82,6 +89,8 @@ class Experiment:
         """Write ``initial.json`` (command, user, git head, versions and,
         where ``device`` is a CUDA device, the card), ``rerun.sh`` and a line
         in the day's diary."""
+        if not self.write:
+            return
         info = {
             "argv": sys.argv,
             "exec": sys.executable,

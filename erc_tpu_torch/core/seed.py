@@ -30,7 +30,10 @@ class RngPool:
         s = [self.seed, _tag_to_int(tag), *map(int, counters)]
         return np.random.default_rng(np.array(s, dtype=np.uint64))
 
+    def seed_of(self, tag: str, *counters: int) -> int:
+        """A torch seed from (seed, tag, counters)."""
+        return int(self.numpy_rng(tag, *counters).integers(0, 2**63 - 1))
+
     def torch_generator(self, tag: str, device) -> torch.Generator:
         """A generator on `device` seeded from (seed, tag)."""
-        seed = int(self.numpy_rng(tag).integers(0, 2**63 - 1))
-        return torch.Generator(device=device).manual_seed(seed)
+        return torch.Generator(device=device).manual_seed(self.seed_of(tag))

@@ -9,7 +9,8 @@ speakers and features are packed by the native packer (``data.native``,
 ``csrc/collate.cpp``), as in the JAX package, on one thread (the JAX
 package's 4 spawned threads a call were slower on the H100's host);
 ``native=False`` packs them with ``_pack``, the plain numpy version, which
-gives the same arrays bit for bit.
+gives the same arrays bit for bit.  ``shard`` packs one rank's rows of a
+batch (``data.loader`` over several processes) at the whole batch's length.
 """
 
 from __future__ import annotations
@@ -58,13 +59,29 @@ class ERCBatcher:
         self.pad_batch_to = pad_batch_to
         self.native = native
 
+    def length_of(self, samples: List[dict]) -> int:
+        """The padded length of a batch of ``samples``: the bucket of the longest."""
+        return bucket_length(max(min(len(s["text"]), self.max_len) for s in samples), self.bucket, self.max_len)
+
     def __call__(self, samples: List[dict]) -> Dict[str, np.ndarray]:
+        return self._collate(samples, self.pad_batch_to or len(samples), self.length_of(samples), samples[0])
+
+    def shard(self, samples: List[dict], rank: int, world: int) -> Dict[str, np.ndarray]:
+        """Rank ``rank``'s rows of the batch of ``samples`` among ``world``
+        ranks: rows ``rank, rank + world, ...``, padded to ⌈Bp / world⌉ rows
+        (Bp the whole batch's padded size) at the length of the whole batch,
+        so that every rank's batch has one shape; a rank may get padding rows
+        only."""
+        Bp = self.pad_batch_to or len(samples)
+        return self._collate(samples[rank::world], -(-Bp // world), self.length_of(samples), samples[0])
+
+    def _collate(self, samples: List[dict], Bp: int, L: int, like: dict) -> Dict[str, np.ndarray]:
+        """``samples`` padded to ``Bp`` rows of length ``L``; feature widths and
+        keys from ``like``."""
         B = len(samples)
-        Bp = self.pad_batch_to or B
         if B > Bp:
             raise ValueError(f"{B} dialogues do not fit a batch padded to {Bp}")
         lengths = np.array([min(len(s["text"]), self.max_len) for s in samples], dtype=np.int32)
-        L = bucket_length(int(lengths.max()), self.bucket, self.max_len)
         lengths = np.minimum(lengths, L)
         lens_p = np.zeros(Bp, np.int32)
         lens_p[:B] = lengths
@@ -107,7 +124,7 @@ class ERCBatcher:
         mod_arrays = {}
         key_of = {"a": "audio", "t": "text", "v": "visual"}
         for m in self.modality:
-            D = np.asarray(samples[0][key_of[m]]).shape[-1]
+            D = np.asarray(like[key_of[m]]).shape[-1]
             mod_arrays[m] = features([np.asarray(s[key_of[m]], np.float32) for s in samples], D)
 
         input_tensor = np.concatenate([mod_arrays[m] for m in self.modality], -1)
@@ -115,7 +132,7 @@ class ERCBatcher:
         # MOSEI's multitask labels: multi-hot emotions (0 past each length)
         # and binary sentiment (-1 past each length)
         multitask = {}
-        if "emo_label" in samples[0]:
+        if "emo_label" in like:
             multitask["emo_label"] = _pack([s["emo_label"] for s in samples], lens_p, (Bp, L, 7), np.int32, 0)
             multitask["senti2_label"] = _pack([s["senti2_label"] for s in samples], lens_p, (Bp, L), np.int32, -1)
 

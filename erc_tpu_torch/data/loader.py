@@ -1,10 +1,16 @@
 """Deterministic host-side input pipeline.
 
-Port of ``erc_tpu.data.loader.DialogueLoader`` for one process: per-epoch
-shuffle from an explicit generator, an optional length-sorted mode that
-groups similar-length dialogues to cut padding, ``batch_count`` to cut or
-cycle an epoch, and ``drop_last``.  The same seed gives the same batches as
-the JAX package's loader.  ``to_device`` copies a batch to the card from
+Port of ``erc_tpu.data.loader.DialogueLoader``: per-epoch shuffle from an
+explicit generator, an optional length-sorted mode that groups
+similar-length dialogues to cut padding, ``batch_count`` to cut or cycle an
+epoch, and ``drop_last``.  The same seed gives the same batches as the JAX
+package's loader.  Over several processes (``rank`` of ``world``) every rank
+computes the same global order and takes rows ``rank::world`` of each global
+batch, as the JAX loader does; the batcher's ``shard`` pads them to ⌈B /
+world⌉ rows and to the whole batch's length bucket (the JAX package pads each
+process's rows to its own longest), so every rank's batch has one shape on
+every step, and the ranks capture on the same steps and group the same K
+batches.  ``to_device`` copies a batch to the card from
 pinned memory without blocking the host, floating arrays in float32, or in
 bfloat16 under ``--transfer_dtype=bfloat16`` (``core.cuda_graphs.host_tensor``).
 
@@ -68,8 +74,11 @@ class DialogueLoader:
         sort_by_length: bool = False,
         sort_chunk: int = 8,
         batch_count: Optional[int] = None,
+        rank: int = 0,
+        world: int = 1,
     ):
         self.samples = samples
+        self.rank, self.world = int(rank), int(world)
         self.batcher = batcher
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -123,7 +132,8 @@ class DialogueLoader:
             # cycle deterministically when the epoch is shorter than asked
             batches = [batches[i % len(batches)] for i in range(want)]
         for idx in batches:
-            yield self.batcher([self.samples[i] for i in idx])
+            samples = [self.samples[i] for i in idx]
+            yield self.batcher(samples) if self.world == 1 else self.batcher.shard(samples, self.rank, self.world)
         self.epoch += 1
 
 

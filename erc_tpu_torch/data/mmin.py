@@ -12,7 +12,9 @@ Port of ``erc_tpu.data.mmin``, the port's own copy:
   zero-padded to ``max_audio_len``, rows padded to ``pad_batch_to`` with
   ``sample_mask`` 0 and label -1), and the ``Missing`` augmentation: each
   row keeps one of six modality patterns (``MISSING_TYPES``) drawn from the
-  generator it was given, and the dropped features go to ``*_reverse``.
+  generator it was given, and the dropped features go to ``*_reverse``;
+  ``shard`` packs one rank's rows of a batch with the patterns the whole
+  batch draws for them.
 """
 
 from __future__ import annotations
@@ -95,13 +97,35 @@ class MMINBatcher:
         self.pad_batch_to = pad_batch_to
         self.rng = rng or np.random.default_rng(0)
 
+    def _patterns(self, Bp: int) -> Optional[np.ndarray]:
+        """The Missing patterns of a batch of ``Bp`` rows, one a row (None without Missing)."""
+        return MISSING_TYPES[self.rng.integers(0, len(MISSING_TYPES), Bp)] if self.has_miss else None
+
     def __call__(self, samples: List[dict]) -> dict:
-        B = len(samples)
-        Bp = self.pad_batch_to or B
+        Bp = self.pad_batch_to or len(samples)
+        return self._collate(samples, Bp, self._patterns(Bp), samples[0])
+
+    def shard(self, samples: List[dict], rank: int, world: int) -> dict:
+        """Rank ``rank``'s rows of the batch of ``samples`` among ``world``
+        ranks: rows ``rank, rank + world, ...`` padded to ⌈Bp / world⌉ rows,
+        with the Missing patterns that the whole batch draws for them (every
+        rank draws the whole batch's, so the generator stays in step and a
+        row's pattern is the one it gets in one process)."""
+        Bp = self.pad_batch_to or len(samples)
+        rows = -(-Bp // world)
+        typ = self._patterns(Bp)
+        if typ is not None:
+            mine = typ[rank::world]
+            typ = np.concatenate([mine, np.repeat(MISSING_TYPES[:1], rows - len(mine), 0)])
+        return self._collate(samples[rank::world], rows, typ, samples[0])
+
+    def _collate(self, samples: List[dict], Bp: int, typ: Optional[np.ndarray], like: dict) -> dict:
+        """``samples`` padded to ``Bp`` rows, widths from ``like``; ``typ`` the
+        rows' Missing patterns."""
         A = self.max_audio_len
-        a_dim = samples[0]["audio_feature"].shape[-1]
-        v = np.zeros((Bp,) + samples[0]["visual_feature"].shape, np.float32)
-        t = np.zeros((Bp,) + samples[0]["text_feature"].shape, np.float32)
+        a_dim = like["audio_feature"].shape[-1]
+        v = np.zeros((Bp,) + like["visual_feature"].shape, np.float32)
+        t = np.zeros((Bp,) + like["text_feature"].shape, np.float32)
         a = np.zeros((Bp, A, a_dim), np.float32)
         a_len = np.zeros(Bp, np.int32)
         label = np.full(Bp, -1, np.int32)
@@ -116,8 +140,7 @@ class MMINBatcher:
             sample_mask[i] = 1
         batch = {"visual_feature": v, "text_feature": t, "audio_feature": a, "audio_length": a_len, "label": label,
                  "sample_mask": sample_mask}
-        if self.has_miss:
-            typ = MISSING_TYPES[self.rng.integers(0, len(MISSING_TYPES), Bp)]
+        if typ is not None:
             for i, key in enumerate(["visual_feature", "text_feature", "audio_feature"]):
                 keep = typ[:, i][:, None, None]
                 batch[f"{key}_reverse"] = batch[key] * (1.0 - keep)

@@ -44,9 +44,10 @@ from erc_tpu_torch.models.base import MMBaseParams
 from erc_tpu_torch.ops.attention import Linear
 from erc_tpu_torch.ops.dropout import Dropout
 from erc_tpu_torch.ops.rnn import BiRNN
+from erc_tpu_torch.parallel import mesh
 from erc_tpu_torch.train import optim as optim_factory
 from erc_tpu_torch.train.metrics import mosei_multilabel_summary
-from erc_tpu_torch.train.trainer import Trainer, masked_accuracy, masked_cross_entropy
+from erc_tpu_torch.train.trainer import Trainer, main as train_main, masked_accuracy, masked_cross_entropy
 
 MODALITIES = (("a", "audio_feature"), ("v", "visual_feature"), ("t", "text_feature"))
 ADAPTER = 100
@@ -141,9 +142,10 @@ def sigmoid_bce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 
 def masked_bce_with_logits(logits: torch.Tensor, targets: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """BCE with logits averaged over the valid positions × classes."""
+    """BCE with logits averaged over the valid positions × classes (of the
+    global batch under a process group: this rank's share)."""
     m = mask.float()[..., None]
-    return (sigmoid_bce(logits, targets) * m).sum() / (m.sum() * logits.shape[-1]).clamp_min(1.0)
+    return (sigmoid_bce(logits, targets) * m).sum() / (mesh.global_sum(m.sum()) * logits.shape[-1]).clamp_min(1.0)
 
 
 class CIMTrainer(Trainer):
@@ -192,6 +194,9 @@ class CIMTrainer(Trainer):
         self.on_test_begin()
 
     def on_test_end(self, res: Dict[str, Any]) -> None:
+        # every rank's rows, so that every rank reports the same block
+        self._true_multi = mesh.allgather_rows(np.asarray(self._true_multi, np.float64).reshape(-1, 7)).tolist()
+        self._pred_multi = mesh.allgather_rows(np.asarray(self._pred_multi, np.float64).reshape(-1, 7)).tolist()
         if self._true_multi:
             summary = mosei_multilabel_summary(np.array(self._true_multi), np.array(self._pred_multi))
             self.log("mosei multilabel: " + ", ".join(f"{k}={v:.4f}" for k, v in summary.items()
@@ -202,9 +207,4 @@ class CIMTrainer(Trainer):
 def main(argv: Optional[list] = None) -> CIMTrainer:
     """``python -m erc_tpu_torch.train --module=cim [--dataset=...] ...``:
     train, then save the model (``model.last.ckpt`` under ``--save_dir``)."""
-    params = CIMParams()
-    params.finalize(argv)
-    trainer = CIMTrainer(params)
-    trainer.train()
-    trainer.save_model()
-    return trainer
+    return train_main(CIMTrainer, CIMParams, argv)

@@ -36,7 +36,7 @@ from erc_tpu_torch.ops.gnn_banded import BandedRGCN, BandedTransformerConv
 from erc_tpu_torch.ops.norm import MaskedBatchNorm
 from erc_tpu_torch.core.params import Params
 from erc_tpu_torch.train import optim as optim_factory
-from erc_tpu_torch.train.trainer import Trainer, refuse_banded_compute_dtype
+from erc_tpu_torch.train.trainer import Trainer, main as train_main, refuse_banded_compute_dtype
 
 
 class COGMENParams(MMBaseParams):
@@ -167,9 +167,4 @@ class COGMENTrainer(Trainer):
 def main(argv: Optional[list] = None) -> COGMENTrainer:
     """``python -m erc_tpu_torch.train --module=cogmen [--dataset=...] ...``:
     train, then save the model (``model.last.ckpt`` under ``--save_dir``)."""
-    params = COGMENParams()
-    params.finalize(argv)
-    trainer = COGMENTrainer(params)
-    trainer.train()
-    trainer.save_model()
-    return trainer
+    return train_main(COGMENTrainer, COGMENParams, argv)

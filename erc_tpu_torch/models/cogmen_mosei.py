@@ -13,6 +13,7 @@ from __future__ import annotations
 from typing import Optional
 
 from erc_tpu_torch.models.cogmen import COGMENParams, COGMENTrainer, build  # noqa: F401
+from erc_tpu_torch.train.trainer import main as train_main
 
 
 class COGMENMoseiParams(COGMENParams):
@@ -27,9 +28,4 @@ ParamsType = COGMENMoseiParams
 
 def main(argv: Optional[list] = None) -> COGMENTrainer:
     """Train, then save the model (``model.last.ckpt`` under ``--save_dir``)."""
-    params = COGMENMoseiParams()
-    params.finalize(argv)
-    trainer = COGMENTrainer(params)
-    trainer.train()
-    trainer.save_model()
-    return trainer
+    return train_main(COGMENTrainer, COGMENMoseiParams, argv)

@@ -41,7 +41,7 @@ from erc_tpu_torch.ops.init import uniform_
 from erc_tpu_torch.ops.kernels.dag_block import dag_block, dag_block_reference
 from erc_tpu_torch.ops.rnn import gru_cell
 from erc_tpu_torch.train import optim as optim_factory
-from erc_tpu_torch.train.trainer import Trainer, refuse_compute_dtype
+from erc_tpu_torch.train.trainer import Trainer, main as train_main, refuse_compute_dtype
 
 
 class DAGERCParams(MMBaseParams):
@@ -387,9 +387,4 @@ class DAGERCTrainer(Trainer):
 
 def main(argv: Optional[list] = None) -> DAGERCTrainer:
     """``python -m erc_tpu_torch.train --module=dagerc [--dataset=...] ...``"""
-    params = DAGERCParams()
-    params.finalize(argv)
-    trainer = DAGERCTrainer(params)
-    trainer.train()
-    trainer.save_model()
-    return trainer
+    return train_main(DAGERCTrainer, DAGERCParams, argv)

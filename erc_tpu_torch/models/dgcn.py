@@ -38,7 +38,7 @@ from erc_tpu_torch.ops.init import normal_
 from erc_tpu_torch.ops.kernels.banded import banded_dot
 from erc_tpu_torch.ops.rnn import BiRNN
 from erc_tpu_torch.train import optim as optim_factory
-from erc_tpu_torch.train.trainer import Trainer, refuse_banded_compute_dtype
+from erc_tpu_torch.train.trainer import Trainer, main as train_main, refuse_banded_compute_dtype
 
 # IEMOCAP-6 inverse class frequencies (the reference's dgcn.py:109-111)
 IEMOCAP6_LOSS_WEIGHTS = [
@@ -184,9 +184,4 @@ class DGCNTrainer(Trainer):
 def main(argv: Optional[list] = None) -> DGCNTrainer:
     """``python -m erc_tpu_torch.train --module=dgcn [--dataset=...] ...``:
     train, then save the model (``model.last.ckpt`` under ``--save_dir``)."""
-    params = DGCNParams()
-    params.finalize(argv)
-    trainer = DGCNTrainer(params)
-    trainer.train()
-    trainer.save_model()
-    return trainer
+    return train_main(DGCNTrainer, DGCNParams, argv)

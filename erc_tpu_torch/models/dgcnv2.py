@@ -58,8 +58,9 @@ from erc_tpu_torch.ops.gnn import DenseGraphConv, DenseRGCN
 from erc_tpu_torch.ops.init import lecun_normal_, normal_, uniform_
 from erc_tpu_torch.ops.conv import conv1d_gemm
 from erc_tpu_torch.ops.rnn import BiRNN, gru_cell, reverse_padded
+from erc_tpu_torch.parallel import mesh
 from erc_tpu_torch.train import optim as optim_factory
-from erc_tpu_torch.train.trainer import Trainer, refuse_compute_dtype
+from erc_tpu_torch.train.trainer import Trainer, main as train_main, refuse_compute_dtype
 
 BASE_MODELS = ("LSTM", "DialogRNN", "GRU", "None")
 
@@ -333,8 +334,14 @@ class DailyBatcher:
         self.pad_batch_to = pad_batch_to
 
     def __call__(self, samples):
-        B = len(samples)
-        Bp = self.pad_batch_to or B
+        return self._collate(samples, self.pad_batch_to or len(samples))
+
+    def shard(self, samples, rank: int, world: int):
+        """Rank ``rank``'s rows ``rank, rank + world, ...`` of the batch of
+        ``samples``, padded to ⌈Bp / world⌉ rows (the length is static)."""
+        return self._collate(samples[rank::world], -(-(self.pad_batch_to or len(samples)) // world))
+
+    def _collate(self, samples, Bp: int):
         lens = np.array([min(len(s["label"]), self.max_len) for s in samples], np.int32)
         L, W = self.max_len, self.n_words
         tok = np.zeros((Bp, L, W), np.int32)
@@ -384,19 +391,10 @@ class DGCNV2Trainer(Trainer):
             self.class_weights = torch.tensor(IEMOCAP6_LOSS_WEIGHTS, dtype=torch.float32, device=self.device)
 
 
-def _train(trainer_cls, params_cls, argv):
-    params = params_cls()
-    params.finalize(argv)
-    trainer = trainer_cls(params)
-    trainer.train()
-    trainer.save_model()
-    return trainer
-
-
 def main(argv: Optional[list] = None) -> DGCNV2Trainer:
     """``python -m erc_tpu_torch.train --module=dgcnv2 [--dataset=...] ...``:
     train, then save the model (``model.last.ckpt`` under ``--save_dir``)."""
-    return _train(DGCNV2Trainer, DGCNV2Params, argv)
+    return train_main(DGCNV2Trainer, DGCNV2Params, argv)
 
 
 class DGCNV2DailyParams(DGCNV2Params):
@@ -438,7 +436,8 @@ class DGCNV2DailyTrainer(DGCNV2Trainer):
         bs = int(p.train.batch_size if split == "train" else p.test.batch_size)
         bc = p.get("batch_count")
         return DialogueLoader(samples, self._daily_batcher(bs), batch_size=bs, shuffle=(split == "train"),
-                              seed=p.seed, batch_count=(int(bc) if bc and split == "train" else None))
+                              seed=p.seed, batch_count=(int(bc) if bc and split == "train" else None),
+                              rank=mesh.process_index(), world=mesh.process_count())
 
     def example_batch(self, L: int = 12, B: int = 2):
         samples = synthetic_daily(self.params.n_classes, "train", n_train=B, min_len=L, max_len=L,
@@ -449,4 +448,4 @@ class DGCNV2DailyTrainer(DGCNV2Trainer):
 def daily_main(argv: Optional[list] = None) -> DGCNV2DailyTrainer:
     """``python -m erc_tpu_torch.train --module=dgcnv2_daily [--dataset=...] ...``:
     train, then save the model."""
-    return _train(DGCNV2DailyTrainer, DGCNV2DailyParams, argv)
+    return train_main(DGCNV2DailyTrainer, DGCNV2DailyParams, argv)

@@ -46,7 +46,7 @@ from erc_tpu_torch.ops.gnn import GCNIIStack, GCNIIStackStructured
 from erc_tpu_torch.ops.init import normal_
 from erc_tpu_torch.ops.rnn import BiRNN
 from erc_tpu_torch.train import optim as optim_factory
-from erc_tpu_torch.train.trainer import Trainer
+from erc_tpu_torch.train.trainer import Trainer, main as train_main
 
 LSTM_HIDDEN = 100  # a direction
 N_DIM = 2 * LSTM_HIDDEN  # every modality's node width: the text biLSTM's output
@@ -176,9 +176,4 @@ class MMGCNTrainer(Trainer):
 def main(argv: Optional[list] = None) -> MMGCNTrainer:
     """``python -m erc_tpu_torch.train --module=mmgcn [--dataset=...] ...``:
     train, then save the model (``model.last.ckpt`` under ``--save_dir``)."""
-    params = MMGCNParams()
-    params.finalize(argv)
-    trainer = MMGCNTrainer(params)
-    trainer.train()
-    trainer.save_model()
-    return trainer
+    return train_main(MMGCNTrainer, MMGCNParams, argv)

@@ -45,8 +45,9 @@ from erc_tpu_torch.data.mmin import MMINBatcher
 from erc_tpu_torch.data.registry import get_root, pick_datas
 from erc_tpu_torch.models.base import MMBaseParams
 from erc_tpu_torch.models.mmin_models import MMINBaseModule
+from erc_tpu_torch.parallel import mesh
 from erc_tpu_torch.train import optim as optim_factory
-from erc_tpu_torch.train.trainer import Trainer, masked_accuracy, masked_cross_entropy
+from erc_tpu_torch.train.trainer import Trainer, main as train_main, masked_accuracy, masked_cross_entropy
 
 
 class MMINBaseParams(MMBaseParams):
@@ -146,7 +147,8 @@ class MMINBaseTrainer(Trainer):
         bc = p.get("batch_count")
         return DialogueLoader(pick_datas(root, p.dataset, split=split), batcher, batch_size=bs,
                               shuffle=(split == "train"), seed=p.seed, sort_by_length=False,
-                              batch_count=(int(bc) if bc and split == "train" else None))
+                              batch_count=(int(bc) if bc and split == "train" else None),
+                              rank=mesh.process_index(), world=mesh.process_count())
 
     # -- loss and eval -------------------------------------------------------------
     def loss_and_metrics(self, batch: Dict[str, torch.Tensor]):
@@ -180,6 +182,8 @@ class MMINBaseTrainer(Trainer):
         self._ema_hits, self._ema_n = 0, 0
 
     def on_test_end(self, res: Dict[str, Any]) -> None:
+        hits, n = mesh.allsum(self._ema_hits, self._ema_n)  # every rank's: every rank reports the same Acc2
+        self._ema_hits, self._ema_n = int(hits), int(n)
         if self._ema_n:
             res["Acc2"] = self._ema_hits / self._ema_n
             self.log(f"EMA Acc2: {res['Acc2']:.5f}")
@@ -192,16 +196,6 @@ class MMINBaseTrainer(Trainer):
         self.on_test_end(res)
 
 
-def run(trainer_cls, params_cls, argv: Optional[list] = None):
-    """Train, then save the model (``model.last.ckpt`` under ``--save_dir``)."""
-    params = params_cls()
-    params.finalize(argv)
-    trainer = trainer_cls(params)
-    trainer.train()
-    trainer.save_model()
-    return trainer
-
-
 def main(argv: Optional[list] = None) -> MMINBaseTrainer:
     """``python -m erc_tpu_torch.train --module=mmin_base [--dataset=...] ...``"""
-    return run(MMINBaseTrainer, MMINBaseParams, argv)
+    return train_main(MMINBaseTrainer, MMINBaseParams, argv)

@@ -26,10 +26,11 @@ from typing import Dict, Optional
 import torch
 
 from erc_tpu_torch.core.precision import cast_floats
-from erc_tpu_torch.models.mmin_base import MMINBaseParams, MMINBaseTrainer, build as build_base, run
+from erc_tpu_torch.models.mmin_base import MMINBaseParams, MMINBaseTrainer, build as build_base
 from erc_tpu_torch.models.mmin_models import MODALITIES, MMINMissModule
+from erc_tpu_torch.parallel import mesh
 from erc_tpu_torch.train.checkpoint import load_model_state
-from erc_tpu_torch.train.trainer import masked_accuracy, masked_cross_entropy
+from erc_tpu_torch.train.trainer import main as train_main, masked_accuracy, masked_cross_entropy
 
 
 class MMINMissParams(MMINBaseParams):
@@ -48,10 +49,11 @@ def build(p, *, generator=None, device=None) -> MMINMissModule:
 
 
 def masked_mse(a: torch.Tensor, b: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """Mean over the features of (a − b)², averaged over the valid rows, in float32."""
+    """Mean over the features of (a − b)², averaged over the valid rows (of the
+    global batch under a process group: this rank's share), in float32."""
     per = ((a.float() - b.float()) ** 2).mean(-1)
     mask = mask.float()
-    return (per * mask).sum() / mask.sum().clamp_min(1.0)
+    return (per * mask).sum() / mesh.global_sum(mask.sum()).clamp_min(1.0)
 
 
 def reverse_batch(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -101,4 +103,4 @@ class MMINMissTrainer(MMINBaseTrainer):
 
 def main(argv: Optional[list] = None) -> MMINMissTrainer:
     """``python -m erc_tpu_torch.train --module=mmin_miss [--dataset=...] ...``"""
-    return run(MMINMissTrainer, MMINMissParams, argv)
+    return train_main(MMINMissTrainer, MMINMissParams, argv)

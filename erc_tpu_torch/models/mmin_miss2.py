@@ -23,11 +23,11 @@ from typing import Dict, Optional
 
 import torch
 
-from erc_tpu_torch.models.mmin_base import MMINBaseParams, MMINBaseTrainer, run
+from erc_tpu_torch.models.mmin_base import MMINBaseParams, MMINBaseTrainer
 from erc_tpu_torch.models.mmin_miss import masked_mse
 from erc_tpu_torch.models.mmin_models import MMINMiss2Module
 from erc_tpu_torch.train.checkpoint import load_model_state
-from erc_tpu_torch.train.trainer import masked_accuracy, masked_cross_entropy
+from erc_tpu_torch.train.trainer import main as train_main, masked_accuracy, masked_cross_entropy
 
 
 class MMINMiss2Params(MMINBaseParams):
@@ -83,4 +83,4 @@ class MMINMiss2Trainer(MMINBaseTrainer):
 
 def main(argv: Optional[list] = None) -> MMINMiss2Trainer:
     """``python -m erc_tpu_torch.train --module=mmin_miss2 [--dataset=...] ...``"""
-    return run(MMINMiss2Trainer, MMINMiss2Params, argv)
+    return train_main(MMINMiss2Trainer, MMINMiss2Params, argv)

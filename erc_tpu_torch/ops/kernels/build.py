@@ -14,6 +14,10 @@ and the compiler's version; ``load_host(name)`` loads it.  Several
 processes may build it at once (the test workers): each compiles to a file
 of its own and renames it into place, so a loader sees a whole library or
 none.  A failed build raises with the compiler's output.
+
+Under a process group of several ranks, ``build_on_main`` builds on rank 0
+while the others wait at a barrier; then each rank loads the libraries that
+rank 0 built, and no rank starts an ``nvcc`` of its own.
 """
 
 from __future__ import annotations
@@ -138,6 +142,19 @@ def build_all() -> Dict[str, Path]:
         logs = "\n".join((out_dir / f"{n}.log").read_text() for n in failed)
         raise RuntimeError(f"nvcc failed for {failed}:\n{logs}")
     return libs
+
+
+def build_on_main() -> None:
+    """Every kernel and the host packer built once for all ranks of the
+    process group: rank 0 builds what is missing, the others wait for it at a
+    barrier.  Every rank calls it at the same point (the trainer's
+    ``initialize``); without a group it builds here."""
+    from erc_tpu_torch.parallel import mesh
+
+    if mesh.is_main_process():
+        build_all()
+        build_host("collate")
+    mesh.barrier()
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -52,6 +52,20 @@ Real datasets (``iemocap-cogmen-*``, ``meld-mmgcn-7``,
 ``meld-mmgcn-sbert-7``, ``mosei-cim-2``, the ``mosei-*-sbert*`` names,
 ``dailydialog-token-7``, ``iemocap-mmin-4``, which needs ``h5py``) are read
 under ``--data_root`` or ``ERC_TPU_DATA_ROOT``.
+
+Several processes, one a card (``parallel.mesh``): launch one process a rank
+with ``--coordinator=host:port --num_processes=N --process_id=i`` (or
+``ERC_TPU_COORDINATOR``, ``ERC_TPU_NUM_PROCESSES`` and ``ERC_TPU_PROCESS_ID``
+in its environment; or ``ERC_TPU_DIST=auto`` under ``torchrun``); rank 0
+serves the rendezvous at the coordinator's address.  The family's ``main``
+starts the process group before it builds the trainer, and this entry point
+ends it; rank r of a host takes card r
+(``--device=cuda:N`` puts every rank on card N: gloo, and eager steps).  A
+run without the flags trains on the one card that ``--device`` names (the
+JAX package's run without them spans every local device)::
+
+    for i in 0 1; do python -m erc_tpu_torch.train --module=cogmen --dataset=synthetic-cogmen-6 \
+        --coordinator=localhost:29500 --num_processes=2 --process_id=$i & done; wait
 """
 
 from __future__ import annotations
@@ -78,7 +92,12 @@ def main(argv: Optional[List[str]] = None):
     mod = importlib.import_module(f"erc_tpu_torch.models.{module}")
     if not hasattr(mod, "main"):
         raise SystemExit(f"training {module!r} is not ported yet")
-    return mod.main(argv)
+    from erc_tpu_torch.parallel import mesh
+
+    try:
+        return mod.main(argv)
+    finally:
+        mesh.destroy()  # the trainer's process group, where the flags started one
 
 
 if __name__ == "__main__":

@@ -24,6 +24,15 @@ before it had callbacks.  The JAX package saves them at
 
 No callback draws from the dropout generator or touches batch-norm
 statistics: a run gives the same losses with or without them.
+
+Under a process group (``parallel.mesh``) a decision that steers the loop is
+taken once and shared, as in the JAX package: ``StopByCode`` polls the
+``.stop`` file on rank 0 and broadcasts what it found, and ``AutoResume``
+picks the checkpoint on rank 0 and every rank restores that one file (a rank
+that resumed elsewhere, or not at all, would desynchronise the collectives).
+The metrics a callback reads (``NaNGuard``'s loss) are the global batch's on
+every rank, and the writes go through the Saver and the experiment, which
+write on rank 0 only.
 """
 
 from __future__ import annotations
@@ -32,6 +41,8 @@ import json
 import math
 import os
 from typing import Optional
+
+from erc_tpu_torch.parallel import mesh
 
 
 class Callback:
@@ -95,7 +106,9 @@ class KeyErrorSave(Callback):
 class StopByCode(Callback):
     """Graceful stop when `<test_dir>/.stop` appears (callbacks.py:745-755),
     polled every ``check_every`` steps (``python -m erc_tpu_torch.cli stop``
-    makes the file)."""
+    makes the file), on rank 0, whose answer every rank takes: ranks that
+    polled for themselves could see the file a step apart and stop on
+    different steps, leaving a collective waiting."""
 
     def __init__(self, check_every: int = 100):
         self.check_every = check_every
@@ -104,7 +117,8 @@ class StopByCode(Callback):
     def train_step_end(self, tr, bidx, mets):
         if tr.global_steps - self._last >= self.check_every or tr.global_steps == 0:
             self._last = tr.global_steps
-            if os.path.exists(os.path.join(tr.exp.test_dir, ".stop")):
+            found = mesh.is_main_process() and os.path.exists(os.path.join(tr.exp.test_dir, ".stop"))
+            if mesh.broadcast_one_to_all(found):
                 tr.log(".stop file found — stopping")
                 tr.stopped = True
 
@@ -138,7 +152,17 @@ class AutoResume(Callback):
 
     def resume(self, tr) -> Optional[str]:
         """Restore the newest readable checkpoint; returns its path, or None
-        where there is none."""
+        where there is none.  Under a process group rank 0 picks it (reading
+        it is the test that it is whole) and every other rank restores the
+        same file."""
+        path = mesh.broadcast_one_to_all(self._newest(tr) if mesh.is_main_process() else None)
+        if path is not None and not mesh.is_main_process():
+            self._restore(tr, path)
+        return path
+
+    def _newest(self, tr) -> Optional[str]:
+        """Restore the newest readable checkpoint of this run, else of a sibling;
+        its path, or None."""
         # Saver writes are atomic (tmp+rename), but a file can still arrive
         # corrupt (partial disk, torn copy) — walk own checkpoints newest
         # first, then hash-matching siblings (a relaunched job gets a FRESH
@@ -148,26 +172,31 @@ class AutoResume(Callback):
         candidates += self._sibling_checkpoints(tr)
         for latest in candidates:
             try:
-                tr.load_checkpoint(latest)
+                self._restore(tr, latest)
             except Exception as e:  # corrupt/truncated (torch.load raises many kinds) → try the next-oldest
                 tr.logger.warn(f"unreadable checkpoint {latest}: {e!r}")
                 continue
-            meta_path = latest + ".json"
-            try:
-                with open(meta_path) as f:
-                    meta = json.load(f)
-            except (OSError, json.JSONDecodeError):
-                # pre-atomic writers could tear the sidecar; a .ckpt without
-                # meta resumes with default counters (re-runs the epoch)
-                meta = {}
-            if meta:
-                tr.eidx = int(meta.get("eidx", tr.eidx)) + (
-                    1 if meta.get("epoch_end") else 0
-                )
-                tr.global_steps = int(meta.get("global_steps", tr.global_steps))
-            tr.log(f"resumed from {latest} (eidx={tr.eidx}, global_steps={tr.global_steps})")
             return latest
         return None
+
+    @staticmethod
+    def _restore(tr, latest: str) -> None:
+        """The state of checkpoint ``latest`` and both counters of its meta."""
+        tr.load_checkpoint(latest)
+        meta_path = latest + ".json"
+        try:
+            with open(meta_path) as f:
+                meta = json.load(f)
+        except (OSError, json.JSONDecodeError):
+            # pre-atomic writers could tear the sidecar; a .ckpt without
+            # meta resumes with default counters (re-runs the epoch)
+            meta = {}
+        if meta:
+            tr.eidx = int(meta.get("eidx", tr.eidx)) + (
+                1 if meta.get("epoch_end") else 0
+            )
+            tr.global_steps = int(meta.get("global_steps", tr.global_steps))
+        tr.log(f"resumed from {latest} (eidx={tr.eidx}, global_steps={tr.global_steps})")
 
     @staticmethod
     def _sibling_checkpoints(tr):

@@ -22,6 +22,13 @@ from typing import Any, Dict, List, Optional
 TRACE_FILE = "trace.pt.trace.json"
 
 
+def trace_file(rank: int = 0) -> str:
+    """The trace's file name: ``TRACE_FILE`` for rank 0, ``trace.<rank>.pt.trace.json``
+    for the other ranks of a process group.  Every rank traces, as every
+    process of the JAX package's ``jax.profiler`` does, into one file each."""
+    return TRACE_FILE if rank == 0 else f"trace.{rank}.pt.trace.json"
+
+
 def activities(cuda: Optional[bool] = None):
     """CPU activity, and the card's where CUDA is available (or ``cuda``)."""
     import torch
@@ -32,8 +39,9 @@ def activities(cuda: Optional[bool] = None):
 
 
 @contextlib.contextmanager
-def trace(log_dir: str, metadata: Optional[Dict[str, Any]] = None, cuda: Optional[bool] = None):
-    """Profile the block and write ``<log_dir>/trace.pt.trace.json``;
+def trace(log_dir: str, metadata: Optional[Dict[str, Any]] = None, cuda: Optional[bool] = None,
+          file: str = TRACE_FILE):
+    """Profile the block and write ``<log_dir>/<file>`` (``trace.pt.trace.json``);
     ``metadata`` (json-able values) lands in the trace's top level.  Yields
     the profiler."""
     import torch
@@ -50,7 +58,7 @@ def trace(log_dir: str, metadata: Optional[Dict[str, Any]] = None, cuda: Optiona
         if torch.cuda.is_available():
             torch.cuda.synchronize()
         prof.stop()
-        prof.export_chrome_trace(os.path.join(log_dir, TRACE_FILE))
+        prof.export_chrome_trace(os.path.join(log_dir, file))
 
 
 def annotate(name: str):

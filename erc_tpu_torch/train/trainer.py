@@ -94,9 +94,33 @@ means are over calls, as the JAX package's ``Record`` takes them; a group
 evaluates as K batches in one replay, each batch collected as with K = 1.
 
 Dropout draws from a generator on the device seeded from ``params.seed``.
-Left out, for a later slice, and refused with ``NotImplementedError``
-(``NOT_PORTED``): several processes (``--coordinator``,
-``--num_processes``, ``--process_id``).
+
+Several processes (``parallel.mesh``; the JAX trainer's multi-process run):
+``--coordinator=host:port --num_processes=N --process_id=i`` (or
+``ERC_TPU_COORDINATOR``, ``ERC_TPU_NUM_PROCESSES``, ``ERC_TPU_PROCESS_ID``, or
+``ERC_TPU_DIST=auto`` under torchrun) start a process group in the entry
+point (``main``, ``start_group``), before the trainer is built, one process
+a card (``core.device.rank_card``); a trainer whose ``--coordinator`` finds
+no group refuses to start.
+Each rank trains the whole model on its strided rows of every global batch
+(``data.loader``); the gradients are summed over ranks in the step (one
+collective, captured with it under NCCL) and every loss and metric of a
+step divides by the global denominator (``masked_cross_entropy``,
+``masked_accuracy``, the families' own), so the summed gradient is the
+global batch's and ``Lall`` the global loss on every rank, as in the JAX
+trainer's one program.  Batch norms take global statistics
+(``ops.norm``).  Rank 0 derives the test name and every rank takes it;
+only rank 0 writes the run's files (the experiment's, the metric stores',
+the Saver's); rank 0's parameters and buffers are copied to every rank once
+they are made or loaded (``sync_from_main``); the val and test stages gather
+every rank's rows before a metric (``_sync_eval_state``), so every rank
+takes the same decisions.  Where ranks share a card the group is gloo, and
+the train step runs eagerly (a gloo collective cannot be captured), as the
+log line on the group says.  Dropout draws from each rank's own stream:
+rank 0's is the one-process run's, another rank's is tagged with its rank
+(and, after a resume, with the restored step), so the ranks' rows draw
+independent masks, as the rows of the JAX program's global batch do; the
+masks are not the JAX program's, so trajectories are compared at dropout 0.
 """
 
 from __future__ import annotations
@@ -111,7 +135,6 @@ import torch
 
 from erc_tpu_torch.core import precision
 from erc_tpu_torch.core.cuda_graphs import CapturedForward, CapturedStep
-from erc_tpu_torch.core.device import resolve_device
 from erc_tpu_torch.core.experiment import Experiment
 from erc_tpu_torch.core.logger import Logger
 from erc_tpu_torch.core.meter import Meter, Record
@@ -123,24 +146,12 @@ from erc_tpu_torch.data.loader import DialogueLoader, GroupedLoader, PrefetchLoa
 from erc_tpu_torch.data.registry import dataset_has_val, get_root, pick_datas
 from erc_tpu_torch.ops.dropout import Dropout
 from erc_tpu_torch.ops.rnn import point_rnns_at_their_parameters
+from erc_tpu_torch.parallel import mesh
 from erc_tpu_torch.train import callbacks as cbs
 from erc_tpu_torch.train import profiler
 from erc_tpu_torch.train.checkpoint import Saver, read_train_state
 from erc_tpu_torch.train.metrics import classification_summary
 from erc_tpu_torch.train.optim import clip_by_global_norm_, global_norm, has_schedule, load_optimizer_state
-
-
-def _given(v) -> bool:
-    return v is not None and v != ""
-
-
-# knobs of the JAX trainer that the port does not honour yet: the value each
-# may keep, and the test that it asks for more
-NOT_PORTED = {
-    "coordinator": _given,
-    "num_processes": _given,
-    "process_id": _given,
-}
 
 
 def refuse_compute_dtype(form: str, jax_site: str) -> None:
@@ -180,20 +191,46 @@ class _Bound(torch.nn.Module):
 def masked_cross_entropy(logits, labels, mask, class_weights=None) -> torch.Tensor:
     """Mean cross-entropy over the valid positions, reduced in float32.  With
     class weights, divided by the summed weight of the targets (as
-    ``F.cross_entropy(weight=...)``)."""
+    ``F.cross_entropy(weight=...)``).  Under a process group the denominator
+    is the global batch's, so the value is this rank's share of the global
+    mean."""
     logits = logits.float()
     mask = mask.float()
     safe = labels.clamp_min(0).long()
     nll = -torch.log_softmax(logits, -1).gather(-1, safe[..., None])[..., 0]
     if class_weights is not None:
         w = class_weights[safe] * mask
-        return (nll * w).sum() / w.sum().clamp_min(1e-8)
-    return (nll * mask).sum() / mask.sum().clamp_min(1.0)
+        return (nll * w).sum() / mesh.global_sum(w.sum()).clamp_min(1e-8)
+    return (nll * mask).sum() / mesh.global_sum(mask.sum()).clamp_min(1.0)
 
 
 def masked_accuracy(logits, labels, mask) -> torch.Tensor:
+    """Hits over the valid positions (this rank's share, under a process group)."""
     hit = (logits.argmax(-1) == labels).float() * mask.float()
-    return hit.sum() / mask.float().sum().clamp_min(1.0)
+    return hit.sum() / mesh.global_sum(mask.float().sum()).clamp_min(1.0)
+
+
+def start_group(params) -> bool:
+    """The process group that ``--coordinator``, ``--num_processes`` and
+    ``--process_id`` (or their variables) ask for, started before a trainer
+    touches a card, with this rank's card made current
+    (``mesh.initialize_distributed``); True where a group is up."""
+    return mesh.initialize_distributed(params.get("coordinator"), params.get("num_processes"),
+                                       params.get("process_id"), device=params.get("device", 0))
+
+
+def main(trainer_cls, params_cls, argv: Optional[list] = None):
+    """A family's ``main`` (the JAX ``trainer.main``): read the flags, start
+    the process group they ask for, train, then save the model
+    (``model.last.ckpt`` under ``--save_dir``).  The caller ends the group
+    (``mesh.destroy``, as ``python -m erc_tpu_torch.train`` does)."""
+    params = params_cls()
+    params.finalize(argv)
+    start_group(params)
+    trainer = trainer_cls(params)
+    trainer.train()
+    trainer.save_model()
+    return trainer
 
 
 class Trainer:
@@ -205,28 +242,35 @@ class Trainer:
     train_graphs = True  # on the card, replay the captured train step (False: eager)
 
     def __init__(self, params, exp_name: Optional[str] = None):
-        for name, asks in NOT_PORTED.items():
-            if asks(params.get(name)):
-                raise NotImplementedError(f"--{name}={params.get(name)!r} is not ported to the PyTorch trainer yet")
+        if params.get("coordinator") and not mesh.grouped():
+            raise ValueError(f"--coordinator={params.get('coordinator')} asks for a process group and none is up: "
+                             "start it before the trainer is built (start_group, as every family's main does)")
         self.compute_dtype = precision.dtype_of(params.get("compute_dtype"))
         self.transfer_dtype = precision.dtype_of(params.get("transfer_dtype"))
         self.fp32_precision = precision.fp32_precision(params.get("matmul_precision"))
         self.check_compute_dtype(params)
         self.params = params
-        self.device = resolve_device(params.get("device", 0))
+        self.device = mesh.rank_device(params.get("device", 0))
         self.debug_nans = bool(params.get("debug_nans", False))
         if self.debug_nans:
             self.train_graphs = False  # anomaly mode cannot run inside a CUDA graph
+        if not mesh.captures_allowed():
+            self.train_graphs = False  # a gloo collective runs on the host: no CUDA graph holds it
         self.logger = Logger()
         self.rng = RngPool(params.seed)
-        self.exp = Experiment(exp_name or f"erc_tpu_torch.{type(self).__name__}")
+        # one run directory for every rank: rank 0 names it
+        test_name = mesh.broadcast_one_to_all(Experiment.make_test_name())
+        writer = mesh.is_main_process()  # the ranks share the run's files: rank 0 alone writes them
+        self.exp = Experiment(exp_name or f"erc_tpu_torch.{type(self).__name__}", test_name=test_name, write=writer)
         self.exp.record_start(self.device)
         log_file = self.logger.add_log_dir(self.exp.test_dir)
         weakref.finalize(self, self.logger.remove_log_file, log_file)  # the singleton logger outlives the run
-        self.database = BestMetrics(self.exp.test_file("metrics.json"))
-        self.metric_board = MetricBoard(self.exp.test_file("board.jsonl"))
-        self.pred_info = PredictionStore(self.exp.blob_file("predictions.jsonl"))
-        self.saver = Saver(params.get("save_dir") or self.exp.blob_file("", "saver"))
+        if mesh.grouped():
+            self.log(mesh.describe())
+        self.database = BestMetrics(self.exp.test_file("metrics.json"), write=writer)
+        self.metric_board = MetricBoard(self.exp.test_file("board.jsonl"), write=writer)
+        self.pred_info = PredictionStore(self.exp.blob_file("predictions.jsonl"), write=writer)
+        self.saver = Saver(params.get("save_dir") or self.exp.blob_file("", "saver"), write=writer)
         self.callbacks: List[Any] = []
         self.stopped = False
         self.model: Optional[torch.nn.Module] = None
@@ -243,7 +287,8 @@ class Trainer:
         self._val_loader = None
         self._captured: Optional[CapturedForward] = None
         self._captured_step: Optional[CapturedStep] = None
-        params.to_yaml(self.exp.test_file("params.yaml"))
+        if writer:
+            params.to_yaml(self.exp.test_file("params.yaml"))
 
     # ------------------------------------------------------------------ setup
     def imodels(self, params) -> None:
@@ -277,13 +322,31 @@ class Trainer:
         if self.model is not None:
             return
         self.imodels(self.params)
-        self._dropout_rng = self.rng.torch_generator("dropout", self.device)
+        self._dropout_rng = self.rng.torch_generator(self._dropout_tag(), self.device)
         for m in self.model.modules():
             if isinstance(m, Dropout):
                 m.generator = self._dropout_rng
         n_params = sum(t.numel() for t in self.model.parameters())
         name = torch.cuda.get_device_name(self.device) if self.device.type == "cuda" else "cpu"
         self.log(f"model {type(self.model).__name__}: {n_params / 1e6:.3f}M params, on {self.device} ({name})")
+        if self.device.type == "cuda" and mesh.process_count() > 1:
+            from erc_tpu_torch.ops.kernels import build
+
+            build.build_on_main()  # one nvcc per source, on rank 0; the others load what it built
+
+    @staticmethod
+    def _dropout_tag() -> str:
+        """The tag of this rank's dropout stream: rank 0's (and one
+        process's) is ``dropout``, another rank's carries its rank, so that
+        the ranks' rows draw independent masks."""
+        rank = mesh.process_index()
+        return f"dropout/{rank}" if rank else "dropout"
+
+    def sync_from_main(self) -> None:
+        """Rank 0's parameters and buffers on every rank (of every module the
+        trainer holds), after they are made or loaded; nothing without a
+        process group.  Every rank calls it at the same point."""
+        mesh.broadcast_(self._eval_tensors())
 
     def make_loader(self, split: str) -> DialogueLoader:
         p = self.params
@@ -300,6 +363,8 @@ class Trainer:
             sort_by_length=bool(p.get("sort_by_length", True)),
             sort_chunk=int(p.get("sort_chunk", 8)),
             batch_count=(int(bc) if bc and split == "train" else None),
+            rank=mesh.process_index(),
+            world=mesh.process_count(),
         )
 
     def _pipeline(self, loader, k):
@@ -373,9 +438,17 @@ class Trainer:
     def _step(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """The step that the card captures: the gradients, their global norm
         before the clip (``gnorm``), optax's clip, the optimizer step and
-        ``after_step``.  Nothing waits for the device."""
+        ``after_step``.  Nothing waits for the device.  Under a process group
+        the gradients and the metrics (each rank's share) are summed over
+        ranks first, in one collective, so every rank clips, steps and reports
+        the global batch's."""
         mets = self.compute_grads(batch)
         grads = self.grads()
+        if mesh.grouped():
+            names = list(mets)
+            values = torch.stack([mets[n].float() for n in names])
+            mesh.allreduce_([*grads, values])
+            mets = dict(zip(names, values.unbind()))
         if self.grad_clip_norm:
             mets["gnorm"] = clip_by_global_norm_(grads, float(self.grad_clip_norm))
         else:
@@ -442,7 +515,9 @@ class Trainer:
     # ------------------------------------------------------------------ hooks
     def icallbacks(self, params) -> None:
         """Install the callbacks that the knobs ask for (the JAX trainer's
-        ``icallbacks``)."""
+        ``icallbacks``); under a process group the exporters (TensorBoard,
+        wandb, the remote URL) on rank 0 only, where the JAX trainer runs them
+        in every process."""
         cbs.StopByCode().hook(self)
         cbs.KeyErrorSave().hook(self)
         cbs.FinalReport().hook(self)
@@ -461,6 +536,8 @@ class Trainer:
             cbs.AutoResume().hook(self)
         if params.get("nan_guard"):
             cbs.NaNGuard().hook(self)
+        if not mesh.is_main_process():
+            return  # the exporters write and post the run's numbers: rank 0's, which every rank shares
         if params.get("tensorboard"):
             cbs.TensorBoardCallback().hook(self)
         if params.get("wandb"):
@@ -497,11 +574,12 @@ class Trainer:
             p.select_on = "test"
         loader = self._pipeline_train(self.make_loader("train"))
         history: List[Dict[str, Any]] = []
-        heartbeat = self.exp.start_heartbeat() if p.get("heartbeat", True) else None
+        heartbeat = self.exp.start_heartbeat() if p.get("heartbeat", True) and mesh.is_main_process() else None
         profile_steps = int(p.get("profile_steps", 0) or 0)
         profiling = contextlib.ExitStack()  # open while the first steps are traced
         try:
             self._fire("train_begin")
+            self.sync_from_main()  # after any --resume or --pretrain load
             profile_until = self.global_steps + profile_steps
             if profile_steps > 0:
                 profile_dir = self.exp.blob_file("", "profile")
@@ -509,7 +587,8 @@ class Trainer:
                           "steps_per_call": int(p.get("steps_per_call", 1) or 1)}
                 profiling.callback(self.log, "profile trace written")
                 profiling.enter_context(profiler.trace(profile_dir, {"erc_tpu_torch.window": window},
-                                                       cuda=self.device.type == "cuda"))
+                                                       cuda=self.device.type == "cuda",
+                                                       file=profiler.trace_file(mesh.process_index())))
                 self.log(f"profiling the first {profile_steps} steps → {profile_dir}")
             for eidx in range(self.eidx, int(p.epoch)):
                 self.eidx = eidx
@@ -666,6 +745,16 @@ class Trainer:
         self._pred: List[int] = []
         self._nll_sum, self._nll_n = 0.0, 0
 
+    def _sync_eval_state(self) -> None:
+        """Every rank's collected rows and NLL sums, the same on every rank,
+        before any metric (the JAX trainer's ``_sync_eval_state``), so that
+        metrics, the plateau controller and best-model decisions agree
+        across ranks (as they were, without a process group)."""
+        self._true = mesh.allgather_rows(np.asarray(self._true, np.int64)).tolist()
+        self._pred = mesh.allgather_rows(np.asarray(self._pred, np.int64)).tolist()
+        self._nll_sum, n = mesh.allsum(self._nll_sum, self._nll_n)
+        self._nll_n = int(n)
+
     def _plateau_step(self, loss: Optional[float]) -> None:
         """Step the plateau controller (where the subclass set one) on a loss."""
         if self.lr_sche is None or loss is None or not self.params.get("lr_plateau", True):
@@ -694,6 +783,7 @@ class Trainer:
         self._reset_collectors()
         self._fire("eval_begin")
         self._eval_loop(self._val_loader)
+        self._sync_eval_state()
         val_loss = self._nll_sum / max(self._nll_n, 1)
         res: Dict[str, Any] = {"Lall": val_loss}
         if self._true:
@@ -722,6 +812,7 @@ class Trainer:
         self._reset_collectors()
         self._fire("test_begin")
         self._eval_loop(self._test_loader)
+        self._sync_eval_state()
         test_loss = self._nll_sum / max(self._nll_n, 1)
         res: Dict[str, Any] = {}
         if self._true:
@@ -802,7 +893,9 @@ class Trainer:
         counters (``callbacks.AutoResume``); returns its path, or None where
         there is none."""
         self.initialize()
-        return cbs.AutoResume().resume(self)
+        path = cbs.AutoResume().resume(self)
+        self.sync_from_main()
+        return path
 
     def load_pretrained(self, path: str) -> None:
         """``--pretrain``: the model and the optimizer state (its LR and a
@@ -812,6 +905,7 @@ class Trainer:
         epoch, the step count, the generator and the best F1 stay."""
         self.initialize()
         self.load_state_tree(read_train_state(path, self), whole=False)
+        self.sync_from_main()
         self.log(f"loaded pretrained state from {path}")
 
     def load_state_tree(self, tree: Dict[str, Any], whole: bool = True) -> None:
@@ -828,8 +922,10 @@ class Trainer:
             return
         if self.lr_sche is not None:
             self.lr_sche.load_state_dict(tree["lr_sche"])
-        self._dropout_rng.set_state(tree["rng"])
+        self._dropout_rng.set_state(tree["rng"])  # rank 0's stream: rank 0 wrote the file
         self.global_steps, self.eidx, self.best_f1 = tree["step"], tree["eidx"], tree["best_f1"]
+        if mesh.process_index():  # another rank goes on with a stream of its own, from the restored step
+            self._dropout_rng.manual_seed(self.rng.seed_of(self._dropout_tag(), self.global_steps))
         self.best_val_f1 = tree.get("best_val_f1", float("-inf"))  # older checkpoints lack it
 
 

@@ -403,10 +403,13 @@ def test_matmul_precision_is_scoped_to_the_trainer():
     assert seen == [["tf32", "tf32"], ["ieee", "ieee"]]
 
 
-# ------------------------------------------------------------ not ported yet
-# the JAX trainer's knobs that the port refused until its runtime slice; the
-# first eight are honoured since (tests/test_torch_callbacks.py and
-# test_torch_runtime.py run each), the distributed three still raise
+# ------------------------------------------------------------ once not ported
+# the JAX trainer's knobs that the port refused until its runtime slice (the
+# first eight, honoured since: tests/test_torch_callbacks.py and
+# test_torch_runtime.py run each) and its data-parallel slice (the distributed
+# three: tests/test_torch_multiprocess.py runs them); none raises
+# NotImplementedError now.  The coordinator alone: the entry point asks for
+# the other two, and a trainer refuses it where no process group is up.
 NOT_PORTED = [("checkpoint_per_step", 100), ("profile_steps", 5), ("nan_guard", True), ("eval_first", True),
               ("debug_nans", True), ("tensorboard", True), ("wandb", True), ("remote_url", "http://localhost:8000"),
               ("coordinator", "localhost:1234"), ("num_processes", 2), ("process_id", 0)]
@@ -414,14 +417,22 @@ NOT_PORTED = [("checkpoint_per_step", 100), ("profile_steps", 5), ("nan_guard", 
 
 @pytest.mark.parametrize("knob, value", NOT_PORTED, ids=[k for k, _ in NOT_PORTED])
 def test_knobs_not_ported_raise(knob, value):
+    from erc_tpu_torch.parallel import mesh
     from erc_tpu_torch.train import trainer as ttrainer
 
-    if knob not in ttrainer.NOT_PORTED:
-        assert knob not in ("coordinator", "num_processes", "process_id")
-        assert _cogmen(f"--{knob}={value}").params.get(knob) == value
+    assert not hasattr(ttrainer, "NOT_PORTED")
+    if knob == "coordinator":  # the entry point's start_group wants the other two; a trainer wants a group up
+        fam = FAMILIES["cogmen"]
+        p = getattr(_import("erc_tpu_torch", fam.port_mod), f"{fam.port_cls}Params")()
+        p.finalize([*fam.argv, *SMALL, f"--{knob}={value}"])
+        with pytest.raises(ValueError, match="--num_processes and --process_id"):
+            ttrainer.start_group(p)
+        with pytest.raises(ValueError, match="none is up"):
+            _cogmen(f"--{knob}={value}")
+        assert not mesh.grouped()
         return
-    with pytest.raises(NotImplementedError, match=f"--{knob}="):
-        _cogmen(f"--{knob}={value}")
+    assert _cogmen(f"--{knob}={value}").params.get(knob) == value
+    assert not mesh.grouped()  # without a coordinator, one process
 
 
 def test_knobs_at_their_defaults_build():
