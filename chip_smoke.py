@@ -183,10 +183,35 @@ Phases (any failure raises, so the exit code is non-zero):
      busy time with and without the group and the ranks' step walls against
      one process's.  The phase's launches (`ddp_launches`) are the gloo
      ranks' and the NCCL rank's steps' alone;
- 21. print the run's wall time, one JSON line of kernel records (K1/K2/K1ᵀ
+ 21. feature extraction (drive_preprocess, erc_tpu_torch/preprocess/), with
+     TF32 allowed in cuBLAS and cuDNN's convolutions for the phase, so that
+     the extractors' own full-float32 scope is what keeps them exact (the
+     settings checked restored after every call): the acoustic entry
+     (`python -m erc_tpu_torch.preprocess acoustic`, in this process) on 16
+     fabricated 16 kHz wavs of 2-8 s, fbank, MFCC and STFT, against the same
+     entry with --device=cpu (fbank and MFCC 1e-4 abs beyond twice the CPU
+     run's own float32 deviation from a float64 evaluation, STFT 1e-4 of
+     max |X|); the TSN ResNet-50 (2048-d) on 16 clips x 8 segments x 224^2
+     uint8 (card vs the CPU port on 2 clips, 1e-4 of max |feature|; the
+     batch vs per-clip calls 1e-5; finite); 3 single 480 x 720 clips through
+     crop_speaker_half and the frame preprocessing; TSMRecognizer (6
+     classes, 8 segments) on 4 clips; X3D-M (feature 432) on 4 clips x 16 x
+     224^2; the dialogue walk (a fabricated release tree and COGMEN dump, 2
+     dialogues x 8 utterances of 1-3 s at 30 fps, 480 x 720, read_video
+     injected) through the iemocap-cogmen-video-4 view and
+     extract_dialogue_features (every dialogue (8, 2048), equal to
+     per-utterance calls); the text encoder in both modes on 256 sentences
+     (64 tokens, batch 64) with a random stand-in encoder at
+     paraphrase-distilroberta-base widths (768, 12 heads, 6 layers, FFN
+     3072, vocabulary 50265), against the CPU port on 64; K1-K4 launched 0
+     times (`preprocess_launches`); for information audio seconds/s, clips/s,
+     frames/s, utterances/s, sentences/s, and one extract_batch's wall and
+     busy share;
+ 22. print the run's wall time, one JSON line of kernel records (K1/K2/K1ᵀ
      also at DialogueGCN's shapes, K = 10 and 21, D = 100 and 200, with their
      launches on its paths; K1–K4 with their launches on the ddp path,
-     `ddp_launches`), the card's name and power limit, and a last
+     `ddp_launches`, and on the preprocessing path, `preprocess_launches`),
+     the card's name and power limit, and a last
      JSON line {"ok": true, "device": {...}}.
 Each model path is driven with every launch count set to 0 just before it
 and read just after.
@@ -4249,6 +4274,432 @@ def drive_ddp(card: str) -> dict:
     return {**one, "launches": launches}
 
 
+# ------------------------------------------------------------------ phase 21
+PRE_TOL = 1e-4  # card vs the CPU port: features, logits, embeddings relative to max |CPU's|; fbank, MFCC absolute
+PRE_BATCH_TOL = 1e-5  # the 16-clip batch vs per-clip calls on the card, relative to max |feature|
+PRE_WALK_TOL = 1e-6  # the walk's rows vs per-utterance extract calls on the card, relative to max |feature|
+PRE_WAVS = 16  # 16 kHz wavs of 2.0-8.0 s
+TSN_CLIPS, TSN_SEGMENTS, CROP = 16, 8, 224
+CPU_CLIPS = 2  # TSN clips the CPU port extracts (TSM and X3D: 1)
+TEXT_SENTENCES, TEXT_CPU, TEXT_TOKENS, TEXT_BATCH = 256, 64, 64, 64
+# the stand-in for sentence-transformers/paraphrase-distilroberta-base-v1 (RoBERTa-base widths, 6 layers)
+TEXT_WIDTHS = dict(vocab=50265, width=768, heads=12, layers=6, ffn=3072, positions=514)
+
+
+@contextlib.contextmanager
+def _tf32_allowed():
+    """TF32 allowed for float32 in cuBLAS and in cuDNN's convolutions, as settings of the process, for the phase;
+    the extractors' own full-float32 scope must override them.  Restored after."""
+    import torch
+
+    backends = (torch.backends.cuda.matmul, torch.backends.cudnn.conv)
+    before = [b.fp32_precision for b in backends]
+    for b in backends:
+        b.fp32_precision = "tf32"
+    try:
+        yield
+    finally:
+        for b, v in zip(backends, before):
+            b.fp32_precision = v
+
+
+def _numerics() -> tuple:
+    import torch
+
+    return (torch.backends.cuda.matmul.fp32_precision, torch.backends.cudnn.conv.fp32_precision,
+            torch.backends.cudnn.benchmark)
+
+
+def _extract(what: str, fn):
+    """`fn()` on the card, with the process's numerics settings as they were after it."""
+    before = _numerics()
+    out = fn()
+    require(_numerics() == before, f"{what} left the numerics settings changed: {before} -> {_numerics()}")
+    return out
+
+
+def _rel_err(got, want) -> float:
+    import numpy as np
+
+    return float(np.abs(np.asarray(got) - np.asarray(want)).max() / max(np.abs(np.asarray(want)).max(), 1e-30))
+
+
+def _write_speech_like_wavs(wav_dir: Path, seconds) -> None:
+    """16-bit mono 16 kHz wavs: harmonics of a gliding f0 (100-250 Hz) under a 1/k roll-off, a syllable-rate
+    envelope, noise 30 dB below, peaks near -12 dBFS."""
+    import wave
+
+    import numpy as np
+
+    rng = np.random.default_rng(21)
+    wav_dir.mkdir(parents=True)
+    for i, sec in enumerate(seconds):
+        t = np.arange(int(16000 * sec)) / 16000
+        f0 = rng.uniform(100, 250) * (1 + 0.2 * np.sin(2 * np.pi * rng.uniform(0.2, 1.0) * t))
+        phase = 2 * np.pi * np.cumsum(f0) / 16000
+        voiced = sum(np.sin(k * phase) / k for k in range(1, 30))
+        env = 0.5 * (1 - np.cos(2 * np.pi * rng.uniform(2, 5) * t))
+        sig = 0.1 * voiced * env + 0.003 * rng.normal(size=t.shape)
+        pcm = np.clip(sig / np.abs(sig).max() * 0.25 * 32767, -32768, 32767).astype(np.int16)
+        with wave.open(str(wav_dir / f"utt{i:02d}.wav"), "wb") as w:
+            w.setnchannels(1)
+            w.setsampwidth(2)
+            w.setframerate(16000)
+            w.writeframes(pcm.tobytes())
+
+
+def _float64_features(sig, feature: str):
+    """The acoustic formula (log-mel or MFCC) of one [T] signal in float64 (numpy), from the port's constants."""
+    import numpy as np
+
+    from erc_tpu_torch.preprocess import acoustic as ac
+
+    fb_dim = 80 if feature == "fbank" else 40
+    window = (ac.win_hamming if feature == "fbank" else ac.win_povey)(400).astype(np.float64)
+    idx = np.arange((len(sig) - 400) // 160 + 1)[:, None] * 160 + np.arange(400)[None, :]
+    fr = np.asarray(sig, np.float64)[idx]
+    fr = fr - fr.mean(-1, keepdims=True)
+    energy = np.log((fr * fr).sum(-1, keepdims=True) + 1e-6)
+    fr = np.concatenate([fr[:, :1] * 0.03, fr[:, 1:] - 0.97 * fr[:, :-1]], -1) * window
+    st = np.fft.rfft(np.pad(fr, ((0, 0), (0, 112))))[:, 1:257]
+    fb = np.log((st.real ** 2 + st.imag ** 2 + 1e-6) @ ac.mel_filterbank(fb_dim, 512).astype(np.float64))
+    if feature == "fbank":
+        return fb
+    return np.concatenate([energy, (fb @ ac.mfcc_dct(23, fb_dim).astype(np.float64))[:, 1:]], -1)
+
+
+def _preprocess_acoustic(card: str, tmp: Path) -> None:
+    """The acoustic entry on the card against the same entry with --device=cpu, for each feature."""
+    import pickle
+
+    import numpy as np
+
+    from erc_tpu_torch.preprocess import entry
+
+    seconds = np.linspace(2.0, 8.0, PRE_WAVS)
+    wav_dir = tmp / "wavs"
+    _write_speech_like_wavs(wav_dir, seconds)
+    for feature in ("fbank", "mfcc", "stft"):
+        args = ["acoustic", f"--wav_dir={wav_dir}", f"--feature={feature}"]
+        _extract(f"acoustic {feature}", lambda: entry.main(args + [f"--out={tmp / 'warm.pkl'}"]))  # cuFFT plans
+        t0 = time.perf_counter()
+        _extract(f"acoustic {feature}", lambda: entry.main(args + [f"--out={tmp / 'card.pkl'}"]))
+        wall = time.perf_counter() - t0
+        entry.main(args + [f"--out={tmp / 'cpu.pkl'}", "--device=cpu"])
+        got, want = (pickle.loads((tmp / n).read_bytes()) for n in ("card.pkl", "cpu.pkl"))
+        require(sorted(got) == sorted(want) and len(got) == PRE_WAVS, f"acoustic {feature}: keys {sorted(got)}")
+        worst, slack = 0.0, 0.0
+        for k in want:
+            require(got[k].shape == want[k].shape and got[k].dtype == want[k].dtype and np.isfinite(got[k]).all(),
+                    f"acoustic {feature} {k}: {got[k].shape} {got[k].dtype} vs {want[k].shape} {want[k].dtype}")
+            if feature == "stft":
+                err = _rel_err(got[k], want[k])
+                require(err <= PRE_TOL, f"acoustic stft {k}: card vs CPU {err:.3e} of max |X| > {PRE_TOL}")
+            else:
+                own = float(np.abs(want[k] - _float64_features(entry.read_wav(str(wav_dir / f"{k}.wav")),
+                                                               feature)).max())
+                err = float(np.abs(got[k] - want[k]).max())
+                require(err <= PRE_TOL + 2 * own, f"acoustic {feature} {k}: card vs CPU {err:.3e} > {PRE_TOL} + "
+                                                  f"2 x the CPU's own float32 deviation {own:.3e}")
+                slack = max(slack, own)
+            worst = max(worst, err)
+        log(f"preprocess: acoustic {feature} of {PRE_WAVS} wavs ({seconds.sum():.1f} s of audio): card vs CPU "
+            f"{worst:.3e} {'of max |X|' if feature == 'stft' else 'abs'}"
+            + ("" if feature == "stft" else f" (the CPU's own float32 deviation from float64 up to {slack:.3e})")
+            + f"; the entry {wall:.3f} s, {seconds.sum() / wall:.1f} audio s/s; on {card}")
+
+
+def _preprocess_tsn(card: str):
+    """TSN's batch path, its single-clip path through the speaker crop, card vs the CPU port; returns the card's
+    extractor (the walk uses it)."""
+    import importlib.util
+
+    import numpy as np
+
+    from erc_tpu_torch.preprocess import video
+
+    rng = np.random.default_rng(22)
+    clips = rng.integers(0, 256, (TSN_CLIPS, TSN_SEGMENTS, CROP, CROP, 3), dtype=np.uint8)
+    ex = video.TSNExtractor(n_segments=TSN_SEGMENTS, crop_size=CROP, seed=1)
+    cpu = video.TSNExtractor(n_segments=TSN_SEGMENTS, crop_size=CROP, seed=1, device="cpu")
+    feats = _extract("TSN extract_batch", lambda: ex.extract_batch(clips))
+    require(feats.shape == (TSN_CLIPS, 2048) and np.isfinite(feats).all(), f"TSN features {feats.shape}")
+    err = _rel_err(feats[:CPU_CLIPS], cpu.extract_batch(clips[:CPU_CLIPS]))
+    require(err <= PRE_TOL, f"TSN extract_batch: card vs CPU {err:.3e} > {PRE_TOL}")
+    single = np.concatenate([ex.extract_batch(clips[i: i + 1]) for i in range(TSN_CLIPS)])
+    err_b = _rel_err(feats, single)
+    require(err_b <= PRE_BATCH_TOL, f"TSN: the 16-clip batch vs per-clip calls {err_b:.3e} > {PRE_BATCH_TOL}")
+    wall, busy = _wall_and_busy(lambda: ex.extract_batch(clips),
+                                f"TSN extract_batch of {TSN_CLIPS} clips x {TSN_SEGMENTS} segments", reps=3)
+    log(f"preprocess: TSN ResNet-50 extract_batch {TSN_CLIPS} x {TSN_SEGMENTS} x {CROP}^2: card vs CPU ({CPU_CLIPS} "
+        f"clips) {err:.3e}, batch vs per-clip {err_b:.3e}; {wall * 1e3:.3f} ms, {TSN_CLIPS / wall:.1f} clips/s, "
+        f"{TSN_CLIPS * TSN_SEGMENTS / wall:.1f} frames/s, busy "
+        f"{'not measured' if busy is None else f'{busy:.3f} ms ({100 * busy / (wall * 1e3):.1f} %)'}; on {card}")
+    branch = "cv2.resize" if importlib.util.find_spec("cv2") else "centre crop and stride (no cv2)"
+    for i, (n, spk) in enumerate(((24, "M"), (36, "F"), (48, "M"))):
+        frames = rng.integers(0, 256, (n, 480, 720, 3), dtype=np.uint8)
+        crop = np.stack([video.crop_speaker_half(f, spk) for f in frames])
+        got = _extract("TSN extract", lambda: ex.extract(crop))
+        err = _rel_err(got, cpu.extract(crop))
+        require(got.shape == (2048,) and np.isfinite(got).all() and err <= PRE_TOL,
+                f"TSN extract of a {crop.shape} clip: {got.shape}, card vs CPU {err:.3e}")
+        log(f"preprocess: TSN extract of {n} frames 480 x 720 -> {crop.shape[1:3]} speaker {spk} ({branch}): "
+            f"card vs CPU {err:.3e}")
+    return ex
+
+
+def _preprocess_tsm_x3d(card: str) -> None:
+    import copy
+
+    import numpy as np
+    import torch
+
+    from erc_tpu_torch.preprocess import full_fp32, video
+    from erc_tpu_torch.preprocess.tsm import TSMRecognizer
+    from erc_tpu_torch.preprocess.x3d import X3D
+
+    rng = np.random.default_rng(23)
+    u8 = rng.integers(0, 256, (4, TSN_SEGMENTS, CROP, CROP, 3), dtype=np.uint8)
+    x = torch.from_numpy((u8.astype(np.float32) - video.IMAGENET_MEAN) / video.IMAGENET_STD).permute(0, 1, 4, 2, 3)
+    cpu_model = video.init_weights(TSMRecognizer(6, TSN_SEGMENTS), torch.Generator().manual_seed(3)).eval()
+    model = copy.deepcopy(cpu_model).cuda()
+
+    def tsm(m, inp):
+        with torch.inference_mode(), full_fp32():
+            return m(inp).cpu().numpy()
+
+    logits = _extract("TSM", lambda: tsm(model, x.cuda()))
+    err = _rel_err(logits[:1], tsm(cpu_model, x[:1]))
+    require(logits.shape == (4, 6) and np.isfinite(logits).all() and err <= PRE_TOL,
+            f"TSM: logits {logits.shape}, card vs CPU {err:.3e}")
+    xc = x.cuda()
+    wall = statistics.median(_step_time(lambda: tsm(model, xc)) for _ in range(3))
+    log(f"preprocess: TSMRecognizer (6 classes, {TSN_SEGMENTS} segments) on 4 clips: card vs CPU (1 clip) {err:.3e}; "
+        f"{wall * 1e3:.3f} ms, {4 / wall:.1f} clips/s, {4 * TSN_SEGMENTS / wall:.1f} frames/s; on {card}")
+
+    clips = rng.integers(0, 256, (4, 16, CROP, CROP, 3), dtype=np.uint8)
+    ex = video.X3DExtractor(n_frames=16, crop_size=CROP, seed=1)
+    cpu = video.X3DExtractor(n_frames=16, crop_size=CROP, seed=1, device="cpu")
+    require(ex.model.blocks == [3, 5, 11, 7] and ex.model.feat_dim == 432, "X3D-M's blocks and width")
+    feats = _extract("X3D extract_batch", lambda: ex.extract_batch(clips))
+    err = _rel_err(feats[:1], cpu.extract_batch(clips[:1]))
+    require(feats.shape == (4, 432) and np.isfinite(feats).all() and err <= PRE_TOL,
+            f"X3D-M: features {feats.shape}, card vs CPU {err:.3e}")
+    wall, busy = _wall_and_busy(lambda: ex.extract_batch(clips), "X3D-M extract_batch of 4 clips x 16 frames", reps=3)
+    log(f"preprocess: X3D-M extract_batch 4 x 16 x {CROP}^2: card vs CPU (1 clip) {err:.3e}; {wall * 1e3:.3f} ms, "
+        f"{4 / wall:.1f} clips/s, {64 / wall:.1f} frames/s, busy "
+        f"{'not measured' if busy is None else f'{busy:.3f} ms ({100 * busy / (wall * 1e3):.1f} %)'}; on {card}")
+
+
+def _release_tree(base: Path, rng):
+    """An IEMOCAP release tree (transcripts, empty avis) and a 4-class COGMEN dump under base/iemocap: 2 dialogues
+    x 8 utterances of 1-3 s; returns {dialogue: its frames} at 30 fps, 480 x 720."""
+    import pickle
+
+    import numpy as np
+
+    root = base / "iemocap"
+    frames, sent, spk = {}, {}, {}
+    pool = rng.integers(0, 256, (40, 480, 720, 3), dtype=np.uint8)
+    for s, dia in enumerate(("Ses01F_impro01", "Ses02M_script01_1"), start=1):
+        tra = root / "IEMOCAP_full_release" / f"Session{s}" / "dialog" / "transcriptions"
+        avi = root / "IEMOCAP_full_release" / f"Session{s}" / "dialog" / "avi" / "DivX"
+        tra.mkdir(parents=True)
+        avi.mkdir(parents=True)
+        (avi / f"{dia}.avi").write_bytes(b"")
+        t, lines = 0.3, []
+        sent[dia], spk[dia] = [], []
+        for j in range(8):
+            t1 = t + rng.uniform(1.0, 3.0)
+            g = "F" if j % 2 == 0 else "M"
+            sent[dia].append(f"utterance {j} of {dia}")
+            spk[dia].append(g)
+            lines.append(f"{dia}_{g}{j:03d} [{t:.4f}-{t1:.4f}]: {sent[dia][-1]}\n")
+            t = t1 + 0.2
+        (tra / f"{dia}.txt").write_text("".join(lines))
+        frames[dia] = pool[np.arange(int(np.ceil(t * 30)) + 1) % len(pool)]
+    dump = root / "cogmen" / "iemocap_4" / "IEMOCAP_features_4.pkl"
+    dump.parent.mkdir(parents=True)
+    feats = {k: np.zeros((8, 4), np.float32) for k in sent}
+    dump.write_bytes(pickle.dumps(({k: k for k in sent}, spk, {k: [0] * 8 for k in sent}, feats, feats, feats, sent,
+                                   list(sent), [])))
+    return frames
+
+
+def _preprocess_walk(card: str, ex, tmp: Path) -> None:
+    """The dialogue walk through the registry's video view and the card's TSN extractor."""
+    import os
+
+    import numpy as np
+
+    from erc_tpu_torch.data import registry
+    from erc_tpu_torch.preprocess import video_walk
+
+    frames = _release_tree(tmp / "data", np.random.default_rng(24))
+    saved = os.environ.get("ERC_TPU_DATA_ROOT")
+    os.environ["ERC_TPU_DATA_ROOT"] = str(tmp / "data")
+    try:
+        clips = registry.pick_datas(registry.get_root("iemocap-cogmen-video-4"), "iemocap-cogmen-video-4")
+    finally:
+        if saved is None:
+            os.environ.pop("ERC_TPU_DATA_ROOT")
+        else:
+            os.environ["ERC_TPU_DATA_ROOT"] = saved
+    require(sorted(clips) == sorted(frames), f"the video view aligned {sorted(clips)}")
+
+    def read_video(fn):
+        return frames[os.path.basename(fn).split(".")[0]], 30.0
+
+    failures = []
+    t0 = time.perf_counter()
+    out = _extract("the dialogue walk", lambda: video_walk.extract_dialogue_features(clips, ex.extract, read_video,
+                                                                                       log=failures.append))
+    wall = time.perf_counter() - t0
+    require(not failures, f"the dialogue walk: {failures}")
+    worst, bitwise = 0.0, True
+    for dia, sample in clips.items():
+        rows = out[dia]
+        require(isinstance(rows, np.ndarray) and rows.shape == (8, 2048) and np.isfinite(rows).all(),
+                f"dialogue {dia}: {type(rows).__name__} {getattr(rows, 'shape', None)}, want (8, 2048)")
+        f_left = "F" in os.path.basename(sample["fn"])
+        for r, ((_, left, right), g) in enumerate(zip(sample["timestamp"], sample["speaker"])):
+            arr = video_walk.crop_speaker(frames[dia][round(left * 30): round(right * 30)],
+                                          take_left=(f_left == video_walk._gender_flag(g)))
+            ref = ex.extract(arr)
+            worst = max(worst, _rel_err(rows[r], ref))
+            bitwise = bitwise and bool((rows[r] == ref).all())
+    require(worst <= PRE_WALK_TOL, f"the dialogue walk vs per-utterance extract calls: {worst:.3e} > {PRE_WALK_TOL}")
+    log(f"preprocess: dialogue walk, 2 dialogues x 8 utterances (480 x 720, 30 fps): every dialogue (8, 2048), vs "
+        f"per-utterance calls {worst:.3e} ({'bit for bit' if bitwise else 'not bit for bit'}); {wall:.3f} s, "
+        f"{16 / wall:.1f} utterances/s; on {card}")
+
+
+def _stand_in_encoder(seed: int):
+    """A random RoBERTa-shaped encoder with the Hugging Face call convention (`input_ids`, `attention_mask` ->
+    `.last_hidden_state`, `.pooler_output`) at TEXT_WIDTHS: no model directory is in the checkout, and none is
+    downloaded."""
+    import types
+
+    import torch
+    from torch import nn
+    from torch.nn import functional as F
+
+    from erc_tpu_torch.ops.init import normal_
+
+    w = TEXT_WIDTHS
+
+    class Layer(nn.Module):
+        def __init__(self):
+            super().__init__()
+            d = w["width"]
+            self.qkv, self.out = nn.Linear(d, 3 * d), nn.Linear(d, d)
+            self.fc1, self.fc2 = nn.Linear(d, w["ffn"]), nn.Linear(w["ffn"], d)
+            self.ln1, self.ln2 = nn.LayerNorm(d, eps=1e-5), nn.LayerNorm(d, eps=1e-5)
+
+        def forward(self, x, bias):
+            b, n, d = x.shape
+            q, k, v = self.qkv(x).view(b, n, 3, w["heads"], d // w["heads"]).permute(2, 0, 3, 1, 4)
+            a = F.scaled_dot_product_attention(q, k, v, attn_mask=bias).transpose(1, 2).reshape(b, n, d)
+            x = self.ln1(x + self.out(a))
+            return self.ln2(x + self.fc2(F.gelu(self.fc1(x))))
+
+    class Encoder(nn.Module):
+        def __init__(self):
+            super().__init__()
+            d = w["width"]
+            self.word = nn.Embedding(w["vocab"], d, padding_idx=1)
+            self.pos = nn.Embedding(w["positions"], d, padding_idx=1)
+            self.ln = nn.LayerNorm(d, eps=1e-5)
+            self.layers = nn.ModuleList(Layer() for _ in range(w["layers"]))
+            self.pooler = nn.Linear(d, d)
+
+        def forward(self, input_ids, attention_mask):
+            real = (input_ids != 1).long()
+            x = self.ln(self.word(input_ids) + self.pos(torch.cumsum(real, 1) * real + 1))
+            bias = (1.0 - attention_mask[:, None, None, :].to(x.dtype)) * torch.finfo(x.dtype).min
+            for layer in self.layers:
+                x = layer(x, bias)
+            return types.SimpleNamespace(last_hidden_state=x, pooler_output=torch.tanh(self.pooler(x[:, 0])))
+
+    g = torch.Generator().manual_seed(seed)
+    enc = Encoder()
+    with torch.no_grad():
+        for m in enc.modules():
+            if isinstance(m, (nn.Linear, nn.Embedding)):
+                normal_(m.weight, 0.02, g)
+                if isinstance(m, nn.Linear):
+                    m.bias.zero_()
+    return enc.eval()
+
+
+class _StandInTokenizer:
+    """`transformers`' call convention: <s> word ids </s>, padded with 1 to max_length (truncated)."""
+
+    def __call__(self, sentences, padding, truncation, max_length, return_tensors):
+        import zlib
+
+        import numpy as np
+
+        ids = np.ones((len(sentences), max_length), np.int64)
+        am = np.zeros((len(sentences), max_length), np.int64)
+        for i, s in enumerate(sentences):
+            toks = [0] + [3 + zlib.crc32(t.encode()) % (TEXT_WIDTHS["vocab"] - 3) for t in s.split()][
+                : max_length - 2] + [2]
+            ids[i, : len(toks)], am[i, : len(toks)] = toks, 1
+        return {"input_ids": ids, "attention_mask": am}
+
+
+def _preprocess_text(card: str) -> None:
+    import copy
+
+    import numpy as np
+
+    from erc_tpu_torch.preprocess.lexical import TextEncoder
+
+    rng = np.random.default_rng(25)
+    words = [f"w{int(i)}" for i in rng.integers(0, 10 ** 6, 5000)]
+    sentences = [" ".join(rng.choice(words, int(rng.integers(3, 90)))) for _ in range(TEXT_SENTENCES)]
+    model = _stand_in_encoder(4)
+    cpu_model = copy.deepcopy(model)
+    n_params = sum(p.numel() for p in model.parameters())
+    for mode in ("sbert", "robert"):
+        kw = dict(mode=mode, max_tokens=TEXT_TOKENS, batch_size=TEXT_BATCH)
+        enc = TextEncoder(model, _StandInTokenizer(), **kw)
+        got = _extract(f"text {mode}", lambda: enc.encode(sentences))
+        t0 = time.perf_counter()
+        enc.encode(sentences)
+        wall = time.perf_counter() - t0
+        err = _rel_err(got[:TEXT_CPU], TextEncoder(cpu_model, _StandInTokenizer(), device="cpu", **kw)
+                       .encode(sentences[:TEXT_CPU]))
+        require(got.shape == (TEXT_SENTENCES, TEXT_WIDTHS["width"]) and np.isfinite(got).all() and err <= PRE_TOL,
+                f"text {mode}: {got.shape}, card vs CPU {err:.3e}")
+        log(f"preprocess: text {mode}, {TEXT_SENTENCES} sentences x {TEXT_TOKENS} tokens, batch {TEXT_BATCH}, a "
+            f"random stand-in encoder of {n_params:,} parameters ({TEXT_WIDTHS}): card vs CPU "
+            f"({TEXT_CPU} sentences) {err:.3e}; {wall:.3f} s, {TEXT_SENTENCES / wall:.1f} sentences/s; on {card}")
+
+
+def drive_preprocess(card: str) -> dict:
+    """Phase 21: feature extraction on the card, every count of K1-K4 set to 0 before and read after (the
+    extraction path runs none of them)."""
+    import importlib.util
+    import tempfile
+
+    t0 = time.perf_counter()
+    log("preprocess: optional packages here: " + ", ".join(
+        f"{m} {'present' if importlib.util.find_spec(m) else 'absent'}" for m in ("cv2", "transformers", "h5py")))
+    _reset_launches()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_pre_") as d, _tf32_allowed():
+        tmp = Path(d)
+        _preprocess_acoustic(card, tmp)
+        ex = _preprocess_tsn(card)
+        _preprocess_tsm_x3d(card)
+        _preprocess_walk(card, ex, tmp)
+        _preprocess_text(card)
+    launches = _no_kernel_launches("preprocessing")
+    log(f"preprocess phase: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def _stamp(phase: str) -> None:
     """Log the phase's end with the runs that its trainers left in the script's experiment root (their count and
     the bytes of their blobs: best models, checkpoints, traces), and drop them."""
@@ -4358,6 +4809,8 @@ def _main() -> int:
     _stamp("runtime")
     ddp = drive_ddp(card)
     _stamp("ddp")
+    preprocess = drive_preprocess(card)
+    _stamp("preprocess")
     # the DialogueGCN-shape records: their instantiation's launches on DialogueGCN's serving and training paths
     for rec in dgcn_records.values():
         rec["launches"] = dgcn_serve_taps[rec["tap_key"]] + dgcn_train_taps[rec["tap_key"]]
@@ -4365,6 +4818,8 @@ def _main() -> int:
     for name in ("banded_gather_sum", "banded_dot", "banded_gather_sum_t", "dag_block", "dag_block_bwd"):
         records[name]["ddp_launches"] = ddp["launches"].get(name, 0)
         require(records[name]["ddp_launches"] > 0, f"{name} was not launched on the ddp path")
+    for rec in records.values():
+        rec["preprocess_launches"] = preprocess.get(rec["name"], 0)
     for name, rec in records.items():
         require(rec["launches"] > 0, f"{name} was not launched on its path")
         rec["max_err"], rec["kernel_ms"] = rec["max_abs_err"], rec["ms"]

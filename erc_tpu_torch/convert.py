@@ -11,15 +11,21 @@ Layouts: a flax ``Dense.kernel`` is [in, out] and a torch ``Linear.weight``
 recurrent layers' ``w_ih`` / ``w_hh`` and MMGCN's GCNII ``convs`` keep
 the JAX layout, as do DialogueGCN v2's DialogueRNN cells, edge attention
 and nodal attention; a flax ``Conv`` kernel is [K, in, out] and a torch
-``Conv1d.weight`` [out, in, K].
+``Conv1d.weight`` [out, in, K], and likewise HWIO → OIHW (``Conv2d``) and
+THWIO → OIDHW (``Conv3d``), a grouped kernel's I being its group's inputs in
+both; a flax ``BatchNorm``'s ``scale``/``bias`` and ``batch_stats``
+``mean``/``var`` are ``weight``/``bias``/``running_mean``/``running_var``.
+The video backbones (``resnet50``, ``tsm``, ``x3d``) map onto the port's
+``preprocess/video.py``, ``tsm.py`` and ``x3d.py``.
 
     python -m erc_tpu_torch.convert [--module=NAME] variables.npz state_dict.pt
 
 writes the state dict of module NAME (``cogmen``, the default, ``dagerc``,
 ``dgcn``, ``mmgcn``, ``dgcnv2``, ``dgcnv2_daily``, ``cim`` or
-``cogmen_mosei``) that ``serve.InferenceEngine`` loads, or of ``mmin_base``,
+``cogmen_mosei``) that ``serve.InferenceEngine`` loads, of ``mmin_base``,
 ``mmin_miss`` or ``mmin_miss2``, which the MMIN trainers load (MMIN has no
-serving engine).
+serving engine), or of ``resnet50``, ``tsm`` or ``x3d``, which the
+extractors of ``preprocess/video.py`` load.
 """
 
 from __future__ import annotations
@@ -267,6 +273,75 @@ def mmin_miss2_state(params: Tree) -> Dict[str, torch.Tensor]:
     return {**_prefixed("net", mmin_base_state(params["net"])), **_prefixed("netB", mmin_base_state(params["netB"]))}
 
 
+def conv_state(p: Tree) -> Dict[str, torch.Tensor]:
+    """flax Conv {kernel [*spatial, in/groups, out] (, bias)} → Conv2d/Conv3d
+    {weight [out, in/groups, *spatial] (, bias)}."""
+    k = np.asarray(p["kernel"])
+    out = {"weight": _t(k.transpose(k.ndim - 1, k.ndim - 2, *range(k.ndim - 2))).contiguous()}
+    if "bias" in p:
+        out["bias"] = _t(p["bias"])
+    return out
+
+
+def bn_state(p: Tree, stats: Tree) -> Dict[str, torch.Tensor]:
+    """flax BatchNorm (eps 1e-5) → BatchNorm2d/3d, ``num_batches_tracked`` 0."""
+    return {"weight": _t(p["scale"]), "bias": _t(p["bias"]), "running_mean": _t(stats["mean"]),
+            "running_var": _t(stats["var"]), "num_batches_tracked": torch.zeros((), dtype=torch.long)}
+
+
+def resnet50_state(params: Tree, batch_stats: Tree) -> Dict[str, torch.Tensor]:
+    """The state dict of ``preprocess.video.ResNet50`` (with or without the
+    shift, which has no parameters): flax ``layer{L}_{i}`` → ``layer{L}.{i}``,
+    ``downsample_conv``/``_bn`` → ``downsample.0``/``.1``."""
+    sd = {**_prefixed("conv1", conv_state(params["conv1"])), **_prefixed("bn1", bn_state(params["bn1"],
+                                                                                      batch_stats["bn1"]))}
+    for name, p in params.items():
+        if not name.startswith("layer"):
+            continue
+        st = batch_stats[name]
+        dst = name.replace("_", ".")
+        for k in (1, 2, 3):
+            sd.update(_prefixed(f"{dst}.conv{k}", conv_state(p[f"conv{k}"])))
+            sd.update(_prefixed(f"{dst}.bn{k}", bn_state(p[f"bn{k}"], st[f"bn{k}"])))
+        if "downsample_conv" in p:
+            sd.update(_prefixed(f"{dst}.downsample.0", conv_state(p["downsample_conv"])))
+            sd.update(_prefixed(f"{dst}.downsample.1", bn_state(p["downsample_bn"], st["downsample_bn"])))
+    return sd
+
+
+def tsm_state(params: Tree, batch_stats: Tree) -> Dict[str, torch.Tensor]:
+    """The state dict of ``preprocess.tsm.TSMRecognizer``."""
+    return {**_prefixed("base_model", resnet50_state(params["base_model"], batch_stats["base_model"])),
+            **_prefixed("new_fc", linear_state(params["new_fc"]))}
+
+
+def _x3d_unit(p: Tree, stats: Tree) -> Dict[str, torch.Tensor]:
+    """One flax X3D level: ``<unit>_conv``/``<unit>_bn`` → ``<unit>.conv``/``.bn``,
+    ``se_module`` → ``se_module.fc1``/``.fc2``."""
+    sd: Dict[str, torch.Tensor] = {}
+    for name, node in p.items():
+        if name == "se_module":
+            for fc in ("fc1", "fc2"):
+                sd.update(_prefixed(f"se_module.{fc}", conv_state(node[fc])))
+            continue
+        unit, kind = name.rsplit("_", 1)
+        sd.update(_prefixed(f"{unit}.conv", conv_state(node)) if kind == "conv"
+                  else _prefixed(f"{unit}.bn", bn_state(node, stats[name])))
+    return sd
+
+
+def x3d_state(params: Tree, batch_stats: Tree) -> Dict[str, torch.Tensor]:
+    """The state dict of ``preprocess.x3d.X3D`` (mmaction's names):
+    ``conv1_s_conv`` → ``conv1_s.conv``, ``layer{L}_{i}/conv2_bn`` →
+    ``layer{L}.{i}.conv2.bn`` and so on."""
+    top = {k: v for k, v in params.items() if not k.startswith("layer")}
+    sd = _x3d_unit(top, batch_stats)
+    for name, p in params.items():
+        if name.startswith("layer"):
+            sd.update(_prefixed(name.replace("_", "."), _x3d_unit(p, batch_stats.get(name, {}))))
+    return sd
+
+
 STATES = {
     "cogmen": lambda trees: cogmen_state(trees["params"], trees["batch_stats"]),
     "dagerc": lambda trees: dagerc_state(trees["params"]),
@@ -279,9 +354,12 @@ STATES = {
     "mmin_base": lambda trees: mmin_base_state(trees["params"]),
     "mmin_miss": lambda trees: mmin_miss_state(trees["params"]),
     "mmin_miss2": lambda trees: mmin_miss2_state(trees["params"]),
+    "resnet50": lambda trees: resnet50_state(trees["params"], trees["batch_stats"]),
+    "tsm": lambda trees: tsm_state(trees["params"], trees["batch_stats"]),
+    "x3d": lambda trees: x3d_state(trees["params"], trees["batch_stats"]),
 }
 USAGE = ("usage: python -m erc_tpu_torch.convert [--module=cogmen|dagerc|dgcn|mmgcn|dgcnv2|dgcnv2_daily|cim|"
-         "cogmen_mosei|mmin_base|mmin_miss|mmin_miss2] variables.npz state_dict.pt")
+         "cogmen_mosei|mmin_base|mmin_miss|mmin_miss2|resnet50|tsm|x3d] variables.npz state_dict.pt")
 
 
 def read_npz(path: str) -> Dict[str, dict]:

@@ -13,8 +13,14 @@ sample dicts with keys
     sentence   — list of strings (not in the CIM dumps)
     ids        — the dialogue's id
 plus MOSEI's ``emo_label`` [L_i, 7] multi-hot, ``senti2_label`` and
-``senti7_label``.  The raw MOSEI views (``mosei_text``, ``mosei_interval``)
-are for preprocessing and come with it.
+``senti7_label``.
+
+The extraction views feed the feature re-extraction entry points
+(``python -m erc_tpu_torch.preprocess text|video``): ``text_cogmen`` and
+``meld_mmgcn_text`` (dialogue → sentences), ``video_cogmen`` (the
+transcript ↔ avi table of ``preprocess/video_walk.py``), ``mosei_text``
+and ``mosei_interval`` (the adapted MOSEI pickle's sentence and interval
+maps), and ``load_iemocap_cogmen_raw`` (the COGMEN dump's raw fields).
 """
 
 from __future__ import annotations
@@ -84,15 +90,34 @@ def _iemocap_cogmen(root, pkl_rel, subdir, split, text="", visual=""):
     ]
 
 
+def _cogmen_rel(n_class) -> str:
+    return ("cogmen/iemocap_4/IEMOCAP_features_4.pkl" if int(n_class) == 4
+            else "cogmen/iemocap/IEMOCAP_features.pkl")
+
+
+def load_iemocap_cogmen_raw(root, n_class=4):
+    """Raw per-dialogue fields of the COGMEN dump: what the video
+    re-extraction aligns against (iemocap_feature.py:157-186)."""
+    (video_ids, video_speakers, video_labels, _text, _audio, _visual, video_sentence,
+     train_ids, test_ids) = load_pkl(os.path.join(root, _cogmen_rel(n_class)))
+    return {
+        "video_ids": video_ids,
+        "video_speakers": video_speakers,
+        "video_labels": video_labels,
+        "video_sentence": video_sentence,
+        "train_ids": train_ids,
+        "test_ids": test_ids,
+    }
+
+
 def iemocap_cogmen_6(root, split="train", text="", visual=""):
     """The 9-tuple COGMEN dump, 6 classes (iemocap_feature.py:360-408)."""
-    return _iemocap_cogmen(root, "cogmen/iemocap/IEMOCAP_features.pkl", "cogmen/iemocap", split, text, visual)
+    return _iemocap_cogmen(root, _cogmen_rel(6), "cogmen/iemocap", split, text, visual)
 
 
 def iemocap_cogmen_4(root, split="train", text="", visual=""):
     """The 9-tuple COGMEN dump, 4 classes."""
-    return _iemocap_cogmen(root, "cogmen/iemocap_4/IEMOCAP_features_4.pkl", "cogmen/iemocap_4", split, text,
-                           visual)
+    return _iemocap_cogmen(root, _cogmen_rel(4), "cogmen/iemocap_4", split, text, visual)
 
 
 def meld_mmgcn_7(root, split="train", text=None):
@@ -276,3 +301,38 @@ def mosei_cim(root, split="train", audio=None):
             "senti7_label": senti7,
         })
     return res
+
+
+def mosei_text(root, split="train"):
+    """The adapted pickle's raw sentence map (mosei_feature.py:239-249)."""
+    return load_pkl(os.path.join(root, "MOSEI.adpated.pkl"))[8]
+
+
+def mosei_interval(root, split="train"):
+    """The adapted pickle's raw interval map (mosei_feature.py:226-236)."""
+    return load_pkl(os.path.join(root, "MOSEI.adpated.pkl"))[3]
+
+
+# -- extraction views --------------------------------------------------------
+# Resolved through the registry like the reference (datas/__init__.py:73-81);
+# ``split`` is ignored: extraction covers the whole corpus.
+
+
+def text_cogmen(root, split="train", n_class=4):
+    """Dialogue id → sentence list of the COGMEN dump (iemocap_feature.py:133-154)."""
+    return load_pkl(os.path.join(root, _cogmen_rel(n_class)))[6]
+
+
+def meld_mmgcn_text(root, split="train"):
+    """MELD's sentence map of the MMGCN dump (meld_feature.py:43-52)."""
+    return load_pkl(os.path.join(root, "MMGCN/MELD_features_raw.pkl"))[6]
+
+
+def video_cogmen(root, split="train", n_class=4, release_dir="IEMOCAP_full_release"):
+    """The transcript ↔ avi table for video re-extraction
+    (iemocap_feature.py:157-225; the walk is ``preprocess/video_walk.py``)."""
+    from erc_tpu_torch.preprocess.video_walk import video_alignment
+
+    raw = load_iemocap_cogmen_raw(root, n_class=int(n_class))
+    return video_alignment(os.path.join(root, release_dir), raw["video_sentence"], raw["video_speakers"],
+                           raw["video_labels"])

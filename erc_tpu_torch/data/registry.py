@@ -13,8 +13,12 @@ the adapted MOSEI pickle, ``dailydialog-token-7`` the DailyDialog text and
 ``iemocap-mmin-4`` the MMIN2021 h5 dump (with ``h5py``)
 under the dataset's root (``get_root``: ``ERC_TPU_DATA_ROOT``, else
 ``data_root`` in ``.erc_tpurc.json``, else ``~/erc_data``; then
-``iemocap/``, ``meld/``, ``mosei/`` or ``dailydialog/``).  The other real
-names (the raw corpus and the extraction views) are not read yet.
+``iemocap/``, ``meld/``, ``mosei/`` or ``dailydialog/``).  The raw-corpus
+names (``iemocap-{audio,text,ta}-*``) walk an ``IEMOCAP_full_release`` tree
+at the IEMOCAP root (``data/iemocap_raw.py``), and the extraction views
+(``iemocap-cogmen-{text,video}-*``, ``meld-mmgcn-text-7``,
+``mosei-{text,interval}-any-7``, in ``extraction_views``) return the maps
+that the feature re-extraction reads (``python -m erc_tpu_torch.preprocess``).
 """
 
 from __future__ import annotations
@@ -24,7 +28,7 @@ from functools import partial
 from typing import Callable, Dict, Optional
 
 from erc_tpu_torch.core.machine import cfg_get
-from erc_tpu_torch.data import dailydialog, mmin, readers
+from erc_tpu_torch.data import dailydialog, iemocap_raw, mmin, readers
 from erc_tpu_torch.data.synthetic import synthetic_daily, synthetic_erc, synthetic_mosei
 
 
@@ -62,6 +66,17 @@ def _cogmen_names(n_class: int) -> Dict[str, Callable]:
 
 
 regist_data: Dict[str, Callable] = {
+    # raw-corpus utterance views (reference datas/__init__.py:18-31)
+    "iemocap-audio-raw-9": iemocap_raw.iemocap_audio,
+    "iemocap-audio-4": iemocap_raw.iemocap_audio_subset("4"),
+    "iemocap-audio-v1-4": iemocap_raw.iemocap_audio_subset("4.1"),
+    "iemocap-audio-6": iemocap_raw.iemocap_audio_subset("6"),
+    "iemocap-text-4": iemocap_raw.iemocap_text_subset("4"),
+    "iemocap-text-v1-4": iemocap_raw.iemocap_text_subset("4.1"),
+    "iemocap-text-6": iemocap_raw.iemocap_text_subset("6"),
+    "iemocap-ta-4": iemocap_raw.iemocap_text_audio_subset("4"),
+    "iemocap-ta-v1-4": iemocap_raw.iemocap_text_audio_subset("4.1"),
+    "iemocap-ta-6": iemocap_raw.iemocap_text_audio_subset("6"),
     **_cogmen_names(6),
     **_cogmen_names(4),
     "meld-mmgcn-7": partial(readers.meld_mmgcn_7, text=None),
@@ -83,6 +98,20 @@ regist_data: Dict[str, Callable] = {
     "mosei-sent-sbert-is10-7": partial(readers.mosei_adapted, text="sbert", audio="is10", label_type="sent_7"),
     "mosei-sent-sbert-is10-2": partial(readers.mosei_adapted, text="sbert", audio="is10", label_type="sent_2"),
     "mosei-sent-sbert-is10-+-2": partial(readers.mosei_adapted, text="sbert", audio="is10", label_type="sent_2+"),
+}
+
+
+# extraction views (reference datas/__init__.py:73-86): sentence maps for the text
+# extraction, transcript ↔ avi tables for the video extraction, MOSEI's raw maps.
+# They return maps, not sample lists, so they stand apart from the names above.
+extraction_views: Dict[str, Callable] = {
+    "iemocap-cogmen-text-4": partial(readers.text_cogmen, n_class=4),
+    "iemocap-cogmen-text-6": partial(readers.text_cogmen, n_class=6),
+    "meld-mmgcn-text-7": readers.meld_mmgcn_text,
+    "iemocap-cogmen-video-4": partial(readers.video_cogmen, n_class=4),
+    "iemocap-cogmen-video-6": partial(readers.video_cogmen, n_class=6),
+    "mosei-text-any-7": readers.mosei_text,
+    "mosei-interval-any-7": readers.mosei_interval,
 }
 
 
@@ -129,14 +158,11 @@ def dataset_has_val(dataset_name: str) -> bool:
 
 
 def pick_datas(root, dataset_name: str, split: str = "train", **kw):
-    """Resolve a dataset name to its list of sample dicts."""
+    """Resolve a dataset name to its list of sample dicts (an extraction
+    view: to its map)."""
     if dataset_name.startswith("synthetic-"):
         return _synthetic_loader(dataset_name)(root, split=split, **kw)
-    fn = regist_data.get(dataset_name)
+    fn = regist_data.get(dataset_name) or extraction_views.get(dataset_name)
     if fn is None:
-        raise NotImplementedError(
-            f"dataset {dataset_name!r}: its reader is not ported yet; the port reads "
-            "iemocap-cogmen-*, meld-mmgcn-* and mosei-* dumps (mosei-cim-2 and the mosei-*-sbert* names), "
-            "dailydialog-token-7, iemocap-mmin-4 and synthetic-* names"
-        )
+        raise ValueError(f"unknown dataset {dataset_name!r}")
     return fn(root, split=split, **kw)

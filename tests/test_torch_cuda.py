@@ -31,7 +31,12 @@ kernel form, lars under a Cos schedule); K eval batches a replay ≡ the
 batches' single replays bit for bit.  The runtime: ``device_memory_stats``
 gives numbers on the card, and ``--profile_steps``' Chrome trace of a
 captured COGMEN banded step holds K1, K2 and K1ᵀ as the launch counts
-moved.
+moved.  Feature extraction (``erc_tpu_torch/preprocess/``) at the CPU
+tests' small sizes, with TF32 allowed in cuBLAS and cuDNN's convolutions
+around the calls: card ≡ CPU within 1e-4 of max |CPU's| for the TSN
+ResNet-50, TSM, X3D and the text encoder, fbank and MFCC within 1e-4 beyond
+twice the CPU's own float32 deviation from a float64 evaluation, the STFT
+1e-4 of max |X|, the settings restored after each call.
 """
 
 import gc
@@ -1325,3 +1330,80 @@ def test_profiled_captured_step_trace_holds_the_band_kernels(cuda, tmp_path, mon
               "banded_dot": sum("banded_dot_kernel<" in n for n in names),
               "banded_gather_sum_t": sum("banded_gather_sum_kernel<" in n and "true>" in n for n in names)}
     assert traced == moved and all(moved.values()), (traced, moved)
+
+
+# ------------------------------------------------------------------ feature extraction
+@pytest.fixture
+def tf32_allowed(cuda):
+    """TF32 allowed for float32 in cuBLAS and cuDNN's convolutions: the extractors must override it."""
+    backends = (torch.backends.cuda.matmul, torch.backends.cudnn.conv)
+    before = [b.fp32_precision for b in backends]
+    for b in backends:
+        b.fp32_precision = "tf32"
+    yield
+    assert [b.fp32_precision for b in backends] == ["tf32", "tf32"]  # nothing the extractors set leaked
+    for b, v in zip(backends, before):
+        b.fp32_precision = v
+
+
+def _rel(got, want):
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+@pytest.mark.parametrize("feature", ["fbank", "mfcc", "stft"])
+def test_acoustic_card_equals_cpu(cuda, tf32_allowed, feature):
+    from chip_smoke import _float64_features
+    from erc_tpu_torch.preprocess import acoustic as ac
+
+    sig = np.clip(np.random.default_rng(0).normal(size=(2, 16000)) * 0.1, -1, 1).astype(np.float32)
+    fn = {"fbank": ac.wav_to_fb, "mfcc": ac.wav_to_mfcc, "stft": ac.wav_to_stft}[feature]
+    got = fn(sig).cpu().numpy()
+    want = fn(sig, device="cpu").numpy()
+    if feature == "stft":
+        assert _rel(got, want) <= 1e-4
+        return
+    own = max(float(np.abs(want[b] - _float64_features(sig[b], feature)).max()) for b in range(2))
+    assert float(np.abs(got - want).max()) <= 1e-4 + 2 * own
+
+
+def test_video_extractors_card_equal_cpu(cuda, tf32_allowed):
+    from erc_tpu_torch.preprocess import video
+    from erc_tpu_torch.preprocess.tsm import TSMRecognizer
+    from erc_tpu_torch.preprocess.x3d import X3D
+
+    rng = np.random.default_rng(1)
+    clips = rng.integers(0, 256, (2, 2, 32, 32, 3), dtype=np.uint8)
+    card, cpu = (video.TSNExtractor(n_segments=2, crop_size=32, seed=2, device=d) for d in ("cuda", "cpu"))
+    assert _rel(card.extract_batch(clips), cpu.extract_batch(clips)) <= 1e-4
+    frames = rng.integers(0, 256, (6, 48, 64, 3), dtype=np.uint8)
+    assert _rel(card.extract(frames), cpu.extract(frames)) <= 1e-4
+    small = dict(gamma_w=0.5, gamma_b=2.0, gamma_d=0.2, base_channels=16, stage_blocks=(1, 1, 1, 1))
+    card, cpu = (video.X3DExtractor(n_frames=4, crop_size=16, model=X3D(**small), seed=3, device=d)
+                 for d in ("cuda", "cpu"))
+    clips = rng.integers(0, 256, (2, 4, 16, 16, 3), dtype=np.uint8)
+    assert _rel(card.extract_batch(clips), cpu.extract_batch(clips)) <= 1e-4
+    from erc_tpu_torch.preprocess import full_fp32
+
+    model = video.init_weights(TSMRecognizer(5, 2), torch.Generator().manual_seed(4)).eval()
+    x = torch.from_numpy(rng.normal(size=(2, 2, 3, 32, 32)).astype(np.float32))
+    with torch.inference_mode(), full_fp32():
+        want = model(x).numpy()
+        got = model.cuda()(x.cuda()).cpu().numpy()
+    assert _rel(got, want) <= 1e-4
+
+
+@pytest.mark.parametrize("mode", ["sbert", "robert"])
+def test_text_encoder_card_equals_cpu(cuda, tf32_allowed, monkeypatch, mode):
+    import copy
+
+    import chip_smoke
+    from erc_tpu_torch.preprocess.lexical import TextEncoder
+
+    monkeypatch.setitem(chip_smoke.TEXT_WIDTHS, "vocab", 1000)
+    monkeypatch.setitem(chip_smoke.TEXT_WIDTHS, "layers", 2)
+    model = chip_smoke._stand_in_encoder(5)
+    sentences = [" ".join(f"w{i * j % 97}" for j in range(3 + i % 40)) for i in range(10)]
+    kw = dict(mode=mode, max_tokens=32, batch_size=4)
+    want = TextEncoder(copy.deepcopy(model), chip_smoke._StandInTokenizer(), device="cpu", **kw).encode(sentences)
+    got = TextEncoder(model, chip_smoke._StandInTokenizer(), device="cuda", **kw).encode(sentences)
+    assert got.shape == (10, 768) and _rel(got, want) <= 1e-4

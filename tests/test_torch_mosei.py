@@ -33,8 +33,8 @@ from erc_tpu_torch.models.base import MMBaseParams
 from erc_tpu_torch.serve import InferenceEngine
 from erc_tpu_torch.train import metrics as tmetrics
 
-MOSEI_NAMES = sorted(n for n in jregistry.regist_data if n.startswith("mosei-")
-                     and n not in ("mosei-text-any-7", "mosei-interval-any-7"))  # extraction views: preprocessing
+MOSEI_VIEWS = ("mosei-text-any-7", "mosei-interval-any-7")  # extraction views: maps for preprocessing
+MOSEI_NAMES = sorted(n for n in jregistry.regist_data if n.startswith("mosei-") and n not in MOSEI_VIEWS)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -170,8 +170,12 @@ def test_registry_mosei_names_match_jax(tmp_path, monkeypatch):
         for split in ("train", "val", "test"):
             _assert_samples_equal(tregistry.pick_datas(str(root), name, split),
                                   jregistry.pick_datas(str(root), name, split))
-    with pytest.raises(NotImplementedError, match="mosei-\\*"):
-        tregistry.pick_datas(str(root), "mosei-text-any-7")
+    for name in MOSEI_VIEWS:  # the extraction views: the adapted pickle's sentence and interval maps
+        assert name in tregistry.extraction_views and tregistry.get_root(name) == str(root)
+        got, want = tregistry.pick_datas(str(root), name), jregistry.pick_datas(str(root), name)
+        assert list(got) == list(want) == ["t0", "t1", "t2", "t3", "s0", "s1", "v0", "v1"]
+        for k in want:
+            assert got[k] == want[k], (name, k)
 
 
 @pytest.mark.parametrize("name", MOSEI_NAMES + ["synthetic-mosei-2", "synthetic-mosei-6", "mosei-cim-pad80-2"])

@@ -33,6 +33,7 @@ K4 run as their plain versions through the autograd Function:
 """
 
 import copy
+import pickle
 import subprocess
 import sys
 from pathlib import Path
@@ -289,7 +290,7 @@ def test_dialogue_loader_batches_match_jax_over_two_epochs():
     assert len(list(cut)) == 11  # an epoch cycled past its 8 batches
 
 
-def test_registry_matches_jax_for_synthetic_names():
+def test_registry_matches_jax_for_synthetic_names(tmp_path):
     for name in ("synthetic-iemocap-6", "synthetic-cogmen-4", "synthetic-mosei-6", "mosei-x-7", "iemocap-4"):
         assert tregistry.n_classes_of(name) == jregistry.n_classes_of(name)
         assert tregistry.dataset_has_val(name) == jregistry.dataset_has_val(name), name
@@ -298,8 +299,13 @@ def test_registry_matches_jax_for_synthetic_names():
         want = jregistry.pick_datas(None, "synthetic-iemocap-6", split)
         assert len(got) == len(want) == {"train": 120, "test": 31}[split]
         np.testing.assert_array_equal(got[3]["visual"], want[3]["visual"])
-    with pytest.raises(NotImplementedError):
-        tregistry.pick_datas(None, "mosei-text-any-7")  # a reader not ported yet (an extraction view)
+    # an extraction view: the sentence map of the adapted MOSEI pickle, as in JAX
+    with open(tmp_path / "MOSEI.adpated.pkl", "wb") as f:
+        pickle.dump([["a"], ["b"], [], {}, {}, {}, {}, {}, {"a": ["hello there", "yes"], "b": ["no"]}, [], [], [],
+                     []], f)
+    got = tregistry.pick_datas(str(tmp_path), "mosei-text-any-7")
+    assert got == jregistry.pick_datas(str(tmp_path), "mosei-text-any-7") == {"a": ["hello there", "yes"],
+                                                                              "b": ["no"]}
 
 
 # ------------------------------------------------------------------ trajectory
