@@ -181,8 +181,17 @@ Phases (any failure raises, so the exit code is non-zero):
      device trace of a replay against the launch counts (and NCCL's
      operations in it), and, for information, a replayed step's wall and
      busy time with and without the group and the ranks' step walls against
-     one process's.  The phase's launches (`ddp_launches`) are the gloo
-     ranks' and the NCCL rank's steps' alone;
+     one process's; and (b) again at MeshSpec(data=1, model=2), the mesh's
+     model axis (each rank steps its half of the split parameters, views of
+     the full ones, and keeps only that half's moments; the blocks are
+     all-gathered after each step): the same checks against the same
+     one-process run, each rank's K1/K2/K1ᵀ/K3/K4 launches
+     (`model_axis_launches`, per rank), and each rank keeping fewer of the
+     allocator's bytes after its steps than a data-parallel rank (which
+     keeps one process's parameters and moments), the bytes and peaks
+     printed beside the moments' bytes counted.  The phase's launches
+     (`ddp_launches`) are the data-parallel gloo ranks' and the NCCL rank's
+     steps' alone;
  21. feature extraction (drive_preprocess, erc_tpu_torch/preprocess/), with
      TF32 allowed in cuBLAS and cuDNN's convolutions for the phase, so that
      the extractors' own full-float32 scope is what keeps them exact (the
@@ -207,10 +216,28 @@ Phases (any failure raises, so the exit code is non-zero):
      times (`preprocess_launches`); for information audio seconds/s, clips/s,
      frames/s, utterances/s, sentences/s, and one extract_batch's wall and
      busy share;
- 22. print the run's wall time, one JSON line of kernel records (K1/K2/K1ᵀ
+ 22. the image and training extras (drive_extras): each RandAugment op and
+     cutout on 256 CIFAR-size uint8 images (a magnitude an image) and one
+     randaugment of the batch from given draws, card vs the CPU port (the
+     integer-path ops bit for bit, the blend ops on >= 99.9 % of pixels and
+     none off by more than 1); WRN-28-2 at batch 64, ResNet-18 and ResNet-50
+     at batch 32 with TF32 allowed in the process: float32 eval features and
+     a train-mode forward (features 1e-4 of max |CPU|, running statistics
+     1e-5), the gradients of (feats ** 2).mean() in float64 on both sides
+     (1e-4 of each parameter's gradient norm; in float32 rounding alone
+     moves the batch norms' gradients up to 7e-3 of their norms, so those
+     are logged), and 3x3 convolutions' float32 gradients at WRN-28-2's
+     shapes (1e-4 of max |CPU|: the backward's full-float32 guard, beside
+     the same without it); the fusion modules in every att_type and
+     modality subset (1e-5); the loss zoo, mixup and cutmix_apply given the same draws (1e-6);
+     K1-K4 launched 0 times (`extras_launches`); for information a batched
+     randaugment's images/s and WRN-28-2's train-step images/s and busy share;
+ 23. print the run's wall time, one JSON line of kernel records (K1/K2/K1ᵀ
      also at DialogueGCN's shapes, K = 10 and 21, D = 100 and 200, with their
      launches on its paths; K1–K4 with their launches on the ddp path,
-     `ddp_launches`, and on the preprocessing path, `preprocess_launches`),
+     `ddp_launches`, in each model-axis rank, `model_axis_launches`, on the
+     preprocessing path, `preprocess_launches`, and on the extras path,
+     `extras_launches`),
      the card's name and power limit, and a last
      JSON line {"ok": true, "device": {...}}.
 Each model path is driven with every launch count set to 0 just before it
@@ -4167,12 +4194,15 @@ def _ddp_reference(host_jobs) -> dict:
     return out
 
 
-def _ddp_two_gloo_ranks(card: str) -> dict:
+def _ddp_two_gloo_ranks(card: str, ref: dict, model: int = 1) -> dict:
     """(b) two ranks sharing the card (gloo, eager steps), in their own processes
-    (scripts/torch_mp_worker.py): COGMEN banded at full width and DAG-ERC's kernel form at the IEMOCAP
-    reimplement settings, dropout 0, 3 steps and test() each, against one process; the BN running statistics
-    equal on both ranks, one run directory that rank 0 alone wrote, and each rank's K1, K2, K1ᵀ, K3 and K4
-    launches what its steps should launch."""
+    (scripts/torch_mp_worker.py), at MeshSpec(data=2) or, with `model` = 2, at MeshSpec(data=1, model=2) (the
+    mesh's model axis: each rank stores its half of the split parameters and of their moments): COGMEN banded at
+    full width and DAG-ERC's kernel form at the IEMOCAP reimplement settings, dropout 0, 3 steps and test() each,
+    against one process (`ref`, `_ddp_reference`); the BN running statistics equal on both ranks, one run
+    directory that rank 0 alone wrote, and each rank's K1, K2, K1ᵀ, K3 and K4 launches what its steps should
+    launch.  Returns the ranks' launches summed, each rank's, each rank's allocator bytes (``memory``: what its
+    job keeps after the steps and its peak), and on the model axis each rank's stored bytes."""
     import os
     import tempfile
 
@@ -4180,14 +4210,14 @@ def _ddp_two_gloo_ranks(card: str) -> dict:
 
     dag_args = [*TRAIN_ARGS, "--epoch=1"]
     cog_args = [*COGMEN_TRAIN_ARGS, "--graph_impl=banded", "--epoch=1", "--drop_rate=0.0"]
-    ref = _ddp_reference([("cogmen", lambda: _cogmen_trainer("banded", dropout=0.0)),
-                          ("dagerc", lambda: _trainer(dropout=0.0))])
+    tag = "ddp" if model == 1 else "ddp model axis"
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_ddp_"))
     common = [f"--device={DDP_RANK_DEVICE}", "--prefetch=false", "--heartbeat=false"]
+    axis = {"model": model} if model > 1 else {}
     jobs = [{"name": "cogmen", "module": "cogmen", "args": [*cog_args, *common], "steps": DDP_STEPS, "test": True,
-             "dump": str(tmp / "cogmen.{rank}.npz")},
+             "dump": str(tmp / "cogmen.{rank}.npz"), **axis},
             {"name": "dagerc", "module": "dagerc", "args": [*dag_args, *common], "steps": DDP_STEPS, "test": True,
-             "dropout0": True}]
+             "dropout0": True, **axis}]
     (tmp / "jobs.json").write_text(json.dumps(jobs))
     port = _free_port()
     procs = []
@@ -4205,33 +4235,33 @@ def _ddp_two_gloo_ranks(card: str) -> dict:
                 p.kill()
                 p.wait()
     for rank, (p, text) in enumerate(zip(procs, logs)):
-        require(p.returncode == 0, f"ddp: gloo rank {rank} exited {p.returncode}:\n{text[-4000:]}")
+        require(p.returncode == 0, f"{tag}: gloo rank {rank} exited {p.returncode}:\n{text[-4000:]}")
     ranks = [json.loads((tmp / f"rank{r}.json").read_text()) for r in range(2)]
-    log(f"ddp: two gloo ranks ran in {time.perf_counter() - t0:.1f} s (processes started included)")
-    launches = {}
+    log(f"{tag}: two gloo ranks ran in {time.perf_counter() - t0:.1f} s (processes started included)")
+    launches, per_rank, stored, memory = {}, [{}, {}], {}, {}
     for name in ("cogmen", "dagerc"):
         r0, r1 = ranks[0][name], ranks[1][name]
         one = ref[name]
         for r in (r0, r1):
             require(r["backend"] == "gloo" and r["world"] == 2 and not r["train_graphs"]
                     and r["device"] == DDP_RANK_DEVICE,
-                    f"ddp {name}: rank {r['rank']} ran {r['backend']} at world {r['world']} on {r['device']}, "
+                    f"{tag} {name}: rank {r['rank']} ran {r['backend']} at world {r['world']} on {r['device']}, "
                     f"captured {r['train_graphs']}: want gloo, 2, {DDP_RANK_DEVICE}, eager")
         require(np.allclose(r0["losses"], one["losses"], rtol=DDP_LOSS_RTOL, atol=DDP_LOSS_ATOL),
-                f"ddp {name}: rank 0's losses {r0['losses']} against one process's {one['losses']}")
+                f"{tag} {name}: rank 0's losses {r0['losses']} against one process's {one['losses']}")
         require(np.allclose(r1["losses"], r0["losses"], rtol=DDP_RANK_RTOL, atol=0),
-                f"ddp {name}: the ranks' losses {r0['losses']} and {r1['losses']}")
-        require(r0["test_f1"] == r1["test_f1"], f"ddp {name}: test F1 {r0['test_f1']} and {r1['test_f1']}")
+                f"{tag} {name}: the ranks' losses {r0['losses']} and {r1['losses']}")
+        require(r0["test_f1"] == r1["test_f1"], f"{tag} {name}: test F1 {r0['test_f1']} and {r1['test_f1']}")
         require(r0["test_name"] == r1["test_name"] and r0["test_dir"] == r1["test_dir"],
-                f"ddp {name}: the ranks ran in two run directories")
+                f"{tag} {name}: the ranks ran in two run directories")
         files = sorted(f for f in os.listdir(r0["test_dir"]) if not f.startswith("log."))
         want = sorted(f for f in os.listdir(one["test_dir"]) if not f.startswith("log."))
         logs_ = {f.rsplit(".", 2)[-2]: f for f in os.listdir(r0["test_dir"]) if f.startswith("log.")}  # by rank
         require(files == want and sorted(logs_) == ["0", "1"]
                 and os.path.getsize(os.path.join(r0["test_dir"], logs_["1"])) == 0,
-                f"ddp {name}: the run directory holds {files} and logs {logs_}, one process's {want}")
+                f"{tag} {name}: the run directory holds {files} and logs {logs_}, one process's {want}")
         rel = max(abs(a - b) / max(abs(b), 1e-30) for a, b in zip(r0["losses"], one["losses"]))
-        log(f"ddp {name}: losses rank 0 {r0['losses']}, rank 1 {r1['losses']}, one process {one['losses']} "
+        log(f"{tag} {name}: losses rank 0 {r0['losses']}, rank 1 {r1['losses']}, one process {one['losses']} "
             f"(worst relative {rel:.3e}); test F1 {r0['test_f1']} on both ranks, one process {one['test_f1']}; "
             f"step walls ms, rank 0 {[round(w * 1e3, 3) for w in r0['walls']]}, rank 1 "
             f"{[round(w * 1e3, 3) for w in r1['walls']]}, one process {[round(w * 1e3, 3) for w in one['walls']]}")
@@ -4242,15 +4272,27 @@ def _ddp_two_gloo_ranks(card: str) -> dict:
                 blocks = sum(-(-L // 16) for L in r["lengths"])
                 want_l = {"dag_block": 2 * 4 * blocks, "dag_block_bwd": 4 * blocks}
             got_l = {k: r["launches"].get(k, 0) for k in want_l}
-            require(got_l == want_l, f"ddp {name}: rank {r['rank']} launched {got_l}, want {want_l}")
+            require(got_l == want_l, f"{tag} {name}: rank {r['rank']} launched {got_l}, want {want_l}")
             for k, n in got_l.items():
                 launches[k] = launches.get(k, 0) + n
-        log(f"ddp {name}: each rank's launches in its {DDP_STEPS} steps {r0['launches']} / {r1['launches']}")
+                per_rank[r["rank"]][k] = per_rank[r["rank"]].get(k, 0) + n
+        if model > 1:
+            for r in (r0, r1):
+                require(r["sharded"] and r["model_index"] == r["rank"] and r["data_index"] == 0,
+                        f"{tag} {name}: rank {r['rank']} split {r.get('sharded')} at model index "
+                        f"{r.get('model_index')}, data index {r.get('data_index')}")
+            stored[name] = [r["stored_bytes"] for r in (r0, r1)]
+            b = r0["stored_bytes"]
+            log(f"{tag} {name}: {len(r0['sharded'])} parameters split ({b['split']} bytes); each rank keeps "
+                f"{b['parameters']} parameter, {b['gradients']} gradient and {b['moments']} moment bytes, one "
+                f"process {b['moments_unsplit']} moment bytes (the parameters and gradients stay whole)")
+        memory[name] = [r["memory"] for r in (r0, r1)]
+        log(f"{tag} {name}: each rank's launches in its {DDP_STEPS} steps {r0['launches']} / {r1['launches']}")
     bn = [np.load(tmp / f"cogmen.{r}.npz") for r in range(2)]
     for stat in ("model.gcn.bn.running_mean", "model.gcn.bn.running_var"):
-        require(np.array_equal(bn[0][stat], bn[1][stat]), f"ddp: {stat} differs between the ranks")
-    log("ddp: the batch norm's running statistics are equal on both ranks")
-    return launches
+        require(np.array_equal(bn[0][stat], bn[1][stat]), f"{tag}: {stat} differs between the ranks")
+    log(f"{tag}: the batch norm's running statistics are equal on both ranks")
+    return {"launches": launches, "per_rank": per_rank, "stored": stored, "memory": memory}
 
 
 def drive_ddp(card: str) -> dict:
@@ -4261,17 +4303,29 @@ def drive_ddp(card: str) -> dict:
     from erc_tpu_torch.parallel import mesh
 
     t0 = time.perf_counter()
-    ranks = _ddp_two_gloo_ranks(card)
+    ref = _ddp_reference([("cogmen", lambda: _cogmen_trainer("banded", dropout=0.0)),
+                          ("dagerc", lambda: _trainer(dropout=0.0))])
+    ranks = _ddp_two_gloo_ranks(card, ref)
+    axis = _ddp_two_gloo_ranks(card, ref, model=2)
     try:
         one = _ddp_one_rank_nccl(card)
     finally:
         mesh.destroy()
-    launches = dict(ranks)
+    for name, dp in ranks["memory"].items():  # a data-parallel rank keeps one process's parameters and moments
+        tp = axis["memory"][name]
+        saved = [d["kept"] - t["kept"] for d, t in zip(dp, tp)]
+        counted = [s["moments_unsplit"] - s["moments"] for s in axis["stored"][name]]
+        log(f"ddp phase {name}: the allocator's bytes a rank keeps after its steps, data-parallel {[d['kept'] for d in dp]}, "
+            f"model axis {[t['kept'] for t in tp]} (saved {saved}, the moments counted {counted}); peaks "
+            f"{[d['peak'] for d in dp]} and {[t['peak'] for t in tp]} (a data-parallel rank holds half the rows)")
+        require(all(x > 0 for x in saved), f"ddp phase {name}: a model-axis rank keeps no fewer bytes than a "
+                                           f"data-parallel one ({saved})")
+    launches = dict(ranks["launches"])
     for k, n in one["launches"].items():
         launches[k] = launches.get(k, 0) + n
-    log(f"ddp phase: launches on the ddp path {launches} (both gloo ranks' {ranks}, the NCCL rank's "
-        f"{one['launches']}), {time.perf_counter() - t0:.1f} s")
-    return {**one, "launches": launches}
+    log(f"ddp phase: launches on the ddp path {launches} (both gloo ranks' {ranks['launches']}, the NCCL rank's "
+        f"{one['launches']}); on the model axis each rank's {axis['per_rank']}; {time.perf_counter() - t0:.1f} s")
+    return {**one, "launches": launches, "model_axis": axis}
 
 
 # ------------------------------------------------------------------ phase 21
@@ -4700,6 +4754,276 @@ def drive_preprocess(card: str) -> dict:
     return launches
 
 
+# ------------------------------------------------------------------ phase 22
+EXTRAS_IMAGES = 256  # CIFAR-size 32 x 32 x 3 uint8 images of the RandAugment checks
+EXTRAS_BLEND_SHARE, EXTRAS_BLEND_MAX = 0.999, 1  # float-blend ops, card vs CPU: pixels equal, and none off by more
+EXTRAS_FEAT_TOL = 1e-4  # backbone features, card vs the CPU port, relative to max |CPU|
+EXTRAS_STAT_TOL = 1e-5  # running statistics after a train-mode forward, relative to max(1, max |CPU|)
+EXTRAS_GRAD_TOL = 1e-4  # each parameter's gradient in float64, relative to its norm on the CPU
+EXTRAS_CONV_TOL = 1e-4  # 3x3 convolutions' float32 input and weight gradients, relative to max |CPU|
+EXTRAS_FUSION_TOL = 1e-5  # fusion modules' outputs and attention weights
+EXTRAS_LOSS_TOL = 1e-6  # the loss zoo, mixup and cutmix_apply given the same draws
+EXTRAS_RATE_REPS = 10
+EXTRAS_BACKBONES = (("wideresnet_28_2", 64), ("resnet18", 32), ("resnet50", 32))
+EXTRAS_INTEGER_OPS = {"autocontrast", "equalize", "identity", "posterize", "rotate", "shear_x", "shear_y",
+                      "solarize", "translate_x", "translate_y", "invert", "cutout"}
+
+
+def _pixels_agree(name: str, got, want) -> float:
+    """The share of equal pixels (channels) of two uint8 results; bit for bit for an integer-path op, else at least
+    EXTRAS_BLEND_SHARE equal and none off by more than EXTRAS_BLEND_MAX."""
+    d = (got.cpu().int() - want.int()).abs()
+    share = float((d == 0).float().mean())
+    if name in EXTRAS_INTEGER_OPS:
+        require(share == 1.0, f"extras: {name} on the card differs from the CPU port in {1 - share:.3e} of pixels "
+                f"(max {int(d.max())}); an integer-path op must agree bit for bit")
+    else:
+        require(share >= EXTRAS_BLEND_SHARE and int(d.max()) <= EXTRAS_BLEND_MAX,
+                f"extras: {name} card vs CPU: {share:.6f} of pixels equal (want >= {EXTRAS_BLEND_SHARE}), "
+                f"max off {int(d.max())} (want <= {EXTRAS_BLEND_MAX})")
+    return share
+
+
+def _extras_augment(card: str) -> dict:
+    """Each RandAugment op and cutout on EXTRAS_IMAGES images at a magnitude per image, and one randaugment of the
+    batch from given draws, card vs the CPU port; (information) augmented images/s of a batched randaugment."""
+    import torch
+    from erc_tpu_torch import augment_image as aug
+
+    g = torch.Generator().manual_seed(20)
+    imgs = torch.randint(0, 256, (EXTRAS_IMAGES, 32, 32, 3), generator=g, dtype=torch.uint8)
+    imgs[:4, :, :, 1] = 77  # flat channels: autocontrast's and equalize's identity branches
+    gpu = imgs.cuda()
+    u = torch.rand(EXTRAS_IMAGES, generator=g)
+    shares = {}
+    for op, lo, hi in [*aug.AUGMENT_LIST, (aug.invert, 0.0, 1.0)]:
+        v = lo + (hi - lo) * u
+        shares[op.__name__] = _pixels_agree(op.__name__, op(gpu, v.cuda()), op(imgs, v))
+    cut = [torch.rand(EXTRAS_IMAGES, generator=g) for _ in range(3)]
+    cut[0] = cut[0] * 0.5
+    shares["cutout"] = _pixels_agree("cutout", aug.cutout_apply(gpu, *(c.cuda() for c in cut)),
+                                     aug.cutout_apply(imgs, *cut))
+    draws = aug.randaugment_draw(EXTRAS_IMAGES, 2, generator=g)
+    shares["randaugment"] = _pixels_agree("randaugment", aug.randaugment_apply(gpu, {k: v.cuda() for k, v in
+                                                                                    draws.items()}),
+                                          aug.randaugment_apply(imgs, draws))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    aug.randaugment(gpu, 2, generator=gen)  # warm
+    wall = statistics.median(_step_time(lambda: aug.randaugment(gpu, 2, generator=gen))
+                             for _ in range(EXTRAS_RATE_REPS))
+    busy = _profile(lambda: aug.randaugment(gpu, 2, generator=gen), "extras: randaugment of 256 images", wall)
+    rate = EXTRAS_IMAGES / wall
+    log(f"extras: RandAugment card vs CPU, share of equal pixels {json.dumps(shares)}; a batched randaugment of "
+        f"{EXTRAS_IMAGES} images {wall * 1e3:.3f} ms ({rate:.1f} images/s), busy {busy} ms, on {card}")
+    return {"shares": shares, "images_per_s": rate, "busy_ms": busy}
+
+
+def _train_pass(m, x) -> tuple:
+    """A train-mode forward and backward of (feats ** 2).mean(): features, running statistics and each
+    parameter's gradient, on the host in float64."""
+    import torch
+
+    m.train()
+    m.zero_grad(set_to_none=True)
+    with torch.enable_grad():
+        f = m(x)
+        (f ** 2).mean().backward()
+    stats = {k: v.detach().double().cpu() for k, v in m.state_dict().items() if k.endswith(("running_mean",
+                                                                                          "running_var"))}
+    return f.detach().double().cpu(), stats, {k: p.grad.detach().double().cpu() for k, p in m.named_parameters()}
+
+
+def _grad_gap(got: dict, want: dict) -> tuple:
+    """Worst over parameters of max |got - want| over the norm of `want`, and that parameter."""
+    return max((float((got[k] - v).abs().max()) / max(float(v.norm()), 1e-30), k) for k, v in want.items())
+
+
+EXTRAS_CONV_SHAPES = ((3, 16, 1, 32), (16, 32, 1, 32), (32, 32, 1, 32), (32, 64, 2, 32), (64, 64, 1, 16),
+                      (64, 128, 2, 16), (128, 128, 1, 8), (32, 64, 1, 32))  # WRN-28-2's (in, out, stride, H = W)
+
+
+def _conv_backward_gap(ib, guard: bool = True) -> float:
+    """The float32 input and weight gradients of a 3x3 backbone convolution at each of WRN-28-2's shapes (batch 8),
+    card vs CPU, relative to max |CPU|, worst of them: the backward's full-float32 guard (`guard=False` drops it,
+    for the log)."""
+    import torch
+
+    real = ib._backward_in_full_fp32
+    if not guard:
+        ib._backward_in_full_fp32 = lambda *a, **k: None
+    worst = 0.0
+    try:
+        for c_in, c_out, stride, hw in EXTRAS_CONV_SHAPES:
+            cpu = ib.Conv2d(c_in, c_out, 3, stride, generator=torch.Generator().manual_seed(3))
+            card_m = ib.Conv2d(c_in, c_out, 3, stride).cuda()
+            card_m.load_state_dict(cpu.state_dict())
+            g = torch.Generator().manual_seed(4)
+            x = torch.randn(8, c_in, hw, hw, generator=g)
+            w = torch.randn(8, c_out, hw // stride, hw // stride, generator=g)
+            grads = []
+            for m, xx, ww in ((cpu, x, w), (card_m, x.cuda(), w.cuda())):
+                xx = xx.clone().requires_grad_(True)
+                with torch.enable_grad():
+                    (m(xx) * ww).sum().backward()
+                grads.append((xx.grad.cpu(), m.weight.grad.cpu()))
+            worst = max(worst, *(float((b - a).abs().max()) / float(a.abs().max()) for a, b in zip(*grads)))
+    finally:
+        ib._backward_in_full_fp32 = real
+    return worst
+
+
+def _extras_backbones(card: str) -> dict:
+    """The CIFAR backbones, random weights from a seed, card vs the CPU port, TF32 allowed in the process (the
+    backbones' own full-float32 convolutions must override it): float32 eval features and a float32 train-mode
+    forward (features, running statistics); the gradients of (feats ** 2).mean() in float64 on both sides (in
+    float32 the batch norms' gradients are ill-conditioned: rounding alone moves them up to 7e-3 of their norms,
+    the CPU's against float64 too, and more at some seeds: PERF.md §6), logged in float32 for information;
+    one convolution's float32 backward with TF32 allowed (the backward's guard); (information) WRN-28-2's
+    train-step images/s and busy share."""
+    import torch
+    from erc_tpu_torch.models import image_backbones as ib
+
+    out = {}
+    for name, batch in EXTRAS_BACKBONES:
+        cpu = getattr(ib, name)(generator=torch.Generator().manual_seed(1))
+        card_m = getattr(ib, name)().cuda()
+        card_m.load_state_dict(cpu.state_dict())
+        x = torch.randn(batch, 3, 32, 32, generator=torch.Generator().manual_seed(2))
+        with torch.no_grad():
+            want, got = cpu.eval()(x), card_m.eval()(x.cuda()).cpu()
+        scale = float(want.abs().max())
+        err = float((got - want).abs().max())
+        require(err <= EXTRAS_FEAT_TOL * scale,
+                f"extras {name}: eval features card vs CPU {err:.3e} of max {scale:.3e}")
+        f_cpu, st_cpu, g_cpu = _train_pass(cpu, x)
+        f_card, st_card, g_card = _train_pass(card_m, x.cuda())
+        ferr = float((f_card - f_cpu).abs().max()) / max(float(f_cpu.abs().max()), 1e-30)
+        require(ferr <= EXTRAS_FEAT_TOL, f"extras {name}: train features card vs CPU {ferr:.3e} relative")
+        serr = max(float((st_card[k] - v).abs().max()) / max(1.0, float(v.abs().max())) for k, v in st_cpu.items())
+        require(serr <= EXTRAS_STAT_TOL, f"extras {name}: running statistics card vs CPU {serr:.3e}")
+        g32, g32_at = _grad_gap(g_card, g_cpu)
+        state = cpu.state_dict()
+        for m in (cpu, card_m):
+            m.double().load_state_dict(state)
+        g64, g64_at = _grad_gap(_train_pass(card_m, x.double().cuda())[2], _train_pass(cpu, x.double())[2])
+        require(g64 <= EXTRAS_GRAD_TOL, f"extras {name}: float64 gradients card vs CPU {g64:.3e} of the norm of "
+                f"{g64_at}")
+        n_params = sum(p.numel() for p in cpu.parameters())
+        log(f"extras {name} ({n_params} parameters), batch {batch}: eval features {err / scale:.3e} of max |CPU|, "
+            f"train features {ferr:.3e}, running statistics {serr:.3e}; gradients in float64 {g64:.3e} of their "
+            f"norms ({g64_at}); float32 gradients (information) {g32:.3e} ({g32_at})")
+        out[name] = {"params": n_params, "features": err / scale, "train_features": ferr, "stats": serr,
+                     "grads_float64": g64, "grads_float32": g32}
+        del cpu, card_m
+    conv_err, unguarded = _conv_backward_gap(ib), _conv_backward_gap(ib, guard=False)
+    require(conv_err <= EXTRAS_CONV_TOL, f"extras: a backbone convolution's float32 gradients card vs CPU "
+            f"{conv_err:.3e} of max |CPU| with TF32 allowed (its backward must run in full float32)")
+    log(f"extras: 3x3 backbone convolutions at WRN-28-2's {len(EXTRAS_CONV_SHAPES)} shapes, batch 8, float32 "
+        f"gradients of input and weight card vs CPU with TF32 allowed: worst {conv_err:.3e} of max |CPU| "
+        f"({unguarded:.3e} without the backward's guard)")
+    out["conv_backward_float32"] = conv_err
+    name, batch = EXTRAS_BACKBONES[0]
+    model = getattr(ib, name)().cuda().train()
+    opt = torch.optim.SGD(model.parameters(), lr=0.03, momentum=0.9)
+    x = torch.randn(batch, 3, 32, 32).cuda()
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        with torch.enable_grad():
+            (model(x) ** 2).mean().backward()
+        opt.step()
+
+    step()
+    wall = statistics.median(_step_time(step) for _ in range(EXTRAS_RATE_REPS))
+    busy = _profile(step, f"extras: {name} train step, batch {batch}", wall)
+    out["train_images_per_s"], out["train_busy_ms"], out["train_wall_ms"] = batch / wall, busy, wall * 1e3
+    log(f"extras: {name} train step (batch {batch}, SGD) {wall * 1e3:.3f} ms ({batch / wall:.1f} images/s), busy "
+        f"{busy} ms ({None if busy is None else round(100 * busy / (wall * 1e3), 1)} %), on {card}")
+    return out
+
+
+def _extras_fusion() -> float:
+    """Every MatchingAttention att_type, SimpleAttention and each MMGatedAttention modality subset, card vs CPU."""
+    import torch
+    from erc_tpu_torch.ops import fusion
+
+    g = torch.Generator().manual_seed(3)
+    M, x = torch.randn(32, 40, 200, generator=g), torch.randn(32, 120, generator=g)
+    x_dot = torch.randn(32, 200, generator=g)
+    mask = (torch.arange(40)[None] < torch.randint(1, 41, (32, 1), generator=g)).float()
+    worst = 0.0
+
+    def check(what, mod, *args):
+        nonlocal worst
+        mod.eval()
+        with torch.no_grad():
+            want = mod(*args)
+            got = mod.cuda()(*(a.cuda() if isinstance(a, torch.Tensor) else a for a in args))
+        for w, c in zip(want if isinstance(want, tuple) else (want,), got if isinstance(got, tuple) else (got,)):
+            err = float((c.cpu() - w).abs().max()) / max(1.0, float(w.abs().max()))
+            require(err <= EXTRAS_FUSION_TOL, f"extras: {what} card vs CPU {err:.3e}")
+            worst = max(worst, err)
+
+    check("SimpleAttention", fusion.SimpleAttention(200, generator=g), M, mask)
+    for att in ("dot", "general", "general2", "concat"):
+        q = x_dot if att == "dot" else x  # 'dot' scores the query against the memory directly
+        check(f"MatchingAttention {att}", fusion.MatchingAttention(200, q.shape[1], 64, att, generator=g),
+              M, q, mask)
+    a, v, t = (torch.randn(32, 200, generator=g) for _ in range(3))
+    for modals in ("atv", "av", "at", "vt"):
+        check(f"MMGatedAttention {modals}", fusion.MMGatedAttention(200, 100, modals=modals, generator=g),
+              a, v, t, modals)
+    return worst
+
+
+def _extras_losses() -> float:
+    """The loss zoo, mixup and cutmix_apply given the same draws, card vs CPU."""
+    import torch
+    from erc_tpu_torch import contrib
+
+    g = torch.Generator().manual_seed(4)
+    logits, other = torch.randn(64, 30, 7, generator=g), torch.randn(64, 30, 7, generator=g)
+    labels, mask = torch.randint(0, 7, (64, 30), generator=g), (torch.rand(64, 30, generator=g) > 0.3).float()
+    soft = torch.softmax(torch.randn(64, 30, 7, generator=g), -1)
+    za, zb = torch.randn(128, 64, generator=g), torch.randn(128, 64, generator=g)
+    imgs, y = torch.randn(64, 32, 32, 3, generator=g), contrib.onehot(torch.randint(0, 10, (64,), generator=g), 10)
+    perm, lam = contrib.mixup_draw(64, 0.75, g)
+    cperm, clam, cy, cx = contrib.cutmix_draw(64, 32, 32, 1.0, g)
+    cases = {"ce": lambda d: contrib.ce_loss(d(logits), d(labels), d(mask)),
+             "ce_soft": lambda d: contrib.ce_loss(d(logits), d(soft)),
+             "mse": lambda d: contrib.mse_loss(d(logits), d(other), d(mask)),
+             "minent": lambda d: contrib.minent_loss(d(logits), d(mask)),
+             "kl": lambda d: contrib.kl_loss(d(logits), d(other)),
+             "contrastive": lambda d: contrib.contrastive_loss(d(za), d(zb)),
+             "mixup": lambda d: contrib.mixup_apply(d(imgs), d(y), d(perm), d(lam)),
+             "cutmix": lambda d: contrib.cutmix_apply(d(imgs), d(y), d(cperm), d(clam), d(cy), d(cx))}
+    worst = 0.0
+    for name, fn in cases.items():
+        want, got = fn(lambda t: t), fn(lambda t: t.cuda())
+        for w, c in zip(want if isinstance(want, tuple) else (want,), got if isinstance(got, tuple) else (got,)):
+            err = float((c.cpu() - w).abs().max()) / max(1.0, float(w.abs().max()))
+            require(err <= EXTRAS_LOSS_TOL, f"extras: {name} card vs CPU {err:.3e}")
+            worst = max(worst, err)
+    return worst
+
+
+def drive_extras(card: str) -> dict:
+    """Phase 22: the image and training extras (augment_image, image_backbones, ops/fusion, contrib) on the card
+    against the CPU port, every count of K1-K4 set to 0 before and read after (no hand-written kernel runs on
+    their paths)."""
+    t0 = time.perf_counter()
+    _reset_launches()
+    out = {"augment": _extras_augment(card)}
+    with _tf32_allowed():
+        out["backbones"] = _extras_backbones(card)
+    out["fusion_err"] = _extras_fusion()
+    out["loss_err"] = _extras_losses()
+    out["launches"] = _no_kernel_launches("extras")
+    log(f"extras: fusion modules card vs CPU worst {out['fusion_err']:.3e}, losses, mixup and cutmix "
+        f"{out['loss_err']:.3e}; extras phase: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def _stamp(phase: str) -> None:
     """Log the phase's end with the runs that its trainers left in the script's experiment root (their count and
     the bytes of their blobs: best models, checkpoints, traces), and drop them."""
@@ -4811,6 +5135,8 @@ def _main() -> int:
     _stamp("ddp")
     preprocess = drive_preprocess(card)
     _stamp("preprocess")
+    extras = drive_extras(card)
+    _stamp("extras")
     # the DialogueGCN-shape records: their instantiation's launches on DialogueGCN's serving and training paths
     for rec in dgcn_records.values():
         rec["launches"] = dgcn_serve_taps[rec["tap_key"]] + dgcn_train_taps[rec["tap_key"]]
@@ -4818,8 +5144,11 @@ def _main() -> int:
     for name in ("banded_gather_sum", "banded_dot", "banded_gather_sum_t", "dag_block", "dag_block_bwd"):
         records[name]["ddp_launches"] = ddp["launches"].get(name, 0)
         require(records[name]["ddp_launches"] > 0, f"{name} was not launched on the ddp path")
+        records[name]["model_axis_launches"] = [r.get(name, 0) for r in ddp["model_axis"]["per_rank"]]
+        require(all(records[name]["model_axis_launches"]), f"{name} was not launched in each model-axis rank")
     for rec in records.values():
         rec["preprocess_launches"] = preprocess.get(rec["name"], 0)
+        rec["extras_launches"] = extras["launches"].get(rec["name"], 0)
     for name, rec in records.items():
         require(rec["launches"] > 0, f"{name} was not launched on its path")
         rec["max_err"], rec["kernel_ms"] = rec["max_abs_err"], rec["ms"]

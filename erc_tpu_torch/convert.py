@@ -24,8 +24,11 @@ writes the state dict of module NAME (``cogmen``, the default, ``dagerc``,
 ``dgcn``, ``mmgcn``, ``dgcnv2``, ``dgcnv2_daily``, ``cim`` or
 ``cogmen_mosei``) that ``serve.InferenceEngine`` loads, of ``mmin_base``,
 ``mmin_miss`` or ``mmin_miss2``, which the MMIN trainers load (MMIN has no
-serving engine), or of ``resnet50``, ``tsm`` or ``x3d``, which the
-extractors of ``preprocess/video.py`` load.
+serving engine), of ``resnet50``, ``tsm`` or ``x3d``, which the
+extractors of ``preprocess/video.py`` load, of ``wideresnet`` or
+``resnet_cifar`` (``models/image_backbones.py``), or of
+``simple_attention``, ``matching_attention`` (its ``att_type`` read from the
+tree) or ``mm_gated_attention`` (``ops/fusion.py``).
 """
 
 from __future__ import annotations
@@ -342,6 +345,79 @@ def x3d_state(params: Tree, batch_stats: Tree) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def _dense_state(p: Tree) -> Dict[str, torch.Tensor]:
+    """flax Dense with or without a bias → Linear."""
+    out = {"weight": _t(p["kernel"]).T.contiguous()}
+    if "bias" in p:
+        out["bias"] = _t(p["bias"])
+    return out
+
+
+def simple_attention_state(params: Tree) -> Dict[str, torch.Tensor]:
+    """The state dict of ``ops.fusion.SimpleAttention``."""
+    return _prefixed("scalar", _dense_state(params["scalar"]))
+
+
+def matching_attention_state(params: Tree, att_type: str = "general") -> Dict[str, torch.Tensor]:
+    """The state dict of ``ops.fusion.MatchingAttention(att_type=...)``: 'dot'
+    has no parameters, 'general' a bias-free ``transform``, 'general2' a
+    biased one, 'concat' ``transform`` and ``vector_prod``."""
+    names = {"dot": (), "general": ("transform",), "general2": ("transform",),
+             "concat": ("transform", "vector_prod")}[att_type]
+    sd: Dict[str, torch.Tensor] = {}
+    for name in names:
+        sd.update(_prefixed(name, _dense_state(params[name])))
+    return sd
+
+
+def _att_type_of(params: Tree) -> str:
+    if "vector_prod" in params:
+        return "concat"
+    if "transform" in params:
+        return "general2" if "bias" in params["transform"] else "general"
+    return "dot"
+
+
+def mm_gated_attention_state(params: Tree) -> Dict[str, torch.Tensor]:
+    """The state dict of ``ops.fusion.MMGatedAttention``: the flax module's
+    ``transform_{a,v,l,av,al,vl}`` that its modality subset made."""
+    return {k: v for name, node in params.items() for k, v in _prefixed(name, linear_state(node)).items()}
+
+
+def _flax_bn_state(p: Tree, stats: Tree) -> Dict[str, torch.Tensor]:
+    """The image backbones' ``_BN`` (a flax BatchNorm named ``BatchNorm_0``
+    inside) → ``models.image_backbones.BatchNorm2d``."""
+    p, stats = p["BatchNorm_0"], stats["BatchNorm_0"]
+    return {"weight": _t(p["scale"]), "bias": _t(p["bias"]), "running_mean": _t(stats["mean"]),
+            "running_var": _t(stats["var"])}
+
+
+def _image_backbone_state(params: Tree, batch_stats: Tree, prefix: str = "") -> Dict[str, torch.Tensor]:
+    sd: Dict[str, torch.Tensor] = {}
+    for name, node in params.items():
+        dst = prefix + (name.replace("_", ".") if name.startswith("layer") else name)
+        if "kernel" in node:
+            sd.update(_prefixed(dst, conv_state(node)))
+        elif "BatchNorm_0" in node:
+            sd.update(_prefixed(dst, _flax_bn_state(node, batch_stats[name])))
+        else:
+            sd.update(_image_backbone_state(node, batch_stats.get(name, {}), dst + "."))
+    return sd
+
+
+def wideresnet_state(params: Tree, batch_stats: Tree) -> Dict[str, torch.Tensor]:
+    """The state dict of ``models.image_backbones.WideResnet``: flax
+    ``layer{S}_{b}`` → ``layer{S}.{b}``, HWIO kernels → OIHW, each ``_BN``'s
+    ``BatchNorm_0`` → the block's batch norm."""
+    return _image_backbone_state(params, batch_stats)
+
+
+def resnet_cifar_state(params: Tree, batch_stats: Tree) -> Dict[str, torch.Tensor]:
+    """The state dict of ``models.image_backbones.ResNetCifar`` (``resnet18``,
+    ``resnet50``), mapped as ``wideresnet_state``."""
+    return _image_backbone_state(params, batch_stats)
+
+
 STATES = {
     "cogmen": lambda trees: cogmen_state(trees["params"], trees["batch_stats"]),
     "dagerc": lambda trees: dagerc_state(trees["params"]),
@@ -357,9 +433,15 @@ STATES = {
     "resnet50": lambda trees: resnet50_state(trees["params"], trees["batch_stats"]),
     "tsm": lambda trees: tsm_state(trees["params"], trees["batch_stats"]),
     "x3d": lambda trees: x3d_state(trees["params"], trees["batch_stats"]),
+    "wideresnet": lambda trees: wideresnet_state(trees["params"], trees["batch_stats"]),
+    "resnet_cifar": lambda trees: resnet_cifar_state(trees["params"], trees["batch_stats"]),
+    "simple_attention": lambda trees: simple_attention_state(trees["params"]),
+    "matching_attention": lambda trees: matching_attention_state(trees["params"], _att_type_of(trees["params"])),
+    "mm_gated_attention": lambda trees: mm_gated_attention_state(trees["params"]),
 }
 USAGE = ("usage: python -m erc_tpu_torch.convert [--module=cogmen|dagerc|dgcn|mmgcn|dgcnv2|dgcnv2_daily|cim|"
-         "cogmen_mosei|mmin_base|mmin_miss|mmin_miss2|resnet50|tsm|x3d] variables.npz state_dict.pt")
+         "cogmen_mosei|mmin_base|mmin_miss|mmin_miss2|resnet50|tsm|x3d|wideresnet|resnet_cifar|simple_attention|"
+         "matching_attention|mm_gated_attention] variables.npz state_dict.pt")
 
 
 def read_npz(path: str) -> Dict[str, dict]:

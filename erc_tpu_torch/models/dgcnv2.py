@@ -437,7 +437,7 @@ class DGCNV2DailyTrainer(DGCNV2Trainer):
         bc = p.get("batch_count")
         return DialogueLoader(samples, self._daily_batcher(bs), batch_size=bs, shuffle=(split == "train"),
                               seed=p.seed, batch_count=(int(bc) if bc and split == "train" else None),
-                              rank=mesh.process_index(), world=mesh.process_count())
+                              rank=mesh.data_index(), world=mesh.data_count())
 
     def example_batch(self, L: int = 12, B: int = 2):
         samples = synthetic_daily(self.params.n_classes, "train", n_train=B, min_len=L, max_len=L,

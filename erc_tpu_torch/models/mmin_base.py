@@ -148,7 +148,7 @@ class MMINBaseTrainer(Trainer):
         return DialogueLoader(pick_datas(root, p.dataset, split=split), batcher, batch_size=bs,
                               shuffle=(split == "train"), seed=p.seed, sort_by_length=False,
                               batch_count=(int(bc) if bc and split == "train" else None),
-                              rank=mesh.process_index(), world=mesh.process_count())
+                              rank=mesh.data_index(), world=mesh.data_count())
 
     # -- loss and eval -------------------------------------------------------------
     def loss_and_metrics(self, batch: Dict[str, torch.Tensor]):

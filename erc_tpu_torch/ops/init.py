@@ -49,3 +49,12 @@ def lecun_normal_(t: torch.Tensor, fan_in: int, generator=None) -> torch.Tensor:
 def normal_(t: torch.Tensor, std: float, generator=None) -> torch.Tensor:
     """N(0, std²): flax's ``initializers.normal(stddev=std)``."""
     return _fill(t, lambda c: torch.nn.init.normal_(c, 0.0, std, generator=generator))
+
+
+def kaiming_normal_(t: torch.Tensor, fan_in: int, generator=None) -> torch.Tensor:
+    """flax's ``initializers.kaiming_normal()``: a normal truncated to ±2
+    standard deviations, scaled so that the variance is 2 / fan_in."""
+    std = math.sqrt(2.0 / fan_in) / _TRUNC_STD
+    return _fill(
+        t, lambda c: torch.nn.init.trunc_normal_(c, 0.0, std, -2 * std, 2 * std, generator=generator)
+    )

@@ -95,10 +95,16 @@ class KeypointCheckpoint(Callback):
 
 
 class KeyErrorSave(Callback):
-    """Checkpoint on KeyboardInterrupt (callbacks.py:548-569)."""
+    """Checkpoint on KeyboardInterrupt (callbacks.py:548-569).  Not on a model
+    axis: its save gathers the moments over the model group, a collective
+    that ranks stopped at other points, or not stopped, would never join; the
+    rotating checkpoints stand there."""
 
     def exception(self, tr, e):
         if isinstance(e, KeyboardInterrupt):
+            if tr.model_axis is not None:
+                tr.log("interrupted — no checkpoint saved: on a model axis the save is a collective")
+                return
             path = tr.save_checkpoint()
             tr.log(f"interrupted — checkpoint saved to {path}")
 

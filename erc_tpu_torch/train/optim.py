@@ -109,6 +109,9 @@ class Lars(torch.optim.Optimizer):
                 torch._foreach_mul(grads, 1.0)
             pn = torch.stack(torch._foreach_norm(params))
             un = torch.stack(torch._foreach_norm(u))
+            axis = getattr(self, "model_axis", None)  # parallel.mesh.ModelAxis: a block's norm is its parameter's
+            if axis is not None:
+                pn, un = axis.full_norms(params, torch.stack([pn, un])).unbind()
             ratio = torch.where((pn == 0) | (un == 0), 1.0, g["trust_coefficient"] * pn / (un + g["eps"]))
             torch._foreach_mul_(u, list(ratio.unbind()))
             torch._foreach_mul_(u, -g["lr"])

@@ -121,6 +121,16 @@ rank 0's is the one-process run's, another rank's is tagged with its rank
 (and, after a resume, with the restored step), so the ranks' rows draw
 independent masks, as the rows of the JAX program's global batch do; the
 masks are not the JAX program's, so trajectories are compared at dropout 0.
+
+The mesh's model axis (the JAX trainer's ``shard_params`` under a mesh set
+before ``initialize()``): ``trainer.mesh_spec = MeshSpec(data=D, model=M)``
+before ``initialize()`` lays D × M ranks out (``mesh.set_axes``); the ranks
+of one data index share its rows (and its dropout stream), every sum over
+rows runs over the data group, and ``parallel.mesh.ModelAxis`` steps each
+rank's block of the split parameters (a view of the full one: the rank keeps
+that block's moments only), all-gathered into the modules after each
+optimizer step.  Checkpoints hold the full parameters and moments (an
+unsharded run's layout); a load re-shards the moments.
 """
 
 from __future__ import annotations
@@ -240,6 +250,7 @@ class Trainer:
     flax_module = ""  # convert.STATES' key of the family: --pretrain reads a JAX package file through it
     eval_graphs = True  # on the card, replay the captured eval forward (False: eager)
     train_graphs = True  # on the card, replay the captured train step (False: eager)
+    mesh_spec: Optional[mesh.MeshSpec] = None  # set before initialize(): the mesh's data and model axes
 
     def __init__(self, params, exp_name: Optional[str] = None):
         if params.get("coordinator") and not mesh.grouped():
@@ -287,6 +298,7 @@ class Trainer:
         self._val_loader = None
         self._captured: Optional[CapturedForward] = None
         self._captured_step: Optional[CapturedStep] = None
+        self.model_axis: Optional[mesh.ModelAxis] = None
         if writer:
             params.to_yaml(self.exp.test_file("params.yaml"))
 
@@ -319,9 +331,18 @@ class Trainer:
         )
 
     def initialize(self) -> None:
+        """Lay the ranks out on ``mesh_spec`` (every process on the data axis by
+        default), build the model and optimizer (``imodels``), and split the
+        model axis's parameters (``parallel.mesh.ModelAxis``) where it has one."""
         if self.model is not None:
             return
+        data, model = (self.mesh_spec or mesh.MeshSpec()).resolve(mesh.process_count())
+        mesh.set_axes(data, model)
         self.imodels(self.params)
+        if model > 1:
+            self.model_axis = mesh.ModelAxis(self.model, self.optimizer)
+            self.log(f"mesh {data}x{model}: {len(self.model_axis.entries)} parameters split over the model axis "
+                     f"({', '.join(self.model_axis.names) or 'none'})")
         self._dropout_rng = self.rng.torch_generator(self._dropout_tag(), self.device)
         for m in self.model.modules():
             if isinstance(m, Dropout):
@@ -336,16 +357,18 @@ class Trainer:
 
     @staticmethod
     def _dropout_tag() -> str:
-        """The tag of this rank's dropout stream: rank 0's (and one
-        process's) is ``dropout``, another rank's carries its rank, so that
-        the ranks' rows draw independent masks."""
-        rank = mesh.process_index()
+        """The tag of this rank's dropout stream: data rank 0's (and one
+        process's) is ``dropout``, another data rank's carries its index, so
+        that the ranks' rows draw independent masks (the model ranks of one
+        data index hold the same rows and draw the same masks)."""
+        rank = mesh.data_index()
         return f"dropout/{rank}" if rank else "dropout"
 
     def sync_from_main(self) -> None:
         """Rank 0's parameters and buffers on every rank (of every module the
-        trainer holds), after they are made or loaded; nothing without a
-        process group.  Every rank calls it at the same point."""
+        trainer holds), after they are made or loaded (the model axis's blocks
+        are views of them); nothing without a process group.  Every rank calls
+        it at the same point."""
         mesh.broadcast_(self._eval_tensors())
 
     def make_loader(self, split: str) -> DialogueLoader:
@@ -363,8 +386,8 @@ class Trainer:
             sort_by_length=bool(p.get("sort_by_length", True)),
             sort_chunk=int(p.get("sort_chunk", 8)),
             batch_count=(int(bc) if bc and split == "train" else None),
-            rank=mesh.process_index(),
-            world=mesh.process_count(),
+            rank=mesh.data_index(),
+            world=mesh.data_count(),
         )
 
     def _pipeline(self, loader, k):
@@ -439,9 +462,12 @@ class Trainer:
         """The step that the card captures: the gradients, their global norm
         before the clip (``gnorm``), optax's clip, the optimizer step and
         ``after_step``.  Nothing waits for the device.  Under a process group
-        the gradients and the metrics (each rank's share) are summed over
-        ranks first, in one collective, so every rank clips, steps and reports
-        the global batch's."""
+        the gradients and the metrics (each rank's share) are summed over the
+        data group first, in one collective, so every rank clips, steps and
+        reports the global batch's.  On a model axis each rank's optimizer
+        steps its blocks of the split parameters (views of the full parameters
+        and of their clipped gradients) and the blocks are all-gathered into
+        the full parameters after the step."""
         mets = self.compute_grads(batch)
         grads = self.grads()
         if mesh.grouped():
@@ -454,6 +480,8 @@ class Trainer:
         else:
             mets["gnorm"] = global_norm(grads)
         self.optimizer.step()
+        if self.model_axis is not None:
+            self.model_axis.gather()
         self.after_step()
         return mets
 
@@ -850,8 +878,13 @@ class Trainer:
         optimizer and the plateau controller (where there is one), the
         dropout generator's state, the step, the epoch and the best test and
         val F1.  A subclass with state of its own adds it here and restores it
-        in ``load_state_tree``."""
-        tree = {"model": self.model.state_dict(), "optimizer": self.optimizer.state_dict(),
+        in ``load_state_tree``.  On a model axis the optimizer's moments are
+        gathered into the full parameters' layout (every rank calls it), so the
+        tree is an unsharded run's."""
+        opt = self.optimizer.state_dict()
+        if self.model_axis is not None:
+            opt = self.model_axis.full_state(opt)
+        tree = {"model": self.model.state_dict(), "optimizer": opt,
                 "rng": self._dropout_rng.get_state(), "step": self.global_steps, "eidx": self.eidx,
                 "best_f1": self.best_f1, "best_val_f1": self.best_val_f1}
         if self.lr_sche is not None:
@@ -918,13 +951,15 @@ class Trainer:
         self.model.load_state_dict(tree["model"])
         if "optimizer" in tree:
             load_optimizer_state(self.optimizer, tree["optimizer"])
+        if self.model_axis is not None:  # the tree's moments are in the unsharded layout: take this rank's blocks
+            self.model_axis.shard_state()
         if not whole:
             return
         if self.lr_sche is not None:
             self.lr_sche.load_state_dict(tree["lr_sche"])
         self._dropout_rng.set_state(tree["rng"])  # rank 0's stream: rank 0 wrote the file
         self.global_steps, self.eidx, self.best_f1 = tree["step"], tree["eidx"], tree["best_f1"]
-        if mesh.process_index():  # another rank goes on with a stream of its own, from the restored step
+        if mesh.data_index():  # another data rank goes on with a stream of its own, from the restored step
             self._dropout_rng.manual_seed(self.rng.seed_of(self._dropout_tag(), self.global_steps))
         self.best_val_f1 = tree.get("best_val_f1", float("-inf"))  # older checkpoints lack it
 

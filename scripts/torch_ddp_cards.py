@@ -1,8 +1,8 @@
 """Data-parallel training over the cards of one host: N NCCL ranks, one a card,
 against one process on one card.
 
-    python scripts/torch_ddp_cards.py [--ranks 4] [--steps 20]   # a host with N cards
-    python scripts/torch_ddp_cards.py --cpu                      # rehearsal: gloo processes, tiny widths
+    python scripts/torch_ddp_cards.py [--ranks 4] [--steps 20] [--model 2]   # a host with N cards
+    python scripts/torch_ddp_cards.py --cpu [--model 2]                      # rehearsal: gloo processes, tiny widths
 
 Runs ``scripts/torch_mp_worker.py`` once as one process (no group) and then as
 N ranks started from the ``--coordinator`` flags (rank r on card
@@ -18,6 +18,16 @@ the median wall of a replayed step (the first step of the bucket excluded),
 in one process and in N ranks, and the global batch's dialogues per second
 each gives, then one JSON line with all of it, the cards' names and power
 limits (``nvidia-smi``) among it.
+
+``--model 2`` lays the N ranks out as ``MeshSpec(data=N/2, model=2)``: the
+mesh's model axis splits the large parameters over pairs of ranks, whose
+blocks are all-gathered inside each replayed step (NCCL, captured); the same
+checks hold (the data axis's rows make the global batch), and each family's
+line adds the split parameters' count and each rank's moment bytes against
+one process's.  On the cards every run also prints the allocator's bytes
+that each process keeps after its steps and its peak (``torch_mp_worker``'s
+``memory``).  (``--cpu`` splits parameters of at least
+256 elements, since the tiny widths have none of 65 536.)
 """
 
 from __future__ import annotations
@@ -97,6 +107,7 @@ def main() -> int:
     ap.add_argument("--ranks", type=int, default=4)
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--cpu", action="store_true", help="rehearse on the CPU: gloo processes at tiny widths")
+    ap.add_argument("--model", type=int, default=1, help="the mesh's model axis (MeshSpec(model=...))")
     ap.add_argument("--timeout", type=int, default=600, help="seconds for each launch (one process, then N ranks)")
     ap.add_argument("--logs", default=None, help="a directory for the ranks' output (default: a temporary one)")
     args = ap.parse_args()
@@ -107,8 +118,10 @@ def main() -> int:
         common.append("--device=cpu")
 
     def jobs(group: bool) -> list:
+        axis = {"model": args.model, **({"shard_min_size": 256} if args.cpu else {})} \
+            if group and args.model > 1 else {}
         return [{"name": name, "module": name, "args": [*flags, *common, *(TINY[name] if args.cpu else [])],
-                 "steps": args.steps, "test": True, "dropout0": True, "group": group}
+                 "steps": args.steps, "test": True, "dropout0": True, "group": group, **axis}
                 for name, flags in FAMILIES.items()]
 
     cards = [] if args.cpu else subprocess.run(
@@ -143,13 +156,26 @@ def main() -> int:
         for k, (a, b) in enumerate(zip(r0["losses"][:3], ref["losses"][:3])):
             if abs(a - b) > ATOL + RTOL * abs(b):
                 failed.append(f"{name}: step {k} loss {a} over {args.ranks} ranks against {b} in one process")
-        rows = [sum(x) for x in zip(*(r["rows"] for r in rs))]
+        if args.model > 1 and not all(r.get("sharded") for r in rs):
+            failed.append(f"{name}: a rank split no parameter over the model axis")
+        rows = [sum(x) for x in zip(*(r["rows"] for r in rs if r["rank"] % args.model == 0))]  # the data axis's
         walls = {"one": statistics.median(ref["walls"][1:]), "ranks": statistics.median(r0["walls"][1:])}
         dps = {k: statistics.mean(rows[1:]) / w for k, w in walls.items()}
         summary[name] = {"walls_ms": {k: w * 1e3 for k, w in walls.items()}, "dialogues_per_s": dps,
                          "losses_one": ref["losses"][:3], "losses_ranks": r0["losses"][:3],
                          "test_f1": {"one": ref["test_f1"], "ranks": r0["test_f1"]},
                          "rows_a_rank": [r["rows"][1] for r in rs], "devices": [r["device"] for r in rs]}
+        if args.model > 1:
+            summary[name].update(model=args.model, sharded=len(r0["sharded"]), stored_bytes=r0["stored_bytes"])
+            b = r0["stored_bytes"]
+            print(f"{name}: {len(r0['sharded'])} parameters split over the model axis ({b['split']} bytes); a rank "
+                  f"keeps {b['moments']} moment bytes against one process's {b['moments_unsplit']} (the parameters "
+                  f"and gradients stay whole: {b['parameters']} and {b['gradients']})", flush=True)
+        if "memory" in ref:  # the allocator's bytes the job keeps after its steps, and its peak
+            summary[name]["memory"] = {"one": ref["memory"], "ranks": [r["memory"] for r in rs]}
+            print(f"{name}: the allocator's bytes kept after the steps, one process {ref['memory']['kept']}, ranks "
+                  f"{[r['memory']['kept'] for r in rs]}; peaks {ref['memory']['peak']} and "
+                  f"{[r['memory']['peak'] for r in rs]}", flush=True)
         print(f"{name}: a replayed step (median of {args.steps - 1}), one process {walls['one'] * 1e3:.3f} ms, "
               f"{args.ranks} ranks {walls['ranks'] * 1e3:.3f} ms; the global batch's dialogues/s "
               f"{dps['one']:.1f} against {dps['ranks']:.1f}; first losses {ref['losses'][:3]} against "

@@ -21,19 +21,29 @@ EMA shadow with it), ``dropout0`` (every dropout off), ``mode`` (``steps``:
 whole epoch, through ``Trainer.train_batch``; ``train``: ``Trainer.train()``
 with its callbacks; ``draw``: the keep-mask of the model's first dropout on
 256 ones, drawn, then drawn again after every rank restored rank 0's
-``state_tree``, as a resume restores rank 0's file, and no step), ``test`` (run ``test()`` after the steps), ``dump`` (a
+``state_tree``, as a resume restores rank 0's file, and no step), ``model`` (the mesh's model axis: the trainer
+takes ``MeshSpec(model=N)`` before it initializes, the data axis the other ranks), ``shard_min_size`` (the
+model axis splits parameters of at least this many elements: ``parallel.mesh.SHARD_MIN_SIZE``, the JAX
+package's 65 536, is set to it before the trainer initializes, for the rest of the process), ``interrupt`` (in ``train`` mode, ``[rank,
+step]``: that rank raises ``KeyboardInterrupt`` after that step, and a rank whose training then ends in an
+exception records it and goes on), ``test``
+(run ``test()`` after the steps), ``dump`` (a
 ``.npz`` path for the rank's parameters, buffers and EMA shadow; ``{rank}``
 in it becomes the rank), written after step ``dump_step`` (default: the
 last).  Per job the report holds the losses of each step, the valid labels
 and rows of the first and of every batch, each batch's length, the test
 name and directory, the test stage's F1, loss and rows, the kernels' launch
-counts, the steps' walls, the captured step's captures and replays, and the
-resumed epoch.  Only torch and the port are imported, never JAX.
+counts, the steps' walls, the captured step's captures and replays, the
+resumed epoch, on a card the allocator's bytes that the job holds after its steps and at their peak (both
+above what the process held before its trainer initialized), and on a model axis the
+split parameters, the rank's data and model index and its stored bytes against an unsplit run's.  Only torch
+and the port are imported, never JAX.
 """
 
 from __future__ import annotations
 
 import argparse
+import gc
 import importlib
 import json
 import os
@@ -99,6 +109,15 @@ def run_job(job: dict, dist_args: list) -> dict:
     start_group(p)  # where the flags ask for one, before the trainer touches a card
     trainer = getattr(mod, TRAINERS[job["module"]])(p)
     _say(f"{job['name']}: trainer built, {mesh.describe()}")
+    if job.get("model", 1) > 1:
+        trainer.mesh_spec = mesh.MeshSpec(model=int(job["model"]))
+    if job.get("shard_min_size"):  # for the rest of the process
+        mesh.SHARD_MIN_SIZE = int(job["shard_min_size"])
+    base = 0
+    if trainer.device.type == "cuda":
+        gc.collect()  # an earlier job's trainer
+        torch.cuda.reset_peak_memory_stats(trainer.device)  # the job's own peak, not an earlier job's
+        base = torch.cuda.memory_allocated(trainer.device)
     trainer.initialize()
     if job.get("dropout0"):
         for m in trainer.model.modules():
@@ -129,9 +148,18 @@ def run_job(job: dict, dist_args: list) -> dict:
 
             def train_step_end(self, tr, bidx, mets):
                 out["losses"].append(float(mets["Lall"]))
+                if job.get("interrupt") == [mesh.process_index(), tr.global_steps]:
+                    out["interrupted"] = True
+                    raise KeyboardInterrupt
 
         Recorder().hook(trainer)
-        trainer.train()
+        try:
+            trainer.train()
+        except BaseException as e:
+            if not job.get("interrupt"):
+                raise
+            out["error"] = repr(e)[:300]
+            _say(f"{job['name']}: training ended in {out['error']}")
         out.update(final_eidx=trainer.eidx, global_steps=trainer.global_steps,
                    checkpoints=sorted(os.path.basename(c) for c in trainer.saver.list_checkpoints()))
     else:
@@ -155,10 +183,18 @@ def run_job(job: dict, dist_args: list) -> dict:
             out.setdefault("gnorms", []).append(float(mets["gnorm"]))
             if job.get("dump") and i + 1 == job.get("dump_step"):
                 _dump(trainer, job["dump"])
+    if trainer.device.type == "cuda":
+        _sync(trainer)
+        out["memory"] = {"kept": torch.cuda.memory_allocated(trainer.device) - base,
+                         "peak": torch.cuda.max_memory_allocated(trainer.device) - base}
     graphs = trainer._captured_step
     out["captures"], out["replays"] = (graphs.captures, graphs.replays) if graphs is not None else (0, 0)
     after = _launches()
     out["launches"] = {k: after[k] - before.get(k, 0) for k in after if after[k] != before.get(k, 0)}
+    axis = trainer.model_axis
+    if axis is not None:
+        out.update(sharded={n: list(f.shape) for n, f, _, _ in axis.entries}, data_index=mesh.data_index(),
+                   model_index=mesh.model_index(), stored_bytes=axis.stored_bytes())
     if job.get("test"):
         res = trainer.test()
         _say(f"{job['name']}: test {res.get('f1')}")

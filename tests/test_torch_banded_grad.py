@@ -24,6 +24,7 @@ import jax.numpy as jnp
 
 from erc_tpu.ops.pallas import banded as jbanded
 from erc_tpu_torch.ops.kernels import banded as tb
+from torch_threads import _one_torch_thread  # noqa: F401 (autouse fixture)
 
 ATOL = 1e-5
 

@@ -40,19 +40,11 @@ from erc_tpu_torch.models.cogmen import COGMENParams, COGMENTrainer
 from erc_tpu_torch.train import callbacks as cbs
 from erc_tpu_torch.train.profiler import StepTimer
 from torch_exproot import exproot_per_module, exproot_per_test  # noqa: F401 (autouse fixtures)
+from torch_threads import _one_torch_thread  # noqa: F401 (autouse fixture)
 
 ARGS = ["--dataset=synthetic-cogmen-6", "--hidden_size=16", "--graph_impl=dense", "--max_seq_len=16",
         "--train.batch_size=8", "--test.batch_size=8", "--epoch=1", "--batch_count=2", "--eval_per_epoch=0",
         "--confusion_matrix=false", "--device=cpu", "--heartbeat=false"]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """Tiny tensors: torch's intra-op threads would only contend with the other test workers'."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture

@@ -45,6 +45,7 @@ from erc_tpu.train.trainer import TrainState
 from erc_tpu_torch.serve import InferenceEngine
 from erc_tpu_torch.train import checkpoint as tcheckpoint
 from torch_exproot import exproot_per_module, exproot_per_test  # noqa: F401 (autouse fixtures)
+from torch_threads import _one_torch_thread  # noqa: F401 (autouse fixture)
 
 
 # ------------------------------------------------------------------ Saver

@@ -45,20 +45,11 @@ from erc_tpu_torch.serve import InferenceEngine
 from erc_tpu_torch.train.checkpoint import load_model_state
 from erc_tpu_torch.train.trainer import masked_cross_entropy
 from torch_exproot import exproot_per_module, exproot_per_test  # noqa: F401 (autouse fixtures)
+from torch_threads import _one_torch_thread  # noqa: F401 (autouse fixture)
 
 ATOL = RTOL = 1e-5
 DIMS = dict(text_dim=8, audio_dim=6, visual_dim=5)
 H = 6
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The tensors here are tiny: torch's intra-op threads would only contend
-    with the other test workers' (restored after the module)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _np_tree(tree):

@@ -20,6 +20,7 @@ from erc_tpu.data.synthetic import synthetic_erc as j_synthetic_erc
 from erc_tpu.models.cogmen import COGMENModule as JCOGMEN
 from erc_tpu_torch import convert
 from erc_tpu_torch.models.cogmen import COGMENModule
+from torch_threads import _one_torch_thread  # noqa: F401 (autouse fixture)
 
 ATOL = 1e-4
 KW = dict(input_size=712, hidden_size=100, num_head=17, n_speakers=2, n_classes=6, wp=5, wf=5)

@@ -34,6 +34,7 @@ JAX runs at matmul precision highest, both at dropout 0:
 - dropout (encoder and head) draws from the trainer's seeded generator.
 """
 
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -55,6 +56,7 @@ from erc_tpu_torch import convert
 from erc_tpu_torch.models import cogmen as tcogmen
 from erc_tpu_torch.train.trainer import masked_cross_entropy
 from torch_exproot import exproot_per_module, exproot_per_test  # noqa: F401 (autouse fixtures)
+from torch_threads import _one_torch_thread  # noqa: F401 (autouse fixture)
 
 ROOT = Path(__file__).resolve().parents[1]
 RTOL = 1e-5
@@ -228,7 +230,8 @@ def test_train_entry_point_runs_two_steps_saves_and_serves(tmp_path):
             "       if n.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'msgpack', 'erc_tpu')]\n"
             "print('JAX modules:', bad)\n"
             "sys.exit(1 if bad else 0)\n")
-    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=300)
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=300,
+                         env={**os.environ, "OMP_NUM_THREADS": "1"})  # one thread: the other workers share the cores
     assert res.returncode == 0, res.stdout + res.stderr
     out = res.stdout
     assert "e0 b0 Lall=" in out and "2 steps" in out and "test: acc=" in out, out

@@ -36,7 +36,15 @@ tests' small sizes, with TF32 allowed in cuBLAS and cuDNN's convolutions
 around the calls: card ≡ CPU within 1e-4 of max |CPU's| for the TSN
 ResNet-50, TSM, X3D and the text encoder, fbank and MFCC within 1e-4 beyond
 twice the CPU's own float32 deviation from a float64 evaluation, the STFT
-1e-4 of max |X|, the settings restored after each call.
+1e-4 of max |X|, the settings restored after each call.  The extras
+(``augment_image``, ``models/image_backbones``, ``ops/fusion``, ``contrib``)
+at small sizes, card vs the CPU port: RandAugment's integer-path ops and
+cutout bit for bit, its blend ops on ≥ 99.9 % of pixels and within 1; the
+backbones (TF32 allowed around them) features 1e-4 of max |CPU|, running
+statistics 1e-5, gradients in float64 1e-4 of each parameter's gradient
+norm, one convolution's float32 gradients 1e-5 of max |CPU|; the
+fusion modules 1e-5; the loss zoo, mixup and cutmix given the same draws
+1e-6; K1–K4 launched 0 times.
 """
 
 import gc
@@ -1407,3 +1415,134 @@ def test_text_encoder_card_equals_cpu(cuda, tf32_allowed, monkeypatch, mode):
     want = TextEncoder(copy.deepcopy(model), chip_smoke._StandInTokenizer(), device="cpu", **kw).encode(sentences)
     got = TextEncoder(model, chip_smoke._StandInTokenizer(), device="cuda", **kw).encode(sentences)
     assert got.shape == (10, 768) and _rel(got, want) <= 1e-4
+
+
+# ------------------------------------------------------------------ the extras
+INTEGER_OPS = {"autocontrast", "equalize", "identity", "posterize", "rotate", "shear_x", "shear_y", "solarize",
+               "translate_x", "translate_y"}
+
+
+def _zero_launches():
+    from erc_tpu_torch.ops.kernels import dag_block as kd
+
+    kb.reset_launches()
+    kd.reset_launches()
+    return lambda: {**kb.launches, **kd.launches}
+
+
+def test_randaugment_card_equals_cpu(cuda):
+    from erc_tpu_torch import augment_image as aug
+
+    launches = _zero_launches()
+    g = torch.Generator().manual_seed(0)
+    imgs = torch.randint(0, 256, (32, 32, 32, 3), generator=g, dtype=torch.uint8)
+    u = torch.rand(32, generator=g)
+    for op, lo, hi in aug.AUGMENT_LIST:
+        v = lo + (hi - lo) * u
+        d = (op(imgs.cuda(), v.cuda()).cpu().int() - op(imgs, v).int()).abs()
+        if op.__name__ in INTEGER_OPS:
+            assert int(d.max()) == 0, op.__name__
+        else:
+            assert float((d == 0).float().mean()) >= 0.999 and int(d.max()) <= 1, op.__name__
+    cut = [torch.rand(32, generator=g) * 0.5, torch.rand(32, generator=g), torch.rand(32, generator=g)]
+    assert torch.equal(aug.cutout_apply(imgs.cuda(), *(c.cuda() for c in cut)).cpu(), aug.cutout_apply(imgs, *cut))
+    draws = aug.randaugment_draw(32, 2, generator=g)
+    d = (aug.randaugment_apply(imgs.cuda(), {k: v.cuda() for k, v in draws.items()}).cpu().int()
+         - aug.randaugment_apply(imgs, draws).int()).abs()
+    assert float((d == 0).float().mean()) >= 0.999 and int(d.max()) <= 1
+    out = aug.randaugment(imgs.cuda(), 2, generator=torch.Generator(device="cuda").manual_seed(0))
+    assert out.is_cuda and out.dtype == torch.uint8 and out.shape == imgs.shape
+    assert not any(launches().values())
+
+
+@pytest.mark.parametrize("name", ["wideresnet_28_2", "resnet18"])
+def test_image_backbone_card_equals_cpu(cuda, tf32_allowed, name):
+    """Float32 features and running statistics; the gradients in float64 on both sides (in float32 the batch
+    norms' gradients are ill-conditioned, the CPU's own against float64 up to 7e-3 of their norms)."""
+    from erc_tpu_torch.models import image_backbones as ib
+
+    launches = _zero_launches()
+    cpu = getattr(ib, name)(generator=torch.Generator().manual_seed(1))
+    card = getattr(ib, name)().cuda()
+    card.load_state_dict(cpu.state_dict())
+    x = torch.randn(8, 3, 32, 32, generator=torch.Generator().manual_seed(2))
+    with torch.no_grad():
+        want, got = cpu.eval()(x), card.eval()(x.cuda()).cpu()
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+    def train_pass(m, inp):
+        m.train()
+        m.zero_grad(set_to_none=True)
+        with torch.enable_grad():
+            f = m(inp)
+            (f ** 2).mean().backward()
+        return (f.detach().cpu(), {k: v.cpu() for k, v in m.state_dict().items()},
+                {k: p.grad.cpu() for k, p in m.named_parameters()})
+
+    (f_cpu, st_cpu, _), (f_card, st_card, _) = train_pass(cpu, x), train_pass(card, x.cuda())
+    assert float((f_card - f_cpu).abs().max()) <= 1e-4 * float(f_cpu.abs().max())
+    for k, v in st_cpu.items():
+        if k.endswith(("running_mean", "running_var")):
+            assert float((st_card[k] - v).abs().max()) <= 1e-5 * max(1.0, float(v.abs().max())), k
+    state = cpu.state_dict()
+    for m in (cpu, card):
+        m.double().load_state_dict(state)
+    g_cpu, g_card = train_pass(cpu, x.double())[2], train_pass(card, x.double().cuda())[2]
+    for k, v in g_cpu.items():
+        assert float((g_card[k] - v).abs().max()) <= 1e-4 * float(v.norm()), k
+    assert not any(launches().values())
+
+
+def test_backbone_convolution_backward_in_full_float32(cuda, tf32_allowed):
+    """A backbone convolution's float32 input and weight gradients with TF32 allowed: the backward's guard."""
+    from erc_tpu_torch.models import image_backbones as ib
+
+    cpu = ib.Conv2d(32, 32, 3, generator=torch.Generator().manual_seed(3))
+    card = ib.Conv2d(32, 32, 3).cuda()
+    card.load_state_dict(cpu.state_dict())
+    g = torch.Generator().manual_seed(4)
+    x, w = torch.randn(16, 32, 16, 16, generator=g), torch.randn(16, 32, 16, 16, generator=g)
+    grads = []
+    for m, xx, ww in ((cpu, x, w), (card, x.cuda(), w.cuda())):
+        xx = xx.clone().requires_grad_(True)
+        with torch.enable_grad():
+            (m(xx) * ww).sum().backward()
+        grads.append((xx.grad.cpu(), m.weight.grad.cpu()))
+    for a, b in zip(*grads):
+        assert float((b - a).abs().max()) <= 1e-5 * float(a.abs().max())
+
+
+def test_fusion_and_contrib_card_equal_cpu(cuda):
+    from erc_tpu_torch import contrib
+    from erc_tpu_torch.ops import fusion
+
+    launches = _zero_launches()
+    g = torch.Generator().manual_seed(3)
+    M, x, mask = torch.randn(4, 9, 16, generator=g), torch.randn(4, 16, generator=g), torch.ones(4, 9)
+    mask[0, 5:] = 0
+
+    def same(mod, *args, tol=1e-5):
+        mod.eval()
+        with torch.no_grad():
+            want = mod(*args)
+            got = mod.cuda()(*(a.cuda() if isinstance(a, torch.Tensor) else a for a in args))
+        for w, c in zip(want if isinstance(want, tuple) else (want,), got if isinstance(got, tuple) else (got,)):
+            assert float((c.cpu() - w).abs().max()) <= tol * max(1.0, float(w.abs().max()))
+
+    same(fusion.SimpleAttention(16, generator=g), M, mask)
+    for att in ("dot", "general", "general2", "concat"):
+        same(fusion.MatchingAttention(16, 16, 8, att, generator=g), M, x, mask)
+    for modals in ("atv", "av", "at", "vt"):
+        same(fusion.MMGatedAttention(16, 8, modals=modals, generator=g), M[:, 0], M[:, 1], M[:, 2], modals)
+    logits, labels = torch.randn(4, 9, 5, generator=g), torch.randint(0, 5, (4, 9), generator=g)
+    imgs, y = torch.randn(6, 8, 8, 3, generator=g), contrib.onehot(torch.randint(0, 3, (6,), generator=g), 3)
+    perm, lam = contrib.mixup_draw(6, 0.75, g)
+    cdraw = contrib.cutmix_draw(6, 8, 8, 1.0, g)
+    for fn in (lambda d: (contrib.ce_loss(d(logits), d(labels), d(mask)),),
+               lambda d: (contrib.kl_loss(d(logits), d(logits.flip(0))),),
+               lambda d: (contrib.contrastive_loss(d(M[:, 0]), d(M[:, 1])),),
+               lambda d: contrib.mixup_apply(d(imgs), d(y), d(perm), d(lam)),
+               lambda d: contrib.cutmix_apply(d(imgs), d(y), *(d(t) for t in cdraw))):
+        for w, c in zip(fn(lambda t: t), fn(lambda t: t.cuda())):
+            assert float((c.cpu() - w).abs().max()) <= 1e-6 * max(1.0, float(w.abs().max()))
+    assert not any(launches().values())

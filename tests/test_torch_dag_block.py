@@ -22,6 +22,7 @@ from erc_tpu.ops.pallas import dag_block as dbk
 from erc_tpu_torch.ops import graphs as tgraphs
 from erc_tpu_torch.ops import rnn as trnn
 from erc_tpu_torch.ops.kernels import dag_block as tdb
+from torch_threads import _one_torch_thread  # noqa: F401 (autouse fixture)
 
 ATOL = 1e-5
 B, C, D = 3, 4, 8

@@ -28,6 +28,7 @@ import jax.numpy as jnp
 
 from erc_tpu.ops.pallas import dag_block as dbk
 from erc_tpu_torch.ops.kernels import dag_block as tdb
+from torch_threads import _one_torch_thread  # noqa: F401 (autouse fixture)
 
 B, C, D = 3, 4, 8
 RTOL = 1e-5

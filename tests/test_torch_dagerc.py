@@ -30,6 +30,7 @@ from erc_tpu.ops import graphs as jgraphs
 from erc_tpu_torch import convert
 from erc_tpu_torch.models import dagerc as tdagerc
 from erc_tpu_torch.ops.kernels import dag_block as tdb
+from torch_threads import _one_torch_thread  # noqa: F401 (autouse fixture)
 
 ROOT = Path(__file__).resolve().parents[1]
 ATOL = 1e-5

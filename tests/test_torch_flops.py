@@ -29,6 +29,7 @@ from erc_tpu_torch.core.summary import param_summary
 from erc_tpu_torch.data.loader import to_device
 from test_torch_precision import FAMILIES, host_batch, jax_trainer, port_trainer
 from torch_exproot import exproot_per_module, exproot_per_test  # noqa: F401 (autouse fixtures)
+from torch_threads import _one_torch_thread  # noqa: F401 (autouse fixture)
 
 FLOP_RTOL = 1e-2
 CASES = {
@@ -37,14 +38,6 @@ CASES = {
     "mmgcn-dense": FAMILIES["mmgcn-dense"],
     "dgcnv2-LSTM": FAMILIES["dgcnv2-LSTM"],
 }
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.mark.parametrize("name", list(CASES))

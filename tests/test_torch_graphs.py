@@ -46,6 +46,7 @@ from erc_tpu_torch.ops.gnn_banded import _tap_valid
 from erc_tpu_torch.ops.kernels.banded import band_offsets
 from erc_tpu_torch.serve import InferenceEngine
 from torch_exproot import exproot_per_module, exproot_per_test  # noqa: F401 (autouse fixtures)
+from torch_threads import _one_torch_thread  # noqa: F401 (autouse fixture)
 
 ATOL = 1e-5
 GRAD_ATOL = 1e-5

@@ -24,6 +24,7 @@ from erc_tpu_torch.ops.attention import TransformerEncoder
 from erc_tpu_torch.ops.gnn import DenseRGCN, DenseTransformerConv
 from erc_tpu_torch.ops.gnn_banded import BandedRGCN, BandedTransformerConv, _tap_valid
 from erc_tpu_torch.ops.norm import MaskedBatchNorm
+from torch_threads import _one_torch_thread  # noqa: F401 (autouse fixture)
 
 ATOL = 1e-5
 ATOL_FF = 1e-4

@@ -61,6 +61,7 @@ from erc_tpu_torch.ops import graphs as tgraphs
 from erc_tpu_torch.serve import InferenceEngine
 from erc_tpu_torch.train.trainer import masked_cross_entropy
 from torch_exproot import exproot_per_module, exproot_per_test  # noqa: F401 (autouse fixtures)
+from torch_threads import _one_torch_thread  # noqa: F401 (autouse fixture)
 
 ROOT = Path(__file__).resolve().parents[1]
 ADJ_TOL = 1e-5

@@ -11,6 +11,7 @@ the RNG state in a checkpointed trip; ``python -m erc_tpu_torch.train
 without CUDA raises.
 """
 
+import os
 import subprocess
 import sys
 
@@ -30,6 +31,7 @@ from erc_tpu_torch.serve import InferenceEngine
 from test_torch_mmgcn import (GRAD_RTOL, ROOT, SMALL, STACK_TOL, _assert_close_rel, _assert_grads_close, _feats,
                               _jax_vjp, _np_tree, _port_trainer, _t, _torch_vjp, _train_batches)
 from torch_exproot import exproot_per_module, exproot_per_test  # noqa: F401 (autouse fixtures)
+from torch_threads import _one_torch_thread  # noqa: F401 (autouse fixture)
 
 
 STACKS = [("dense", 6, 3), ("structured", 4, 2)]  # (form, layers, chunk)
@@ -157,7 +159,8 @@ def test_train_entry_point_runs_two_steps_saves_and_serves(tmp_path):
             "       if n.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'msgpack', 'erc_tpu')]\n"
             "print('JAX modules:', bad)\n"
             "sys.exit(1 if bad else 0)\n")
-    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=300)
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=300,
+                         env={**os.environ, "OMP_NUM_THREADS": "1"})  # one thread: the other workers share the cores
     assert res.returncode == 0, res.stdout + res.stderr
     out = res.stdout
     assert "model MMGCNModule" in out and "e0 b0 Lall=" in out and "2 steps" in out and "test: acc=" in out, out

@@ -29,16 +29,7 @@ from erc_tpu_torch.serve import InferenceEngine
 from erc_tpu_torch.train import trainer as ttrainer
 from test_torch_mmin_train import assert_trajectory, batches, draw_params, jax_reference, port_trainer
 from torch_exproot import exproot_per_module, exproot_per_test  # noqa: F401 (autouse fixtures)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The tensors here are small: torch's intra-op threads would only contend
-    with the other test workers' (restored after the module)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from torch_threads import _one_torch_thread  # noqa: F401 (autouse fixture)
 
 
 def test_mmin_miss_three_steps_match_jax():

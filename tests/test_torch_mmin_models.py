@@ -36,19 +36,10 @@ from erc_tpu_torch.data.registry import dataset_has_val, pick_datas
 from erc_tpu_torch.models import mmin_models as tm
 from erc_tpu_torch.ops.rnn import BiRNN
 from test_torch_mmin_train import draw_params
+from torch_threads import _one_torch_thread  # noqa: F401 (autouse fixture)
 
 ATOL = 1e-5
 NARROW = {"audio_feature": (12, 16), "visual_feature": (10, 20), "text_feature": (8, 32)}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The tensors here are tiny: torch's intra-op threads would only contend
-    with the other test workers' (restored after the module)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _np_tree(tree):

@@ -26,7 +26,6 @@ the port's ``--pretrain_path`` into ``mmin_miss``'s frozen encoder and
 
 import numpy as np
 import optax
-import pytest
 import torch
 
 import jax
@@ -44,19 +43,10 @@ from erc_tpu_torch.core.seed import RngPool
 from erc_tpu_torch.models import mmin_base, mmin_miss, mmin_miss2
 from erc_tpu_torch.ops.dropout import Dropout
 from torch_exproot import exproot_per_module, exproot_per_test  # noqa: F401 (autouse fixtures)
+from torch_threads import _one_torch_thread  # noqa: F401 (autouse fixture)
 
 TOL = 1e-5
 WIDTHS = {"audio_feature": 16, "visual_feature": 20, "text_feature": 32}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The tensors here are small: torch's intra-op threads would only contend
-    with the other test workers' (restored after the module)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _np_tree(tree):

@@ -32,19 +32,10 @@ from erc_tpu_torch.models import cogmen_mosei as tcogmen_mosei
 from erc_tpu_torch.models.base import MMBaseParams
 from erc_tpu_torch.serve import InferenceEngine
 from erc_tpu_torch.train import metrics as tmetrics
+from torch_threads import _one_torch_thread  # noqa: F401 (autouse fixture)
 
 MOSEI_VIEWS = ("mosei-text-any-7", "mosei-interval-any-7")  # extraction views: maps for preprocessing
 MOSEI_NAMES = sorted(n for n in jregistry.regist_data if n.startswith("mosei-") and n not in MOSEI_VIEWS)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The tensors here are tiny: torch's intra-op threads would only contend
-    with the other test workers' (restored after the module)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _assert_samples_equal(got, want):

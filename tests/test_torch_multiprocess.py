@@ -27,8 +27,28 @@ over a localhost coordinator (the trainer's ``--coordinator``,
   ``tests/test_multichip_families.py`` holds JAX's across a mesh) and CIM on
   synthetic-mosei-2 (its multilabel block gathered: the same on both ranks).
 
+The mesh's model axis (``MeshSpec(model=2)``, ``parallel.mesh.ModelAxis``),
+held at the same tolerances: COGMEN banded over 4 ranks at (data 2, model 2)
+and DAG-ERC over 2 at (1, 2), from the JAX package's initial weights, against
+one process and against the JAX trainer on one device (the JAX mesh's model
+axis leaves its losses those of one device, ``tests/test_multichip_families.py``);
+the model axis splits parameters of at least 256 elements there
+(``shard_min_size``: at 65 536 these widths would split nothing), and a rank
+keeps the moments of half of each split parameter; a (2, 2) run's epoch
+checkpoint is in the unsharded layout (it loads into a one-process trainer, its
+moments the full parameters' shapes) and ``--resume`` into (2, 2) continues the
+one-process run's second epoch; DAG-ERC trains with lars at (1, 2) as in one
+process, and a 2-rank subprocess holds one lars step on a weight split over
+two ranks (halves whose norms differ tenfold) against the whole parameter's,
+the block a view of the parameter and its moment the block's shape; one rank
+of a (1, 2) run interrupted after a step ends without the collective save,
+and the other fails on the departed peer instead of hanging.
+In process, the split leaves of every family
+at its default widths equal those ``erc_tpu.parallel.mesh.shard_params``
+places on ``P(None, 'model')`` at model 2, name for name through ``convert.py``.
+
 In-process: the rules of ``core.device`` (the rank's card, the backend),
-``MeshSpec(model > 1)`` refused, ``initialize_distributed``'s argument
+``MeshSpec.resolve`` (the model axis included), ``initialize_distributed``'s argument
 checks, a trainer refusing ``--coordinator`` where no group is up, and every collective the identity without a group; a 2-rank
 subprocess, started by ``ERC_TPU_DIST=auto`` from a launcher's environment,
 holds ``allgather_rows`` with ragged lengths, ``allsum``,
@@ -37,6 +57,8 @@ backward.  The launches start together at the module's first test and run
 beside the JAX trainers.
 """
 
+import functools
+import importlib
 import json
 import os
 import socket
@@ -60,6 +82,7 @@ from erc_tpu_torch import convert
 from erc_tpu_torch.core import device as tdevice
 from erc_tpu_torch.parallel import mesh
 from torch_exproot import exproot_per_module, exproot_per_test  # noqa: F401 (autouse fixtures)
+from torch_threads import _one_torch_thread  # noqa: F401 (autouse fixture)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORKER = os.path.join(REPO, "scripts", "torch_mp_worker.py")
@@ -87,7 +110,15 @@ FAMILIES = {  # the JAX comparisons: (the family's flags, dropout switched off i
                    "--test.batch_size=8"], True),
 }
 JAX = {"dagerc": (jdagerc.DAGERCParams, jdagerc.DAGERCTrainer), "cogmen": (jcogmen.COGMENParams, jcogmen.COGMENTrainer),
-       "cim": (jcim.CIMParams, jcim.CIMTrainer), "mmin_miss": (jmiss.MMINMissParams, jmiss.MMINMissTrainer)}
+       "cim": (jcim.CIMParams, jcim.CIMTrainer), "mmin_miss": (jmiss.MMINMissParams, jmiss.MMINMissTrainer),
+       "cogmen_banded": (jcogmen.COGMENParams, jcogmen.COGMENTrainer)}
+# the model axis: (family module, flags) of each run; COGMEN banded at (2, 2), DAG-ERC at (1, 2)
+TP = {"cogmen_banded": ("cogmen", ["--dataset=synthetic-cogmen-6", "--hidden_size=16", "--max_seq_len=32",
+                                   "--graph_impl=banded", "--train.batch_size=8", "--test.batch_size=8",
+                                   "--drop_rate=0.0"]),
+      "dagerc": ("dagerc", DAGERC)}
+TP_MIN_SIZE = 256  # the model axis splits these widths' 16 x 16 and larger kernels
+TP_RESUME = ["--batch_count=2", "--checkpoint_per_epoch=1"]
 
 
 def _free_port() -> int:
@@ -163,9 +194,10 @@ def _flat(tree, prefix=""):
     return out
 
 
-def _port_file(tmp, module, variables):
+def _port_file(tmp, module, variables, tag=None):
     """The JAX variables as an .npz, converted by ``convert.py`` into a port state dict file."""
-    npz, pt = tmp / f"{module}.variables.npz", tmp / f"{module}.pt"
+    tag = tag or module
+    npz, pt = tmp / f"{tag}.variables.npz", tmp / f"{tag}.pt"
     np.savez(npz, **_flat(jax.tree_util.tree_map(np.asarray, variables)))
     convert.main([f"--module={module}", str(npz), str(pt)])
     return str(pt)
@@ -177,7 +209,7 @@ class _JaxRun:
 
     def __init__(self, name, tmp):
         p_cls, t_cls = JAX[name]
-        args, dropout0 = FAMILIES[name]
+        args, dropout0 = FAMILIES[name] if name in FAMILIES else (TP[name][1], False)
         self.name, self.dropout0 = name, dropout0
         p = p_cls()
         p.from_args([*args, "--matmul_precision=highest", "--heartbeat=false", "--prefetch=false"])
@@ -187,7 +219,8 @@ class _JaxRun:
         if name == "cim":
             self.tr.model = self.tr.model.clone(drop0=0.0, drop1=0.0)
         st = self.tr.state
-        self.init = _port_file(tmp, name, {"params": st.params, **dict(st.model_state)})
+        module = TP[name][0] if name in TP else name
+        self.init = _port_file(tmp, module, {"params": st.params, **dict(st.model_state)}, tag=name)
         self.extra = []
         if name == "mmin_miss":  # the frozen encoder the JAX trainer drew
             self.extra = [f"--pretrain_path={_port_file(tmp, 'mmin_base', {'params': self.tr.pretrained_params})}"]
@@ -242,6 +275,8 @@ def runs(tmp_path_factory):
                          test=True, dump=str(tmp / f"{name}.rank{{rank}}.npz"), dump_step=DUMP_STEP.get(name))
                     for name, ref in refs.items()]
             out["jax_ranks"] = _Launch(tmp, "jax2", 2, jobs, exp / "jax2")
+            refs["cogmen_banded"] = _JaxRun("cogmen_banded", tmp)
+            out.update(_model_axis_launches(tmp, exp, refs))
             out["jax"] = {name: ref.steps() for name, ref in refs.items()}
             out["jax_trainers"] = refs
     finally:
@@ -249,7 +284,36 @@ def runs(tmp_path_factory):
     out["phase_a"].result()
     out["phase_b"] = _Launch(tmp, "b", 2, [_job("run", "dagerc", [*resume, "--epoch=3", "--resume"], mode="train")],
                              exp / "shared")
+    out["tp4"].result()
+    out["tp4_resume"] = _Launch(tmp, "tp4b", 4, [_job("run", "cogmen", [*TP["cogmen_banded"][1], *TP_RESUME,
+                                                                         "--epoch=2", "--resume"], mode="train",
+                                                      model=2, shard_min_size=TP_MIN_SIZE)], exp / "shared_tp")
     return out
+
+
+def _model_axis_launches(tmp, exp, refs) -> dict:
+    """The model axis's launches, from the JAX runs' initial weights: one process (each family's steps, and
+    COGMEN's two-epoch control run with epoch checkpoints), COGMEN banded at (2, 2) (its steps, and its first
+    epoch with a checkpoint, which the fixture's last launch resumes) and DAG-ERC at (1, 2)."""
+    cog, dag = TP["cogmen_banded"][1], TP["dagerc"][1]
+    steps = {name: dict(init=refs[name].init, test=True, dump=str(tmp / f"tp.{name}.{{rank}}.npz"))
+             for name in TP}
+    axis = dict(model=2, shard_min_size=TP_MIN_SIZE)
+    lars = [*dag, "--optim.name=lars"]  # its trust ratio takes each split parameter's whole norm
+    one = [_job("cogmen_banded", "cogmen", cog, **steps["cogmen_banded"]), _job("dagerc", "dagerc", dag, **steps["dagerc"]),
+           _job("run", "cogmen", [*cog, *TP_RESUME, "--epoch=2"], mode="train"),
+           _job("lars", "dagerc", lars, init=refs["dagerc"].init)]
+    four = [_job("cogmen_banded", "cogmen", cog, **steps["cogmen_banded"], **axis),
+            _job("run", "cogmen", [*cog, *TP_RESUME, "--epoch=1"], mode="train", **axis,
+                 dump=str(tmp / "tp.run.{rank}.npz"))]
+    return {"tp1": _Launch(tmp, "tp1", 1, one, exp / "tp1"),
+            "tp4": _Launch(tmp, "tp4", 4, four, exp / "shared_tp"),
+            "tp2": _Launch(tmp, "tp2", 2, [_job("dagerc", "dagerc", dag, **steps["dagerc"], **axis),
+                                           _job("lars", "dagerc", lars, init=refs["dagerc"].init, **axis)],
+                           exp / "tp2"),
+            "tp_interrupt": _Launch(tmp, "tpint", 2, [_job("run", "dagerc", [*dag, "--batch_count=4"], mode="train",
+                                                          interrupt=[1, 1], **axis)], exp / "tp_interrupt"),
+            "tp_exp": exp / "shared_tp"}
 
 
 # ------------------------------------------------------------------- mirror
@@ -376,6 +440,140 @@ def test_two_ranks_match_jax(runs, name):
         assert r0["test_multilabel"] and r0["test_multilabel"] == r1["test_multilabel"]
 
 
+# ------------------------------------------------------------------ the model axis
+def _tp_check(runs, name, launch, n):
+    """The model-axis ranks of ``name`` against one process (the same initial weights) and the JAX trainer on
+    one device: losses, test F1, the split parameters and the stored bytes."""
+    one = runs["tp1"].result()[0][name]
+    ranks = [r[name] for r in runs[launch].result()]
+    jlosses, _ = runs["jax"][name]
+    assert len(ranks) == n and len(one["losses"]) == 3
+    for r in ranks:
+        assert r["world"] == n and r["sharded"] and r["model_index"] == r["rank"] % 2
+        assert r["data_index"] == r["rank"] // 2
+        np.testing.assert_allclose(r["losses"], ranks[0]["losses"], rtol=1e-6)
+        assert r["test_f1"] == ranks[0]["test_f1"] and r["n_test_rows"] == one["n_test_rows"]
+        b = r["stored_bytes"]
+        assert b["parameters"] == b["gradients"] and b["split"] > 0  # whole on every rank
+        # the moments of half of each split parameter
+        assert b["moments"] == b["moments_unsplit"] - b["moments_unsplit"] // b["parameters"] * b["split"] // 2
+    np.testing.assert_allclose(ranks[0]["losses"], one["losses"], rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(ranks[0]["losses"], jlosses, rtol=RTOL, atol=ATOL)
+    assert ranks[0]["test_f1"] == pytest.approx(one["test_f1"], abs=1e-6)
+    dumps = [np.load(str(runs["tmp"] / f"tp.{name}.{k}.npz")) for k in (0, len(ranks) - 1)]
+    for key in dumps[0].files:  # the gathered compute copies: every rank's full parameters alike
+        np.testing.assert_array_equal(dumps[0][key], dumps[1][key], err_msg=key)
+    return ranks
+
+
+@pytest.mark.multiprocess
+def test_model_axis_cogmen_banded_2x2_matches_one_process_and_jax(runs):
+    ranks = _tp_check(runs, "cogmen_banded", "tp4", 4)
+    assert "gcn.conv2.lin_query.weight" in ranks[0]["sharded"]
+
+
+@pytest.mark.multiprocess
+def test_model_axis_dagerc_1x2_matches_one_process_and_jax(runs):
+    _tp_check(runs, "dagerc", "tp2", 2)
+
+
+@pytest.mark.multiprocess
+def test_model_axis_lars_trains_as_one_process(runs):
+    """DAG-ERC with lars at (1, 2) against one process (whose trust ratios the ranks take over whole norms)."""
+    one = runs["tp1"].result()[0]["lars"]
+    ranks = [r["lars"] for r in runs["tp2"].result()]
+    assert ranks[0]["sharded"] and len(one["losses"]) == 3
+    for r in ranks:
+        np.testing.assert_allclose(r["losses"], one["losses"], rtol=RTOL, atol=ATOL)
+        np.testing.assert_allclose(r["gnorms"], one["gnorms"], rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.multiprocess
+def test_model_axis_checkpoint_is_unsharded_and_resumes(runs):
+    """The (2, 2) run's epoch checkpoint holds full parameters and moments (it loads into a one-process trainer),
+    and --resume into (2, 2) continues the one-process run's second epoch."""
+    from erc_tpu_torch.models import cogmen
+
+    ctl = runs["tp1"].result()[0]["run"]
+    a = [r["run"] for r in runs["tp4"].result()]
+    b = [r["run"] for r in runs["tp4_resume"].result()]
+    per_epoch = len(ctl["losses"]) // 2
+    assert per_epoch == 2 and a[0]["checkpoints"]
+    np.testing.assert_allclose(a[0]["losses"], ctl["losses"][:per_epoch], rtol=RTOL, atol=ATOL)
+    for r in b:
+        assert r["eidx_at_begin"] == 1 and len(r["losses"]) == per_epoch
+        np.testing.assert_allclose(r["losses"], ctl["losses"][per_epoch:], rtol=RTOL, atol=ATOL)
+    p = cogmen.COGMENParams()
+    p.finalize([*COMMON, *TP["cogmen_banded"][1]])
+    tr = cogmen.COGMENTrainer(p)
+    tr.initialize()
+    path = os.path.join(a[0]["test_dir"].replace("/experiment/", "/blob/"), "saver")
+    ckpt = sorted(f for f in os.listdir(path) if f.startswith("checkpoint.") and f.endswith(".ckpt"))[-1]
+    tr.load_checkpoint(os.path.join(path, ckpt))
+    want = np.load(str(runs["tmp"] / "tp.run.0.npz"))
+    for k, v in tr.model.state_dict().items():
+        np.testing.assert_array_equal(v.numpy(), want[f"model.{k}"], err_msg=k)
+    split = a[0]["sharded"]
+    named = dict(tr.model.named_parameters())
+    moments = 0
+    for prm in named.values():
+        for v in tr.optimizer.state[prm].values():
+            if isinstance(v, torch.Tensor) and v.ndim:
+                assert v.shape == prm.shape
+                moments += 1
+    assert moments == 2 * len(named) and all(list(named[n].shape) == s for n, s in split.items())
+
+
+@pytest.mark.multiprocess
+def test_model_axis_interrupt_of_one_rank_does_not_hang(runs):
+    """Rank 1 of a (1, 2) DAG-ERC run is interrupted after its first step: it saves no checkpoint (on a model axis
+    the save gathers over the model group, which rank 0 never joins there) and ends; rank 0's next step then fails
+    on the departed peer instead of waiting, and both processes end inside the launch's timeout."""
+    r0, r1 = (r["run"] for r in runs["tp_interrupt"].result())
+    assert r1["interrupted"] and r1["error"].startswith("KeyboardInterrupt") and len(r1["losses"]) == 1
+    assert "interrupted" not in r0 and "error" in r0 and not r0["checkpoints"] and not r1["checkpoints"]
+
+
+@pytest.mark.parametrize("family", ["cogmen", "dagerc", "dgcn", "mmgcn", "dgcnv2", "cim", "mmin_base"])
+def test_model_axis_splits_the_leaves_shard_params_splits(family, tmp_path, monkeypatch):
+    """At its default widths each family's split parameters (``parallel.mesh.sharded_parameters`` at model 2)
+    are those that ``erc_tpu.parallel.mesh.shard_params`` places on P(None, 'model'), name for name through
+    ``convert.py``, with the same element counts."""
+    from jax.sharding import PartitionSpec
+
+    cls, dataset = {"cogmen": "COGMEN", "dagerc": "DAGERC", "dgcn": "DGCN", "mmgcn": "MMGCN", "dgcnv2": "DGCNV2",
+                    "cim": "CIM", "mmin_base": "MMINBase"}[family], "synthetic-cogmen-6"
+    if family == "mmin_base":
+        dataset = "synthetic-mmin-4"
+    monkeypatch.setenv("ERC_TPU_EXPROOT", str(tmp_path))
+    jm = importlib.import_module(f"erc_tpu.models.{family}")
+    jp = getattr(jm, cls + "Params")()
+    jp.from_args([f"--dataset={dataset}"])
+    jp.iparams()
+    jt = getattr(jm, cls + "Trainer")(jp)
+    jt.imodels(jp)
+    shapes = jax.eval_shape(functools.partial(jt.model.init, deterministic=True),
+                            {"params": jax.random.PRNGKey(0), "dropout": jax.random.PRNGKey(1)}, jt.example_batch())
+    zeros = jax.tree_util.tree_map(lambda a: jax.numpy.zeros(a.shape, a.dtype), shapes["params"])
+    placed = jmesh.shard_params(zeros, jmesh.make_mesh(jmesh.MeshSpec(data=1, model=2), jax.devices()[:2]))
+    marks = jax.tree_util.tree_map(
+        lambda a: np.full(a.shape, float(a.sharding.spec == PartitionSpec(None, "model")), np.float32), placed)
+    stats = {k: jax.tree_util.tree_map(lambda a: np.zeros(a.shape, np.float32), v) for k, v in shapes.items()
+             if k != "params"}
+    marked = convert.STATES[family]({"params": marks, **stats})
+    want = {k: v.numel() for k, v in marked.items() if v.numel() and bool((v == 1).all())}
+    assert not any(bool((v == 1).any()) and not bool((v == 1).all()) for v in marked.values())
+    tm = importlib.import_module(f"erc_tpu_torch.models.{family}")
+    tp = getattr(tm, cls + "Params")()
+    tp.finalize([f"--dataset={dataset}", "--device=cpu"])
+    tt = getattr(tm, cls + "Trainer")(tp)
+    tt.imodels(tp)
+    got = {n: t.numel() for n, t, _ in mesh.sharded_parameters(tt.model, 2)}
+    assert got == want
+    if family in ("cogmen", "dagerc", "mmgcn"):
+        assert got  # these widths split something
+
+
 # ------------------------------------------------------------- in process
 def test_rank_card_and_backend_rules():
     assert tdevice.rank_card(0, 3) == 3 and tdevice.rank_card(None, 1) == 1 and tdevice.rank_card("cuda", 2) == 2
@@ -390,10 +588,13 @@ def test_rank_card_and_backend_rules():
 
 def test_mesh_spec_and_initialize_checks():
     assert mesh.MeshSpec().resolve(4) == (4, 1) and mesh.MeshSpec(data=2).resolve(2) == (2, 1)
-    with pytest.raises(NotImplementedError, match="model axis"):
-        mesh.MeshSpec(data=4, model=2).resolve(8)
+    assert mesh.MeshSpec(data=4, model=2).resolve(8) == (4, 2) and mesh.MeshSpec(model=2).resolve(4) == (2, 2)
+    assert mesh.MeshSpec(model=2).resolve(2) == (1, 2)
     with pytest.raises(ValueError):
         mesh.MeshSpec(data=3).resolve(2)
+    with pytest.raises(ValueError):
+        mesh.MeshSpec(model=2).resolve(1)  # one process: no model axis
+    assert mesh.model_count() == 1 and mesh.data_count() == 1 and mesh.data_index() == 0
     with pytest.raises(ValueError, match="--num_processes"):
         mesh.initialize_distributed("localhost:1", None, None, device="cpu")
     with pytest.raises(ValueError, match="outside"):
@@ -448,17 +649,66 @@ RAGGED = textwrap.dedent("""
 """)
 
 
-def test_collectives_over_two_ranks():
+SPLIT_STEP = textwrap.dedent("""
+    import json, sys
+    import torch
+    from erc_tpu_torch.parallel import mesh
+    from erc_tpu_torch.train.optim import Lars
+    rank = mesh.initialize_distributed(device="cpu") and mesh.process_index()  # ERC_TPU_DIST=auto
+    mesh.set_axes(1, 2)
+    scale = torch.cat([torch.ones(128, 1), 10 * torch.ones(128, 1)])  # the halves' norms differ tenfold
+
+    def model():
+        lin = torch.nn.Linear(4, 256, bias=False)
+        with torch.no_grad():
+            lin.weight.copy_(torch.arange(1024.0).reshape(256, 4).sin() * scale)
+        return lin
+
+    full, split = model(), model()
+    axis_opts = []
+    for m in (full, split):
+        axis_opts.append(Lars(m.parameters(), lr=0.5, weight_decay=0.01))
+    axis = mesh.ModelAxis(split, axis_opts[1], min_size=256)
+    grad = torch.arange(1024.0).reshape(256, 4).cos() / scale
+    full.weight.grad = grad.clone()
+    split.weight.grad.copy_(grad)  # the block's gradient is a view of it
+    axis_opts[0].step()  # one process's step: the whole parameter
+    axis_opts[1].step()
+    axis.gather()
+    block = axis_opts[1].param_groups[0]["params"][0]
+    view = block.data_ptr() == split.weight.data_ptr() + rank * block.numel() * 4  # this rank's rows, in place
+    print(json.dumps({"names": axis.names, "diff": float((full.weight - split.weight).abs().max()),
+                      "moved": float((full.weight - model().weight).abs().max()),  # the step's size
+                      "view": view, "moment": list(axis_opts[1].state[block]["trace"].shape)}))
+    mesh.destroy()
+""")
+
+
+def _two_ranks(code: str) -> list:
     env = {**os.environ, "OMP_NUM_THREADS": "1", "ERC_TPU_DIST": "auto", "MASTER_ADDR": "localhost",
            "MASTER_PORT": str(_free_port()), "WORLD_SIZE": "2"}
-    procs = [subprocess.Popen([sys.executable, "-c", RAGGED], cwd=REPO, env={**env, "RANK": str(r)},
+    procs = [subprocess.Popen([sys.executable, "-c", code], cwd=REPO, env={**env, "RANK": str(r)},
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE) for r in range(2)]
     outs = []
     for pr in procs:
         out, err = pr.communicate(timeout=120)
         assert pr.returncode == 0, err.decode()[-3000:]
         outs.append(json.loads(out.decode().strip().splitlines()[-1]))
-    for o in outs:
+    return outs
+
+
+def test_model_axis_lars_step_equals_the_whole_parameters():
+    """One lars step on a Linear weight split over two model ranks, whose halves' norms differ tenfold, gives the
+    one-process step within float32 rounding of the norms (a sum of the halves' squares): the trust ratio takes
+    the whole parameter's norms (a half's would move the step by a large fraction of itself)."""
+    for o in _two_ranks(SPLIT_STEP):
+        assert o["names"] == ["weight"] and o["moved"] > 1e-3
+        assert o["view"] and o["moment"] == [128, 4]  # the optimizer keeps the block's moment only
+        assert o["diff"] <= 1e-6 * o["moved"] + 1e-6, o
+
+
+def test_collectives_over_two_ranks():
+    for o in _two_ranks(RAGGED):
         assert o["rows"] == [[2, 2]] * 3  # rank 0's none, then rank 1's three
         assert o["total"] == 4.5 and o["count"] == 1.0 and o["name"] == "rank0"
         assert o["flat"] == [[3.0, 3.0], 1.0]

@@ -50,6 +50,7 @@ from erc_tpu_torch.models import cogmen as tcogmen
 from erc_tpu_torch.models import mmin_base as tmmin
 from erc_tpu_torch.ops.dropout import Dropout
 from torch_exproot import exproot_per_module, exproot_per_test  # noqa: F401 (autouse fixtures)
+from torch_threads import _one_torch_thread  # noqa: F401 (autouse fixture)
 
 TOL = 1e-5
 ZERO_GRAD = {f"gcn.conv2.lin_{n}.bias" for n in ("key", "value", "skip")}
@@ -58,16 +59,6 @@ COGMEN_ARGS = ["--dataset=synthetic-cogmen-6", "--hidden_size=16", "--max_seq_le
                "--batch_count=5", "--confusion_matrix=false"]
 MMIN_ARGS = ["--dataset=synthetic-mmin-4", "--max_audio_len=16", "--train.batch_size=8", "--test.batch_size=6",
              "--eval_per_epoch=0", "--epoch=1", "--batch_count=5", "--confusion_matrix=false"]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The tensors here are small: torch's intra-op threads would only contend
-    with the other test workers' (restored after the module)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 # ------------------------------------------------------------ loader wrappers

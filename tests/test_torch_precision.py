@@ -55,6 +55,7 @@ from erc_tpu_torch.core.cuda_graphs import host_tensor
 from erc_tpu_torch.data.loader import to_device
 from erc_tpu_torch.ops.dropout import Dropout
 from torch_exproot import exproot_per_module, exproot_per_test  # noqa: F401 (autouse fixtures)
+from torch_threads import _one_torch_thread  # noqa: F401 (autouse fixture)
 
 LOSS_RTOL = 2e-2  # the port's bfloat16 loss against the JAX package's, relative
 GRAD_RTOL = 5e-2  # each gradient's gap, relative to its norm ...

@@ -26,19 +26,9 @@ from erc_tpu.preprocess import acoustic as jac
 from erc_tpu.preprocess import vad as jvad
 from erc_tpu_torch.preprocess import acoustic as tac
 from erc_tpu_torch.preprocess import vad as tvad
+from torch_threads import _one_torch_thread  # noqa: F401 (autouse fixture)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """torch on one intra-op thread for the module (restored after): under the
-    test run's parallel workers its own threads only contend with the other
-    workers'."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _signals(seed=0, n=2, T=16000):

@@ -22,19 +22,9 @@ import torch
 
 from erc_tpu.preprocess import lexical as jlex
 from erc_tpu_torch.preprocess import lexical as tlex
+from torch_threads import _one_torch_thread  # noqa: F401 (autouse fixture)
 
 TOL = 1e-5
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """torch on one intra-op thread for the module (restored after): under the
-    test run's parallel workers its own threads only contend with the other
-    workers'."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 class Tokenizer:

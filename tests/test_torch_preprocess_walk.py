@@ -13,7 +13,6 @@ import stat
 
 import numpy as np
 import pytest
-import torch
 
 from erc_tpu.data import iemocap_raw as jraw
 from erc_tpu.data import registry as jregistry
@@ -25,22 +24,12 @@ from erc_tpu_torch.data import registry as tregistry
 from erc_tpu_torch.preprocess import mosei as tmosei
 from erc_tpu_torch.preprocess import opensmile as tosm
 from erc_tpu_torch.preprocess import video_walk as twalk
+from torch_threads import _one_torch_thread  # noqa: F401 (autouse fixture)
 
 RAW_NAMES = ["iemocap-audio-raw-9", "iemocap-audio-4", "iemocap-audio-v1-4", "iemocap-audio-6", "iemocap-text-4",
              "iemocap-text-v1-4", "iemocap-text-6", "iemocap-ta-4", "iemocap-ta-v1-4", "iemocap-ta-6"]
 VIEW_NAMES = ["iemocap-cogmen-text-4", "iemocap-cogmen-text-6", "meld-mmgcn-text-7", "iemocap-cogmen-video-4",
               "iemocap-cogmen-video-6", "mosei-text-any-7", "mosei-interval-any-7"]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """torch on one intra-op thread for the module (restored after): under the
-    test run's parallel workers its own threads only contend with the other
-    workers'."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _same(got, want, path="") -> None:

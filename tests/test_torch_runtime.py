@@ -58,20 +58,13 @@ from erc_tpu_torch.core import params as tparams
 from erc_tpu_torch.models import cogmen as tcogmen
 from erc_tpu_torch.train.trainer import nan_checks
 from torch_exproot import exproot_per_module, exproot_per_test  # noqa: F401 (autouse fixtures)
+from torch_threads import _one_torch_thread  # noqa: F401 (autouse fixture)
 
 ROOT = Path(__file__).resolve().parents[1]
 TOL = 1e-5
 ARGS = ["--dataset=synthetic-cogmen-6", "--hidden_size=16", "--max_seq_len=16", "--graph_impl=dense",
         "--train.batch_size=8", "--test.batch_size=8", "--drop_rate=0.0", "--epoch=2", "--batch_count=2",
         "--confusion_matrix=false", "--heartbeat=false"]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 # ------------------------------------------------------------------ Params

@@ -37,20 +37,13 @@ from erc_tpu_torch.train import optim as toptim
 
 from test_torch_precision import FAMILIES, _state, host_batch, jax_trainer, port_trainer
 from torch_exproot import exproot_per_module, exproot_per_test  # noqa: F401 (autouse fixtures)
+from torch_threads import _one_torch_thread  # noqa: F401 (autouse fixture)
 
 CURVES = [("Constant", dict(value=0.3)), ("Linear", dict(start=1.0, end=0.1, left=2, right=9)),
           ("Cos", dict(start=1e-3, end=1e-5, left=1, right=12)), ("Exp", dict(start=0.0, end=2.0, right=7)),
           ("Log", dict(start=1.0, end=3.0, left=2, right=10)), ("PowerDecay", dict(start=0.5, decay=0.9, period=3)),
           ("PeriodCos", dict(start=1.0, end=0.0, period=5)), ("HalfPeriodCos", dict(start=2.0, end=1.0, period=6)),
           ("PeriodTriangle", dict(start=0.0, end=1.0, period=4)), ("PeriodLinear", dict(start=1.0, end=3.0, period=7))]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _curves(name, kw):

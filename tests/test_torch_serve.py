@@ -22,6 +22,7 @@ from erc_tpu_torch import convert
 from erc_tpu_torch.data.collate import ERCBatcher, bucket_length
 from erc_tpu_torch.data.synthetic import synthetic_erc
 from erc_tpu_torch.serve import InferenceEngine, make_http_server
+from torch_threads import _one_torch_thread  # noqa: F401 (autouse fixture)
 
 ROOT = Path(__file__).resolve().parents[1]
 PROBS_ATOL = 1e-5

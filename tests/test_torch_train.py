@@ -66,6 +66,7 @@ from erc_tpu_torch.train import metrics as tmetrics
 from erc_tpu_torch.train import optim as toptim
 from erc_tpu_torch.train import trainer as ttrainer
 from torch_exproot import exproot_per_module, exproot_per_test  # noqa: F401 (autouse fixtures)
+from torch_threads import _one_torch_thread  # noqa: F401 (autouse fixture)
 
 ROOT = Path(__file__).resolve().parents[1]
 RTOL = 1e-5

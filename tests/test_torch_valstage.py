@@ -27,6 +27,7 @@ from erc_tpu_torch.models import dgcnv2 as tdgcnv2
 from erc_tpu_torch.ops.dropout import Dropout
 from erc_tpu_torch.train import trainer as ttrainer
 from torch_exproot import exproot_per_module, exproot_per_test  # noqa: F401 (autouse fixtures)
+from torch_threads import _one_torch_thread  # noqa: F401 (autouse fixture)
 
 TOL = 1e-5
 DAILY_FILES = {
@@ -37,16 +38,6 @@ DAILY_FILES = {
 }
 ARGS = ["--dataset=dailydialog-token-7", "--vocab_size=50", "--n_words=6", "--embedding_dim=8", "--max_seq_len=9",
         "--hidden_size=8", "--train.batch_size=2", "--test.batch_size=2", "--confusion_matrix=false", "--seed=3"]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The tensors here are tiny: torch's intra-op threads would only contend
-    with the other test workers' (restored after the module)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture
