@@ -2318,12 +2318,72 @@ def _dgcn_trainer(graph_impl="banded", *extra, device="cuda", dropout=None):
     return trainer
 
 
+DGCN_SGD = ["--optim.name=SGD", "--optim.lr=0.01", "--optim.momentum=0.9", "--optim.nesterov=true"]
+# momentum 0 with Nesterov asked for (optax then steps -lr·g) under a Cos schedule long enough that each step
+# reads another LR
+DGCN_SGD_SCHE = ["--optim.name=SGD", "--optim.momentum=0", "--optim.nesterov=true", "--optim.sche.name=Cos",
+                 "--optim.sche.start=0.01", "--optim.sche.end=0.001", "--optim.sche.left=0", "--optim.sche.right=200"]
+
+
+def _dgcn_sgd(card: str, host) -> dict:
+    """DialogueGCN banded trained with the port's Sgd (optax.sgd's rule, capturable), at full width:
+    - momentum 0.9 with Nesterov, dropout 0: first-batch gradients and 4 steps' losses card vs CPU, the card's
+      through the captured step (`_card_vs_cpu_steps`), K1/K2/K1ᵀ launches 5 x one step's over them;
+    - the same at the family's dropout: the captured step's checks (`check_train_graphs`), its trace state made;
+    - momentum 0 with Nesterov under a Cos schedule: 3 replayed ≡ 3 eager steps (`_replayed_vs_eager`), no
+      per-parameter state, and the LR of 3 replayed steps within PIPELINE_LR_TOL of the host curve.
+    Returns the K1/K2/K1ᵀ launches of the first trainer's steps."""
+    from erc_tpu_torch.core.interp import Cos
+    from erc_tpu_torch.train.optim import Sgd
+
+    t0 = time.perf_counter()
+    name = "DialogueGCN banded SGD (momentum 0.9, Nesterov)"
+    card0 = _dgcn_trainer("banded", *DGCN_SGD, dropout=0.0)
+    require(type(card0.optimizer) is Sgd and all(g["capturable"] for g in card0.optimizer.param_groups),
+            f"{name}: built {type(card0.optimizer).__name__}, capturable "
+            f"{[g.get('capturable') for g in card0.optimizer.param_groups]}")
+    _reset_launches()
+    _card_vs_cpu_steps(name, card0, _dgcn_trainer("banded", *DGCN_SGD, device="cpu", dropout=0.0), host)
+    launches = _read_launches()
+    want = _scaled(DGCN_STEP_LAUNCHES, 5)
+    got = {k: launches[k] for k in want}
+    log(f"{name}: K1/K2/K1ᵀ launches over one eager step and 4 train steps {got}, 5 x one step's "
+        f"{DGCN_STEP_LAUNCHES} wanted, on {card}")
+    require(got == want, f"{name}: launches {got} over 5 steps, want {want}")
+    del card0
+    run = _dgcn_trainer("banded", *DGCN_SGD)
+    check_train_graphs(name, run, host, card, show=("banded_",))  # timed on a captured bucket's batch
+    params = list(run.model.parameters())
+    require(all("trace" in run.optimizer.state[p] for p in params), f"{name}: a parameter without its trace")
+    del run
+
+    name = "DialogueGCN banded SGD (momentum 0, Nesterov asked), Cos schedule"
+    run = _dgcn_trainer("banded", *DGCN_SGD_SCHE)
+    a = _replayed_vs_eager(name, run, host, card)
+    require(list(run.optimizer.state) == ["schedule"], f"{name}: optimizer state {list(run.optimizer.state)}")
+    curve = Cos(0.01, 0.001, 0, 200)
+    count0, replays = int(run.optimizer.state["schedule"]["count"]), run.captured_step.replays
+    lrs = []
+    for _ in range(3):
+        run.train_batch(a[0])
+        lrs.append(float(run.optimizer.param_groups[0]["lr"]))
+    want_lrs = [curve(count0 + i) for i in range(3)]
+    worst = max(abs(x - y) / abs(y) for x, y in zip(lrs, want_lrs))
+    log(f"{name}: LR of replayed steps {count0}..{count0 + 2} read back {lrs}; host curve {want_lrs}; worst relative "
+        f"{worst:.3e} (tolerance {PIPELINE_LR_TOL}); on {card}; SGD checks {time.perf_counter() - t0:.1f} s")
+    require(run.captured_step.replays == replays + 3, f"{name}: {run.captured_step.replays - replays} of 3 replayed")
+    require(worst <= PIPELINE_LR_TOL, f"{name}: the scheduled LR is {worst:.3e} off the host curve")
+    return got
+
+
 def drive_dgcn_training(card: str):
     """DialogueGCN training at full width through DGCNTrainer with the banded
     graph, cuDNN's TF32 flag on: launches of one step by instantiation,
     gradients and 3 steps' losses ≡ the dense graph's, the card ≡ the CPU at
     dropout 0, an epoch and test() as the main path, dialogues/s banded vs
-    dense, a profile of one step, and train → save → serve."""
+    dense, a profile of one step, the port's SGD (`_dgcn_sgd`), and train →
+    save → serve.  Returns the training path's launches, variants and taps,
+    and the SGD steps' launches."""
     import tempfile
 
     import numpy as np
@@ -2411,6 +2471,8 @@ def drive_dgcn_training(card: str):
     check_train_graphs("DialogueGCN dense", other, host, card, timed=host[2], show=("RNN", "rnn"))
     _epoch_rates("DialogueGCN dense", other, card)
     _test_replayed_vs_eager("DialogueGCN", run, traced=True)
+    del run, other
+    sgd = _dgcn_sgd(card, host)
 
     from erc_tpu_torch.models import dgcn
     from erc_tpu_torch.serve import InferenceEngine
@@ -2434,7 +2496,7 @@ def drive_dgcn_training(card: str):
         log(f"DialogueGCN train -> save -> serve: {trainer.global_steps} steps, saved {path.name}; InferenceEngine "
             f"logits vs the trainer's eval logits max abs diff {diff:.3e}")
         require(diff == 0.0, f"served DialogueGCN logits differ from the trainer's eval logits by {diff}")
-    return launches, variants, taps
+    return launches, variants, taps, sgd
 
 
 # ------------------------------------------------------------------ phases 9 and 10
@@ -5103,7 +5165,9 @@ def _main() -> int:
     with _cudnn_tf32_on():
         _, _, dgcn_serve_taps = drive_dgcn(card)
         _stamp("DialogueGCN serving")
-        _, _, dgcn_train_taps = drive_dgcn_training(card)
+        _, _, dgcn_train_taps, dgcn_sgd = drive_dgcn_training(card)
+        for name, n in dgcn_sgd.items():
+            records[name]["sgd_launches"] = n
         _stamp("DialogueGCN training")
         drive_mmgcn(card)
         _stamp("MMGCN serving")

@@ -472,7 +472,8 @@ class ModelAxis:
     the same point."""
 
     def __init__(self, model: torch.nn.Module, optimizer: torch.optim.Optimizer, min_size: Optional[int] = None):
-        if optimizer.state:
+        # a declared schedule's count (``state["schedule"]``) is no parameter's state: it stays whole on every rank
+        if any(isinstance(k, torch.Tensor) for k in optimizer.state):
             raise ValueError("ModelAxis: the optimizer has stepped already; split its parameters before")
         self.n, self.i = model_count(), model_index()
         self.entries = []  # (name, full parameter, block parameter, dim)

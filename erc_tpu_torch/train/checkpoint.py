@@ -29,8 +29,8 @@ JAX TrainState's params, model state and EMA go through ``convert.STATES``,
 and its optax state becomes the torch optimizer's: the LR and count of
 ``inject_hyperparams`` (a declared schedule's count), Adam's ``count``,
 ``mu`` and ``nu`` (``step``, ``exp_avg``, ``exp_avg_sq``), and a ``trace``
-(lars' ``trace``, SGD's ``momentum_buffer``), each moment tree converted as
-the parameters are.
+(the ``trace`` of ``Lars`` and ``Sgd``), each moment tree converted as the
+parameters are.
 """
 
 from __future__ import annotations
@@ -289,10 +289,9 @@ def _flax_optimizer_state(opt_state, to_state, model_state, optimizer, named) ->
             sd["state"][i] = {"step": torch.tensor(step), "exp_avg": mu[n], "exp_avg_sq": nu[n]}
     trace = _find(opt_state, ("trace",))
     if trace:
-        key = "momentum_buffer" if isinstance(optimizer, torch.optim.SGD) else "trace"
         tr = convert(trace[0]["trace"])
         for n, i in index.items():
-            sd["state"][i] = {key: tr[n]}
+            sd["state"][i] = {"trace": tr[n]}
     return sd
 
 

@@ -7,7 +7,7 @@ the port's own, whose updates are optax's:
   gradient before the moments, as ``add_decayed_weights`` → ``scale_by_adam``;
 - ``adamw``: decoupled decay.  ``torch.optim.AdamW`` defaults to
   ``weight_decay=0.01``; the config's value (0.0 for DAG-ERC) is always passed;
-- ``sgd``: optional momentum and Nesterov (no decay, as ``optax.sgd``);
+- ``sgd``: ``Sgd``, ``optax.sgd(lr, momentum or None, nesterov)`` (no decay);
 - ``lars``: ``Lars``, ``optax.lars(lr, weight_decay=wd)`` with its defaults.
 
 ``--optim.split_wd=1`` decays every parameter but those under a name with
@@ -21,15 +21,14 @@ parameter names, and ``tests/test_torch_schedules.py`` holds them for every
 family against the JAX package's masks seen through ``convert.py``.  sgd
 and lars take no mask, as in the JAX package.
 
-On the card (``device`` a CUDA device) adam, adamw and lars are built
+On the card (``device`` a CUDA device) every optimizer is built
 capturable, with the LR a 0-d float32 tensor on the card, so that the train
 step can be captured in a CUDA graph and the plateau controller still
 changes the LR the graph reads (it writes the tensor in place): the
-counterpart of optax's ``inject_hyperparams``.  ``sgd`` reads its LR on the
-host and cannot be captured: on the card, a trainer built with it raises
-``NotImplementedError`` at its first step unless the caller sets
-``train_graphs = False`` first, and then steps eagerly.  The CPU keeps a
-float LR: torch allows ``capturable`` only on the card.
+counterpart of optax's ``inject_hyperparams``.  ``Sgd`` is the port's own,
+as ``Lars`` is: torch's SGD scales by the LR as a Python number
+(``alpha=-lr``), which a captured graph keeps as it was at capture.  The CPU
+keeps a float LR: torch allows ``capturable`` only on the card.
 
 A declared schedule (``--optim.sche.name=Cos --optim.sche.left=0 ...``,
 ``core.interp``) is the LR: update n (from 0) runs at ``sche(n)``, as
@@ -120,6 +119,34 @@ class Lars(torch.optim.Optimizer):
             torch._foreach_add_(params, traces)
 
 
+class Sgd(torch.optim.Optimizer):
+    """``optax.sgd(lr, momentum or None, nesterov)``, per tensor: with a
+    momentum m > 0, ``trace = g + m·trace``, then ``u = g + m·trace`` where
+    ``nesterov`` else ``trace``; with none, ``u = g`` (``nesterov`` then has no
+    effect, as in optax); ``p -= lr·u``.  No weight decay.  Capturable where
+    ``lr`` is a tensor on the card: nothing reads a value back on the host."""
+
+    def __init__(self, params, lr=1e-3, momentum: float = 0.0, nesterov: bool = False, capturable: bool = False):
+        super().__init__(params, dict(lr=lr, momentum=momentum, nesterov=nesterov, capturable=capturable))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for g in self.param_groups:
+            params = [p for p in g["params"] if p.grad is not None]
+            if not params:
+                continue
+            u = [p.grad for p in params]
+            if g["momentum"]:
+                for p in params:
+                    if "trace" not in self.state[p]:
+                        self.state[p]["trace"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+                traces = [self.state[p]["trace"] for p in params]
+                torch._foreach_mul_(traces, g["momentum"])
+                torch._foreach_add_(traces, u)
+                u = torch._foreach_add(u, traces, alpha=g["momentum"]) if g["nesterov"] else traces
+            torch._foreach_add_(params, torch._foreach_mul(u, -g["lr"]))
+
+
 class _ScheduleHook:
     """The step pre-hook of a declared schedule: each group's LR := sche(count), then count += 1."""
 
@@ -144,6 +171,11 @@ def build_schedule(cfg: Optional[Params]):
     return interp.to_schedule(interp.build_curve(cfg))
 
 
+def lr_tensor(lr: float, device) -> torch.Tensor:
+    """A capturable optimizer's LR: a 0-d float32 tensor on ``device``."""
+    return torch.tensor(lr, device=device)
+
+
 def build_optim(cfg: Params, params: Named, device: Optional[torch.device] = None) -> torch.optim.Optimizer:
     """The optimizer of ``cfg`` over ``params`` (the model's
     ``named_parameters()``; bare tensors where ``split_wd`` is off),
@@ -162,7 +194,7 @@ def build_optim(cfg: Params, params: Named, device: Optional[torch.device] = Non
         lr = float(sche(torch.zeros((), dtype=torch.int64)))  # optax's init evaluates the schedule at count 0
 
     def lr_value():
-        return torch.tensor(lr, device=device) if capturable else lr
+        return lr_tensor(lr, device) if capturable else lr
 
     if name in ("adam", "adamw"):
         cls = torch.optim.Adam if name == "adam" else torch.optim.AdamW
@@ -182,8 +214,8 @@ def build_optim(cfg: Params, params: Named, device: Optional[torch.device] = Non
     elif name == "lars":
         opt = Lars(tensors, lr=lr_value(), weight_decay=wd, capturable=capturable)
     elif name == "sgd":
-        opt = torch.optim.SGD(tensors, lr=lr, momentum=float(cfg.get("momentum", 0.0) or 0.0),
-                              nesterov=bool(cfg.get("nesterov", False)))
+        opt = Sgd(tensors, lr=lr_value(), momentum=float(cfg.get("momentum", 0.0) or 0.0),
+                  nesterov=bool(cfg.get("nesterov", False)), capturable=capturable)
     else:
         raise ValueError(f"unknown optimizer {name!r}")
     if sche is not None:

@@ -530,11 +530,12 @@ class Trainer:
     @property
     def captured_step(self) -> CapturedStep:
         """The train step captured per batch shape (the card only); raises
-        where the optimizer cannot be captured."""
+        where the optimizer cannot be captured (every one that
+        ``train.optim.build_optim`` builds for the card can)."""
         if self._captured_step is None:
             if not all(g.get("capturable") for g in self.optimizer.param_groups):
                 raise NotImplementedError(
-                    f"the captured train step needs a capturable optimizer (adam or adamw on the card), not "
+                    f"the captured train step needs a capturable optimizer (as build_optim makes on the card), not "
                     f"{type(self.optimizer).__name__}: set train_graphs = False to step eagerly")
             self._captured_step = CapturedStep(self._step, self.device, watch=self._step_tensors,
                                                generators=(self._dropout_rng,), transfer_dtype=self.transfer_dtype)

@@ -30,7 +30,7 @@ exception records it and goes on), ``test``
 (run ``test()`` after the steps), ``dump`` (a
 ``.npz`` path for the rank's parameters, buffers and EMA shadow; ``{rank}``
 in it becomes the rank), written after step ``dump_step`` (default: the
-last).  Per job the report holds the losses of each step, the valid labels
+last).  Per job the report holds the losses of each step (and in ``train`` mode the LR after it), the valid labels
 and rows of the first and of every batch, each batch's length, the test
 name and directory, the test stage's F1, loss and rows, the kernels' launch
 counts, the steps' walls, the captured step's captures and replays, the
@@ -148,6 +148,7 @@ def run_job(job: dict, dist_args: list) -> dict:
 
             def train_step_end(self, tr, bidx, mets):
                 out["losses"].append(float(mets["Lall"]))
+                out.setdefault("lrs", []).append(float(tr.optimizer.param_groups[0]["lr"]))
                 if job.get("interrupt") == [mesh.process_index(), tr.global_steps]:
                     out["interrupted"] = True
                     raise KeyboardInterrupt

@@ -16,9 +16,11 @@
 - ``to_device`` carries no host lengths;
 - ``CapturedStep``, like ``CapturedForward``, refuses the CPU, and shares
   its bucket key and its watch of addresses (in-place writes pass, a
-  replaced tensor raises); a trainer whose optimizer cannot be captured
-  (SGD) raises where the captured step is asked for; the CPU trainer steps
-  eagerly and touches nothing of ``torch.cuda``;
+  replaced tensor raises); ``--optim.name=SGD`` builds the port's ``Sgd``,
+  capturable when built for the card, and a trainer whose optimizer cannot
+  be captured (a hand-set ``torch.optim.SGD``) raises where the captured step
+  is asked for; the CPU trainer steps eagerly and touches nothing of
+  ``torch.cuda``;
 - ``_tap_valid`` as one window of the padded mask ≡ the per-tap form it
   replaced, bit for bit.
 
@@ -268,16 +270,43 @@ def test_address_watch_passes_in_place_writes_and_raises_on_a_replaced_tensor():
     watch.check()
 
 
-def test_trainer_with_sgd_refuses_the_captured_step():
+def _dgcn_sgd_trainer():
     from erc_tpu_torch.models import dgcn
 
     p = dgcn.DGCNParams()
     p.finalize(["--dataset=synthetic-cogmen-6", "--device=cpu", "--hidden_size=8", "--max_seq_len=16",
-                "--optim.name=SGD"])
+                "--optim.name=SGD", "--optim.momentum=0.9", "--optim.nesterov=true"])
     trainer = dgcn.DGCNTrainer(p)
     trainer.log = lambda msg: None
     trainer.initialize()
-    assert isinstance(trainer.optimizer, torch.optim.SGD)
+    return trainer
+
+
+def test_trainer_with_sgd_builds_a_capturable_optimizer(monkeypatch):
+    """``--optim.name=SGD`` builds the port's ``Sgd``; built for a CUDA device its groups are capturable with a
+    0-d tensor LR, and the trainer then hands its step to ``CapturedStep`` (both stubbed: nothing of
+    ``torch.cuda`` is touched)."""
+    from erc_tpu_torch.train import optim as toptim
+    from erc_tpu_torch.train import trainer as ttrainer
+
+    trainer = _dgcn_sgd_trainer()
+    assert type(trainer.optimizer) is toptim.Sgd and not trainer.optimizer.param_groups[0]["capturable"]
+    monkeypatch.setattr(toptim, "lr_tensor", lambda lr, device: torch.tensor(lr))
+    opt = toptim.build_optim(trainer.params.optim, trainer.model.named_parameters(), device=torch.device("cuda"))
+    assert type(opt) is toptim.Sgd and all(g["capturable"] for g in opt.param_groups)
+    assert all(isinstance(g["lr"], torch.Tensor) and g["lr"].ndim == 0 for g in opt.param_groups)
+    assert opt.defaults["momentum"] == 0.9 and opt.defaults["nesterov"] and not opt.state  # traces made at step 1
+    made = []
+    monkeypatch.setattr(ttrainer, "CapturedStep", lambda *a, **k: made.append(k) or "captured")
+    trainer.optimizer = opt
+    assert trainer.captured_step == "captured" and len(made) == 1
+
+
+def test_trainer_with_sgd_refuses_the_captured_step():
+    """A hand-set optimizer that cannot be captured (torch's SGD, whose LR is a Python number) is refused where
+    the captured step is asked for."""
+    trainer = _dgcn_sgd_trainer()
+    trainer.optimizer = torch.optim.SGD(trainer.model.parameters(), lr=0.1, momentum=0.9)
     with pytest.raises(NotImplementedError, match="train_graphs = False"):
         trainer.captured_step
 

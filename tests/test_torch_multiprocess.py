@@ -118,7 +118,10 @@ TP = {"cogmen_banded": ("cogmen", ["--dataset=synthetic-cogmen-6", "--hidden_siz
                                    "--drop_rate=0.0"]),
       "dagerc": ("dagerc", DAGERC)}
 TP_MIN_SIZE = 256  # the model axis splits these widths' 16 x 16 and larger kernels
-TP_RESUME = ["--batch_count=2", "--checkpoint_per_epoch=1"]
+# a declared schedule over the control run's 4 steps: --resume on the model axis goes on along its curve
+TP_SCHE = ["--optim.sche.name=Cos", "--optim.sche.start=0.0001", "--optim.sche.end=0.00001", "--optim.sche.left=0",
+           "--optim.sche.right=4"]
+TP_RESUME = ["--batch_count=2", "--checkpoint_per_epoch=1", *TP_SCHE]
 
 
 def _free_port() -> int:
@@ -490,8 +493,9 @@ def test_model_axis_lars_trains_as_one_process(runs):
 
 @pytest.mark.multiprocess
 def test_model_axis_checkpoint_is_unsharded_and_resumes(runs):
-    """The (2, 2) run's epoch checkpoint holds full parameters and moments (it loads into a one-process trainer),
-    and --resume into (2, 2) continues the one-process run's second epoch."""
+    """Under a declared Cos schedule, the (2, 2) run's epoch checkpoint holds full parameters and moments and the
+    schedule's count (it loads into a one-process trainer), and --resume into (2, 2) continues the one-process
+    run's second epoch, its LR curve with it."""
     from erc_tpu_torch.models import cogmen
 
     ctl = runs["tp1"].result()[0]["run"]
@@ -500,16 +504,20 @@ def test_model_axis_checkpoint_is_unsharded_and_resumes(runs):
     per_epoch = len(ctl["losses"]) // 2
     assert per_epoch == 2 and a[0]["checkpoints"]
     np.testing.assert_allclose(a[0]["losses"], ctl["losses"][:per_epoch], rtol=RTOL, atol=ATOL)
+    assert len(set(ctl["lrs"])) == 2 * per_epoch  # each step at another LR
+    np.testing.assert_allclose(a[0]["lrs"], ctl["lrs"][:per_epoch], rtol=1e-6)
     for r in b:
         assert r["eidx_at_begin"] == 1 and len(r["losses"]) == per_epoch
         np.testing.assert_allclose(r["losses"], ctl["losses"][per_epoch:], rtol=RTOL, atol=ATOL)
+        np.testing.assert_allclose(r["lrs"], ctl["lrs"][per_epoch:], rtol=1e-6)
     p = cogmen.COGMENParams()
-    p.finalize([*COMMON, *TP["cogmen_banded"][1]])
+    p.finalize([*COMMON, *TP["cogmen_banded"][1], *TP_SCHE])
     tr = cogmen.COGMENTrainer(p)
     tr.initialize()
     path = os.path.join(a[0]["test_dir"].replace("/experiment/", "/blob/"), "saver")
     ckpt = sorted(f for f in os.listdir(path) if f.startswith("checkpoint.") and f.endswith(".ckpt"))[-1]
     tr.load_checkpoint(os.path.join(path, ckpt))
+    assert int(tr.optimizer.state["schedule"]["count"]) == per_epoch
     want = np.load(str(runs["tmp"] / "tp.run.0.npz"))
     for k, v in tr.model.state_dict().items():
         np.testing.assert_array_equal(v.numpy(), want[f"model.{k}"], err_msg=k)
@@ -705,6 +713,26 @@ def test_model_axis_lars_step_equals_the_whole_parameters():
         assert o["names"] == ["weight"] and o["moved"] > 1e-3
         assert o["view"] and o["moment"] == [128, 4]  # the optimizer keeps the block's moment only
         assert o["diff"] <= 1e-6 * o["moved"] + 1e-6, o
+
+
+def test_model_axis_takes_an_optimizer_with_a_declared_schedule():
+    """A declared schedule puts its count in the optimizer's state at build time (``state["schedule"]``), which is
+    no parameter's state: ``ModelAxis`` splits such an optimizer's parameters, and still refuses an optimizer
+    that has stepped (per-parameter state)."""
+    from erc_tpu_torch.core.params import Params
+    from erc_tpu_torch.train import optim as toptim
+
+    cfg = Params(name="Adam", lr=1e-3)
+    cfg.sche = Params(name="Cos", start=1e-3, end=1e-5, left=0, right=4)
+    lin = torch.nn.Linear(4, 4)
+    opt = toptim.build_optim(cfg, lin.parameters())
+    assert list(opt.state) == ["schedule"]
+    axis = mesh.ModelAxis(lin, opt)
+    assert axis.optimizer is opt and opt.model_axis is axis
+    lin.weight.grad, lin.bias.grad = torch.ones(4, 4), torch.ones(4)
+    opt.step()
+    with pytest.raises(ValueError, match="stepped already"):
+        mesh.ModelAxis(lin, opt)
 
 
 def test_collectives_over_two_ranks():

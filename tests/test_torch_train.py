@@ -165,24 +165,41 @@ def test_classification_summary_matches_sklearn_with_absent_class():
 
 
 # ------------------------------------------------------------------ optimizers
-OPTIMS = [("adamw", 0.0, 0.0), ("adamw", 1e-2, 0.0), ("adam", 1e-2, 0.0), ("sgd", 0.0, 0.9)]
+# (name, weight decay, momentum, and what else the case sets: nesterov, a declared schedule, a tensor LR)
+OPTIMS = [("adamw", 0.0, 0.0, {}), ("adamw", 1e-2, 0.0, {}), ("adam", 1e-2, 0.0, {}), ("sgd", 0.0, 0.9, {}),
+          ("sgd", 0.0, 0.0, {"nesterov": True}), ("sgd", 0.0, 0.9, {"nesterov": False}),
+          ("sgd", 0.0, 0.9, {"sche": True, "tensor_lr": True})]
+OPTIM_SCHE = dict(name="Cos", start=0.05, end=0.001, left=0, right=4)
 
 
-@pytest.mark.parametrize("name,wd,momentum", OPTIMS, ids=[f"{n}-wd{w}-m{m}" for n, w, m in OPTIMS])
+@pytest.mark.parametrize("name,wd,momentum,extra", OPTIMS,
+                         ids=[f"{n}-wd{w}-m{m}" + "".join(f"-{k}" if v is True else f"-{k}={v}" for k, v in e.items())
+                              for n, w, m, e in OPTIMS])
 @pytest.mark.parametrize("grad_scale", [0.1, 10.0], ids=["clip-idle", "clip-active"])
-def test_optimizer_step_and_clip_match_optax(name, wd, momentum, grad_scale):
+def test_optimizer_step_and_clip_match_optax(name, wd, momentum, extra, grad_scale):
+    """3 steps of the port's optimizer after optax's clip ≡ optax's (``nesterov`` defaults to momentum > 0); sgd's
+    momentum 0 with ``nesterov=True`` is plain ``-lr·g`` there, as in optax; a declared schedule's LR, and a 0-d
+    tensor LR on the CPU as the card's capturable optimizers hold it, give the same updates."""
     r = np.random.default_rng(3)
     shapes = {"w": (5, 4), "b": (4,), "v": (3, 2, 2)}
     init = {k: r.normal(size=s).astype(np.float32) for k, s in shapes.items()}
     grads = [{k: (r.normal(size=s) * grad_scale).astype(np.float32) for k, s in shapes.items()}
              for _ in range(3)]
-    cfg = dict(name=name, lr=0.01, weight_decay=wd, momentum=momentum, nesterov=momentum > 0)
+    cfg = dict(name=name, lr=0.01, weight_decay=wd, momentum=momentum, nesterov=extra.get("nesterov", momentum > 0))
     jcfg = joptim.create_optim(**cfg)
+    tcfg = Params(**cfg)
+    if extra.get("sche"):
+        jcfg.sche = joptim.create_schedule(**OPTIM_SCHE)
+        tcfg.sche = Params(**OPTIM_SCHE)
     tx = joptim.build_optim(jcfg, grad_clip_norm=5.0)
     jp = {k: jnp.asarray(v) for k, v in init.items()}
     state = tx.init(jp)
     tp = {k: torch.nn.Parameter(_t(v)) for k, v in init.items()}
-    opt = toptim.build_optim(Params(**cfg), tp.values())
+    opt = toptim.build_optim(tcfg, tp.values())
+    if extra.get("tensor_lr"):
+        for g in opt.param_groups:
+            g["lr"] = torch.tensor(float(g["lr"]))
+    lrs = []
     for g in grads:
         updates, state = tx.update({k: jnp.asarray(v) for k, v in g.items()}, state, jp)
         jp = optax.apply_updates(jp, updates)
@@ -191,6 +208,10 @@ def test_optimizer_step_and_clip_match_optax(name, wd, momentum, grad_scale):
         norm = toptim.clip_by_global_norm_([p.grad for p in tp.values()], 5.0)
         np.testing.assert_allclose(norm.item(), float(optax.global_norm(g)), rtol=1e-6)
         opt.step()
+        lrs.append(float(opt.param_groups[0]["lr"]))
+        np.testing.assert_allclose(lrs[-1], joptim.get_learning_rate(state), rtol=1e-6)
+    if extra.get("sche"):
+        assert len(set(lrs)) == 3 and isinstance(opt.param_groups[0]["lr"], torch.Tensor)
     for k in shapes:
         np.testing.assert_allclose(tp[k].detach().numpy(), np.asarray(jp[k]), rtol=0, atol=1e-6, err_msg=k)
 
@@ -479,13 +500,14 @@ def test_pretrain_loads_a_port_file(tmp_path):
     assert int(trainer.optimizer.state["schedule"]["count"]) == 2
 
 
-def test_pretrain_loads_a_jax_trainstate_file(tmp_path):
+def _jax_trainstate(tmp_path, jcfg, steps=2):
+    """A JAX Saver file of a DAG-ERC TrainState after ``steps`` updates of ``jcfg``'s optimizer (clip 5) on seeded
+    gradients, from the port trainer's initial weights; returns the path, the optimizer, its state, the params and
+    the gradient draw."""
     from erc_tpu.train.checkpoint import Saver as JSaver
 
     probe = _port_trainer()
     params = jax.tree_util.tree_map(jnp.asarray, _flax_params(probe.model.state_dict()))
-    jcfg = joptim.create_optim("AdamW", lr=5e-4, weight_decay=0.01)
-    jcfg.from_args([a.replace("--optim.", "--") for a in SCHE])
     tx = joptim.build_optim(jcfg, grad_clip_norm=5.0)
     opt_state = tx.init(params)
     r = np.random.default_rng(0)
@@ -493,12 +515,33 @@ def test_pretrain_loads_a_jax_trainstate_file(tmp_path):
     def grads():
         return jax.tree_util.tree_map(lambda v: jnp.asarray(r.normal(size=v.shape).astype(np.float32) * 0.1), params)
 
-    for _ in range(2):
+    for _ in range(steps):
         updates, opt_state = tx.update(grads(), opt_state, params)
         params = optax.apply_updates(params, updates)
-    state = jtrainer.TrainState(params=params, opt_state=opt_state, model_state={}, step=jnp.asarray(2, jnp.int32))
-    path = JSaver(str(tmp_path)).save_model("last", state)
+    state = jtrainer.TrainState(params=params, opt_state=opt_state, model_state={},
+                                step=jnp.asarray(steps, jnp.int32))
+    return JSaver(str(tmp_path)).save_model("last", state), tx, opt_state, params, grads
 
+
+def _next_step_matches(trainer, tx, opt_state, params, grads, atol):
+    """One more step from the loaded state, the port's against optax's: the moments and counts took."""
+    g = grads()
+    updates, opt_state = tx.update(g, opt_state, params)
+    params = optax.apply_updates(params, updates)
+    gt = convert.dagerc_state(jax.tree_util.tree_map(np.asarray, g))
+    for n, t in trainer.model.named_parameters():
+        t.grad = gt[n].clone()
+    toptim.clip_by_global_norm_([t.grad for t in trainer.model.parameters()], 5.0)
+    trainer.optimizer.step()
+    want = convert.dagerc_state(jax.tree_util.tree_map(np.asarray, params))
+    for n, t in trainer.model.named_parameters():
+        np.testing.assert_allclose(t.detach().numpy(), want[n].numpy(), rtol=0, atol=atol, err_msg=n)
+
+
+def test_pretrain_loads_a_jax_trainstate_file(tmp_path):
+    jcfg = joptim.create_optim("AdamW", lr=5e-4, weight_decay=0.01)
+    jcfg.from_args([a.replace("--optim.", "--") for a in SCHE])
+    path, tx, opt_state, params, grads = _jax_trainstate(tmp_path, jcfg)
     trainer = _port_trainer("--optim.name=AdamW", "--optim.weight_decay=0.01", *SCHE, "--pretrain=true",
                             f"--pretrain_path={path}", "--epoch=0")
     trainer.train()
@@ -507,19 +550,27 @@ def test_pretrain_loads_a_jax_trainstate_file(tmp_path):
         assert torch.equal(t.detach(), want[n]), n
     assert int(trainer.optimizer.state["schedule"]["count"]) == 2
     assert float(trainer.optimizer.param_groups[0]["lr"]) == joptim.get_learning_rate(opt_state)
-    # one more step from the loaded state: the moments and counts took
-    g = grads()
-    updates, opt_state = tx.update(g, opt_state, params)
-    params = optax.apply_updates(params, updates)
-    gt = convert.dagerc_state(jax.tree_util.tree_map(np.asarray, g))
-    for n, t in trainer.model.named_parameters():
-        t.grad = gt[n].clone()
-    grads_t = [t.grad for t in trainer.model.parameters()]
-    toptim.clip_by_global_norm_(grads_t, 5.0)
-    trainer.optimizer.step()
-    want = convert.dagerc_state(jax.tree_util.tree_map(np.asarray, params))
-    for n, t in trainer.model.named_parameters():
-        np.testing.assert_allclose(t.detach().numpy(), want[n].numpy(), rtol=0, atol=RTOL, err_msg=n)
+    _next_step_matches(trainer, tx, opt_state, params, grads, RTOL)
+
+
+TRACES = {"sgd-m0.9-nesterov": ["--optim.name=SGD", "--optim.lr=0.01", "--optim.momentum=0.9",
+                                "--optim.nesterov=true"],
+          "lars": ["--optim.name=lars", "--optim.lr=0.01", "--optim.weight_decay=0.01"]}
+
+
+@pytest.mark.parametrize("flags", TRACES.values(), ids=TRACES.keys())
+def test_pretrain_loads_a_jax_trainstate_with_a_trace(flags, tmp_path):
+    """A JAX TrainState of ``optax.sgd(momentum=0.9, nesterov=True)`` or ``optax.lars`` after 2 steps loads into the
+    port's ``Sgd`` / ``Lars`` (optax's ``trace`` under the key ``trace``), and the next step equals optax's."""
+    jcfg = joptim.create_optim("x")
+    jcfg.from_args([a.replace("--optim.", "--") for a in flags])
+    path, tx, opt_state, params, grads = _jax_trainstate(tmp_path, jcfg)
+    trainer = _port_trainer(*flags, "--pretrain=true", f"--pretrain_path={path}", "--epoch=0")
+    trainer.train()
+    assert isinstance(trainer.optimizer, toptim.Sgd if "SGD" in flags[0] else toptim.Lars)
+    traces = [trainer.optimizer.state[p]["trace"] for p in trainer.model.parameters()]
+    assert len(traces) == len(list(trainer.model.parameters())) and any(bool(t.any()) for t in traces)
+    _next_step_matches(trainer, tx, opt_state, params, grads, 1e-6)
 
 
 def test_train_main_without_cuda_raises(monkeypatch):
