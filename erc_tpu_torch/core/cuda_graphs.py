@@ -40,6 +40,10 @@ What they share:
 - Graphs read and write tensors by address: ``watch`` gives the tensors to
   check, and a call raises once one was replaced rather than written in
   place (``invalidate`` drops the graphs after a deliberate replacement).
+- Spans (``core.tracing``, recorded while a profiler records):
+  ``graphs.capture`` around a bucket's warm-up and capture, and in each of
+  ``CapturedStep``'s replays ``step.wait``, ``step.stage`` and
+  ``step.launch`` (``CapturedStep._replay``).
 
 ``CapturedForward`` runs under ``torch.inference_mode`` and returns numpy
 arrays, waiting for them: one stream sync a call.  ``CapturedStep``'s
@@ -74,6 +78,8 @@ from typing import TYPE_CHECKING, Callable, Dict, Iterable, List, Optional, Sequ
 
 import numpy as np
 import torch
+
+from erc_tpu_torch.core import tracing
 
 if TYPE_CHECKING:
     from erc_tpu_torch.data.loader import StackedGroup
@@ -293,6 +299,12 @@ class _Graphs:
         """Stage ``parts`` (the batch, or a group's k batches: each into its
         slice) in the bucket's pinned buffers, copy them in and replay."""
         bucket.copied.synchronize()
+        self._stage(bucket, parts)
+        self._launch(bucket)
+
+    def _stage(self, bucket: _Bucket, parts: List[Dict[str, np.ndarray]]) -> None:
+        """The host copies of ``parts`` into the bucket's pinned staging, each
+        array's copy in queued as soon as it is staged."""
         for k, staged in bucket.staging.items():
             # on the intra-op threads; rounds to a bfloat16 staging
             if bucket.k:
@@ -301,6 +313,9 @@ class _Graphs:
             else:
                 staged.copy_(torch.from_numpy(parts[0][k]))
             bucket.inputs[k].copy_(staged, non_blocking=True)
+
+    def _launch(self, bucket: _Bucket) -> None:
+        """The replay, and the launch counters."""
         bucket.copied.record()
         bucket.graph.replay()
         for c, delta in zip(_counters(), bucket.counts):
@@ -357,18 +372,20 @@ class CapturedForward(_Graphs):
             self._watch.check()
             bucket = self._buckets.get(key)
             if bucket is None:
-                full, read, out = self._warm_up(_stacked(parts, k), slices=min(k, 1))
-                is_tuple = isinstance(out[0] if k else out, tuple)
+                with tracing.span("graphs.capture", bucket=key):
+                    full, read, out = self._warm_up(_stacked(parts, k), slices=min(k, 1))
+                    is_tuple = isinstance(out[0] if k else out, tuple)
 
-                def body(batch):
-                    if not k:
-                        return self.fn(batch)
-                    outs = [self.fn(_slice(batch, i)) for i in range(k)]
-                    return tuple(torch.stack(o) for o in zip(*outs)) if is_tuple else torch.stack(outs)
+                    def body(batch):
+                        if not k:
+                            return self.fn(batch)
+                        outs = [self.fn(_slice(batch, i)) for i in range(k)]
+                        return tuple(torch.stack(o) for o in zip(*outs)) if is_tuple else torch.stack(outs)
 
-                bucket = self._capture(key, {n: full[n] for n in sorted(read)}, body)
-                bucket.is_tuple = is_tuple
-                bucket.host = tuple(torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in bucket.outputs)
+                    bucket = self._capture(key, {n: full[n] for n in sorted(read)}, body)
+                    bucket.is_tuple = is_tuple
+                    bucket.host = tuple(torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                                        for t in bucket.outputs)
             self._replay(bucket, parts)
             for host, out in zip(bucket.host, bucket.outputs):
                 host.copy_(out, non_blocking=True)
@@ -398,26 +415,39 @@ class CapturedStep(_Graphs):
         each metric as a [k] device tensor, one value a step."""
         return self._run(stacked, k)
 
+    def _replay(self, bucket: _Bucket, parts: List[Dict[str, np.ndarray]]) -> None:
+        """``_Graphs._replay`` in spans: ``step.wait`` (the host blocked on the
+        copy out of the staging that the bucket's previous replay queued),
+        ``step.stage`` (the host copies into the staging, and the copies in
+        queued) and ``step.launch`` (the replay, the counters)."""
+        with tracing.span("step.wait"):
+            bucket.copied.synchronize()
+        with tracing.span("step.stage"):
+            self._stage(bucket, parts)
+        with tracing.span("step.launch"):
+            self._launch(bucket)
+
     def _run(self, host_batch: Dict[str, np.ndarray], k: int) -> Dict[str, torch.Tensor]:
         parts, key = self._parts(host_batch, k)
         self._watch.check()
         bucket = self._buckets.get(key)
         if bucket is None:
-            full, read, mets = self._warm_up(_stacked(parts, k), slices=k)
-            names = list(mets[0] if k else mets)
-            watched = self._watch.now()
+            with tracing.span("graphs.capture", bucket=key):
+                full, read, mets = self._warm_up(_stacked(parts, k), slices=k)
+                names = list(mets[0] if k else mets)
+                watched = self._watch.now()
 
-            def stacked(batch):
-                out = self.fn(batch)
-                if list(out) != names:
-                    raise RuntimeError(f"the captured step returned {list(out)}, its warm-up {names}")
-                return torch.stack([out[n] for n in names])
+                def stacked(batch):
+                    out = self.fn(batch)
+                    if list(out) != names:
+                        raise RuntimeError(f"the captured step returned {list(out)}, its warm-up {names}")
+                    return torch.stack([out[n] for n in names])
 
-            def body(batch):
-                return torch.stack([stacked(_slice(batch, i)) for i in range(k)]) if k else stacked(batch)
+                def body(batch):
+                    return torch.stack([stacked(_slice(batch, i)) for i in range(k)]) if k else stacked(batch)
 
-            bucket = self._capture(key, {n: full[n] for n in sorted(read)}, body)
-            bucket.names = names
+                bucket = self._capture(key, {n: full[n] for n in sorted(read)}, body)
+                bucket.names = names
             if self._watch.now() != watched:
                 raise RuntimeError("the capture replaced a tensor that the step updates in place "
                                    "(a parameter's .grad, optimizer state, a buffer)")

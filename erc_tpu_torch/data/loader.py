@@ -49,6 +49,7 @@ from typing import Dict, Iterator, List, Optional
 import numpy as np
 import torch
 
+from erc_tpu_torch.core import tracing
 from erc_tpu_torch.core.cuda_graphs import host_tensor
 from erc_tpu_torch.core.seed import RngPool
 from erc_tpu_torch.data.collate import ERCBatcher
@@ -256,7 +257,11 @@ class PrefetchLoader:
     """Run ``loader`` in a producer thread, ``depth`` items ahead: the
     collation of batch N+1 overlaps step N.  Unlike the JAX package's, it
     takes no ``place_fn``: placing a batch on the card is a CUDA call, which
-    stays on the trainer's thread."""
+    stays on the trainer's thread.  Spans (``core.tracing``):
+    ``loader.collate``, each ``next()`` of ``loader`` on the producer thread,
+    and ``loader.get``, the consumer's wait for each item (``empty``: the
+    queue was empty at the call); the one of each that met the loader's end
+    carries ``end``."""
 
     def __init__(self, loader, depth: int = 2):
         self.loader = loader
@@ -286,7 +291,14 @@ class PrefetchLoader:
 
         def producer():
             try:
-                for b in self.loader:
+                it = iter(self.loader)
+                while True:
+                    with tracing.span("loader.collate") as sp:
+                        b = next(it, end)
+                        if sp and b is end:
+                            sp.attrs["end"] = True
+                    if b is end:
+                        break
                     if not put(b):
                         return
                 put(end)
@@ -297,7 +309,12 @@ class PrefetchLoader:
         t.start()
         try:
             while True:
-                item = q.get()
+                with tracing.span("loader.get") as sp:
+                    if sp:
+                        sp.attrs["empty"] = q.empty()
+                    item = q.get()
+                    if sp and item is end:
+                        sp.attrs["end"] = True
                 if item is end:
                     break
                 if isinstance(item, BaseException):

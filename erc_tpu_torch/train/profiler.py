@@ -1,14 +1,15 @@
-"""Profiling: device traces, named regions and host step timing.
+"""Profiling: device traces.
 
-Port of ``erc_tpu.train.profiler``:
-
-- ``trace(dir)``: a ``torch.profiler.profile`` of the block, with CPU
-  activity and, where CUDA is available, the card's (kernels, copies and
-  memsets, the kernels inside replayed CUDA graphs too), exported as a
-  Chrome trace into ``dir`` (``chrome://tracing`` or Perfetto opens it);
-- ``annotate(name)``: a named region in such a trace
-  (``torch.profiler.record_function``);
-- ``StepTimer``: host wall-clock step timing with percentiles.
+Port of ``erc_tpu.train.profiler``'s ``trace``: ``trace(dir)`` is a
+``torch.profiler.profile`` of the block, with CPU activity and, where CUDA
+is available, the card's (kernels, copies and memsets, the kernels inside
+replayed CUDA graphs too), exported as a Chrome trace into ``dir``
+(``chrome://tracing`` or Perfetto opens it).  While it records, the port's
+spans (``core.tracing``: the train step, its wait, staging and launch, the
+loader's gets and collation, captures) are ranges named ``erc.<span>`` in
+it, and reach ``tracing.spans``.  The JAX module's ``annotate`` and
+``StepTimer`` have no counterpart: ``tracing.span`` names regions, and the
+trainer times its epochs.
 """
 
 from __future__ import annotations
@@ -16,8 +17,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
-import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, Optional
 
 TRACE_FILE = "trace.pt.trace.json"
 
@@ -59,43 +59,3 @@ def trace(log_dir: str, metadata: Optional[Dict[str, Any]] = None, cuda: Optiona
             torch.cuda.synchronize()
         prof.stop()
         prof.export_chrome_trace(os.path.join(log_dir, file))
-
-
-def annotate(name: str):
-    from torch.profiler import record_function
-
-    return record_function(name)
-
-
-class StepTimer:
-    """Wall-clock step timing with warmup skip and percentile summary."""
-
-    def __init__(self, skip_first: int = 3):
-        self.skip_first = skip_first
-        self._times: List[float] = []
-        self._t0: Optional[float] = None
-        self._count = 0
-
-    def __enter__(self):
-        self._t0 = time.perf_counter()
-        return self
-
-    def __exit__(self, *exc):
-        dt = time.perf_counter() - self._t0
-        self._count += 1
-        if self._count > self.skip_first:
-            self._times.append(dt)
-
-    def summary(self) -> Dict[str, float]:
-        if not self._times:
-            return {}
-        ts = sorted(self._times)
-        n = len(ts)
-        return {
-            "steps": n,
-            "mean_s": sum(ts) / n,
-            "p50_s": ts[n // 2],
-            "p90_s": ts[int(n * 0.9)],
-            "max_s": ts[-1],
-            "steps_per_s": n / sum(ts),
-        }

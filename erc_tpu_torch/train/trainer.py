@@ -43,6 +43,8 @@ The runtime around the loop is the JAX trainer's:
   trace (``train.profiler``), the card's kernels included; the trace covers
   the steps only (``train_begin``'s callbacks, such as ``EvalFirst``, run
   before it), and may hold a bucket's eager first steps and its capture.
+  It holds the port's spans (``core.tracing``) as ``erc.*`` ranges: each
+  step, its wait, staging and launch, the loader's gets, each capture.
 - ``--debug_nans`` (the port's ``jax_debug_nans``) raises
   ``FloatingPointError`` naming the first module whose forward output, or
   whose gradient (autograd's anomaly mode), is not finite.  Anomaly mode
@@ -143,7 +145,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-from erc_tpu_torch.core import precision
+from erc_tpu_torch.core import precision, tracing
 from erc_tpu_torch.core.cuda_graphs import CapturedForward, CapturedStep
 from erc_tpu_torch.core.experiment import Experiment
 from erc_tpu_torch.core.logger import Logger
@@ -495,12 +497,15 @@ class Trainer:
     def train_batch(self, host_batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         """One optimizer step on a host batch, as ``train()`` takes it: on the
         card a replay of the step captured for the batch's shape (its first
-        batch trains eagerly before the capture), else ``train_step``."""
-        if self.device.type == "cuda" and self.train_graphs:
-            mets = self.captured_step(host_batch)
-            self.global_steps += 1
-            return mets
-        return self.train_step(to_device(host_batch, self.device, self.transfer_dtype))
+        batch trains eagerly before the capture), else ``train_step``.  The
+        span ``step`` (``core.tracing``) covers it, its ``step`` attribute
+        the step's ``global_steps``."""
+        with tracing.span("step", step=self.global_steps, k=1):
+            if self.device.type == "cuda" and self.train_graphs:
+                mets = self.captured_step(host_batch)
+                self.global_steps += 1
+                return mets
+            return self.train_step(to_device(host_batch, self.device, self.transfer_dtype))
 
     def train_group(self, stacked: StackedGroup, k: int) -> Dict[str, torch.Tensor]:
         """``k`` optimizer steps on a stacked group of ``k`` host batches
@@ -508,15 +513,17 @@ class Trainer:
         captured for the group's shape (its first group trains as ``k`` eager
         steps before the capture), else ``k`` eager steps.  Returns the mean
         of each metric over the ``k`` steps, as the JAX trainer's
-        ``multi_step`` call does."""
-        if self.device.type == "cuda" and self.train_graphs:
-            mets = self.captured_step.group(stacked, k)
-        else:
-            per = [self._step(to_device(stacked.batches[i], self.device, self.transfer_dtype))
-                   for i in range(k)]
-            mets = {n: torch.stack([m[n] for m in per]) for n in per[0]}
-        self.global_steps += k
-        return {n: v.mean() for n, v in mets.items()}
+        ``multi_step`` call does.  One span ``step`` covers the ``k``, its
+        ``step`` attribute the first step's ``global_steps``."""
+        with tracing.span("step", step=self.global_steps, k=k):
+            if self.device.type == "cuda" and self.train_graphs:
+                mets = self.captured_step.group(stacked, k)
+            else:
+                per = [self._step(to_device(stacked.batches[i], self.device, self.transfer_dtype))
+                       for i in range(k)]
+                mets = {n: torch.stack([m[n] for m in per]) for n in per[0]}
+            self.global_steps += k
+            return {n: v.mean() for n, v in mets.items()}
 
     def _step_tensors(self) -> List[torch.Tensor]:
         """What the captured step reads or writes by address: parameters,
@@ -663,9 +670,9 @@ class Trainer:
                 break
             if bidx % log_every == 0:  # reads the metrics back: keep it sparse
                 self.logger.inline(f"e{eidx} b{bidx} {record}")
-        dt = time.perf_counter() - t0
         self.logger.newline()
         means = record.agg()  # waits for the device
+        dt = time.perf_counter() - t0  # the steps' device work included
         dps = n_dialogues / max(dt, 1e-9)
         self.log(f"epoch {eidx}: {_fmt(means)} | {n_steps} steps, {dps:.1f} dia/s")
         self.metric_board.append({**means, "dps": dps}, step=eidx, stage="train")

@@ -9,7 +9,7 @@ experiment root:
   truncated newest checkpoint passed over, a torn meta sidecar tolerated;
 - the NaN guard (a checkpoint before the raise; end to end, a parameter set
   to NaN mid-run raises at the next check, with ``epoch_end: false``);
-- ``StepTimer``; ``EvalFirst`` with ``FinalReport``; keypoints that survive
+- ``EvalFirst`` with ``FinalReport``; keypoints that survive
   the rotation; a resumed run that trains only the epochs left;
 - a relaunched run (a fresh test directory) resuming from a sibling run with
   the same ``resume_hash``, ignoring one with another, and passing over a
@@ -29,7 +29,6 @@ import http.server
 import json
 import os
 import threading
-import time
 
 import numpy as np
 import pytest
@@ -38,7 +37,6 @@ import torch
 from erc_tpu_torch import analyse
 from erc_tpu_torch.models.cogmen import COGMENParams, COGMENTrainer
 from erc_tpu_torch.train import callbacks as cbs
-from erc_tpu_torch.train.profiler import StepTimer
 from torch_exproot import exproot_per_module, exproot_per_test  # noqa: F401 (autouse fixtures)
 from torch_threads import _one_torch_thread  # noqa: F401 (autouse fixture)
 
@@ -160,16 +158,6 @@ def test_nan_guard_end_to_end(make):
     path = tr.saver.latest_checkpoint()
     assert path.endswith("checkpoint.00000002.ckpt") and _meta(path)["epoch_end"] is False
     assert tr.exp.load_info("final")["finished"] is False
-
-
-def test_step_timer():
-    t = StepTimer(skip_first=1)
-    for _ in range(4):
-        with t:
-            time.sleep(0.01)
-    s = t.summary()
-    assert s["steps"] == 3
-    assert 0.005 < s["mean_s"] < 0.1
 
 
 def test_eval_first_and_final_report(make):

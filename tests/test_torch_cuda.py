@@ -31,7 +31,10 @@ kernel form, lars under a Cos schedule); K eval batches a replay ≡ the
 batches' single replays bit for bit.  The runtime: ``device_memory_stats``
 gives numbers on the card, and ``--profile_steps``' Chrome trace of a
 captured COGMEN banded step holds K1, K2 and K1ᵀ as the launch counts
-moved.  Feature extraction (``erc_tpu_torch/preprocess/``) at the CPU
+moved; under ``train.profiler.trace`` each replayed DAG-ERC step's
+``erc.step.launch`` range starts before its replay's first kernel, and the
+port's spans lie within 50 us of their ``erc.*`` ranges.  Feature
+extraction (``erc_tpu_torch/preprocess/``) at the CPU
 tests' small sizes, with TF32 allowed in cuBLAS and cuDNN's convolutions
 around the calls: card ≡ CPU within 1e-4 of max |CPU's| for the TSN
 ResNet-50, TSM, X3D and the text encoder, fbank and MFCC within 1e-4 beyond
@@ -1338,6 +1341,55 @@ def test_profiled_captured_step_trace_holds_the_band_kernels(cuda, tmp_path, mon
               "banded_dot": sum("banded_dot_kernel<" in n for n in names),
               "banded_gather_sum_t": sum("banded_gather_sum_kernel<" in n and "true>" in n for n in names)}
     assert traced == moved and all(moved.values()), (traced, moved)
+
+
+def test_replayed_steps_spans_precede_their_kernels_and_lie_on_their_ranges(cuda, tmp_path):
+    """Replayed DAG-ERC steps (the kernel form) under ``train.profiler.trace``:
+    each ``erc.step.launch`` range starts before its replay's first kernel
+    (the replays' kernels taken in turn, as many a replay), and each span of
+    the in-memory record, mapped onto the trace's clock by a span on both
+    (the first step's: its range's start less its host start), lies within
+    50 us of its ``erc.*`` range at both ends."""
+    import json
+    import time
+
+    from erc_tpu_torch.core import tracing
+    from erc_tpu_torch.train import profiler
+
+    trainer = _trainers()[0][0]
+    batch = _two_bucket_batches(trainer)[0]
+    trainer.train_batch(batch)  # the bucket's eager step and its capture
+    trainer.train_batch(batch)
+    torch.cuda.synchronize()
+    replays = 4
+    t0 = time.perf_counter()
+    with profiler.trace(str(tmp_path)):
+        for _ in range(replays):
+            trainer.train_batch(batch)
+    events = json.load(open(tmp_path / profiler.TRACE_FILE))["traceEvents"]
+    ranges = {}
+    for e in events:
+        if e.get("cat") == "user_annotation" and e["name"].startswith(tracing.PREFIX):
+            ranges.setdefault(e["name"][len(tracing.PREFIX):], []).append((e["ts"], e["ts"] + e["dur"]))
+    kernels = sorted(e["ts"] for e in events if e.get("cat") == "kernel")
+    assert kernels and len(kernels) % replays == 0, len(kernels)
+    launches = sorted(ranges["step.launch"])
+    assert len(launches) == replays
+    for i, (start, _) in enumerate(launches):
+        assert start < kernels[i * len(kernels) // replays], i
+
+    recorded = {}
+    for sp in tracing.spans(t0):
+        recorded.setdefault(sp.name, []).append(sp)
+    assert {n: len(v) for n, v in recorded.items()} == {n: replays for n in (
+        "step", "step.wait", "step.stage", "step.launch")}
+    assert [sp.step for sp in recorded["step"]] == list(range(2, 2 + replays))
+    # the first range that the profiler records opens late: a later one is the anchor
+    offset = min(ranges["step"])[0] - 1e6 * min(sp.start for sp in recorded["step"])
+    for name, spans in recorded.items():
+        mapped = sorted((1e6 * sp.start + offset, 1e6 * sp.end + offset) for sp in spans)
+        for (a, b), (lo, hi) in zip(mapped, sorted(ranges[name])):
+            assert abs(a - lo) <= 50 and abs(b - hi) <= 50, (name, a - lo, b - hi)
 
 
 # ------------------------------------------------------------------ feature extraction
