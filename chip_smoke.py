@@ -1831,8 +1831,8 @@ def drive_training(card: str):
     launches = _read_launches()
     nb = _blocks(host[0], chunk)
     log(f"train step of one batch (L {host[0]['input_tensor'].shape[1]}, {nb} blocks): launches {launches}")
-    require(launches["dag_block"] == 2 * layers * nb,
-            f"dag_block launched {launches['dag_block']} times, want {2 * layers * nb} (remat: twice per block)")
+    require(launches["dag_block"] == layers * nb,
+            f"dag_block launched {launches['dag_block']} times, want {layers * nb} (remat recomputes the prefix)")
     require(launches["dag_block_bwd"] == layers * nb,
             f"dag_block_bwd launched {launches['dag_block_bwd']} times, want {layers * nb}")
     eager.compute_grads(batches[0])
@@ -1925,7 +1925,7 @@ def drive_training(card: str):
                          "dag_block_bwd/cluster": launches["dag_block_bwd"], "dag_block_bwd/stream": 0,
                          "dag_block_bwd/global": 0},
             f"dag_block/dag_block_bwd: not every launch on the training path took the cluster variant: {variants}")
-    want = {"dag_block": 2 * layers * train_blocks + layers * (test_blocks + warmup_blocks),
+    want = {"dag_block": layers * (train_blocks + test_blocks + warmup_blocks),
             "dag_block_bwd": layers * train_blocks}
     rec = history[0]
     log(f"DAG-ERC training path: {rec['steps']} steps over {rec['dialogues']} dialogues "

@@ -14,8 +14,10 @@ plus proxy GRU) recurrence over the utterances.
   form).  ``dag_impl`` picks the tail: ``auto`` takes the kernel for the
   eval forward (``model.eval()``) and the eager form for training, as the
   JAX package's ``resolve_dag_impl`` does; ``kernel`` takes the kernels for
-  both; ``eager`` the eager form for both.  ``dag_remat`` recomputes each
-  block in the backward instead of keeping its activations.
+  both; ``eager`` the eager form for both.  ``dag_remat`` recomputes in the
+  backward instead of keeping activations: each whole block in the eager
+  form, only each block's prefix products in the kernel form (K3 keeps what
+  K4 reads, so it runs once per block).
 
 ``DAGERCTrainer`` and ``main`` train the model (``python -m
 erc_tpu_torch.train --module=dagerc``): AdamW, grad clip 5.0 and
@@ -24,6 +26,7 @@ ReduceLROnPlateau(min), as ``erc_tpu.models.dagerc``.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import List, Optional, Tuple
 
@@ -57,8 +60,8 @@ class DAGERCParams(MMBaseParams):
         self.speaker_onehot = True
         self.windowp = 1
         self.hidden_dim = 300
-        # positions per block of the blockwise-prefix form; recompute each
-        # block in the backward (the JAX default); the block's tail
+        # positions per block of the blockwise-prefix form; recompute in the
+        # backward (the JAX default; DAGStack says what, by form); the block's tail
         self.dag_chunk = 16
         self.dag_remat = True
         self.dag_impl = self.choice("auto", "kernel", "eager")
@@ -181,7 +184,10 @@ class DAGStack(nn.Module):
     writes K3's outputs in place into the layer's buffers; with grad it
     updates them out of place, since autograd keeps the buffers that the
     earlier blocks' prefix products read.  ``remat`` (with grad) recomputes
-    each block in the backward: K3 then runs twice per block and step.
+    in the backward: in the eager form each whole block, whose per-position
+    tail it would otherwise keep; in the kernel form only each block's
+    prefix (``mp``, ``den_p``, ``num01``), while K3's Function keeps its
+    outputs and the residuals K4 reads, so K3 runs once per block and step.
     """
 
     def __init__(self, hidden_dim: int, n_layers: int, chunk: int = 16, impl: str = "eager",
@@ -243,9 +249,10 @@ class DAGStack(nn.Module):
         inplace = use_kernel and not torch.is_grad_enabled()
         out = h_in.new_empty(B, Lp, D) if inplace else None
 
-        def block(t: int, V0, V1, K) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+        def prefix(t: int, V0, V1, K) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+            # the block's queries against every column outside it, as softmax
+            # statistics: num01 [B, C, D], den_p and mp [B, C]
             s, e = t * C, t * C + C
-            # prefix: the block's queries against every column outside it
             pre = ((cols < s) | (cols >= e)).to(h_in.dtype)
             lpre = q[:, s:e, None] + K[:, None, :] + bias + addmask[:, s:e]  # [B, C, Lp]
             lpre = torch.where(pre > 0, lpre, NEG)
@@ -254,6 +261,11 @@ class DAGStack(nn.Module):
             den_p = ep.sum(-1)
             e0 = ep * s_mask[:, s:e]
             num01 = torch.bmm(e0, V0.to(e0.dtype)) + torch.bmm(ep - e0, V1.to(e0.dtype))
+            return num01, den_p, mp
+
+        def tail(t: int, V0, V1, K, num01, den_p, mp
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+            s, e = t * C, t * C + C
             args = (t == 0, qb_all[:, s:e], xc4[:, s:e], hpp4[:, s:e], h_in[:, s:e], num01, den_p,
                     mp, addmask[:, s:e, s:e], s_mask[:, s:e, s:e], Whc, bhc, Wip, bip, Wr0T, Wr1T,
                     wk[:, None])
@@ -268,17 +280,24 @@ class DAGStack(nn.Module):
             return (V0.slice_scatter(V0w, 1, s, e), V1.slice_scatter(V1w, 1, s, e),
                     K.slice_scatter(Kw, 1, s, e), h1b)
 
+        def block(t: int, V0, V1, K):
+            return tail(t, V0, V1, K, *prefix(t, V0, V1, K))
+
         V0 = h_in.new_zeros(B, Lp, D)
         V1 = h_in.new_zeros(B, Lp, D)
         K = h_in.new_zeros(B, Lp)
         remat = self.remat and torch.is_grad_enabled()
+        # remat recomputes in the backward: in the eager form the whole block,
+        # in the kernel form only its prefix, since K3 keeps what K4 reads.  No
+        # dropout inside a block, so no RNG state to replay
+        ckpt = functools.partial(checkpoint, use_reentrant=False, preserve_rng_state=False)
         blocks = []
         for t in range(Lp // C):
-            if remat:  # no dropout inside a block, so no RNG state to replay
-                V0, V1, K, h1b = checkpoint(block, t, V0, V1, K, use_reentrant=False,
-                                            preserve_rng_state=False)
+            if remat and not use_kernel:
+                V0, V1, K, h1b = ckpt(block, t, V0, V1, K)
             else:
-                V0, V1, K, h1b = block(t, V0, V1, K)
+                stats = ckpt(prefix, t, V0, V1, K) if remat else prefix(t, V0, V1, K)
+                V0, V1, K, h1b = tail(t, V0, V1, K, *stats)
             blocks.append(h1b)
         return out if inplace else torch.cat(blocks, 1)
 

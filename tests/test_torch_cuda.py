@@ -13,7 +13,8 @@ gradient, since its weight gradients also sum B·C terms, and bit for bit
 across repeats in both variants of its sweep; banded vs dense
 and kernel vs eager logits 1e-4; training, kernel vs eager form, 1e-4
 relative (gradients: each parameter's difference over its gradient's norm,
-floored at 1e-4 of the global norm where the exact gradient is 0).
+floored at 1e-4 of the global norm where the exact gradient is 0);
+DAG-ERC's kernel form with remat ≡ without, bit for bit over two steps.
 DialogueGCN's and MMGCN's card vs CPU logits 1e-4 with cuDNN's TF32 flag
 on: their LSTM runs cuDNN in full float32 whatever the process-wide flags
 say.  MMGCN's structured vs dense logits 1e-4, and its gradients with
@@ -509,20 +510,22 @@ def _grad_rel(model, other):
     return {n: ((a - b).norm() / max(b.norm().item(), 1e-4 * total)).item() for n, a, b in pairs}
 
 
-def _trainers(B=4, steps_batches=2, chunk=16):
-    from erc_tpu_torch.data.loader import to_device
-    from erc_tpu_torch.data.synthetic import synthetic_erc
+def _dagerc_trainer(*flags):
     from erc_tpu_torch.models import dagerc
 
-    out = []
-    for impl in ("kernel", "eager"):
-        p = dagerc.DAGERCParams()
-        p.finalize(["--dataset=synthetic-iemocap-6", "--reimplement", f"--dag_impl={impl}", "--device=cuda",
-                    f"--dag_chunk={chunk}"])
-        t = dagerc.DAGERCTrainer(p)
-        t.log = lambda msg: None
-        t.initialize()
-        out.append(t)
+    p = dagerc.DAGERCParams()
+    p.finalize(["--dataset=synthetic-iemocap-6", "--reimplement", "--device=cuda", *flags])
+    t = dagerc.DAGERCTrainer(p)
+    t.log = lambda msg: None
+    t.initialize()
+    return t
+
+
+def _trainers(B=4, steps_batches=2, chunk=16, forms=(("--dag_impl=kernel",), ("--dag_impl=eager",))):
+    from erc_tpu_torch.data.loader import to_device
+    from erc_tpu_torch.data.synthetic import synthetic_erc
+
+    out = [_dagerc_trainer(*form, f"--dag_chunk={chunk}") for form in forms]
     batcher = out[0].batcher(B)
     # each batch with an all-padding dialogue; dialogues as long as a chunk of 64
     batches = [to_device(batcher(synthetic_erc("iemocap-cogmen", 6, n_train=B - 1, max_len=max(40, chunk), seed=s)),
@@ -539,12 +542,37 @@ def test_function_grads_equal_eager_autograd_at_full_width(cuda):
     eager.compute_grads(batch)
     torch.cuda.synchronize()
     blocks = -(-batch["input_tensor"].shape[1] // 16)
-    assert kd.launches == {"dag_block": 2 * 4 * blocks, "dag_block_bwd": 4 * blocks}  # remat: K3 twice
-    assert kd.variant_launches == {"dag_block/cluster": 2 * 4 * blocks, "dag_block/stream": 0,
+    # remat (the default) recomputes the blocks' prefixes, not K3
+    assert kd.launches == {"dag_block": 4 * blocks, "dag_block_bwd": 4 * blocks}
+    assert kd.variant_launches == {"dag_block/cluster": 4 * blocks, "dag_block/stream": 0,
                                    "dag_block_bwd/cluster": 4 * blocks, "dag_block_bwd/stream": 0,
                                    "dag_block_bwd/global": 0}
     worst = max(_grad_rel(kern.model, eager.model).items(), key=lambda kv: kv[1])
     assert worst[1] <= 1e-4, worst
+
+
+def test_kernel_form_remat_equals_no_remat_and_runs_k3_once_per_block(cuda):
+    """The kernel form with dag_remat on (the default) and off: two
+    train_steps give the same losses, gradients and parameters bit for bit,
+    and each step launches K3 once per layer and block either way (remat
+    recomputes the blocks' prefixes, not K3)."""
+    from erc_tpu_torch.ops.kernels import dag_block as kd
+
+    (on, off), batches = _trainers(forms=(("--dag_impl=kernel",), ("--dag_impl=kernel", "--dag_remat=false")))
+    assert on.model.stack.remat and not off.model.stack.remat
+    off.model.load_state_dict(on.model.state_dict())
+    for b in batches:
+        blocks = -(-b["input_tensor"].shape[1] // 16)
+        losses = []
+        for t in (on, off):
+            kd.reset_launches()
+            losses.append(t.train_step(b)["Lall"])
+            torch.cuda.synchronize()
+            assert kd.launches == {"dag_block": 4 * blocks, "dag_block_bwd": 4 * blocks}
+        assert torch.equal(*losses)
+        for (name, x), y in zip(on.model.named_parameters(), off.model.parameters()):
+            assert torch.equal(x.grad, y.grad), name
+            assert torch.equal(x, y), name
 
 
 @pytest.mark.parametrize("chunk", [16, 64])

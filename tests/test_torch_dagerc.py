@@ -113,30 +113,49 @@ def test_dag_stack_equals_chained_layers_in_port(stack_case):
         _close(got, h.numpy())
 
 
-def test_dag_stack_training_form_is_eager_and_differentiable(stack_case):
-    """Both training forms differentiate: the eager form through autograd, the
-    kernel form through K3/K4 (their plain versions on CPU tensors), with the
-    same gradients; remat changes none.  The loss reads only the dialogues'
+def _stack_grads(stack_case, impl, remat):
+    """Parameter gradients of a 2-layer DAGStack (D 8, chunk 4, L 10: three
+    blocks) in training form `impl`.  The loss reads only the dialogues'
     positions (lengths 10, 7, 0), as DAG-ERC's masked loss does: K4's
     gradient contract leaves padding rows, which have no predecessor, out."""
     (H0, adj, sm), variables = stack_case
     valid = _t((np.arange(10)[None] < np.asarray([10, 7, 0])[:, None]).astype(np.float32))
     weight = _t(np.random.default_rng(7).normal(size=(3, 10, 8)).astype(np.float32)) * valid[..., None]
+    stack = tdagerc.DAGStack(8, 2, chunk=4, impl=impl, impl_eval="kernel", remat=remat).train()
+    stack.load_state_dict(_state(variables["params"]))
+    with torch.enable_grad():
+        sum((o * weight).sum() for o in stack(_t(H0), _t(adj), _t(sm))).backward()
+    return {n: p.grad for n, p in stack.named_parameters()}
 
-    def grads(impl, remat):
-        stack = tdagerc.DAGStack(8, 2, chunk=4, impl=impl, impl_eval="kernel", remat=remat).train()
-        stack.load_state_dict(_state(variables["params"]))
-        with torch.enable_grad():
-            sum((o * weight).sum() for o in stack(_t(H0), _t(adj), _t(sm))).backward()
-        return {n: p.grad for n, p in stack.named_parameters()}
 
-    want = grads("eager", False)
+def test_dag_stack_training_form_is_eager_and_differentiable(stack_case):
+    """Both training forms differentiate: the eager form through autograd, the
+    kernel form through K3/K4 (their plain versions on CPU tensors), with the
+    same gradients; remat changes none."""
+    want = _stack_grads(stack_case, "eager", False)
     assert all(g is not None and torch.isfinite(g).all() for g in want.values())
     for impl, remat in (("kernel", False), ("kernel", True), ("eager", True)):
-        got = grads(impl, remat)
+        got = _stack_grads(stack_case, impl, remat)
         for name, g in want.items():
             np.testing.assert_allclose(got[name].numpy(), g.numpy(), rtol=0,
                                        atol=ATOL * max(1.0, g.abs().max().item()), err_msg=name)
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_kernel_form_runs_k3_once_per_block_with_or_without_remat(stack_case, monkeypatch, remat):
+    """In the kernel form one forward and backward call K3 (``_forward``)
+    once per layer and block, remat or not: remat recomputes only the
+    block's prefix, and K3's Function keeps what K4 reads.  The gradients
+    equal those without remat bit for bit."""
+    want = _stack_grads(stack_case, "kernel", False)
+    calls = []
+    forward = tdb._forward
+    monkeypatch.setattr(tdb, "_forward", lambda *a, **k: calls.append(a[0]) or forward(*a, **k))
+    got = _stack_grads(stack_case, "kernel", remat)
+    assert len(calls) == 2 * 3  # layers x blocks
+    assert calls == [1, 0, 0] * 2  # the first block of each layer holds position 0
+    for name, g in want.items():
+        assert torch.equal(got[name], g), name
 
 
 @pytest.mark.parametrize("kind", ["global", "past"])
